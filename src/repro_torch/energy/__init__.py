@@ -1,0 +1,19 @@
+"""Energy-market substrate: the structural synthetic spot-market
+generator and its per-region calibrated presets. Forecasting, streams,
+ensembles and real-data loaders come with the live-operation slice."""
+
+from repro_torch.energy.markets import (MarketData, MarketDraws,
+                                        MarketParams, generate_market,
+                                        generate_markets, market_draws)
+from repro_torch.energy.presets import REGION_PRESETS, region_params
+
+__all__ = [
+    "MarketParams",
+    "MarketData",
+    "MarketDraws",
+    "generate_market",
+    "generate_markets",
+    "market_draws",
+    "region_params",
+    "REGION_PRESETS",
+]

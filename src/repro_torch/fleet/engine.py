@@ -1,0 +1,109 @@
+"""Fleet backtest: every scenario row, every hour, one pass.
+
+Per-row prices are gathered from the [N, T] market block, the stateful
+hysteresis/partial-capacity scan runs batched over all B rows (the CUDA
+`fleet_scan` kernel on the card, the plain `fleet_scan_ref` on the CPU),
+and cost accounting — restart overheads, idle draw, lost restart time
+included — is a handful of [B] vector ops.
+
+Row semantics match `repro_torch.core.policy.policy_cpc`. The row state
+machine resumes on ``p <= p_on``, so a degenerate ``p_on == p_off`` row is
+exactly `threshold_policy`; a proper hysteresis row differs from
+`hysteresis_policy` (strict ``p < p_on``) only at samples exactly equal
+to p_on.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.execution import ExecutionPlan
+from repro_torch.fleet.grid import ScenarioGrid, concat_rows, row_chunks
+from repro_torch.fleet.report import FleetReport
+from repro_torch.kernels.fleet_scan import fleet_scan
+from repro_torch.kernels.ref import FleetScanOut
+
+
+class FleetCosts(NamedTuple):
+    """Per-row cost assembly over a `FleetScanOut` (all [B])."""
+
+    cpc: torch.Tensor          # realized cost-per-compute
+    cpc_ao: torch.Tensor       # always-on baseline (Eq. 11)
+    tco: torch.Tensor          # fixed + energy + restart cost
+    energy_cost: torch.Tensor  # running + idle draw energy cost
+    restart_cost: torch.Tensor
+    up_hours: torch.Tensor
+
+
+def fleet_costs(scan: FleetScanOut, *, price_sum, fixed, power, period,
+                restart_energy_mwh, restart_time_h, n_samples: int
+                ) -> FleetCosts:
+    """Cost accounting, affine in the four scan sums (shared with the
+    tuner in a later slice). ``price_sum`` is sum_t p_t per row;
+    ``n_samples`` the series length."""
+    dt = period / n_samples                           # [B] hours per sample
+    e_ao = dt * power * price_sum                     # E_AO (Eq. 6)
+    e_run = dt * power * scan.draw_price_sum
+    e_restart = restart_energy_mwh * scan.restart_price_sum
+    up_hours = dt * scan.up_units - restart_time_h * scan.n_starts
+    tco = fixed + e_run + e_restart
+    cpc = tco / torch.clamp(up_hours, min=1e-9)
+    cpc_ao = (fixed + e_ao) / period                  # Eq. (11)
+    return FleetCosts(cpc=cpc, cpc_ao=cpc_ao, tco=tco, energy_cost=e_run,
+                      restart_cost=e_restart, up_hours=up_hours)
+
+
+def _backtest_rows(grid: ScenarioGrid,
+                   use_kernel: Optional[bool]) -> FleetReport:
+    t = grid.n_hours
+    p_rows = grid.prices[grid.market_idx]             # [B, T] gather
+    scan = fleet_scan(p_rows, grid.p_on, grid.p_off, grid.off_level,
+                      grid.idle_frac, use_kernel=use_kernel)
+    price_sum = grid.prices.sum(1)[grid.market_idx]   # [B] sum_t p_t
+    costs = fleet_costs(scan, price_sum=price_sum, fixed=grid.fixed,
+                        power=grid.power, period=grid.period,
+                        restart_energy_mwh=grid.restart_energy_mwh,
+                        restart_time_h=grid.restart_time_h, n_samples=t)
+    return FleetReport(
+        cpc=costs.cpc, cpc_ao=costs.cpc_ao,
+        cpc_reduction=1.0 - costs.cpc / costs.cpc_ao,
+        tco=costs.tco, energy_cost=costs.energy_cost,
+        restart_cost=costs.restart_cost,
+        up_hours=costs.up_hours, n_starts=scan.n_starts,
+        x_realized=1.0 - scan.up_units / t,
+        market_idx=grid.market_idx, system_idx=grid.system_idx,
+        policy_idx=grid.policy_idx)
+
+
+def backtest(grid: ScenarioGrid, *, use_kernel: Optional[bool] = None,
+             plan: Optional[ExecutionPlan] = None,
+             device: DeviceLike = None) -> FleetReport:
+    """Backtest every scenario row of ``grid`` on ``device``.
+
+    ``use_kernel=None`` launches the CUDA `fleet_scan` kernel on the card
+    and runs the plain `fleet_scan_ref` on the CPU; ``False`` runs the
+    plain version on the card too (the comparison the chip check makes);
+    ``True`` on the CPU raises.
+
+    ``plan`` (`repro_torch.execution.ExecutionPlan`) chooses the layout.
+    A chunked plan evaluates fixed-size row slices (via
+    `ScenarioGrid.take_rows`), bounding the [chunk, T] price gather;
+    per-row results are identical. ``mode='sharded'`` raises: the
+    backtest is an uncoupled per-row map, so chunking covers its memory
+    story.
+    """
+    if plan is not None and plan.mode == "sharded":
+        raise ValueError(
+            "backtest does not shard: the hard backtest is an uncoupled "
+            "per-row map, so use ExecutionPlan(mode='chunked') for the "
+            "memory bound (bitwise-identical results) instead")
+    grid = grid.to(resolve_device(device))
+    chunk = plan.chunk_rows if plan is not None else 0
+    if chunk and grid.n_rows > chunk:
+        parts = [_backtest_rows(grid.take_rows(sl), use_kernel)
+                 for sl in row_chunks(grid.n_rows, chunk)]
+        return concat_rows(parts, grid.n_rows)
+    return _backtest_rows(grid, use_kernel)

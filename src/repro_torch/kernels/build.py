@@ -1,0 +1,77 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface and loaded with `ctypes`.
+The build happens on first use and is keyed by a hash of the source and
+the flags, so a changed source is rebuilt and an unchanged one is loaded
+from ``build/repro_torch_kernels/`` at the root of the checkout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_HERE = Path(__file__).resolve().parent
+CSRC = _HERE / "csrc"
+# in a checkout (src/ layout) the libraries go to <root>/build/, which git
+# ignores; an installed package builds into its own directory
+BUILD_DIR = (_HERE.parents[2] / "build" / "repro_torch_kernels"
+             if _HERE.parents[1].name == "src" else _HERE / "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}   # one CDLL per library per process
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the port's "
+                           "CUDA kernels are built from source on first use")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{key[:16]}.so"
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` into `library_path`; returns nvcc's
+    output (with ``-Xptxas -v``: registers, shared memory and spills of
+    each kernel) and raises with it if the build fails."""
+    lib_path = library_path(name)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib_path)   # atomic: no half-written library
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return proc.stdout + proc.stderr
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu``, building it if needed."""
+    if name not in _loaded:
+        lib_path = library_path(name)
+        if not lib_path.exists():
+            build(name)
+        _loaded[name] = ctypes.CDLL(str(lib_path))
+    return _loaded[name]

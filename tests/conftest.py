@@ -7,6 +7,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: subprocess/multi-device tests (deselect with "
         "-m 'not slow')")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one (run on "
+        "the card with `python -m pytest -m gpu tests/test_torch_*.py`)")
 
 
 @pytest.fixture(autouse=True, scope="module")

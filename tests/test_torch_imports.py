@@ -1,0 +1,36 @@
+"""The port stands alone: importing every `repro_torch` module loads
+neither JAX nor the reference package `repro`."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), ",".join(bad))
+"""
+
+
+def test_no_module_of_the_port_imports_jax_or_the_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", PROBE], env=env, check=True,
+                         capture_output=True, text=True).stdout.split()
+    n_modules, bad = int(out[0]), out[1:]
+    assert bad == []
+    # the 25 modules of the slice: package inits, core, energy, runtime,
+    # kernels, fleet, examples and the device helper
+    assert n_modules >= 25
