@@ -1,13 +1,16 @@
 """Energy-market substrate: the structural synthetic spot-market
-generator and its per-region calibrated presets. Forecasting, streams,
-ensembles and real-data loaders come with the live-operation slice."""
+generator, its per-region calibrated presets, and the moving-block
+bootstrap of price traces (`ensemble`). Forecasting, streams and
+real-data loaders come with the live-operation slice."""
 
+from repro_torch.energy.ensemble import block_bootstrap
 from repro_torch.energy.markets import (MarketData, MarketDraws,
                                         MarketParams, generate_market,
                                         generate_markets, market_draws)
 from repro_torch.energy.presets import REGION_PRESETS, region_params
 
 __all__ = [
+    "block_bootstrap",
     "MarketParams",
     "MarketData",
     "MarketDraws",

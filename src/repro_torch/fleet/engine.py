@@ -41,8 +41,9 @@ class FleetCosts(NamedTuple):
 def fleet_costs(scan: FleetScanOut, *, price_sum, fixed, power, period,
                 restart_energy_mwh, restart_time_h, n_samples: int
                 ) -> FleetCosts:
-    """Cost accounting, affine in the four scan sums (shared with the
-    tuner in a later slice). ``price_sum`` is sum_t p_t per row;
+    """Cost accounting, affine in the four scan sums — shared by the hard
+    backtest and the tuner's soft objective (`repro_torch.tune`), which
+    feeds it the relaxed sums. ``price_sum`` is sum_t p_t per row;
     ``n_samples`` the series length."""
     dt = period / n_samples                           # [B] hours per sample
     e_ao = dt * power * price_sum                     # E_AO (Eq. 6)

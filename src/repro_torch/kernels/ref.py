@@ -66,3 +66,183 @@ def fleet_scan_ref(prices: torch.Tensor, p_on, p_off, off_level,
                acc[2] + start, acc[3] + start * p_t]
         on = on_new
     return FleetScanOut(*acc)
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)): exact 0 and 1 at the ends, the form the CUDA
+    kernels use. Built from `torch.exp` and IEEE arithmetic, which give
+    every element the same bits wherever it sits in the tensor (the CPU's
+    `torch.sigmoid` rounds the vector body and the scalar tail
+    differently), so per-row results do not depend on the batch."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def soft_gates(p_t, p_on, p_off, inv_tau):
+    """Per-hour sigmoid event gates of the relaxed hysteresis recurrence.
+
+    Returns ``(a, f, alpha, beta)`` with a = sigmoid((p_on - p_t)/tau)
+    ("turn on"), f = sigmoid((p_t - p_off)/tau) ("turn off"), and the
+    affine-map coefficients of s_t = alpha_t s_{t-1} + beta_t.
+    Elementwise and broadcasting; shared by every soft-scan path.
+    """
+    a = _sigmoid((p_on - p_t) * inv_tau)
+    f = _sigmoid((p_t - p_off) * inv_tau)
+    return a, f, (1.0 - a) * (1.0 - f), a
+
+
+def soft_gate_grad(p_t, s_prev, u_t, p_on, p_off, inv_tau, gates=None):
+    """Per-hour chain rule of the relaxed recurrence.
+
+    Given the adjoint u_t = dL/ds_t (accumulated through later hours) and
+    the entering state s_{t-1}, backpropagates through
+    s_t = alpha_t s_{t-1} + beta_t and the gates to the hour's inputs.
+    Returns per-hour ``(d_p, d_p_on, d_p_off, d_inv_tau)``; callers sum
+    the last three over t (and convert d_inv_tau to d_tau via
+    d_tau = -inv_tau^2 d_inv_tau). ``gates`` passes an already evaluated
+    ``(a, f)``.
+    """
+    a, f = gates if gates is not None else \
+        soft_gates(p_t, p_on, p_off, inv_tau)[:2]
+    d_alpha = u_t * s_prev                  # d beta = u_t
+    d_a = u_t - d_alpha * (1.0 - f)         # alpha = (1-a)(1-f), beta = a
+    d_f = -d_alpha * (1.0 - a)
+    d_zon = d_a * a * (1.0 - a)             # z_on  = (p_on - p) inv_tau
+    d_zoff = d_f * f * (1.0 - f)            # z_off = (p - p_off) inv_tau
+    d_p = (d_zoff - d_zon) * inv_tau
+    d_p_on = d_zon * inv_tau
+    d_p_off = -d_zoff * inv_tau
+    d_inv_tau = d_zon * (p_on - p_t) + d_zoff * (p_t - p_off)
+    return d_p, d_p_on, d_p_off, d_inv_tau
+
+
+def _soft_inputs(prices, p_on, p_off, tau):
+    """(p [B, T], p_on [B], p_off [B], inv_tau) in the price dtype
+    (float64 stays float64, anything else float32)."""
+    dtype = torch.float64 if prices.dtype == torch.float64 \
+        else torch.float32
+    p = prices.to(dtype)
+    b = p.shape[0]
+    p_on, p_off = (torch.as_tensor(v, device=p.device).to(dtype)
+                   .expand(b).contiguous() for v in (p_on, p_off))
+    inv_tau = 1.0 / torch.as_tensor(tau, device=p.device).to(dtype)
+    return p, p_on, p_off, inv_tau
+
+
+def soft_scan_ref(prices: torch.Tensor, p_on, p_off, off_level, idle_frac,
+                  *, tau) -> FleetScanOut:
+    """Sequential oracle for the temperature-``tau`` relaxation of
+    `fleet_scan_ref`:
+
+        s_t = a_t + (1 - a_t)(1 - b_t) s_{t-1},   s_{-1} = 1
+
+    with a_t = sigmoid((p_on - p_t)/tau), b_t = sigmoid((p_t - p_off)/tau).
+    Restarts count softly as s_t (1 - s_{t-1}). Computes in the price
+    dtype (float64 stays float64)."""
+    p, p_on, p_off, inv_tau = _soft_inputs(prices, p_on, p_off, tau)
+    b = p.shape[0]
+    off_level, idle_frac = (torch.as_tensor(v, device=p.device).to(p.dtype)
+                            .expand(b) for v in (off_level, idle_frac))
+    s_prev = torch.ones(b, dtype=p.dtype, device=p.device)
+    acc = [torch.zeros_like(s_prev) for _ in range(4)]
+    for p_t in p.T:
+        _, _, alpha, beta = soft_gates(p_t, p_on, p_off, inv_tau)
+        s = alpha * s_prev + beta
+        start = s * (1.0 - s_prev)
+        cap = off_level + (1.0 - off_level) * s
+        draw = cap + idle_frac * (1.0 - cap)
+        acc = [acc[0] + draw * p_t, acc[1] + cap,
+               acc[2] + start, acc[3] + start * p_t]
+        s_prev = s
+    return FleetScanOut(*acc)
+
+
+def soft_scan_grad_ref(prices: torch.Tensor, p_on, p_off, g, *, tau):
+    """Sequential oracle for the VJP of the soft-state trajectory: given
+    the cotangent ``g`` [B, T] of the states, runs the recurrence forward,
+    then walks time in reverse with the adjoint
+    u_t = g_t + alpha_{t+1} u_{t+1} and `soft_gate_grad`. Returns
+    ``(d_prices [B, T], d_p_on [B], d_p_off [B], d_tau [])``."""
+    p, p_on, p_off, inv_tau = _soft_inputs(prices, p_on, p_off, tau)
+    g = torch.as_tensor(g, device=p.device).to(p.dtype)
+    b = p.shape[0]
+    s_prev, alphas, s = [], [], torch.ones(b, dtype=p.dtype, device=p.device)
+    for p_t in p.T:
+        _, _, alpha, beta = soft_gates(p_t, p_on, p_off, inv_tau)
+        s_prev.append(s)
+        alphas.append(alpha)
+        s = alpha * s + beta
+    u = torch.zeros_like(s)
+    alpha_next = torch.zeros_like(s)
+    d_p = [None] * p.shape[1]
+    d_on = d_off = d_it = torch.zeros_like(s)
+    for t in range(p.shape[1] - 1, -1, -1):
+        u = g[:, t] + alpha_next * u
+        dp_t, don_t, doff_t, dit_t = soft_gate_grad(
+            p[:, t], s_prev[t], u, p_on, p_off, inv_tau)
+        d_p[t] = dp_t
+        d_on, d_off, d_it = d_on + don_t, d_off + doff_t, d_it + dit_t
+        alpha_next = alphas[t]
+    d_tau = -inv_tau ** 2 * torch.sum(d_it)
+    return torch.stack(d_p, dim=1), d_on, d_off, d_tau
+
+
+def soft_scan_fwd_ref(p: torch.Tensor, p_on: torch.Tensor,
+                      p_off: torch.Tensor, inv_tau, block_t: int):
+    """Plain version of the soft-scan forward kernel: the state trajectory
+    s [B, T] (s_{-1} = 1) and the state entering each ``block_t``-hour
+    block, ``carries`` [B, ceil(T / block_t)], the only residual the
+    backward needs. Sequential in time, vectorised over rows, in the
+    inputs' dtype. (The reference's blocked XLA forward, `_xla_fwd`.)"""
+    b, t = p.shape
+    _, _, alpha, beta = soft_gates(p, p_on[:, None], p_off[:, None],
+                                   inv_tau)                       # [B, T]
+    s = torch.ones(b, dtype=p.dtype, device=p.device)
+    cols = []
+    for i in range(t):
+        s = alpha[:, i] * s + beta[:, i]
+        cols.append(s)
+    s_all = torch.stack(cols, dim=1)
+    nb = -(-t // block_t)
+    ones = torch.ones((b, 1), dtype=p.dtype, device=p.device)
+    idx = torch.arange(1, nb, device=p.device) * block_t - 1
+    return s_all, torch.cat([ones, s_all[:, idx]], dim=1)
+
+
+def soft_scan_bwd_ref(p: torch.Tensor, p_on: torch.Tensor,
+                      p_off: torch.Tensor, inv_tau, carries: torch.Tensor,
+                      g: torch.Tensor, block_t: int):
+    """Plain version of the soft-scan backward kernel (the reference's
+    blocked XLA backward, `_xla_bwd`): walk the ``block_t``-hour blocks in
+    reverse; in each, recompute the gates and the states from the saved
+    entering carry, run the adjoint u_t = g_t + alpha_{t+1} u_{t+1}
+    across the block (seeded by the later block's first hour), apply
+    `soft_gate_grad` and add the block's parameter sums. Returns
+    ``(d_p [B, T], d_p_on [B], d_p_off [B], d_inv_tau [])``."""
+    b, t = p.shape
+    nb = -(-t // block_t)
+    zeros = torch.zeros(b, dtype=p.dtype, device=p.device)
+    u_next, a_next = zeros, zeros
+    acc = [zeros, zeros, zeros]
+    d_p = [None] * nb
+    pon, poff = p_on[:, None], p_off[:, None]
+    for j in range(nb - 1, -1, -1):
+        sl = slice(j * block_t, min((j + 1) * block_t, t))
+        p_b, g_b = p[:, sl], g[:, sl]
+        a, f, alpha, beta = soft_gates(p_b, pon, poff, inv_tau)
+        s = carries[:, j]
+        s_prev = []
+        for i in range(p_b.shape[1]):
+            s_prev.append(s)
+            s = alpha[:, i] * s + beta[:, i]
+        u = [None] * p_b.shape[1]
+        for i in range(p_b.shape[1] - 1, -1, -1):
+            u_next = g_b[:, i] + a_next * u_next
+            u[i] = u_next
+            a_next = alpha[:, i]
+        dp_b, d_on, d_off, d_it = soft_gate_grad(
+            p_b, torch.stack(s_prev, dim=1), torch.stack(u, dim=1), pon,
+            poff, inv_tau, gates=(a, f))
+        d_p[j] = dp_b
+        acc = [acc[0] + d_on.sum(1), acc[1] + d_off.sum(1),
+               acc[2] + d_it.sum(1)]
+    return torch.cat(d_p, dim=1), acc[0], acc[1], torch.sum(acc[2])

@@ -1,0 +1,35 @@
+"""Differentiable policy tuning: gradient-optimize shutdown policies over
+the whole fleet grid.
+
+The two-threshold hysteresis state machine is relaxed with
+temperature-``tau`` sigmoid gates (`repro_torch.kernels.soft_scan`, with
+hand-written CUDA kernels for its forward and backward on the card),
+per-row policy variables are reparameterized onto the feasible set
+(`objective`), and an Adam loop over all B rows (`optimizer`, on
+`repro_torch.optim.adamw`) descends each row's CPC/CPC_AO ratio while
+annealing tau toward the hard scan. The result is re-evaluated hard and
+is never worse than the best swept policy of the row's (market, system)
+cell when the hardware parameters are uniform within the cell.
+
+  quickstart:  PYTHONPATH=src python -m repro_torch.examples.tune_policies
+"""
+
+from repro_torch.execution import Coupling, ExecutionPlan
+from repro_torch.tune.objective import (PhysicalPolicy, PolicyParams,
+                                        TuneProblem, cell_index,
+                                        dispatch_coupling_from_grid,
+                                        init_from_grid, inverse_transform,
+                                        problem_from_grid, soft_costs,
+                                        soft_dispatch_ratio, soft_objective,
+                                        transform)
+from repro_torch.tune.optimizer import (TuneConfig, TuneResult,
+                                        cell_best_rows, hard_cpc, optimize,
+                                        tune_loop, tune_loop_checkpointed)
+
+__all__ = ["Coupling", "ExecutionPlan",
+           "PhysicalPolicy", "PolicyParams", "TuneProblem", "TuneConfig",
+           "TuneResult", "cell_best_rows", "cell_index",
+           "dispatch_coupling_from_grid", "hard_cpc", "init_from_grid",
+           "inverse_transform", "problem_from_grid", "soft_costs",
+           "soft_dispatch_ratio", "soft_objective", "transform", "optimize",
+           "tune_loop", "tune_loop_checkpointed"]

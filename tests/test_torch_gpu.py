@@ -1,13 +1,18 @@
-"""The CUDA `fleet_scan` kernel on the card, held against its plain
-PyTorch version. Marked ``gpu``: without a CUDA device every test skips.
-Imports neither JAX nor the reference, so it runs on a machine that has
-only PyTorch:
+"""The CUDA kernels on the card (`fleet_scan`, and the soft-scan forward
+and backward), held against their plain PyTorch versions, and the
+backtest and the tuner on the card against the CPU. Marked ``gpu``:
+without a CUDA device every test skips. Imports neither JAX nor the
+reference, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances: start counts equal; sums within rtol 2e-5 / atol 1e-3 of the
-plain version run in float64 on the same inputs (the float32 plain run's
-own running-sum drift over 8760 hours exceeds 2e-5).
+Tolerances: start counts equal; fleet-scan sums within rtol 2e-5 / atol
+1e-3 of the plain version run in float64 on the same inputs (the float32
+plain run's own running-sum drift over 8760 hours exceeds 2e-5); soft
+states within atol 1e-5 and soft gradients within rtol 2e-5 (d_p: atol
+1e-5 max|d_p|) of the plain blocked versions in float64, with a positive
+cotangent so the threshold sums carry no cancellation; the tuner's CPC on
+the card within rtol 1e-4 of the CPU's, with the same source per row.
 """
 
 import numpy as np
@@ -19,6 +24,10 @@ from repro_torch.core.tco import make_system  # noqa: E402
 from repro_torch.fleet import PolicySpec, backtest, build_grid  # noqa: E402
 from repro_torch.kernels.fleet_scan import fleet_scan  # noqa: E402
 from repro_torch.kernels.ref import fleet_scan_ref  # noqa: E402
+from repro_torch.kernels.soft_scan_vjp import (soft_scan_bwd,  # noqa: E402
+                                               soft_scan_fwd,
+                                               soft_state_fused)
+from repro_torch.tune import TuneConfig, optimize  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -82,3 +91,73 @@ def test_backtest_on_the_card_matches_the_cpu(cuda):
     for name in ("cpc", "cpc_ao", "tco", "up_hours"):
         torch.testing.assert_close(getattr(gpu, name).cpu(),
                                    getattr(cpu, name), rtol=1e-5, atol=0.0)
+
+
+def _soft_inputs(b, t, seed, dev):
+    p, p_on, p_off = _inputs(b, t, seed, dev)[:3]
+    g = torch.as_tensor(np.random.default_rng(seed + 1).uniform(
+        0.5, 1.5, (b, t)), dtype=torch.float32, device=dev)
+    return p, p_on, p_off, torch.tensor([1 / 3.0], device=dev), g
+
+
+@pytest.mark.parametrize("case", [(1, 64, 64), (130, 1000, 256),
+                                  (256, 2190, 256)])
+def test_soft_kernels_match_plain_versions(cuda, case):
+    b, t, bt = case
+    p, p_on, p_off, itau, g = _soft_inputs(b, t, sum(case), cuda)
+    f64 = [x.double() for x in (p, p_on, p_off, itau)]
+    before = (soft_scan_fwd.launches, soft_scan_bwd.launches)
+    s, carries = soft_scan_fwd(p, p_on, p_off, itau, block_t=bt)
+    got = soft_scan_bwd(p, p_on, p_off, itau, carries, g, block_t=bt)
+    assert (soft_scan_fwd.launches, soft_scan_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    s64, c64 = soft_scan_fwd(*f64, block_t=bt, use_kernel=False)
+    want = soft_scan_bwd(*f64, c64, g.double(), block_t=bt,
+                         use_kernel=False)
+    torch.testing.assert_close(s.double(), s64, rtol=0, atol=1e-5)
+    torch.testing.assert_close(carries.double(), c64, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[0].double(), want[0], rtol=2e-5,
+                               atol=1e-5 * float(want[0].abs().max()))
+    for k in (1, 2, 3):             # d_p_on, d_p_off, d_inv_tau
+        torch.testing.assert_close(got[k].double(), want[k], rtol=2e-5,
+                                   atol=0.0)
+    no_dp = soft_scan_bwd(p, p_on, p_off, itau, carries, g, block_t=bt,
+                          want_dp=False)
+    assert no_dp[0] is None
+    for k in (1, 2, 3):             # deterministic: the same bits again
+        assert torch.equal(no_dp[k], got[k])
+
+
+def test_soft_kernels_refuse_what_they_do_not_take(cuda):
+    p, p_on, p_off, itau, g = _soft_inputs(4, 100, 3, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        soft_scan_fwd(p.double(), p_on, p_off, itau)
+    with pytest.raises(ValueError, match="contiguous"):
+        soft_scan_fwd(p.T.contiguous().T, p_on, p_off, itau)
+    with pytest.raises(ValueError, match="on cuda"):
+        soft_scan_fwd(p, p_on.cpu(), p_off, itau)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        soft_scan_fwd(p, p_on, p_off, itau, block_t=48)
+    _, carries = soft_scan_fwd(p, p_on, p_off, itau)
+    with pytest.raises(ValueError, match="g must be"):
+        soft_scan_bwd(p, p_on, p_off, itau, carries, g[:, :50])
+    with pytest.raises(ValueError, match="carries"):
+        soft_scan_bwd(p, p_on, p_off, itau, carries[:, :0], g)
+    s = soft_state_fused(p, p_on, p_off, tau=3.0)   # autograd route
+    assert s.shape == p.shape
+
+
+def test_optimize_on_the_card_matches_the_cpu(cuda):
+    prices = np.random.default_rng(5).lognormal(4.3, 0.5, (2, 700))
+    results = {}
+    for dev in ("cpu", cuda):
+        grid = build_grid(prices.astype(np.float32),
+                          [make_system(4e4, 1.0, 700.0, device=dev)],
+                          [PolicySpec("ao"), PolicySpec("x3", x=0.03),
+                           PolicySpec("h", x=0.08, hysteresis=0.9)],
+                          device=dev)
+        results[str(dev)] = optimize(grid, TuneConfig(steps=30), device=dev)
+    gpu, cpu = results[str(cuda)], results["cpu"]
+    np.testing.assert_allclose(gpu.cpc, cpu.cpc, rtol=1e-4)
+    np.testing.assert_array_equal(gpu.source, cpu.source)
+    assert np.all(gpu.cpc <= gpu.cpc_swept_best * (1 + 1e-6))
