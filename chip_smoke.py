@@ -13,13 +13,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      German market draws x 8 systems x 8 policies = 1024 rows x 8760 h);
   5. the tuner path at full width: `optimize` on the tuner benchmark's
      grid (8 market draws x 4 systems x 8 policies = 256 rows x 2190 h,
-     200 annealed Adam steps), then the `tune_policies` demo;
+     200 annealed Adam steps) with the hard-dispatch re-scoring of its 32
+     cells, once more with relief and a demand above availability (each
+     re-scoring's allocations held bit for bit against the plain version
+     on the same problems), then the `tune_policies` demo;
   6. `tune_loop_checkpointed` stopped after stage 2 and resumed, against
      an uninterrupted run, bit for bit;
-  7. times (median of CUDA-event runs after warm-up): each kernel, its
+  7. the dispatch path at full width: the `fleet_dispatch` example (8
+     sites x 8760 h) and `summarize(dispatch_cfg=)` over the dispatch
+     benchmark's 64 sites x 8760 h;
+  8. times (median of CUDA-event runs after warm-up): each kernel, its
      plain version and its bound, the backtest at 1024 and 8192 rows,
-     market generation, and the tuner loop's row-steps/s (hand-written
-     VJP against autograd through the doubling scan);
+     market generation, the tuner loop's row-steps/s (hand-written VJP
+     against autograd through the doubling scan), and one whole dispatch
+     call split into its parts;
 each path's kernel launch counts are set to 0 just before it and read
 just after. Then one JSON line describing every ported kernel and, last,
 one JSON line naming the device. Without CUDA it exits non-zero and
@@ -43,6 +50,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+# the dispatch benchmark's constraints (`benchmarks/bench_dispatch.py`)
+BENCH_DISPATCH = dict(demand_frac=0.4, migrate_cost=5.0, min_dwell_h=4)
 TIMED_RUNS = 10
 
 
@@ -131,7 +140,41 @@ def phase_device() -> str:
     return card
 
 
-KERNEL_SOURCES = ("fleet_scan", "soft_scan")
+KERNEL_SOURCES = ("fleet_scan", "soft_scan", "dispatch_scan")
+
+# A probe of the card, not a kernel of the port: one thread adds 1.0 to x
+# n times, each addition waiting on the last, so a chain takes n times the
+# latency of a dependent float64 addition (the step of dispatch_scan's
+# serial prefix walk).
+F64_CHAIN_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void f64_add_chain_kernel(double* out, int n) {
+  double x = out[0];
+  for (int i = 0; i < n; ++i) x += 1.0;
+  out[0] = x;
+}
+extern "C" int f64_add_chain(double* out, int n, void* stream) {
+  f64_add_chain_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(out, n);
+  return (int)cudaGetLastError();
+}
+"""
+PROBE_DIR = ROOT / "build" / "chip_smoke_probe"
+
+
+def _build_probe() -> str:
+    from repro_torch.kernels import build
+
+    PROBE_DIR.mkdir(parents=True, exist_ok=True)
+    src = PROBE_DIR / "f64_add_chain.cu"
+    src.write_text(F64_CHAIN_SRC)
+    proc = subprocess.run(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+         str(PROBE_DIR / "libf64_add_chain.so"), str(src)],
+        capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the probe:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    return proc.stdout + proc.stderr
 
 
 def phase_build() -> None:
@@ -139,17 +182,20 @@ def phase_build() -> None:
 
     def one(name):
         t0 = time.perf_counter()
-        return name, build.build(name), time.perf_counter() - t0
+        log = _build_probe() if name is None else build.build(name)
+        return name, log, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        results = list(pool.map(one, KERNEL_SOURCES))
+    jobs = KERNEL_SOURCES + (None,)
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        results = list(pool.map(one, jobs))
     for name, log, secs in results:
-        print(f"[build] {name}.cu: {secs:.2f} s")
+        print(f"[build] {name or 'probe f64_add_chain'}.cu: {secs:.2f} s")
         for line in log.splitlines():
             if ("entry function" in line or "registers" in line
                     or "spill" in line):
                 print(f"[build]   {line.strip()}")
-        build.load(name)
+        if name is not None:
+            build.load(name)
 
 
 def phase_kernel_vs_plain(dev) -> None:
@@ -261,6 +307,97 @@ def phase_soft_vs_plain(dev) -> dict:
     return out
 
 
+def _dispatch_fleet(n_sites: int, dev, hours: int = 8760, **cfg):
+    """`benchmarks/bench_dispatch.py`'s fleet: ``n_sites`` German market
+    draws, one Psi = 2 system of 1 MW, the 5%-shutdown hysteresis policy
+    at off level 0.25 (one row per site). Returns the grid and the
+    `DispatchProblem` of ``cfg`` (default: the benchmark's) over it."""
+    from repro_torch.core.tco import make_system
+    from repro_torch.dispatch import DispatchConfig, build_problem
+    from repro_torch.energy.presets import region_params
+    from repro_torch.fleet import PolicySpec, build_grid
+
+    markets = [region_params("germany", seed=s).replace(n_hours=hours)
+               for s in range(n_sites)]
+    system = make_system(2.0 * hours * 1.0 * markets[0].p_avg, 1.0,
+                         float(hours), device=dev)
+    grid = build_grid(markets, [system],
+                      [PolicySpec("x5h", x=0.05, hysteresis=0.9,
+                                  off_level=0.25)],
+                      market_names=[f"de-seed{s}" for s in range(n_sites)],
+                      system_names=["psi2.0"], device=dev)
+    problem = build_problem(grid.prices, grid.p_on, grid.p_off,
+                            grid.off_level, grid.power,
+                            DispatchConfig(**(cfg or BENCH_DISPATCH)),
+                            fixed=grid.fixed, device=dev)
+    return grid, problem
+
+
+def _random_dispatch(s: int, t: int, migrate_cost: float, min_dwell: int,
+                     seed: int, relief=None):
+    """Random prices and float32 availability with a demand between 30%
+    and 90% of each hour's availability (above it in every 50th hour when
+    ``relief`` is given)."""
+    from repro_torch.dispatch import DispatchProblem, segment_rank
+
+    rng = np.random.default_rng(seed)
+    prices = rng.normal(80, 40, (s, t)).astype(np.float32)
+    avail = rng.uniform(0.0, 400.0 / s, (s, t)).astype(np.float32)
+    demand = rng.uniform(0.3, 0.9, t) * avail.sum(axis=0)
+    if relief is not None:
+        demand[::50] = 1.3 * avail.sum(axis=0)[::50]
+    order, rank = segment_rank(prices, migrate_cost)
+    return DispatchProblem(
+        prices=prices, avail_mw=avail, demand_mw=demand.astype(np.float32),
+        power_cap_mw=float("inf"), migrate_cost=migrate_cost,
+        min_dwell_h=min_dwell, compute_floor_mwh=0.0, fixed_cost=1e4,
+        order=order, rank=rank, relief=relief)
+
+
+def phase_dispatch_vs_plain(dev) -> float:
+    """`dispatch` on the card (the CUDA kernel) against the same call on
+    the CPU (the plain `dispatch_ref`): the allocations must be bitwise
+    equal, since the two share one summation order. Returns the largest
+    |difference| (0)."""
+    from repro_torch.dispatch import Relief, dispatch, diurnal_demand
+
+    cases = [
+        ("1 x 7", _random_dispatch(1, 7, 0.0, 0, 500)),
+        ("8 x 1000, migrate 0, dwell 0",
+         _random_dispatch(8, 1000, 0.0, 0, 501)),
+        ("5 x 333 ragged, migrate 5, dwell 2",
+         _random_dispatch(5, 333, 5.0, 2, 502)),
+        ("bench_dispatch 64 x 8760, demand 0.4, migrate 5, dwell 4",
+         _dispatch_fleet(64, dev)[1]),
+        ("512 x 300, migrate 5, dwell 4",
+         _random_dispatch(512, 300, 5.0, 4, 503)),
+        ("relief 16 x 2000, short hours",
+         _random_dispatch(16, 2000, 5.0, 4, 504, relief=Relief())),
+        # 1.3 +- 0.6 MW: below the 8 x 0.25 MW the fleet offers when
+        # every site is off, so feasible whatever the prices
+        ("diurnal 8 x 8760, migrate 5, dwell 4",
+         _dispatch_fleet(8, dev, demand_mw=diurnal_demand(
+             8760, base_mw=1.3, swing_mw=0.6, peak_hour=18.0),
+             migrate_cost=5.0, min_dwell_h=4)[1]),
+    ]
+    worst = 0.0
+    for label, problem in cases:
+        got = dispatch(problem, device=dev)
+        plain = dispatch(problem, device="cpu")
+        diff = float(np.abs(got.alloc_mw - plain.alloc_mw).max())
+        worst = max(worst, diff)
+        print(f"[kernel] dispatch_scan {label}: max |kernel - plain| "
+              f"{diff:.3g}, n_migrations {got.n_migrations} / "
+              f"{plain.n_migrations}, shed hours {got.n_shed_hours}")
+        if not np.array_equal(got.alloc_mw, plain.alloc_mw) \
+                or got.n_migrations != plain.n_migrations:
+            raise AssertionError(f"dispatch_scan {label}: kernel differs "
+                                 "from its plain version")
+        if label.startswith("relief") and got.n_shed_hours == 0:
+            raise AssertionError("the relief case shed nothing")
+    return worst
+
+
 def phase_main_path(dev) -> dict:
     from repro_torch.core.tco import make_system
     from repro_torch.examples.fleet_backtest import print_tables
@@ -366,25 +503,35 @@ def _tune_grid(dev, n_markets: int = 8, n_systems: int = 4,
 
 
 def _counters():
+    from repro_torch.kernels.dispatch_scan import dispatch_scan
     from repro_torch.kernels.fleet_scan import fleet_scan
     from repro_torch.kernels.soft_scan_vjp import (soft_scan_bwd,
                                                    soft_scan_fwd)
     return {"fleet_scan": fleet_scan, "soft_scan_fwd": soft_scan_fwd,
-            "soft_scan_bwd": soft_scan_bwd}
+            "soft_scan_bwd": soft_scan_bwd, "dispatch_scan": dispatch_scan}
 
 
-def phase_tuner(dev) -> dict:
-    """The tuner at full width through `optimize`, with every kernel's
-    launch count set to 0 just before and read just after; then the
-    `tune_policies` demo (48 rows x 4380 h, 300 steps, 8 resamples)."""
-    from repro_torch.examples import tune_policies
-    from repro_torch.tune import TuneConfig, cell_best_rows, optimize
-
-    grid = _tune_grid(dev)
-    cfg = TuneConfig(steps=200)
+def _zero_counters() -> dict:
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    return counters
+
+
+def phase_tuner(dev) -> dict:
+    """The tuner at full width through `optimize`, re-scored on feasible
+    dispatch over its 32 (market, system) cells, with every kernel's
+    launch count set to 0 just before and read just after; once more with
+    relief and a demand above availability; then the `tune_policies` demo
+    (48 rows x 4380 h, 300 steps, 8 resamples)."""
+    from repro_torch.dispatch import DispatchConfig, Relief
+    from repro_torch.examples import tune_policies
+    from repro_torch.tune import Coupling, TuneConfig, cell_best_rows, optimize
+
+    grid = _tune_grid(dev)
+    reeval = DispatchConfig(demand_frac=0.3, migrate_cost=5.0, min_dwell_h=4)
+    cfg = TuneConfig(steps=200, coupling=Coupling(reeval=reeval))
+    counters = _zero_counters()
     t0 = time.perf_counter()
     res = optimize(grid, cfg, device=dev)
     torch.cuda.synchronize()
@@ -400,6 +547,8 @@ def phase_tuner(dev) -> dict:
     if launches["fleet_scan"] < 1:
         raise AssertionError("the hard re-evaluations never launched "
                              "fleet_scan")
+    _check_reeval(res, launches["dispatch_scan"], grid, reeval, dev,
+                  shed=False)
     for name in ("cpc", "cpc_tuned", "cpc_swept", "cpc_swept_best",
                  "improvement_vs_best", "improvement_vs_own", "stage_cpc"):
         v = np.asarray(getattr(res, name), np.float64)
@@ -438,6 +587,18 @@ def phase_tuner(dev) -> dict:
           f"{res.history['loss'][-1]:.6f}; stage cpc "
           f"{np.round(res.stage_cpc, 4).tolist()}")
 
+    # relief: a demand above availability sheds instead of raising; the
+    # Coupling-level relief covers the re-scoring
+    reeval_r = DispatchConfig(demand_frac=0.95, migrate_cost=5.0,
+                              min_dwell_h=4)
+    relief_cfg = TuneConfig(steps=50, coupling=Coupling(reeval=reeval_r,
+                                                        relief=Relief()))
+    counters["dispatch_scan"].launches = 0
+    res_r = optimize(grid, relief_cfg, device=dev)
+    torch.cuda.synchronize()
+    _check_reeval(res_r, counters["dispatch_scan"].launches, grid,
+                  reeval_r._replace(relief=Relief()), dev, shed=True)
+
     print("[tune] repro_torch.examples.tune_policies (default demo) on "
           "the card:")
     t0 = time.perf_counter()
@@ -446,6 +607,114 @@ def phase_tuner(dev) -> dict:
     if rc != 0:
         raise AssertionError("tune_policies: guarantee broken")
     return {"grid": grid, "launches": launches}
+
+
+def _check_reeval(res, launches: int, grid, dcfg, dev, *,
+                  shed: bool) -> None:
+    """The re-scoring of one `optimize`: both policy sets dispatched
+    through the kernel (two launches), feasible (or shedding under
+    relief), and each allocation bitwise equal to the plain version's on
+    the same problem: the two problems are rebuilt as `_dispatch_reeval`
+    builds them (its operated rows, the tuned and the cell-best swept
+    policies, ``dcfg``) and solved on the CPU, where `dispatch` runs the
+    plain `dispatch_ref`."""
+    from repro_torch.dispatch import build_problem, dispatch
+    from repro_torch.tune import cell_best_rows
+
+    d = res.dispatch
+    n_cells = grid.n_markets * grid.n_systems
+    if launches != 2:
+        raise AssertionError(f"optimize launched dispatch_scan {launches} "
+                             "times; the re-scoring dispatches twice")
+    for k in ("tuned", "swept"):
+        r = d[k]
+        if r is None:
+            raise AssertionError(f"re-scoring: the {k} set is infeasible: "
+                                 f"{d['infeasible_' + k]}")
+        if r.alloc_mw.shape != (n_cells, grid.n_hours) \
+                or not np.all(np.isfinite(r.alloc_mw)) \
+                or (r.n_shed_hours > 0) != shed:
+            raise AssertionError(f"re-scoring: {k} allocation malformed")
+    rows = torch.as_tensor(d["rows"], device=dev)
+    best = torch.as_tensor(cell_best_rows(grid, res.cpc_swept), device=dev)
+    for k, pol, take in (("tuned", res.params, rows),
+                         ("swept", grid, best[rows])):
+        problem = build_problem(
+            grid.prices[grid.market_idx[rows]], pol.p_on[take],
+            pol.p_off[take], pol.off_level[take], grid.power[rows], dcfg,
+            fixed=grid.fixed[rows], device=dev)
+        got, plain = d[k], dispatch(problem, device="cpu")
+        diff = float(np.abs(got.alloc_mw - plain.alloc_mw).max())
+        print(f"[kernel] dispatch_scan re-scoring, {k} "
+              f"{problem.avail_mw.shape[0]} x {problem.avail_mw.shape[1]}"
+              f"{', relief' if shed else ''}: max |kernel - plain| "
+              f"{diff:.3g}, n_migrations {got.n_migrations} / "
+              f"{plain.n_migrations}, shed hours {got.n_shed_hours} / "
+              f"{plain.n_shed_hours}")
+        if not np.array_equal(got.alloc_mw, plain.alloc_mw) \
+                or got.n_migrations != plain.n_migrations \
+                or got.n_shed_hours != plain.n_shed_hours \
+                or got.cpc != plain.cpc:
+            raise AssertionError(f"re-scoring: the {k} dispatch differs "
+                                 "from its plain version")
+    print(f"[tune] dispatch re-scoring over {n_cells} cells x "
+          f"{grid.n_hours} h ({'relief, ' if shed else ''}launches "
+          f"{launches}): cpc tuned {d['cpc_tuned']:.4f}, swept "
+          f"{d['cpc_swept']:.4f}, chosen {d['chosen']}; moves "
+          f"{d['tuned'].n_migrations} / {d['swept'].n_migrations}; shed "
+          f"hours {d['tuned'].n_shed_hours} / {d['swept'].n_shed_hours}")
+
+
+def phase_dispatch_path(dev) -> dict:
+    """The dispatch path at full width through its entry points, with the
+    launch counts set to 0 just before and read just after: the
+    `fleet_dispatch` example (8 sites x 8760 h, six dispatches), then
+    `summarize(dispatch_cfg=)` over the dispatch benchmark's 64 sites x
+    8760 h; the 64-site result is checked for feasibility and held
+    against the same call on the CPU."""
+    from repro_torch.dispatch import DispatchConfig
+    from repro_torch.examples import fleet_dispatch
+    from repro_torch.fleet import backtest, summarize
+
+    grid, problem = _dispatch_fleet(64, dev)
+    counters = _zero_counters()
+    print("[dispatch] repro_torch.examples.fleet_dispatch on the card:")
+    t0 = time.perf_counter()
+    fleet_dispatch.run(dev)
+    torch.cuda.synchronize()
+    n_example = counters["dispatch_scan"].launches
+    print(f"[dispatch] example: {time.perf_counter() - t0:.2f} s, "
+          f"dispatch_scan launches {n_example}")
+    if n_example != len(fleet_dispatch.SWEEP) + 2:
+        raise AssertionError("the example dispatches once per summarize")
+    cfg = DispatchConfig(**BENCH_DISPATCH)
+    t0 = time.perf_counter()
+    summ = summarize(grid, backtest(grid, device=dev), dispatch_cfg=cfg)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"[dispatch] summarize over {grid.n_markets} sites x "
+          f"{grid.n_hours} h: {time.perf_counter() - t0:.2f} s; launches "
+          f"{launches}")
+    if launches["dispatch_scan"] != n_example + 1:
+        raise AssertionError("summarize(dispatch_cfg=) launched "
+                             "dispatch_scan other than once")
+    d = summ.dispatch
+    demand = np.asarray(problem.demand_mw, np.float64)
+    if d.alloc_mw.shape != (grid.n_markets, grid.n_hours) \
+            or not np.all(np.isfinite(d.alloc_mw)) \
+            or d.alloc_mw.min() < 0.0 \
+            or np.any(d.alloc_mw > problem.avail_mw + 1e-5):
+        raise AssertionError("dispatch: allocation outside [0, avail]")
+    np.testing.assert_allclose(d.alloc_mw.sum(axis=0), demand, rtol=1e-5)
+    plain = summarize(grid.to("cpu"), backtest(grid, device="cpu"),
+                      dispatch_cfg=cfg).dispatch
+    if not np.array_equal(d.alloc_mw, plain.alloc_mw) or d.cpc != plain.cpc:
+        raise AssertionError("summarize(dispatch_cfg=): card and CPU differ")
+    print(f"[dispatch] 64 sites: demand met every hour; cpc {d.cpc:.4f}, "
+          f"energy {d.energy_cost:.1f}, moves {d.n_migrations}, migration "
+          f"{d.migration_mw:.2f} MW, capacity slack "
+          f"{d.slack_capacity_mw:.3f} MW; card == CPU bit for bit")
+    return {"launches": launches["dispatch_scan"], "problem": problem}
 
 
 def phase_checkpoint(dev, grid) -> None:
@@ -635,6 +904,108 @@ def phase_times(dev, main: dict) -> tuple[dict, torch.Tensor]:
     }, flush
 
 
+def _f64_add_ns(dev) -> float:
+    """Latency of one dependent float64 addition on the card, in ns: the
+    difference of two chains (1.1e6 and 1e5 additions) in one thread,
+    timed by CUDA events."""
+    import ctypes
+
+    fn = ctypes.CDLL(str(PROBE_DIR / "libf64_add_chain.so")).f64_add_chain
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    buf = torch.zeros(1, dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def chain(n):
+        if fn(buf.data_ptr(), n, stream) != 0:
+            raise RuntimeError("f64 add chain launch failed")
+
+    lo, hi = 100_000, 1_100_000
+    ms = {n: _cuda_ms(lambda: chain(n), runs=5) for n in (lo, hi)}
+    return (ms[hi] - ms[lo]) * 1e6 / (hi - lo)
+
+
+def _dispatch_bound(s: int, t: int) -> tuple[float, str]:
+    """Least time for the function on an H100 SXM: read avail [S, T] f32,
+    rank [T, 3S] i32 and demand [T], write alloc [S, T], against
+    3.35 TB/s; ~20 float32 operations per site-hour against
+    67 TFLOP/s."""
+    tb = (20 * s * t + 4 * t) / HBM_BYTES_PER_S
+    to = 20 * s * t / FP32_OPS_PER_S
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+def _host_ms(fn, runs: int) -> float:
+    """Median host-clock time of ``fn()`` (which ends in a synchronise)
+    over ``runs`` runs."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_dispatch_times(dev, flush, problem) -> dict:
+    """The dispatch kernel (device only, L2 flushed) at S x 8760 for S in
+    1, 8, 64 and 512, beside its bytes bound and the serial floor of its
+    design (T x 3S dependent float64 additions); the plain version (on the
+    CPU) at 8 and 64 sites; and one whole 64-site `dispatch` call split
+    into the host segment sort, the kernel and `summarize_alloc`."""
+    from repro_torch.dispatch import dispatch, segment_rank, summarize_alloc
+    from repro_torch.kernels.dispatch_scan import dispatch_scan
+
+    add_ns = _f64_add_ns(dev)
+    print(f"[time] dependent float64 addition on the card: {add_ns:.3f} ns")
+    out = {}
+    for s in (1, 8, 64, 512):
+        if s == 64:
+            prob = problem
+        else:
+            prob = _random_dispatch(s, 8760, 5.0, 4, 600 + s)
+        args = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                for a in (prob.avail_mw, prob.rank, prob.demand_mw)]
+        t = prob.avail_mw.shape[1]
+
+        def kernel():
+            return dispatch_scan(*args, min_dwell=prob.min_dwell_h)
+
+        ms = _cuda_ms(kernel, runs=5, flush=flush, device_only=True)
+        bound, by = _dispatch_bound(s, t)
+        serial = t * 3 * s * add_ns * 1e-6
+        rec = {"ms": ms, "bound_ms": bound, "bound_by": by,
+               "serial_ms": serial, "plain_ms": None}
+        if s in (8, 64):
+            cpu_args = [a.cpu() for a in args]
+            rec["plain_ms"] = _host_ms(
+                lambda: dispatch_scan(*cpu_args, min_dwell=prob.min_dwell_h),
+                runs=2)
+        out[s] = rec
+        print(f"[time] dispatch_scan {s} x {t}: kernel {ms:.4f} ms "
+              f"({ms * 1e6 / t:.1f} ns per hour), plain "
+              + (f"{rec['plain_ms']:.1f} ms" if rec["plain_ms"] else "—")
+              + f", bound {bound:.4f} ms ({by}), serial floor of the design "
+              f"{serial:.4f} ms (T x 3S x {add_ns:.3f} ns), {bound / ms:.2%} "
+              f"of the bytes bound, {serial / ms:.1%} of the serial floor")
+
+    prices = problem.prices
+    rank_ms = _host_ms(lambda: segment_rank(prices, problem.migrate_cost),
+                       runs=3)
+    whole = problem._replace(order=None, rank=None)
+    total_ms = _host_ms(lambda: dispatch(whole, device=dev), runs=3)
+    alloc = dispatch(problem, device=dev).alloc_mw
+    acc_ms = _host_ms(lambda: summarize_alloc(problem, alloc), runs=3)
+    print(f"[time] dispatch 64 x {problem.avail_mw.shape[1]} (host clock): "
+          f"whole call {total_ms:.2f} ms = segment_rank {rank_ms:.2f} ms + "
+          f"kernel {out[64]['ms']:.3f} ms + summarize_alloc {acc_ms:.2f} ms "
+          f"+ the rest (copies, checks) "
+          f"{total_ms - rank_ms - out[64]['ms'] - acc_ms:.2f} ms")
+    _profile(lambda: dispatch(problem, device=dev), "dispatch 64 sites",
+             runs=3)
+    return out
+
+
 def _profile(fn, label: str, runs: int = 10) -> None:
     """Device time by kernel and the card's busy share over ``runs``
     back-to-back calls of ``fn``, from `torch.profiler` (CUPTI). The
@@ -701,14 +1072,24 @@ def main() -> int:
     phase_build()
     phase_kernel_vs_plain(dev)
     soft_errs = phase_soft_vs_plain(dev)
+    dispatch_err = phase_dispatch_vs_plain(dev)
     main_run = phase_main_path(dev)
     tune = phase_tuner(dev)
     phase_checkpoint(dev, tune["grid"])
+    disp = phase_dispatch_path(dev)
     fleet_rec, flush = phase_times(dev, main_run)
     soft_times = phase_soft_times(dev, flush)
     phase_tune_times(dev, tune["grid"])
+    disp_times = phase_dispatch_times(dev, flush, disp["problem"])[64]
     kernels = [fleet_rec] + _soft_records(soft_errs, soft_times,
-                                          tune["launches"])
+                                          tune["launches"]) + [{
+        "name": "dispatch_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dispatch_scan.cu",
+        "replaces": "src/repro/kernels/dispatch_scan.py:50",
+        "launches": disp["launches"], "max_abs_err": dispatch_err,
+        "ms": disp_times["ms"], "plain_ms": disp_times["plain_ms"],
+        "bound_ms": disp_times["bound_ms"],
+        "bound_by": disp_times["bound_by"], "library_ms": None}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,10 @@ operator questions: which policy wins at each site, how far each policy is
 from the closed-form oracle (`repro_torch.core.optimizer.optimal_shutdown`'s
 reduction, Eqs. 21-29), and what the whole fleet spends in total.
 
-Cross-site dispatch (``dispatch_cfg=``) and workload-coupled ledgers
-(``workload=``) come with their own slices; until then they raise.
+With ``dispatch_cfg=`` the feasible cross-site dispatcher
+(`repro_torch.dispatch`) runs over one site per covered (market, system)
+cell. Workload-coupled ledgers (``workload=``) come with their own slice;
+until then they raise.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tco import cpc_reduction
+from repro_torch.dispatch import DispatchConfig, build_problem, dispatch
 
 
 class FleetReport(NamedTuple):
@@ -51,10 +54,11 @@ class FleetSummary(NamedTuple):
     up_hours_by_policy: np.ndarray # [K] compute-hours across sites
     total_cost: float              # sum of TCO over the fleet
     total_up_hours: float
-    # filled by the dispatch and workload slices; None until then
+    # the feasible dispatch over the best-policy sites (None without a
+    # dispatch_cfg) and the report rows it operated
     dispatch: Optional[object] = None
     dispatch_rows: Optional[np.ndarray] = None
-    workload: Optional[object] = None
+    workload: Optional[object] = None    # filled by the workload slice
 
 
 def oracle_reduction_grid(prices: torch.Tensor,
@@ -71,14 +75,38 @@ def oracle_reduction_grid(prices: torch.Tensor,
     return torch.clamp(red.amax(-1), min=0.0)
 
 
-def summarize(grid, report: FleetReport, *, dispatch_cfg=None,
+def dispatch_sites(grid, report: FleetReport,
+                   best_policy: np.ndarray) -> np.ndarray:
+    """Report-row index of each covered (market, system) cell's best
+    policy, in canonical cube order — the site set the fleet dispatcher
+    operates. Cube-ordered, so it is invariant to row permutations."""
+    mi = report.market_idx.cpu().numpy()
+    si = report.system_idx.cpu().numpy()
+    pi = report.policy_idx.cpu().numpy()
+    rows = []
+    for n in range(grid.n_markets):
+        for m in range(grid.n_systems):
+            if best_policy[n, m] < 0:
+                continue
+            rows.append(int(np.flatnonzero(
+                (mi == n) & (si == m) & (pi == best_policy[n, m]))[0]))
+    return np.asarray(rows, np.int64)
+
+
+def summarize(grid, report: FleetReport, *,
+              dispatch_cfg: Optional[DispatchConfig] = None,
               workload=None) -> FleetSummary:
     """Aggregate a `FleetReport` over the scenario cube of ``grid`` (a
     `repro_torch.fleet.grid.ScenarioGrid`). Row order never matters: cells
-    are addressed by the report's index columns."""
-    if dispatch_cfg is not None:
-        raise NotImplementedError("summarize(dispatch_cfg=...) needs the "
-                                  "dispatch slice, which is not ported yet")
+    are addressed by the report's index columns.
+
+    With ``dispatch_cfg``, the feasible cross-site dispatcher runs on the
+    grid's device over one site per covered (market, system) cell — each
+    operating its best swept policy — and the result lands in
+    `FleetSummary.dispatch`, with the operated rows in
+    `FleetSummary.dispatch_rows` (raises
+    `repro_torch.dispatch.DispatchInfeasible` when the configured demand
+    cannot be met; hard constraints are never clipped)."""
     if workload is not None:
         raise NotImplementedError("summarize(workload=...) needs the "
                                   "workload slice, which is not ported yet")
@@ -122,6 +150,22 @@ def summarize(grid, report: FleetReport, *, dispatch_cfg=None,
                                      device=grid.prices.device))
     oracle = oracle.cpu().numpy()
 
+    disp = None
+    rows = None
+    if dispatch_cfg is not None:
+        rows = dispatch_sites(grid, report, best_policy)
+        markets = g_mi[rows]
+        systems = g_si[rows]
+        names = tuple(f"{grid.market_names[n]}/{grid.system_names[m]}"
+                      for n, m in zip(markets, systems)) \
+            if grid.market_names and grid.system_names else ()
+        dev = grid.prices.device
+        r = torch.as_tensor(rows, device=dev)
+        disp = dispatch(build_problem(
+            grid.prices[grid.market_idx[r]], grid.p_on[r], grid.p_off[r],
+            grid.off_level[r], grid.power[r], dispatch_cfg,
+            fixed=grid.fixed[r], site_names=names, device=dev), device=dev)
+
     return FleetSummary(
         reduction=red,
         best_policy=best_policy,
@@ -132,4 +176,6 @@ def summarize(grid, report: FleetReport, *, dispatch_cfg=None,
         up_hours_by_policy=np.nansum(hours, axis=(0, 1)),
         total_cost=float(np.nansum(cube(report.tco))),
         total_up_hours=float(np.nansum(hours)),
+        dispatch=disp,
+        dispatch_rows=rows,
     )

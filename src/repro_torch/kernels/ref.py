@@ -246,3 +246,91 @@ def soft_scan_bwd_ref(p: torch.Tensor, p_on: torch.Tensor,
         acc = [acc[0] + d_on.sum(1), acc[1] + d_off.sum(1),
                acc[2] + d_it.sum(1)]
     return torch.cat(d_p, dim=1), acc[0], acc[1], torch.sum(acc[2])
+
+
+DWELL_EVENT_MW = 1e-3  # allocation increase (MW) that counts as a fresh
+                       # placement and rearms the dwell lock: far above
+                       # float32 rounding, far below any real move
+
+
+def dispatch_alloc_hour(prev: torch.Tensor, dwell: torch.Tensor,
+                        avail: torch.Tensor, rank: torch.Tensor, demand, *,
+                        min_dwell: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One hour of feasible cross-site dispatch (greedy water-fill).
+
+    Each site offers three price-sorted capacity segments: ``locked``
+    (load held < ``min_dwell`` hours, ranked below everything), ``retain``
+    (the rest of the previous allocation, priced at p - migrate_cost) and
+    ``fresh`` (unused capacity at the market price). ``rank`` is the
+    inverse of the ascending sort permutation of the 3S segment keys
+    (`repro_torch.dispatch.segment_rank`): scattering the widths to
+    ``rank`` is the reference's gather by ``order``, so the permutation
+    itself is not needed. The fill is scatter -> exclusive prefix ->
+    gather back -> ``clip(demand - before, 0, width)``.
+
+    The port's summation order, shared with the CUDA kernel
+    (``csrc/dispatch_scan.cu``) bit for bit: the exclusive prefix is
+    taken over the sorted widths sequentially in float64 and rounded to
+    float32 once (PyTorch's CPU `cumsum` of a float64 tensor runs
+    sequentially; a float32 one would accumulate in float64 on the CPU
+    and in parallel float32 on CUDA, so it is never used here); the
+    three fills add as ``(locked + retain) + fresh``; the dwell rearm
+    compares in float32. Where every partial sum is exact in float32
+    this equals the reference's ``jnp.cumsum(w) - w`` bit for bit;
+    elsewhere the two differ in the last bits (XLA sums in its own
+    order and rounds twice).
+
+    prev/dwell/avail: [S] float32 (CPU); rank: [3S] int64; demand:
+    a float32 scalar tensor. Returns ``(alloc [S], dwell' [S])``.
+    Capacity loss breaks a dwell lock: locked width is capped at
+    ``avail``.
+    """
+    s = prev.shape[0]
+    held = torch.minimum(prev, avail)
+    if min_dwell > 0:
+        locked = torch.where(dwell > 0.0, held, torch.zeros_like(held))
+    else:
+        locked = torch.zeros_like(held)
+    widths = torch.cat([locked, held - locked, avail - held])
+    sw = torch.empty_like(widths)
+    sw[rank] = widths                    # the widths in price order
+    incl = torch.cumsum(sw.double(), 0)
+    excl = torch.cat([incl.new_zeros(1), incl[:-1]]).to(torch.float32)
+    before = excl[rank]                  # MW at strictly cheaper segments
+    fill = torch.minimum(torch.clamp(demand - before, min=0.0), widths)
+    alloc = (fill[:s] + fill[s:2 * s]) + fill[2 * s:]
+    if min_dwell > 0:
+        margin = prev + torch.tensor(DWELL_EVENT_MW, dtype=torch.float32)
+        dwell = torch.where(alloc > margin,
+                            torch.full_like(dwell, float(min_dwell)),
+                            torch.clamp(dwell - 1.0, min=0.0))
+    return alloc, dwell
+
+
+def dispatch_ref(avail: torch.Tensor, rank: torch.Tensor,
+                 demand: torch.Tensor, *, min_dwell: int = 0
+                 ) -> torch.Tensor:
+    """Sequential plain version of the hour-by-hour dispatch scan.
+
+    avail: [S, T] available MW; rank: [T, 3S] segment sort ranks;
+    demand: [T] MW. Returns the allocation [S, T] (float32) on the
+    inputs' device. The loop runs on the CPU wherever the inputs lie, so
+    its float64 prefix has one fixed (sequential) order; CUDA inputs are
+    copied to the host and the result copied back. Starts empty: hour 0
+    places the fleet's load.
+    """
+    cpu = torch.device("cpu")
+    a = avail.to(cpu, torch.float32)
+    r = rank.to(cpu, torch.int64)
+    d = demand.to(cpu, torch.float32)
+    s, t = a.shape
+    a_t = a.T.contiguous()
+    prev = torch.zeros(s, dtype=torch.float32)
+    dwell = torch.zeros(s, dtype=torch.float32)
+    out = torch.empty((t, s), dtype=torch.float32)
+    for h in range(t):
+        prev, dwell = dispatch_alloc_hour(prev, dwell, a_t[h], r[h], d[h],
+                                          min_dwell=min_dwell)
+        out[h] = prev
+    return out.T.contiguous().to(avail.device)

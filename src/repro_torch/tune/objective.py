@@ -85,17 +85,17 @@ class TuneProblem(NamedTuple):
         return self.prices[self.market_idx]
 
 
-_DISPATCH_SLICE = ("dispatch-aware tuning comes to the port with the "
-                   "dispatch slices (ROADMAP queue 1 items 7-8)")
+_DISPATCH_SLICE = ("dispatch-aware tuning comes to the port with its own "
+                   "slice (ROADMAP queue 1 item 8)")
 
 
 def dispatch_coupling_from_grid(grid, dcfg):
-    """Not yet ported (ROADMAP queue 1 items 7-8)."""
+    """Not yet ported (ROADMAP queue 1 item 8)."""
     raise NotImplementedError(_DISPATCH_SLICE)
 
 
 def soft_dispatch_ratio(*args, **kwargs):
-    """Not yet ported (ROADMAP queue 1 items 7-8)."""
+    """Not yet ported (ROADMAP queue 1 item 8)."""
     raise NotImplementedError(_DISPATCH_SLICE)
 
 

@@ -28,10 +28,16 @@ schedule from ``tau_start`` (smooth, wide basins) down to ``tau_end``
 policy, the best swept policy of its (market, system) cell} — so the
 reported CPC is never worse than the swept grid it started from.
 
-Later slices: sharded plans (ROADMAP queue 1 item 13), the dispatch
-coupling and re-scoring (items 7-8), workloads (item 12), the telemetry
-side-outputs and events (item 9), and the reference's deprecated
-`TuneConfig` spellings (``chunk_rows=``, ``power_cap_mw=``, ...).
+With ``Coupling(reeval=DispatchConfig(...))`` the selected and the
+best-swept policy sets are re-scored on the feasible cross-site
+dispatcher (`repro_torch.dispatch`, the CUDA `dispatch_scan` kernel on
+the card) and reported in `TuneResult.dispatch`.
+
+Later slices: sharded plans (ROADMAP queue 1 item 13), the soft dispatch
+coupling ``Coupling(dispatch=)`` (item 8), workloads (item 12), the
+telemetry side-outputs and events (item 9), and the reference's
+deprecated `TuneConfig` spellings (``chunk_rows=``, ``power_cap_mw=``,
+...).
 """
 
 from __future__ import annotations
@@ -44,6 +50,9 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dispatch import (DispatchConfig, DispatchInfeasible,
+                                  build_problem)
+from repro_torch.dispatch import dispatch as dispatch_solve
 from repro_torch.execution import (Coupling, ExecutionPlan, take_rows,
                                    validate_plan_coupling)
 from repro_torch.fleet.engine import backtest, fleet_costs
@@ -64,9 +73,10 @@ class TuneConfig:
 
     Execution layout and fleet coupling are the `repro_torch.execution`
     pair: ``plan`` (`ExecutionPlan`: single or chunked) and ``coupling``
-    (`Coupling`: power cap and aggregate-compute floor). The
+    (`Coupling`: power cap, aggregate-compute floor, the hard-dispatch
+    re-scoring ``reeval`` and its shed pricing ``relief``). The
     chunk-under-coupling legality rule is checked here, at construction.
-    Couplings and options of later slices (dispatch, re-scoring, relief,
+    Options of later slices (the soft coupling ``Coupling(dispatch=)``,
     ``workload``) raise `NotImplementedError` here.
     """
 
@@ -94,12 +104,11 @@ class TuneConfig:
 
     def __post_init__(self):
         rc = self.resolved_coupling
-        if rc.dispatch is not None or rc.reeval is not None \
-                or rc.relief is not None:
+        if rc.dispatch is not None:
             raise NotImplementedError(
-                "TuneConfig: Coupling(dispatch=, reeval=, relief=) comes to "
-                "the port with the dispatch slices (ROADMAP queue 1 items "
-                "7-8)")
+                "TuneConfig: Coupling(dispatch=), the soft dispatch-aware "
+                "coupling, comes to the port with the dispatch-aware tuning "
+                "slice (ROADMAP queue 1 item 8)")
         if self.workload is not None:
             raise NotImplementedError(
                 "TuneConfig(workload=) comes to the port with the workload "
@@ -134,7 +143,12 @@ class TuneResult(NamedTuple):
     # mean hard CPC at each anneal-stage boundary ([cfg.eval_stages]; the
     # last entry is mean(cpc_tuned)); chunked runs average over chunks
     stage_cpc: Optional[np.ndarray] = None
-    dispatch: Optional[dict] = None      # the dispatch slice fills this
+    # feasible-dispatch re-scoring (None unless Coupling(reeval=)):
+    # {"cpc_tuned", "cpc_swept", "chosen", "tuned", "swept", "rows",
+    # "site_names", "infeasible_tuned", "infeasible_swept"}; "tuned" and
+    # "swept" are `repro_torch.dispatch.DispatchResult`s (None when
+    # infeasible), "rows" the operated row per (market, system) cell
+    dispatch: Optional[dict] = None
     # total row-steps the finite-step guard rejected (0 on a healthy run)
     guard_count: int = 0
     workload_cost: Optional[np.ndarray] = None   # the workload slice
@@ -300,7 +314,7 @@ def tune_loop(raw0: PolicyParams, problem: TuneProblem, coupling=None, *,
     if coupling is not None:
         raise NotImplementedError(
             "tune_loop(coupling=): dispatch-aware tuning comes to the port "
-            "with the dispatch slices (ROADMAP queue 1 items 7-8)")
+            "with its own slice (ROADMAP queue 1 item 8)")
     p_rows = problem.row_prices()
     bounds = _stage_bounds(cfg)
     carry = _init_carry(raw0)
@@ -345,7 +359,7 @@ def tune_loop_checkpointed(raw0: PolicyParams, problem: TuneProblem,
     if coupling is not None:
         raise NotImplementedError(
             "tune_loop_checkpointed(coupling=) comes to the port with the "
-            "dispatch slices (ROADMAP queue 1 items 7-8)")
+            "dispatch-aware tuning slice (ROADMAP queue 1 item 8)")
     dev = problem.market_idx.device
     raw0 = PolicyParams(*(_f32(a, dev) for a in raw0))
     p_rows = problem.row_prices()
@@ -458,6 +472,53 @@ def cell_best_rows(grid, cpc: np.ndarray) -> np.ndarray:
     return np.asarray([best[int(c)] for c in key], np.int64)
 
 
+def _dispatch_reeval(grid, params: PhysicalPolicy, cpc: np.ndarray,
+                     best_row: np.ndarray, dcfg: DispatchConfig) -> dict:
+    """Score the selected (tuned) and the best-swept policy sets under the
+    feasible cross-site dispatcher — one site per (market, system) cell,
+    hard constraints instead of the soft tuning penalties — on the grid's
+    device. A policy set that cannot meet the configured demand is not
+    clipped to fit: it scores ``cpc = inf`` with the `DispatchInfeasible`
+    reason recorded, and the feasible set (if any) is chosen."""
+    key = cell_index(grid)
+    sel: dict[int, int] = {}
+    for b in range(len(key)):
+        c = int(key[b])
+        if c not in sel or cpc[b] < cpc[sel[c]]:
+            sel[c] = b
+    rows = np.asarray([sel[c] for c in sorted(sel)], np.int64)
+    dev = grid.prices.device
+    markets = grid.market_idx.cpu().numpy()[rows]
+    rows_t = torch.as_tensor(rows, device=dev)
+
+    def run(p_on, p_off, lvl, take):
+        take = torch.as_tensor(take, device=dev)
+        try:
+            return dispatch_solve(build_problem(
+                grid.prices[torch.as_tensor(markets, device=dev)],
+                p_on[take], p_off[take], lvl[take], grid.power[rows_t],
+                dcfg, fixed=grid.fixed[rows_t], device=dev),
+                plan=dcfg.plan, device=dev), None
+        except DispatchInfeasible as e:
+            return None, str(e)
+
+    tuned, why_t = run(params.p_on, params.p_off, params.off_level, rows)
+    swept, why_s = run(grid.p_on, grid.p_off, grid.off_level,
+                       best_row[rows])
+    cpc_t = tuned.cpc if tuned is not None else float("inf")
+    cpc_s = swept.cpc if swept is not None else float("inf")
+    chosen = None if tuned is None and swept is None else \
+        ("tuned" if cpc_t <= cpc_s else "swept")
+    names = tuple(f"{grid.market_names[n]}/{grid.system_names[m]}"
+                  for n, m in zip(markets,
+                                  grid.system_idx.cpu().numpy()[rows])) \
+        if grid.market_names and grid.system_names else ()
+    return {"cpc_tuned": cpc_t, "cpc_swept": cpc_s, "chosen": chosen,
+            "tuned": tuned, "swept": swept, "rows": rows,
+            "site_names": names,
+            "infeasible_tuned": why_t, "infeasible_swept": why_s}
+
+
 def _raw_start(grid, warm_start, dev) -> PolicyParams:
     if warm_start is None:
         return init_from_grid(grid)
@@ -495,7 +556,11 @@ def optimize(grid, cfg: TuneConfig = TuneConfig(), *, warm_start=None,
     With coupling penalties configured the swept fallback is disabled
     (swept policies ignore the constraints) and ``cpc`` reports the tuned
     params. The hard re-evaluations run the engine's `fleet_scan` (the
-    CUDA kernel on the card).
+    CUDA kernel on the card). With ``Coupling(reeval=...)`` the selected
+    and the best-swept policy sets are then re-scored on feasible
+    dispatch (`_dispatch_reeval`, the CUDA `dispatch_scan` kernel on the
+    card) into `TuneResult.dispatch`; a Coupling-level ``relief`` covers
+    that re-scoring too.
     """
     dev = resolve_device(device)
     grid = grid.to(dev)
@@ -544,10 +609,21 @@ def optimize(grid, cfg: TuneConfig = TuneConfig(), *, warm_start=None,
         p_on=pick(tuned.p_on, grid.p_on, cb.p_on),
         p_off=pick(tuned.p_off, grid.p_off, cb.p_off),
         off_level=pick(tuned.off_level, grid.off_level, cb.off_level))
+
+    dispatch_out = None
+    reeval_cfg = rc.reeval_config
+    if reeval_cfg is not None:
+        if rc.relief_config is not None and reeval_cfg.relief is None:
+            # a Coupling-level relief covers the hard re-scoring too: a
+            # degraded policy set sheds at VoLL instead of scoring inf
+            reeval_cfg = reeval_cfg._replace(relief=rc.relief_config)
+        dispatch_out = _dispatch_reeval(grid, params, cpc, best_row,
+                                        reeval_cfg)
     return TuneResult(
         params=params, raw=raw_f, cpc=cpc, cpc_tuned=cpc_tuned,
         cpc_swept=cpc_swept, cpc_swept_best=cpc_swept_best,
         improvement_vs_best=1.0 - cpc / cpc_swept_best,
         improvement_vs_own=1.0 - cpc / cpc_swept,
         source=source, history=hist, stage_cpc=stage_cpc,
+        dispatch=dispatch_out,
         guard_count=int(np.sum(hist.get("guard_rejects", 0.0))))

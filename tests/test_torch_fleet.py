@@ -29,6 +29,7 @@ from repro.fleet import summarize as jax_summarize  # noqa: E402
 from repro_torch.core.optimizer import optimal_shutdown  # noqa: E402
 from repro_torch.core.policy import policy_cpc, threshold_policy  # noqa: E402
 from repro_torch.core.tco import make_system  # noqa: E402
+from repro_torch.dispatch import DispatchConfig  # noqa: E402
 from repro_torch.examples import fleet_backtest, quickstart  # noqa: E402
 from repro_torch.execution import ExecutionPlan  # noqa: E402
 from repro_torch.fleet import (PolicySpec, ScenarioGrid, backtest,  # noqa: E402
@@ -200,8 +201,9 @@ def test_sharded_plan_and_unported_options_raise(port_run):
         backtest(grid, plan=ExecutionPlan(mode="sharded"), device=CPU)
     with pytest.raises(ValueError, match="CUDA"):
         backtest(grid, use_kernel=True, device=CPU)
-    with pytest.raises(NotImplementedError, match="dispatch"):
-        summarize(grid, rep, dispatch_cfg=object())
+    with pytest.raises(NotImplementedError, match="workload"):
+        summarize(grid, rep, dispatch_cfg=DispatchConfig()._replace(
+            workload=object()))
     with pytest.raises(NotImplementedError, match="workload"):
         summarize(grid, rep, workload=object())
     with pytest.raises(ValueError, match="missing"):

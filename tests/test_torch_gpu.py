@@ -1,6 +1,7 @@
-"""The CUDA kernels on the card (`fleet_scan`, and the soft-scan forward
-and backward), held against their plain PyTorch versions, and the
-backtest and the tuner on the card against the CPU. Marked ``gpu``:
+"""The CUDA kernels on the card (`fleet_scan`, the soft-scan forward and
+backward, `dispatch_scan`), held against their plain PyTorch versions,
+and the backtest, the tuner and the dispatch summary on the card against
+the CPU. Marked ``gpu``:
 without a CUDA device every test skips. Imports neither JAX nor the
 reference, so it runs on a machine that has only PyTorch:
 
@@ -12,7 +13,10 @@ plain run's own running-sum drift over 8760 hours exceeds 2e-5); soft
 states within atol 1e-5 and soft gradients within rtol 2e-5 (d_p: atol
 1e-5 max|d_p|) of the plain blocked versions in float64, with a positive
 cotangent so the threshold sums carry no cancellation; the tuner's CPC on
-the card within rtol 1e-4 of the CPU's, with the same source per row.
+the card within rtol 1e-4 of the CPU's, with the same source per row;
+the dispatch kernel bitwise equal to its plain version (the two share
+one summation order), and so the dispatch summary on the card equal to
+the CPU's.
 """
 
 import numpy as np
@@ -21,9 +25,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.tco import make_system  # noqa: E402
-from repro_torch.fleet import PolicySpec, backtest, build_grid  # noqa: E402
+from repro_torch.dispatch import DispatchConfig, segment_rank  # noqa: E402
+from repro_torch.fleet import (PolicySpec, backtest, build_grid,  # noqa: E402
+                               summarize)
+from repro_torch.kernels.dispatch_scan import dispatch_scan  # noqa: E402
 from repro_torch.kernels.fleet_scan import fleet_scan  # noqa: E402
-from repro_torch.kernels.ref import fleet_scan_ref  # noqa: E402
+from repro_torch.kernels.ref import dispatch_ref, fleet_scan_ref  # noqa: E402
 from repro_torch.kernels.soft_scan_vjp import (soft_scan_bwd,  # noqa: E402
                                                soft_scan_fwd,
                                                soft_state_fused)
@@ -161,3 +168,47 @@ def test_optimize_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(gpu.cpc, cpu.cpc, rtol=1e-4)
     np.testing.assert_array_equal(gpu.source, cpu.source)
     assert np.all(gpu.cpc <= gpu.cpc_swept_best * (1 + 1e-6))
+
+
+@pytest.mark.parametrize("case", [(1, 64, 0.0, 0), (5, 333, 5.0, 0),
+                                  (16, 500, 5.0, 6), (64, 200, 0.0, 3),
+                                  (512, 300, 5.0, 4)])
+def test_dispatch_kernel_matches_plain_version(cuda, case):
+    s, t, mc, dwell = case
+    rng = np.random.default_rng(s + t)
+    prices = rng.normal(80, 40, (s, t)).astype(np.float32)
+    avail = rng.uniform(0.0, 400.0 / s, (s, t)).astype(np.float32)
+    demand = (rng.uniform(0.3, 1.05, t) * avail.sum(axis=0)) \
+        .astype(np.float32)
+    rank = segment_rank(prices, mc)[1]
+    args = [torch.as_tensor(a) for a in (avail, rank, demand)]
+    want = dispatch_ref(*args, min_dwell=dwell)
+    before = dispatch_scan.launches
+    got = dispatch_scan(*(a.to(cuda) for a in args), min_dwell=dwell)
+    assert dispatch_scan.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="int32"):
+        dispatch_scan(args[0].to(cuda), args[1].long().to(cuda),
+                      args[2].to(cuda))
+    with pytest.raises(ValueError, match="CUDA tensors launch the kernel"):
+        dispatch_scan(*(a.to(cuda) for a in args), use_kernel=False)
+
+
+def test_summarize_dispatch_on_the_card_matches_the_cpu(cuda):
+    prices = np.random.default_rng(6).lognormal(4.3, 0.5, (5, 900))
+    cfg = DispatchConfig(demand_frac=0.3, migrate_cost=5.0, min_dwell_h=4)
+    out = {}
+    for dev in ("cpu", cuda):
+        grid = build_grid(prices.astype(np.float32),
+                          [make_system(5e4, 1.0, 900.0, device=dev)],
+                          [PolicySpec("ao"),
+                           PolicySpec("x5", x=0.05, off_level=0.3)],
+                          device=dev)
+        out[str(dev)] = summarize(grid, backtest(grid, device=dev),
+                                  dispatch_cfg=cfg)
+    gpu, cpu = out[str(cuda)], out["cpu"]
+    np.testing.assert_array_equal(gpu.dispatch_rows, cpu.dispatch_rows)
+    for f in cpu.dispatch._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(gpu.dispatch, f)),
+                                      np.asarray(getattr(cpu.dispatch, f)),
+                                      err_msg=f)

@@ -21,7 +21,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), ",".join(bad))
+print(len(names), ",".join(names), ",".join(bad))
 """
 
 
@@ -29,9 +29,14 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", PROBE], env=env, check=True,
                          capture_output=True, text=True).stdout.split()
-    n_modules, bad = int(out[0]), out[1:]
+    n_modules, names, bad = int(out[0]), out[1].split(","), out[2:]
     assert bad == []
-    # the 36 modules of the slices so far: package inits, core, energy,
-    # runtime, kernels, fleet, optim, checkpoint, tune, examples and the
-    # device helper
-    assert n_modules >= 36
+    # the 41 modules of the slices so far: package inits, core, energy,
+    # runtime, kernels, fleet, optim, checkpoint, tune, dispatch, examples
+    # and the device helper
+    assert n_modules == len(names) >= 41
+    for name in ("repro_torch.dispatch", "repro_torch.dispatch.allocate",
+                 "repro_torch.dispatch.schedule",
+                 "repro_torch.kernels.dispatch_scan",
+                 "repro_torch.examples.fleet_dispatch"):
+        assert name in names

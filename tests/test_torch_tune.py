@@ -461,10 +461,10 @@ def test_later_slice_options_raise(grid):
     with pytest.raises(NotImplementedError, match="item 13"):
         optimize(grid, TuneConfig(steps=2, plan=ExecutionPlan(
             mode="sharded")), device=CPU)
-    for cp in (Coupling(dispatch=object()), Coupling(reeval=object()),
-               Coupling(relief=object())):
-        with pytest.raises(NotImplementedError, match="dispatch"):
-            TuneConfig(coupling=cp)
+    # the soft dispatch coupling; the hard re-scoring (reeval=, relief=)
+    # is ported (tests/test_torch_dispatch.py)
+    with pytest.raises(NotImplementedError, match="dispatch"):
+        TuneConfig(coupling=Coupling(dispatch=object()))
     with pytest.raises(NotImplementedError, match="workload"):
         TuneConfig(workload=object())
     with pytest.raises(NotImplementedError, match="dispatch"):
