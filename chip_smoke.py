@@ -22,11 +22,26 @@ Phases, in order; any failure raises and the script exits non-zero:
   7. the dispatch path at full width: the `fleet_dispatch` example (8
      sites x 8760 h) and `summarize(dispatch_cfg=)` over the dispatch
      benchmark's 64 sites x 8760 h;
-  8. times (median of CUDA-event runs after warm-up): each kernel, its
+  8. the soft-dispatch kernels (forward, fused forward, fused backward)
+     against their plain versions at the reference's four soft cases, the
+     tuner's 32 sites x 2190 h at tau 30 and 0.3, a case with zero-demand
+     hours and three blocks of more than one warp (64, 45 and 130 sites);
+  9. soft -> hard convergence at full width: the forward kernel at
+     tau 1e-3 against `dispatch_scan` on the dispatch benchmark's 64 sites
+     x 8760 h;
+ 10. the dispatch-aware tuner at full width: `optimize` on the tuner grid
+     with `Coupling(dispatch=)` (the fused soft-dispatch kernels every
+     step), twice at 25 steps for determinism, the reference's acceptance
+     grid (dispatch-aware <= re-score-only), and `tune_policies
+     --dispatch-soft`;
+ 11. times (median of CUDA-event runs after warm-up): each kernel, its
      plain version and its bound, the backtest at 1024 and 8192 rows,
      market generation, the tuner loop's row-steps/s (hand-written VJP
-     against autograd through the doubling scan), and one whole dispatch
-     call split into its parts;
+     against autograd through the doubling scan), one whole dispatch
+     call split into its parts, the soft-dispatch kernels at 32 x 2190 and
+     64 x 8760 beside their bounds and serial floors (the plain forward's
+     run at 64 x 8760 also holds phase 9's allocation), and a
+     dispatch-aware tuner step against an uncoupled one;
 each path's kernel launch counts are set to 0 just before it and read
 just after. Then one JSON line describing every ported kernel and, last,
 one JSON line naming the device. Without CUDA it exits non-zero and
@@ -140,12 +155,15 @@ def phase_device() -> str:
     return card
 
 
-KERNEL_SOURCES = ("fleet_scan", "soft_scan", "dispatch_scan")
+KERNEL_SOURCES = ("fleet_scan", "soft_scan", "dispatch_scan",
+                  "soft_dispatch")
 
-# A probe of the card, not a kernel of the port: one thread adds 1.0 to x
-# n times, each addition waiting on the last, so a chain takes n times the
-# latency of a dependent float64 addition (the step of dispatch_scan's
-# serial prefix walk).
+# Probes of the card, not kernels of the port. f64_add_chain: one thread
+# adds 1.0 to x n times, each addition waiting on the last, so a chain
+# takes n times the latency of a dependent float64 addition (the step of
+# dispatch_scan's serial prefix walk). warp_sum_chain: one warp runs n
+# float64 butterfly sums (five dependent shuffle + add steps each, the
+# reduction of the soft-dispatch kernels), each waiting on the last.
 F64_CHAIN_SRC = r"""
 #include <cuda_runtime.h>
 __global__ void f64_add_chain_kernel(double* out, int n) {
@@ -155,6 +173,18 @@ __global__ void f64_add_chain_kernel(double* out, int n) {
 }
 extern "C" int f64_add_chain(double* out, int n, void* stream) {
   f64_add_chain_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(out, n);
+  return (int)cudaGetLastError();
+}
+__global__ void warp_sum_chain_kernel(double* out, int n) {
+  double x = out[threadIdx.x] * 1e-9;
+  for (int i = 0; i < n; ++i) {
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    x *= 1e-30;
+  }
+  out[threadIdx.x] = x;
+}
+extern "C" int warp_sum_chain(double* out, int n, void* stream) {
+  warp_sum_chain_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(out, n);
   return (int)cudaGetLastError();
 }
 """
@@ -505,10 +535,16 @@ def _tune_grid(dev, n_markets: int = 8, n_systems: int = 4,
 def _counters():
     from repro_torch.kernels.dispatch_scan import dispatch_scan
     from repro_torch.kernels.fleet_scan import fleet_scan
+    from repro_torch.kernels.soft_dispatch import (soft_dispatch_fused_bwd,
+                                                   soft_dispatch_fused_fwd,
+                                                   soft_dispatch_scan)
     from repro_torch.kernels.soft_scan_vjp import (soft_scan_bwd,
                                                    soft_scan_fwd)
     return {"fleet_scan": fleet_scan, "soft_scan_fwd": soft_scan_fwd,
-            "soft_scan_bwd": soft_scan_bwd, "dispatch_scan": dispatch_scan}
+            "soft_scan_bwd": soft_scan_bwd, "dispatch_scan": dispatch_scan,
+            "soft_dispatch": soft_dispatch_scan,
+            "soft_dispatch_fused_fwd": soft_dispatch_fused_fwd,
+            "soft_dispatch_fused_bwd": soft_dispatch_fused_bwd}
 
 
 def _zero_counters() -> dict:
@@ -606,7 +642,7 @@ def phase_tuner(dev) -> dict:
     print(f"[tune] demo exit {rc}, {time.perf_counter() - t0:.2f} s")
     if rc != 0:
         raise AssertionError("tune_policies: guarantee broken")
-    return {"grid": grid, "launches": launches}
+    return {"grid": grid, "launches": launches, "res": res}
 
 
 def _check_reeval(res, launches: int, grid, dcfg, dev, *,
@@ -751,6 +787,400 @@ def phase_checkpoint(dev, grid) -> None:
     print(f"[ckpt] tune_loop_checkpointed {grid.n_rows} rows x "
           f"{grid.n_hours} h x {cfg.steps} steps: stopped after stage 2 "
           f"and resumed == uninterrupted, bit for bit")
+
+
+# (S, T, migrate_cost, min_dwell, tau): the reference's SOFT_CASES
+# (tests/test_soft_dispatch.py)
+SOFT_DISPATCH_CASES = [(1, 64, 0.0, 0, 5.0), (5, 333, 5.0, 0, 2.0),
+                       (8, 500, 5.0, 6, 0.5), (16, 700, 3.0, 3, 20.0)]
+# tolerances of the soft-dispatch kernels against their plain versions:
+# MW for the allocation, counts for the entering dwell, EUR/MWh for the
+# level; gradients relative to the larger of their own scale and the
+# cotangent's; d tau relative (see phase_soft_dispatch_vs_plain)
+SD_TOL = {"alloc": 1e-5, "dwell_in": 1e-4, "lam": 1e-3, "grad": 1e-4}
+
+
+def _soft_dispatch_case(s: int, t: int, mc: float, seed: int = 0,
+                        zero_hours=()):
+    """The reference's `_random_case` (normal prices, sites of 1-3 MW at
+    20% or 100% availability, a flat demand at half the leanest hour) with
+    its segment keys and order, and a positive cotangent g; CPU tensors."""
+    from repro_torch.dispatch import segment_keys, segment_rank
+
+    rng = np.random.default_rng(29 + seed)
+    prices = rng.normal(80, 40, (s, t)).astype(np.float32)
+    power = rng.uniform(1.0, 3.0, s).astype(np.float32)
+    on = (rng.uniform(size=(s, t)) > 0.3).astype(np.float32)
+    avail = power[:, None] * (0.2 + 0.8 * on)
+    demand = np.full(t, 0.5 * float(avail.sum(axis=0).min()), np.float32)
+    demand[list(zero_hours)] = 0.0
+    keys = segment_keys(prices, mc).astype(np.float32)
+    order = segment_rank(prices, mc)[0]
+    g = rng.uniform(0.5, 1.5, (s, t)).astype(np.float32)
+    return [torch.as_tensor(np.ascontiguousarray(x))
+            for x in (avail, keys, order, demand, g)]
+
+
+def _inv_taus(tau: float):
+    """(1 / tau, 1 / (tau mw_scale)) as float32 [1] tensors, rounded as
+    `soft_dispatch` rounds them (the reciprocal of the float32 tau)."""
+    it = 1.0 / torch.tensor([tau], dtype=torch.float32)
+    return it, it / torch.tensor(0.05)
+
+
+def _level_error(cpu, plain_fwd, lam_k, it, itm, dwell) -> tuple:
+    """The largest |kernel level - plain level| over the hours where the
+    two differ by at most SD_TOL["lam"], and the count of the other hours,
+    the gap hours. An hour may differ by more only where it is a gap hour
+    by structure (`soft_level_in_gap` at the plain version's state: the
+    fill flat at the demand between the two levels), and there the plain
+    hour at the kernel's level must place the same allocation (within
+    SD_TOL["alloc"]) as at its own. Any other hour off by more than
+    SD_TOL["lam"] fails."""
+    from repro_torch.kernels.ref import (soft_dispatch_hour_fixed,
+                                         soft_level_in_gap)
+
+    avail, keys, _, demand, _ = cpu
+    p_alloc, p_dwin, p_lam = plain_fwd
+    diff = (lam_k.double() - p_lam.double()).abs()
+    gap = torch.nonzero(diff > SD_TOL["lam"]).flatten().tolist()
+    for h in gap:
+        prev = p_alloc[:, h - 1] if h > 0 else torch.zeros_like(avail[:, 0])
+        if not soft_level_in_gap(prev, p_dwin[:, h], avail[:, h], keys[h],
+                                 demand[h], p_lam[h], lam_k[h], it[0],
+                                 min_dwell=dwell):
+            raise AssertionError(
+                f"hour {h}: the kernel's level {float(lam_k[h])} is off the "
+                f"plain version's {float(p_lam[h])} by {float(diff[h]):.3g} "
+                f"> {SD_TOL['lam']} outside a gap of the fill")
+        a, _ = soft_dispatch_hour_fixed(
+            prev, p_dwin[:, h], avail[:, h], keys[h], demand[h], lam_k[h],
+            it[0], itm[0], min_dwell=dwell)
+        if float((a - p_alloc[:, h]).abs().max()) > SD_TOL["alloc"]:
+            raise AssertionError(
+                f"hour {h}: the kernel's level {float(lam_k[h])} and the "
+                f"plain version's {float(p_lam[h])} place different loads")
+    well = diff[diff <= SD_TOL["lam"]]
+    return (float(well.max()) if well.numel() else 0.0), len(gap)
+
+
+def _err(a, b) -> float:
+    return float((a.cpu().double() - b.cpu().double()).abs().max())
+
+
+def _bwd_error(lab: str, back, want, g, it, itm) -> dict:
+    """The backward kernel's outputs against the plain version's: d avail,
+    d keys and d demand within SD_TOL["grad"] of the larger of their own
+    largest magnitude and the cotangent's, d tau within SD_TOL["grad"]
+    relative (floored at 1e-6 of the cotangent's sum). Returns the
+    errors."""
+    floor = float(g.abs().max())
+    out = {}
+    for name, x, w in zip(("d_avail", "d_keys", "d_demand"), back[:3],
+                          want[:3]):
+        out[name] = _err(x, w)
+        tol = SD_TOL["grad"] * max(float(w.abs().max()), floor)
+        if out[name] > tol:
+            raise AssertionError(f"{lab}: backward {name} off by "
+                                 f"{out[name]:.3g} > {tol:.3g}")
+    f_it, f_itm = float(it), float(itm)
+    d_tau = [-(f_it ** 2) * float(b[3]) - f_it * f_itm * float(b[4])
+             for b in (back, want)]
+    out["d_tau"] = abs(d_tau[0] - d_tau[1])
+    tol = SD_TOL["grad"] * max(abs(d_tau[1]), 1e-6 * float(g.abs().sum()))
+    if out["d_tau"] > tol:
+        raise AssertionError(f"{lab}: backward d_tau {d_tau[0]} vs "
+                             f"{d_tau[1]} (tolerance {tol:.3g})")
+    return out
+
+
+def phase_soft_dispatch_vs_plain(dev) -> dict:
+    """The three soft-dispatch kernels against their plain versions, run on
+    the CPU on the same inputs: the forward kernel against
+    `soft_dispatch_ref`, the fused forward against `soft_dispatch_fwd_ref`
+    (allocation within 1e-5 MW, entering dwell within 1e-4, level within
+    1e-3 EUR/MWh except in gap hours; see `_level_error`), the backward
+    against `soft_dispatch_bwd_ref` twice, on the kernel's own residuals
+    and on the plain version's (see `_bwd_error`), and the forward
+    kernel's allocation equal to the fused forward's bit for bit. Cases:
+    the reference's four soft cases, the tuner's 32 sites x 2190 h at
+    tau 30 and 0.3, zero-demand hours, and blocks of more than one warp
+    (64 sites, and 45 and 130, which are not multiples of 32). Returns
+    each case's largest error per kernel and its count of gap hours."""
+    from repro_torch.kernels.ref import (soft_dispatch_bwd_ref,
+                                         soft_dispatch_fwd_ref,
+                                         soft_dispatch_ref)
+    from repro_torch.kernels.soft_dispatch import (soft_dispatch_fused_bwd,
+                                                   soft_dispatch_fused_fwd,
+                                                   soft_dispatch_scan)
+
+    cases = [(f"{s} x {t}, fee {mc}, dwell {dw}, tau {tau}",
+              (s, t, mc, dw, tau, 0, ()))
+             for s, t, mc, dw, tau in SOFT_DISPATCH_CASES]
+    cases += [("tuner shape 32 x 2190, fee 5, dwell 4, tau 30",
+               (32, 2190, 5.0, 4, 30.0, 1, ())),
+              ("tuner shape 32 x 2190, fee 5, dwell 4, tau 0.3",
+               (32, 2190, 5.0, 4, 0.3, 1, ())),
+              ("zero-demand hours 8 x 300, fee 5, dwell 4, tau 3",
+               (8, 300, 5.0, 4, 3.0, 2, (0, 50, 51, 299))),
+              ("two warps 64 x 300, fee 5, dwell 4, tau 3",
+               (64, 300, 5.0, 4, 3.0, 3, ())),
+              ("a part warp 45 x 300, fee 5, dwell 4, tau 1",
+               (45, 300, 5.0, 4, 1.0, 4, ())),
+              ("five warps 130 x 200, fee 3, dwell 0, tau 2",
+               (130, 200, 3.0, 0, 2.0, 5, ()))]
+    out = {}
+    for label, (s, t, mc, dw, tau, seed, zero) in cases:
+        cpu = _soft_dispatch_case(s, t, mc, seed, zero)
+        avail, keys, order, demand, g = (x.to(dev) for x in cpu)
+        it, itm = _inv_taus(tau)
+        itd, itmd = it.to(dev), itm.to(dev)
+        alone = soft_dispatch_scan(avail, keys, order, demand, tau=tau,
+                                   min_dwell=dw)
+        alloc, dwin, lam = soft_dispatch_fused_fwd(
+            avail, keys, order, demand, itd, itmd, min_dwell=dw)
+        back = soft_dispatch_fused_bwd(avail, keys, demand, itd, itmd, alloc,
+                                       dwin, lam, g, min_dwell=dw)
+        p5 = soft_dispatch_ref(*cpu[:4], tau=tau, min_dwell=dw)
+        p6 = soft_dispatch_fwd_ref(*cpu[:4], it, itm, min_dwell=dw)
+        back_p = soft_dispatch_fused_bwd(avail, keys, demand, itd, itmd,
+                                         *(x.to(dev) for x in p6), g,
+                                         min_dwell=dw)
+        torch.cuda.synchronize()
+        lab = f"soft_dispatch {label}"
+        if not torch.equal(alone, alloc):
+            raise AssertionError(f"{lab}: the forward kernel's allocation "
+                                 "differs from the fused forward's")
+        if zero and bool((alloc[:, list(zero)] != 0.0).any()):
+            raise AssertionError(f"{lab}: load placed in a zero hour")
+        for x in back[:3] + back_p[:3]:
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"{lab}: non-finite gradient")
+        e5 = _err(alone, p5)
+        e6 = {"alloc": _err(alloc, p6[0]), "dwell_in": _err(dwin, p6[1])}
+        e6["lam"], n_gap = _level_error(cpu, p6, lam.cpu(), it, itm, dw)
+        if e5 > SD_TOL["alloc"]:
+            raise AssertionError(f"{lab}: forward kernel alloc off by "
+                                 f"{e5:.3g} > {SD_TOL['alloc']}")
+        for name, e in e6.items():
+            if e > SD_TOL[name]:
+                raise AssertionError(f"{lab}: fused forward {name} off by "
+                                     f"{e:.3g} > {SD_TOL[name]}")
+        e7 = _bwd_error(f"{lab}, own residuals", back, soft_dispatch_bwd_ref(
+            cpu[0], cpu[1], cpu[3], it, itm, alloc.cpu(), dwin.cpu(),
+            lam.cpu(), cpu[4], min_dwell=dw), cpu[4], it, itm)
+        e7p = _bwd_error(f"{lab}, plain residuals", back_p,
+                         soft_dispatch_bwd_ref(cpu[0], cpu[1], cpu[3], it,
+                                               itm, *p6, cpu[4],
+                                               min_dwell=dw), cpu[4], it, itm)
+        print(f"[kernel] {lab}: max |kernel - plain| forward alloc "
+              f"{e5:.3g}; fused forward "
+              + ", ".join(f"{k} {v:.3g}" for k, v in e6.items())
+              + "; backward on its own residuals "
+              + ", ".join(f"{k} {v:.3g}" for k, v in e7.items())
+              + ", on the plain version's "
+              + ", ".join(f"{k} {v:.3g}" for k, v in e7p.items())
+              + f"; {n_gap} gap hours of {t}; kernel 5 == kernel 6 bitwise")
+        out[label] = {"k5": e5, "k6": max(e6.values()),
+                      "k7": max(*e7.values(), *e7p.values()),
+                      "gap_hours": n_gap}
+    return out
+
+
+def phase_soft_to_hard(dev) -> dict:
+    """Soft -> hard convergence at full width through the entry points,
+    with the launch counts set to 0 just before and read just after: the
+    dispatch benchmark's 64 sites x 8760 h relaxed at tau 1e-3
+    (`soft_dispatch`, the forward kernel) against feasible `dispatch`
+    (`dispatch_scan`): CPC within rel 1e-3, delivered MWh within rel 1e-5,
+    as the reference's `test_soft_converges_to_hard_cpc` holds them."""
+    from repro_torch.dispatch import (dispatch, segment_keys, segment_rank,
+                                      summarize_alloc)
+    from repro_torch.kernels.soft_dispatch import soft_dispatch
+
+    _, problem = _dispatch_fleet(64, dev)
+    keys64 = segment_keys(problem.prices, problem.migrate_cost)
+    order, _ = segment_rank(problem.prices, problem.migrate_cost,
+                            keys=keys64)
+    args = [torch.as_tensor(np.ascontiguousarray(x), device=dev)
+            for x in (problem.avail_mw, keys64.astype(np.float32), order,
+                      problem.demand_mw)]
+    tau = 1e-3
+    counters = _zero_counters()
+    t0 = time.perf_counter()
+    soft = soft_dispatch(*args, tau=tau, min_dwell=problem.min_dwell_h)
+    hard = dispatch(problem, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if launches["soft_dispatch"] != 1 or launches["dispatch_scan"] != 1:
+        raise AssertionError(f"soft -> hard: launches {launches}")
+    soft_np = soft.cpu().numpy()
+    res = summarize_alloc(problem, soft_np)
+    rel_cpc = res.cpc / hard.cpc - 1.0
+    rel_mwh = res.delivered_mwh / hard.delivered_mwh - 1.0
+    print(f"[soft] soft_dispatch tau 1e-3 vs dispatch on 64 sites x "
+          f"{problem.avail_mw.shape[1]} h ({wall:.2f} s; launches "
+          f"{launches}): cpc {res.cpc:.6f} vs {hard.cpc:.6f} (rel "
+          f"{rel_cpc:.3g}), delivered {res.delivered_mwh:.3f} vs "
+          f"{hard.delivered_mwh:.3f} MWh (rel {rel_mwh:.3g}), largest "
+          f"allocation difference {np.abs(soft_np - hard.alloc_mw).max():.4g}"
+          " MW")
+    if not (abs(rel_cpc) <= 1e-3 and abs(rel_mwh) <= 1e-5):
+        raise AssertionError("soft -> hard: CPC or delivered MWh apart")
+    return {"launches": launches["soft_dispatch"], "args": args,
+            "soft": soft, "tau": tau, "min_dwell": problem.min_dwell_h}
+
+
+def _count_plain_calls(names):
+    """Wraps the named plain versions in `repro_torch.kernels.soft_dispatch`
+    with call counters; returns (counts, restore)."""
+    from repro_torch.kernels import soft_dispatch as mod
+
+    counts = dict.fromkeys(names, 0)
+    saved = {n: getattr(mod, n) for n in names}
+
+    def wrap(n):
+        def fn(*a, **k):
+            counts[n] += 1
+            return saved[n](*a, **k)
+        return fn
+    for n in names:
+        setattr(mod, n, wrap(n))
+
+    def restore():
+        for n, f in saved.items():
+            setattr(mod, n, f)
+    return counts, restore
+
+
+def phase_dispatch_aware_tuner(dev, rescore) -> dict:
+    """The dispatch-aware tuner at full width: `optimize` on the tuner grid
+    (256 rows x 2190 h, 200 steps) with `Coupling(dispatch=)` at the
+    config `phase_tuner`'s re-scoring used, launch counts set to 0 just
+    before and read just after (the fused soft-dispatch kernels once a
+    step each, their plain versions never); then 25 steps twice, bit for
+    bit equal."""
+    from repro_torch.dispatch import DispatchConfig
+    from repro_torch.tune import Coupling, TuneConfig, optimize
+
+    grid = _tune_grid(dev)
+    dcfg = DispatchConfig(demand_frac=0.3, migrate_cost=5.0, min_dwell_h=4)
+    cfg = TuneConfig(steps=200, coupling=Coupling(dispatch=dcfg))
+    plain, restore = _count_plain_calls(("soft_dispatch_ref",
+                                         "soft_dispatch_fwd_ref",
+                                         "soft_dispatch_bwd_ref"))
+    try:
+        counters = _zero_counters()
+        t0 = time.perf_counter()
+        res = optimize(grid, cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        restore()
+    print(f"[aware] optimize with Coupling(dispatch=) {grid.n_rows} rows x "
+          f"{grid.n_hours} h x {cfg.steps} steps: {wall:.2f} s wall "
+          f"({wall / cfg.steps * 1e3:.1f} ms per step, first call); "
+          f"launches {launches}; plain versions called {plain}")
+    for k in ("soft_dispatch_fused_fwd", "soft_dispatch_fused_bwd"):
+        if launches[k] != cfg.steps:
+            raise AssertionError(f"the dispatch-aware tuner launched {k} "
+                                 f"{launches[k]} times in {cfg.steps} steps")
+    if launches["soft_dispatch"] or any(plain.values()):
+        raise AssertionError("a plain soft-dispatch version (or the "
+                             "forward-only kernel) ran on the tuner path")
+    for k in ("loss", "dispatch_ratio"):
+        if not np.all(np.isfinite(res.history[k])):
+            raise AssertionError(f"history[{k!r}] not finite")
+    d = res.dispatch
+    best = min(d["cpc_tuned"], d["cpc_swept"])
+    if not (np.isfinite(best) and best <= d["cpc_swept"] * (1 + 1e-9)):
+        raise AssertionError("dispatch-aware: fleet CPC not finite or above "
+                             "the swept set's")
+    r = rescore.dispatch
+    print(f"[aware] fleet CPC on feasible dispatch: dispatch-aware tuned "
+          f"{d['cpc_tuned']:.4f}, swept {d['cpc_swept']:.4f}, chosen "
+          f"{d['chosen']}; re-score-only (phase_tuner) tuned "
+          f"{r['cpc_tuned']:.4f}, swept {r['cpc_swept']:.4f}; "
+          f"dispatch_ratio {res.history['dispatch_ratio'][0]:.4f} -> "
+          f"{res.history['dispatch_ratio'][-1]:.4f}; guard "
+          f"{res.guard_count}")
+
+    cfg25 = TuneConfig(steps=25, coupling=Coupling(dispatch=dcfg))
+    a, b = (optimize(grid, cfg25, device=dev) for _ in range(2))
+    same = all(torch.equal(x, y) for x, y in zip(a.params, b.params)) \
+        and np.array_equal(a.cpc, b.cpc) \
+        and a.dispatch["cpc_tuned"] == b.dispatch["cpc_tuned"] \
+        and a.dispatch["cpc_swept"] == b.dispatch["cpc_swept"] \
+        and np.array_equal(a.dispatch["tuned"].alloc_mw,
+                           b.dispatch["tuned"].alloc_mw)
+    if not same:
+        raise AssertionError("dispatch-aware optimize is not deterministic")
+    print("[aware] 25 steps twice: parameters, CPCs and the hard allocation "
+          "equal bit for bit")
+    return {"launches": launches, "grid": grid}
+
+
+def _acceptance_grid(dev):
+    """The reference's `_acceptance_grid` (tests/test_soft_dispatch.py): 4
+    markets x 4 systems x 16 policies = 256 rows x 600 h."""
+    from repro_torch.core.tco import make_system
+    from repro_torch.energy.markets import MarketParams
+    from repro_torch.fleet import PolicySpec, build_grid
+
+    t = 600
+    markets = [MarketParams(n_hours=t, seed=s) for s in range(4)]
+    systems = [make_system(float(psi) * t * 1.0 * 80.0, 1.0, float(t),
+                           device=dev) for psi in (0.5, 1.0, 2.0, 4.0)]
+    xs = (0.01, 0.02, 0.03, 0.05, 0.08, 0.10, 0.12, 0.15, 0.20, 0.25, 0.30,
+          0.40)
+    policies = [PolicySpec("ao")] + \
+        [PolicySpec(f"x{int(x * 100)}", x=x, off_level=0.25) for x in xs] + \
+        [PolicySpec("x3h", x=0.03, hysteresis=0.9, off_level=0.25),
+         PolicySpec("x8h", x=0.08, hysteresis=0.85, off_level=0.25),
+         PolicySpec("x15h", x=0.15, hysteresis=0.9, off_level=0.25)]
+    return build_grid(markets, systems, policies, device=dev)
+
+
+def phase_acceptance(dev) -> None:
+    """The reference's acceptance: on its 256-row grid (150 steps,
+    DispatchConfig(0.3, 4.0, 3)) the dispatch-aware fleet CPC on feasible
+    dispatch is no worse than the re-score-only path's; then the
+    `tune_policies --dispatch-soft` demo on the card, exit code 0."""
+    from repro_torch.dispatch import DispatchConfig
+    from repro_torch.examples import tune_policies
+    from repro_torch.tune import Coupling, TuneConfig, optimize
+
+    grid = _acceptance_grid(dev)
+    dcfg = DispatchConfig(demand_frac=0.3, migrate_cost=4.0, min_dwell_h=3)
+    t0 = time.perf_counter()
+    rescore = optimize(grid, TuneConfig(steps=150,
+                                        coupling=Coupling(reeval=dcfg)),
+                       device=dev)
+    aware = optimize(grid, TuneConfig(steps=150,
+                                      coupling=Coupling(dispatch=dcfg)),
+                     device=dev)
+    torch.cuda.synchronize()
+    cr = min(rescore.dispatch["cpc_tuned"], rescore.dispatch["cpc_swept"])
+    ca = min(aware.dispatch["cpc_tuned"], aware.dispatch["cpc_swept"])
+    print(f"[aware] acceptance grid {grid.n_rows} rows x {grid.n_hours} h x "
+          f"150 steps ({time.perf_counter() - t0:.2f} s): re-score-only "
+          f"{cr:.4f} (tuned {rescore.dispatch['cpc_tuned']:.4f}), "
+          f"dispatch-aware {ca:.4f} (tuned {aware.dispatch['cpc_tuned']:.4f}"
+          f"), swept {aware.dispatch['cpc_swept']:.4f}")
+    if not (np.isfinite(ca) and ca <= cr * (1 + 1e-9)
+            and ca <= aware.dispatch["cpc_swept"] * (1 + 1e-9)):
+        raise AssertionError("acceptance: dispatch-aware fleet CPC above "
+                             "the re-score-only path's")
+    print("[aware] repro_torch.examples.tune_policies --dispatch-soft on "
+          "the card:")
+    t0 = time.perf_counter()
+    rc = tune_policies.main(["--dispatch-soft", "--device", str(dev)])
+    print(f"[aware] demo exit {rc}, {time.perf_counter() - t0:.2f} s")
+    if rc != 0:
+        raise AssertionError("tune_policies --dispatch-soft: dispatch-aware "
+                             "fleet CPC above re-score-only")
 
 
 def _soft_bound(b: int, t: int, block_t: int, backward: bool,
@@ -1006,6 +1436,172 @@ def phase_dispatch_times(dev, flush, problem) -> dict:
     return out
 
 
+def _warp_sum_ns(dev) -> float:
+    """Latency of one dependent float64 warp butterfly sum (five shuffle +
+    add steps, and the probe's one multiply) on the card, in ns: the
+    difference of two chains (2e5 and 2e4 sums) timed by CUDA events."""
+    import ctypes
+
+    fn = ctypes.CDLL(str(PROBE_DIR / "libf64_add_chain.so")).warp_sum_chain
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    buf = torch.ones(32, dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def chain(n):
+        if fn(buf.data_ptr(), n, stream) != 0:
+            raise RuntimeError("warp sum chain launch failed")
+
+    lo, hi = 20_000, 200_000
+    ms = {n: _cuda_ms(lambda: chain(n), runs=5) for n in (lo, hi)}
+    return (ms[hi] - ms[lo]) * 1e6 / (hi - lo)
+
+
+def _soft_dispatch_bound(s: int, t: int, kernel: str,
+                         n_bisect: int = 30) -> tuple[float, str]:
+    """Least time for the function on an H100 SXM. Bytes, each input read
+    once and each output written once: the forward reads avail, keys,
+    order and demand and writes the allocation (32 S T + 4 T; the fused
+    forward also the entering dwell and the level, 36 S T + 8 T); the
+    backward as the tuner runs it (no d keys) reads avail, keys, demand,
+    alloc, dwell-in, level and the cotangent and writes d avail and
+    d demand (32 S T + 12 T). Operations: ~12 float32 operations per
+    segment evaluation, 3 S segments, n_bisect + 2 evaluations an hour
+    forward, ~60 per segment backward, against 67 TFLOP/s."""
+    if kernel == "bwd":
+        nbytes, ops = 32 * s * t + 12 * t, 60 * 3 * s * t
+    else:
+        nbytes = 32 * s * t + 4 * t if kernel == "fwd" \
+            else 36 * s * t + 8 * t
+        ops = 12 * 3 * s * t * (n_bisect + 2)
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+def phase_soft_dispatch_times(dev, flush, big) -> dict:
+    """The three soft-dispatch kernels (device only, L2 flushed) at the
+    tuner's 32 x 2190 (tau 3, dwell 4) and at the soft -> hard phase's
+    64 x 8760 (its problem, tau and dwell, ``big``), beside their bytes
+    bound and the serial floor of the design (T x 33 dependent warp sums
+    forward, T x 4 backward); the plain versions on the host at 32 x 2190,
+    and the forward's at 64 x 8760 (one run each). That plain run's
+    allocation holds the main path's (the forward kernel's at 64 x 8760)
+    within SD_TOL["alloc"], and the fused forward's allocation there
+    equals it bit for bit. Returns the rows by shape, with the forward
+    kernel's error at 64 x 8760."""
+    from repro_torch.kernels.ref import (soft_dispatch_bwd_ref,
+                                         soft_dispatch_fwd_ref,
+                                         soft_dispatch_ref)
+    from repro_torch.kernels.soft_dispatch import (soft_dispatch_fused_bwd,
+                                                   soft_dispatch_fused_fwd,
+                                                   soft_dispatch_scan)
+
+    red_ns = _warp_sum_ns(dev)
+    print(f"[time] dependent float64 warp sum on the card: {red_ns:.2f} ns")
+    out = {}
+    for label, s, t in (("32 x 2190", 32, 2190), ("64 x 8760", 64, 8760)):
+        if s == 64:
+            tau, dwell = big["tau"], big["min_dwell"]
+            avail, keys, order, demand = big["args"]
+            g = torch.ones_like(avail)
+            cpu = [x.cpu() for x in (avail, keys, order, demand, g)]
+        else:
+            tau, dwell = 3.0, 4
+            cpu = _soft_dispatch_case(s, t, 5.0, seed=1)
+            avail, keys, order, demand, g = (x.to(dev) for x in cpu)
+        it, itm = _inv_taus(tau)
+        itd, itmd = it.to(dev), itm.to(dev)
+        alloc, dwin, lam = soft_dispatch_fused_fwd(avail, keys, order,
+                                                   demand, itd, itmd,
+                                                   min_dwell=dwell)
+        kept = {}
+
+        def plain_fwd():
+            kept["alloc"] = soft_dispatch_ref(*cpu[:4], tau=tau,
+                                              min_dwell=dwell)
+        fns = {
+            "fwd": (lambda: soft_dispatch_scan(avail, keys, order, demand,
+                                               tau=tau, min_dwell=dwell),
+                    plain_fwd),
+            "fused_fwd": (lambda: soft_dispatch_fused_fwd(
+                avail, keys, order, demand, itd, itmd, min_dwell=dwell),
+                lambda: soft_dispatch_fwd_ref(*cpu[:4], it, itm,
+                                              min_dwell=dwell)),
+            "bwd": (lambda: soft_dispatch_fused_bwd(
+                avail, keys, demand, itd, itmd, alloc, dwin, lam, g,
+                min_dwell=dwell, want_dkeys=False),
+                lambda: soft_dispatch_bwd_ref(
+                    cpu[0], cpu[1], cpu[3], it, itm, alloc.cpu(),
+                    dwin.cpu(), lam.cpu(), cpu[4], min_dwell=dwell,
+                    want_dkeys=False))}
+        rows = {}
+        for name, (kernel, plain) in fns.items():
+            ms = _cuda_ms(kernel, runs=3, flush=flush, device_only=True)
+            plain_ms = _host_ms(plain, runs=1) \
+                if s == 32 or name == "fwd" else None
+            bound, by = _soft_dispatch_bound(s, t, name)
+            n_red = 4 if name == "bwd" else 33
+            serial = t * n_red * red_ns * 1e-6
+            rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                          "bound_by": by, "serial_ms": serial}
+            print(f"[time] soft_dispatch {name} {label} (tau {tau}, dwell "
+                  f"{dwell}): kernel {ms:.3f} ms "
+                  f"({ms * 1e6 / t:.0f} ns per hour), plain "
+                  + (f"{plain_ms:.1f} ms (host)" if plain_ms else "—")
+                  + f", bound {bound:.4f} ms ({by}), serial floor of the "
+                  f"design {serial:.3f} ms (T x {n_red} x {red_ns:.2f} ns), "
+                  f"{bound / ms:.3%} of the bound, {serial / ms:.1%} of the "
+                  "serial floor")
+        if s == 64:
+            if not torch.equal(alloc, big["soft"]):
+                raise AssertionError("soft_dispatch 64 x 8760: the fused "
+                                     "forward's allocation differs from the "
+                                     "forward kernel's")
+            rows["fwd"]["max_abs_err"] = _err(big["soft"], kept["alloc"])
+            print(f"[kernel] soft_dispatch 64 x 8760, tau {tau}, dwell "
+                  f"{dwell} (the soft -> hard run): max |kernel - plain| "
+                  f"alloc {rows['fwd']['max_abs_err']:.3g} MW; kernel 5 == "
+                  "kernel 6 bitwise")
+            if rows["fwd"]["max_abs_err"] > SD_TOL["alloc"]:
+                raise AssertionError(
+                    f"soft_dispatch 64 x 8760: the main path's allocation is "
+                    f"off the plain version's by "
+                    f"{rows['fwd']['max_abs_err']:.3g} > {SD_TOL['alloc']}")
+        out[label] = rows
+    return out
+
+
+def phase_aware_step_times(dev, grid, steps: int = 50) -> None:
+    """`tune_loop` at 256 x 2190 with the dispatch term against the same
+    loop without it, in turns within this call (coupled, uncoupled,
+    uncoupled, coupled), per step; and the device's busy share over a
+    profiled 10-step coupled loop."""
+    from repro_torch.dispatch import DispatchConfig
+    from repro_torch.tune import (TuneConfig, dispatch_coupling_from_grid,
+                                  init_from_grid, problem_from_grid,
+                                  tune_loop)
+
+    problem = problem_from_grid(grid)
+    raw0 = init_from_grid(grid)
+    coupling = dispatch_coupling_from_grid(grid, DispatchConfig(
+        demand_frac=0.3, migrate_cost=5.0, min_dwell_h=4))
+    cfg = TuneConfig(steps=steps)
+    runs = {"coupled": coupling, "uncoupled": None}
+    times = {k: [] for k in runs}
+    for k in ("coupled", "uncoupled", "uncoupled", "coupled"):
+        times[k].append(_host_ms(lambda: tune_loop(raw0, problem, runs[k],
+                                                   cfg=cfg), runs=1))
+    for k, v in times.items():
+        ms = statistics.median(v) / steps
+        print(f"[time] tune_loop {k} {grid.n_rows} rows x {grid.n_hours} h: "
+              f"{ms:.2f} ms per step (runs of {steps} steps: "
+              f"{', '.join(f'{x:.1f}' for x in v)} ms), "
+              f"{grid.n_rows / (ms / 1e3):.4g} row-steps/s")
+    _profile(lambda: tune_loop(raw0, problem, coupling,
+                               cfg=TuneConfig(steps=10)),
+             "dispatch-aware tune_loop 10 steps", runs=1)
+
+
 def _profile(fn, label: str, runs: int = 10) -> None:
     """Device time by kernel and the card's busy share over ``runs``
     back-to-back calls of ``fn``, from `torch.profiler` (CUPTI). The
@@ -1060,6 +1656,37 @@ def _soft_records(errs: dict, times: dict, launches: dict) -> list[dict]:
     return recs
 
 
+def _soft_dispatch_records(errs: dict, times: dict, launches: dict,
+                           k5_launches: int) -> list[dict]:
+    """The soft-dispatch kernels' entries of the ``kernels`` line: the
+    forward kernel at its main path's 64 x 8760 (soft -> hard), the fused
+    pair at the tuner's 32 x 2190 (the backward as the tuner runs it); the
+    errors are the largest over the cases of `phase_soft_dispatch_vs_plain`
+    and the main path's run at 64 x 8760 for the forward, over the
+    tuner-shape cases for the fused pair."""
+    src = "src/repro_torch/kernels/csrc/soft_dispatch.cu"
+    tuner = [e for k, e in errs.items() if k.startswith("tuner shape")]
+    recs = []
+    for name, line, shape, key, launch, err in (
+            ("soft_dispatch", 57, "64 x 8760", "fwd", k5_launches,
+             max(times["64 x 8760"]["fwd"]["max_abs_err"],
+                 *(e["k5"] for e in errs.values()))),
+            ("soft_dispatch_fused_fwd", 226, "32 x 2190", "fused_fwd",
+             launches["soft_dispatch_fused_fwd"],
+             max(e["k6"] for e in tuner)),
+            ("soft_dispatch_fused_bwd", 292, "32 x 2190", "bwd",
+             launches["soft_dispatch_fused_bwd"],
+             max(e["k7"] for e in tuner))):
+        t = times[shape][key]
+        recs.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": f"src/repro/kernels/soft_dispatch.py:{line}",
+            "launches": launch, "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
+    return recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs only on "
@@ -1073,14 +1700,26 @@ def main() -> int:
     phase_kernel_vs_plain(dev)
     soft_errs = phase_soft_vs_plain(dev)
     dispatch_err = phase_dispatch_vs_plain(dev)
+    sd_errs = phase_soft_dispatch_vs_plain(dev)
+    torch.cuda.synchronize()
     main_run = phase_main_path(dev)
     tune = phase_tuner(dev)
     phase_checkpoint(dev, tune["grid"])
     disp = phase_dispatch_path(dev)
+    to_hard = phase_soft_to_hard(dev)
+    torch.cuda.synchronize()
+    aware = phase_dispatch_aware_tuner(dev, tune["res"])
+    torch.cuda.synchronize()
+    phase_acceptance(dev)
+    torch.cuda.synchronize()
     fleet_rec, flush = phase_times(dev, main_run)
     soft_times = phase_soft_times(dev, flush)
     phase_tune_times(dev, tune["grid"])
     disp_times = phase_dispatch_times(dev, flush, disp["problem"])[64]
+    sd_times = phase_soft_dispatch_times(dev, flush, to_hard)
+    torch.cuda.synchronize()
+    phase_aware_step_times(dev, aware["grid"])
+    torch.cuda.synchronize()
     kernels = [fleet_rec] + _soft_records(soft_errs, soft_times,
                                           tune["launches"]) + [{
         "name": "dispatch_scan", "route": "cuda",
@@ -1089,7 +1728,9 @@ def main() -> int:
         "launches": disp["launches"], "max_abs_err": dispatch_err,
         "ms": disp_times["ms"], "plain_ms": disp_times["plain_ms"],
         "bound_ms": disp_times["bound_ms"],
-        "bound_by": disp_times["bound_by"], "library_ms": None}]
+        "bound_by": disp_times["bound_by"], "library_ms": None}] \
+        + _soft_dispatch_records(sd_errs, sd_times, aware["launches"],
+                                 to_hard["launches"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,12 +10,22 @@ hard (tau -> 0). Validation: `repro_torch.energy.block_bootstrap`
 resamples each market's trace into held-out pseudo-years; a tuned policy
 that only exploited one spike's placement loses its edge there.
 
+With ``--dispatch-soft`` the demo instead contrasts dispatch-aware tuning
+(gradients through the relaxed water-fill dispatcher,
+``coupling=Coupling(dispatch=...)``, its forward and backward in
+hand-written CUDA kernels on the card) against the re-score-only path
+(``coupling=Coupling(reeval=...)``): both are hard-scored on feasible
+`repro_torch.dispatch.dispatch`, and the per-site threshold table shows the
+swing-site effect.
+
   PYTHONPATH=src python -m repro_torch.examples.tune_policies   # the card
   PYTHONPATH=src python -m repro_torch.examples.tune_policies \
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.examples.tune_policies --dispatch-soft
 
 The exit code is the guarantee: 0 when the tuned CPC is no worse than the
-best swept policy of its cell on every row.
+best swept policy of its cell on every row (with ``--dispatch-soft``: when
+the dispatch-aware fleet CPC is no worse than the re-score-only one).
 """
 
 from __future__ import annotations
@@ -27,10 +37,11 @@ import torch
 
 from repro_torch.core.tco import make_system
 from repro_torch.device import resolve_device
+from repro_torch.dispatch import DispatchConfig
 from repro_torch.energy import block_bootstrap, region_params
 from repro_torch.fleet import PolicySpec, build_grid
-from repro_torch.tune import (TuneConfig, cell_best_rows, hard_cpc, optimize,
-                              problem_from_grid)
+from repro_torch.tune import (Coupling, TuneConfig, cell_best_rows, hard_cpc,
+                              optimize, problem_from_grid)
 
 
 def build(args, device=None):
@@ -82,6 +93,58 @@ def validate_on_resamples(grid, res, n_resamples: int, seed: int = 123):
     return np.stack(deltas)                       # [R, B]
 
 
+def dispatch_soft_demo(args, device) -> int:
+    """Dispatch-aware vs re-score-only on a one-policy-per-site fleet (the
+    soft selection is exact with one candidate per site): 4 German market
+    draws x 1 system (Psi 0.5) x the 8% policy at off level 0.3, 2190 h
+    and 200 steps (``--smoke``: 400 h and 40 steps)."""
+    hours = 400 if args.smoke else 2190
+    n_sites = 4
+    markets = [region_params("germany", seed=s).replace(n_hours=hours)
+               for s in range(n_sites)]
+    p_avg = markets[0].p_avg
+    systems = [make_system(0.5 * hours * 1.0 * p_avg, 1.0, float(hours),
+                           device=device)]
+    grid = build_grid(markets, systems,
+                      [PolicySpec("x8", x=0.08, off_level=0.3)],
+                      market_names=[f"de-seed{s}" for s in range(n_sites)],
+                      device=device)
+    dcfg = DispatchConfig(demand_frac=0.25, migrate_cost=4.0, min_dwell_h=3)
+    steps = 40 if args.smoke else 200
+    print(f"fleet: {n_sites} sites x {grid.n_hours} h, demand "
+          f"{dcfg.demand_frac:.0%} of ratings, fee {dcfg.migrate_cost}, "
+          f"dwell {dcfg.min_dwell_h} h; {steps} steps")
+
+    rescore = optimize(grid, TuneConfig(steps=steps,
+                                        coupling=Coupling(reeval=dcfg)),
+                       device=device)
+    aware = optimize(grid, TuneConfig(steps=steps,
+                                      coupling=Coupling(dispatch=dcfg)),
+                     device=device)
+    dr, da = rescore.dispatch, aware.dispatch
+    cpc_r = min(dr["cpc_tuned"], dr["cpc_swept"])
+    cpc_a = min(da["cpc_tuned"], da["cpc_swept"])
+
+    print(f"\n{'site':10s} {'isolated p_off':>14s} {'aware p_off':>12s} "
+          f"{'share iso':>10s} {'share aware':>12s}")
+    chosen_r = dr[dr["chosen"]] if dr["chosen"] else None
+    chosen_a = da[da["chosen"]] if da["chosen"] else None
+    share_r = chosen_r.site_mwh / chosen_r.delivered_mwh \
+        if chosen_r is not None else np.full(n_sites, np.nan)
+    share_a = chosen_a.site_mwh / chosen_a.delivered_mwh \
+        if chosen_a is not None else np.full(n_sites, np.nan)
+    for i, name in enumerate(grid.market_names):
+        print(f"{name:10s} {float(rescore.params.p_off[i]):14.1f} "
+              f"{float(aware.params.p_off[i]):12.1f} "
+              f"{share_r[i]:10.1%} {share_a[i]:12.1%}")
+    print(f"\nfleet CPC under hard feasible dispatch: re-score-only "
+          f"{cpc_r:.3f} ({dr['chosen']}) vs dispatch-aware {cpc_a:.3f} "
+          f"({da['chosen']})")
+    edge = 1.0 - cpc_a / cpc_r if np.isfinite(cpc_r) else float("nan")
+    print(f"dispatch-aware edge: {edge:.3%}")
+    return 0 if cpc_a <= cpc_r * (1.0 + 1e-9) else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--smoke", action="store_true",
@@ -91,10 +154,23 @@ def main(argv=None) -> int:
                     action=argparse.BooleanOptionalAction,
                     help="hand-written soft-scan VJP (default); --no-fused "
                     "uses autograd through the doubling scan")
+    ap.add_argument("--dispatch-soft", action="store_true",
+                    help="dispatch-aware tuning demo: gradients through "
+                    "the relaxed water-fill vs re-score-only, with the "
+                    "swing-site threshold table")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--trace", metavar="DIR", default=None,
+                    help="record a telemetry run into DIR (comes with the "
+                    "telemetry slice)")
     args = ap.parse_args(argv)
+    if args.trace:
+        raise NotImplementedError(
+            "--trace: telemetry comes to the port with the telemetry slice "
+            "(ROADMAP queue 1 item 9)")
     dev = resolve_device(args.device)
+    if args.dispatch_soft:
+        return dispatch_soft_demo(args, dev)
 
     grid = build(args, dev)
     cfg = TuneConfig(steps=40 if args.smoke else 300, fused=args.fused)

@@ -25,6 +25,9 @@ BUILD_DIR = (_HERE.parents[2] / "build" / "repro_torch_kernels"
              if _HERE.parents[1].name == "src" else _HERE / "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source only: the soft-dispatch kernels round every float32
+# operation as their plain version does, with no fused multiply-add
+SOURCE_FLAGS = {"soft_dispatch": ("-fmad=false",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}   # one CDLL per library per process
 
@@ -39,9 +42,14 @@ def nvcc_path() -> str:
     return found
 
 
+def flags(name: str) -> tuple:
+    """nvcc's flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    key = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 
 
@@ -55,7 +63,7 @@ def build(name: str) -> str:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            [nvcc_path(), *flags(name), "-o", tmp, str(CSRC / f"{name}.cu")],
             capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}.cu:\n"

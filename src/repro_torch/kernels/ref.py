@@ -334,3 +334,495 @@ def dispatch_ref(avail: torch.Tensor, rank: torch.Tensor,
                                           min_dwell=min_dwell)
         out[h] = prev
     return out.T.contiguous().to(avail.device)
+
+
+# ---------------------------------------------------------------------------
+# The relaxed (entropic) water-fill: plain versions of the three soft-dispatch
+# kernels (``csrc/soft_dispatch.cu``).
+#
+# Arithmetic, shared with the kernels: every element-wise quantity is
+# float32 (float64 for float64 inputs), each operation rounded once (the
+# kernels are built without fused multiply-adds); exp and log1p are
+# evaluated in float64 and rounded once to float32 (`_exp_rn`), so both
+# sides get the correctly rounded value, where CUDA's expf and the host's
+# exp differ in the last bit; every reduction over the 3S segments adds
+# float32 terms in float64 and is rounded once where a float32 value is
+# needed (the Newton residual ``demand - sum`` is then taken in float32, as
+# the reference takes it); the hard-level prefix is summed sequentially in
+# float64 in sorted order; the renormalisation factor and its adjoint are
+# formed in float64 (an hour whose fill sum is tiny stays finite). The kernels add the other
+# float64 sums in another fixed order, so they agree with these functions
+# within a tolerance, not bit for bit. That matters: in an hour whose
+# demand equals a prefix of the sorted widths (with dwell locks and a flat
+# demand, every hour), the level lies in a gap between keys, the Newton
+# step extrapolates a vanishing slope and is clipped at 40 tau, and a
+# rounding-level change in the residual can move the allocation by O(1)
+# MW, which the dwell ledger then carries forward.
+# ---------------------------------------------------------------------------
+
+_WL_TINY = 1e-30       # absolute floor for water-level denominators
+_WL_SIGMA_SPAN = 40.0  # sigmoid(+-40) saturates in float32 and float64: the
+                       # soft water level lives within +-40 tau of the hard
+                       # one
+_DWELL_CNT_SCALE = 0.05  # dwell-count temperature per price-unit tau
+
+
+def _exp_rn(x: torch.Tensor) -> torch.Tensor:
+    """exp(x) rounded once to x's dtype: a float32 x is exponentiated in
+    float64 (under one float64 ulp of error) and rounded to float32, as
+    the soft-dispatch kernels do."""
+    if x.dtype == torch.float64:
+        return torch.exp(x)
+    return torch.exp(x.double()).to(x.dtype)
+
+
+def _log1p_rn(x: torch.Tensor) -> torch.Tensor:
+    """log1p(x) rounded once to x's dtype (see `_exp_rn`)."""
+    if x.dtype == torch.float64:
+        return torch.log1p(x)
+    return torch.log1p(x.double()).to(x.dtype)
+
+
+def _sig_rn(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)) with the correctly rounded exp of `_exp_rn`."""
+    return 1.0 / (1.0 + _exp_rn(-x))
+
+
+def _softplus_rn(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) = max(x, 0) + log1p(exp(-|x|)), the value of
+    `jax.nn.softplus`, with `_exp_rn` and `_log1p_rn`."""
+    return torch.clamp(x, min=0.0) + _log1p_rn(_exp_rn(-torch.abs(x)))
+
+
+class _Logistic(torch.autograd.Function):
+    """`_sig_rn` with the backward ``g s (1 - s)`` from the forward's s
+    (the VJP of `jax.nn.sigmoid`): autograd through ``1 / (1 + exp(-x))``
+    would multiply 0 by an infinite ``exp(-x)`` where x is very negative."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = _sig_rn(x)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * s * (1.0 - s)
+
+
+class _Softplus(torch.autograd.Function):
+    """`_softplus_rn` with the backward ``g sigmoid(x)`` everywhere, x = 0
+    included (autograd through max and abs would give 1 there)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _softplus_rn(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * _sig_rn(x)
+
+
+def _sum64(x: torch.Tensor) -> torch.Tensor:
+    """Sum of all elements, accumulated in float64 (0-dim, float64)."""
+    return x.double().sum()
+
+
+def _bisect_level(keys: torch.Tensor, widths: torch.Tensor, demand, lam0,
+                  inv_tau, *, n_bisect: int = 30) -> torch.Tensor:
+    """The non-differentiable half of `soft_water_level`: fixed-count
+    bisection of ``sum_j widths_j sigmoid((lam - keys_j) / tau) = demand``
+    from the bracket ``lam0 +- 40 tau``, without gradient. Each step
+    compares the float64 sum with the demand."""
+    with torch.no_grad():
+        span = _WL_SIGMA_SPAN / inv_tau
+        lo, hi = lam0 - span, lam0 + span
+        d64 = torch.as_tensor(demand).double()
+        for _ in range(n_bisect):
+            mid = 0.5 * (lo + hi)
+            below = _sum64(widths * _sig_rn((mid - keys) * inv_tau)) < d64
+            lo = torch.where(below, mid, lo)
+            hi = torch.where(below, hi, mid)
+        return 0.5 * (lo + hi)
+
+
+def soft_water_level_fixed(keys: torch.Tensor, widths: torch.Tensor, demand,
+                           lam_hat, inv_tau) -> torch.Tensor:
+    """The differentiable half of `soft_water_level`: one Newton correction
+    from an already solved ``lam_hat`` (no gradient), clipped to the
+    bracket radius 40 tau. The Newton denominator carries no gradient
+    either; the residual ``demand - sum_j w_j sigma_j`` does."""
+    lam_hat = lam_hat.detach()
+    span = _WL_SIGMA_SPAN / inv_tau
+    sig = _Logistic.apply((lam_hat - keys) * inv_tau)
+    ws = widths * sig
+    denom = torch.clamp(_sum64(ws * (1.0 - sig)).to(ws.dtype) * inv_tau,
+                        min=_WL_TINY).detach()
+    step = (demand - _sum64(ws).to(ws.dtype)) / denom
+    return lam_hat + torch.minimum(torch.maximum(step, -span), span)
+
+
+def soft_water_level(keys: torch.Tensor, widths: torch.Tensor, demand, lam0,
+                     inv_tau, *, n_bisect: int = 30) -> torch.Tensor:
+    """Level of the entropic water-fill: the root of
+    ``sum_j widths_j sigmoid((lam - keys_j) / tau) = demand``, found by
+    bisection from the hard level ``lam0`` (without gradient), then one
+    differentiable Newton step (`soft_water_level_fixed`)."""
+    lam_hat = _bisect_level(keys, widths, demand, lam0, inv_tau,
+                            n_bisect=n_bisect)
+    return soft_water_level_fixed(keys, widths, demand, lam_hat, inv_tau)
+
+
+def _hour_widths(prev: torch.Tensor, dwell: torch.Tensor, avail: torch.Tensor,
+                 *, inv_tau, min_dwell: int) -> torch.Tensor:
+    """[3S] locked / retain / fresh segment widths of one hour."""
+    held = torch.minimum(prev, avail)
+    if min_dwell > 0:
+        inv_tau_cnt = inv_tau / _DWELL_CNT_SCALE
+        locked = _Logistic.apply((dwell - 0.5) * inv_tau_cnt) * held
+    else:
+        locked = torch.zeros_like(held)
+    return torch.cat([locked, held - locked, avail - held])
+
+
+def soft_dispatch_hour_fixed(prev: torch.Tensor, dwell: torch.Tensor,
+                             avail: torch.Tensor, keys: torch.Tensor, demand,
+                             lam_hat, inv_tau, inv_tau_mw, *, min_dwell: int
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One soft-dispatch hour given an already bisected level ``lam_hat``:
+    every operation that carries gradient (widths, Newton correction, fill,
+    renormalisation to the demand, dwell dynamics). Returns
+    ``(alloc [S], dwell' [S])``."""
+    s = prev.shape[0]
+    widths = _hour_widths(prev, dwell, avail, inv_tau=inv_tau,
+                          min_dwell=min_dwell)
+    lam = soft_water_level_fixed(keys, widths, demand, lam_hat, inv_tau)
+    fill = widths * _Logistic.apply((lam - keys) * inv_tau)
+    d64 = torch.as_tensor(demand).double()
+    scale = d64 / torch.maximum(_sum64(fill), 1e-9 * d64 + _WL_TINY)
+    fill = fill * scale.to(fill.dtype)
+    alloc = (fill[:s] + fill[s:2 * s]) + fill[2 * s:]
+    if min_dwell > 0:
+        inv_tau_cnt = inv_tau / _DWELL_CNT_SCALE
+        moved_in = _Logistic.apply((alloc - prev - DWELL_EVENT_MW)
+                                   * inv_tau_mw)
+        count_down = _Softplus.apply((dwell - 1.0) * inv_tau_cnt) \
+            / inv_tau_cnt
+        dwell = moved_in * min_dwell + (1.0 - moved_in) * count_down
+    return alloc, dwell
+
+
+def soft_dispatch_hour_parts(prev: torch.Tensor, dwell: torch.Tensor,
+                             avail: torch.Tensor, keys: torch.Tensor,
+                             order: torch.Tensor, demand, *, inv_tau,
+                             inv_tau_mw, min_dwell: int, n_bisect: int = 30):
+    """One hour of the temperature-tau softmin water-fill, the relaxation
+    of `dispatch_alloc_hour`: returns ``(alloc [S], dwell' [S], lam_hat)``.
+
+    The bracket is seeded at the hard level: the key of the first segment,
+    in ``order`` (the ascending sort of ``keys``), at which the inclusive
+    prefix of the sorted widths reaches the demand (the count of prefixes
+    below it, clamped to 3S - 1), the prefix summed sequentially in float64
+    (PyTorch's CPU `cumsum` of float64, and the kernels' walk). Widths are
+    non-negative for avail >= 0, so the prefix only grows.
+    prev/dwell/avail: [S]; keys: [3S]; order: [3S] (int)."""
+    n3 = keys.shape[0]
+    widths = _hour_widths(prev, dwell, avail, inv_tau=inv_tau,
+                          min_dwell=min_dwell)
+    order = order.long()
+    with torch.no_grad():
+        cums = torch.cumsum(widths[order].double(), 0)
+        below = torch.sum(cums < torch.as_tensor(demand).double())
+        lam0 = keys[order][torch.clamp(below, max=n3 - 1)].detach()
+    lam_hat = _bisect_level(keys.detach(), widths.detach(), demand, lam0,
+                            inv_tau, n_bisect=n_bisect)
+    alloc, dwell = soft_dispatch_hour_fixed(
+        prev, dwell, avail, keys, demand, lam_hat, inv_tau, inv_tau_mw,
+        min_dwell=min_dwell)
+    return alloc, dwell, lam_hat
+
+
+def soft_dispatch_hour(prev, dwell, avail, keys, order, demand, *, inv_tau,
+                       inv_tau_mw, min_dwell: int, n_bisect: int = 30):
+    """`soft_dispatch_hour_parts` without the level: ``(alloc, dwell')``."""
+    alloc, dwell, _ = soft_dispatch_hour_parts(
+        prev, dwell, avail, keys, order, demand, inv_tau=inv_tau,
+        inv_tau_mw=inv_tau_mw, min_dwell=min_dwell, n_bisect=n_bisect)
+    return alloc, dwell
+
+
+@torch.no_grad()
+def soft_level_in_gap(prev: torch.Tensor, dwell: torch.Tensor,
+                      avail: torch.Tensor, keys: torch.Tensor, demand, lam_a,
+                      lam_b, inv_tau, *, min_dwell: int) -> bool:
+    """Whether two bisected levels of one hour may differ by more than the
+    bisection resolves: the hour's fill ``F(lam) = sum_j w_j sigmoid((lam -
+    key_j) / tau)`` (float32 terms, float64 sum, as the bisection takes it)
+    equals the demand to within rounding (1e-12 of the total width) at
+    both ends of the middle half of the interval between them. F is
+    monotone, so it is then flat at the demand there: a gap of the fill,
+    where bisections whose sums differ only in their order may settle
+    anywhere. Elsewhere a level is determined to the resolution."""
+    widths = _hour_widths(prev, dwell, avail, inv_tau=inv_tau,
+                          min_dwell=min_dwell)
+    lo, hi = sorted((float(lam_a), float(lam_b)))
+    q = 0.25 * (hi - lo)
+    tol = 1e-12 * float(_sum64(widths)) + _WL_TINY
+    for x in (lo + q, hi - q):
+        lam = torch.tensor(x, dtype=keys.dtype)
+        fill = float(_sum64(widths * _sig_rn((lam - keys) * inv_tau)))
+        if abs(fill - float(demand)) > tol:
+            return False
+    return True
+
+
+def _tie(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Share of the cotangent of ``minimum(a, b)`` that goes to ``a``: 1
+    where a < b, 0 where a > b, 1/2 at a tie (as JAX and PyTorch split
+    it)."""
+    return torch.where(a < b, 1.0, torch.where(a > b, 0.0, 0.5)).to(a.dtype)
+
+
+@torch.no_grad()
+def soft_dispatch_hour_grad(prev: torch.Tensor, dwell: torch.Tensor,
+                            avail: torch.Tensor, keys: torch.Tensor, demand,
+                            lam_hat, inv_tau, inv_tau_mw,
+                            u_alloc: torch.Tensor, u_dwell: torch.Tensor, *,
+                            min_dwell: int):
+    """Adjoint of one fixed-level hour, written out by hand: the exact
+    transpose of `soft_dispatch_hour_fixed` under the output cotangents
+    ``(u_alloc, u_dwell)``. The backward kernel computes the same, in the
+    same order of operations. Returns ``(d_prev, d_dwell, d_avail,
+    d_keys, d_demand, d_inv_tau, d_inv_tau_mw)``; the last two are float64
+    0-dim tensors. Ties of ``minimum``, ``maximum`` and the clip split the
+    cotangent in halves; every sigmoid's adjoint is ``s (1 - s)`` from its
+    forward value."""
+    dt = prev.dtype
+    s = prev.shape[0]
+    d64 = torch.as_tensor(demand).double()
+    # ---- the forward, recomputed
+    held = torch.minimum(prev, avail)
+    if min_dwell > 0:
+        itc = inv_tau / _DWELL_CNT_SCALE
+        gate = _sig_rn((dwell - 0.5) * itc)
+        locked = gate * held
+    else:
+        locked = torch.zeros_like(held)
+    w = torch.cat([locked, held - locked, avail - held])
+    span = _WL_SIGMA_SPAN / inv_tau
+    s0 = _sig_rn((lam_hat - keys) * inv_tau)
+    ws0 = w * s0
+    denom = torch.clamp(_sum64(ws0 * (1.0 - s0)).to(dt) * inv_tau,
+                        min=_WL_TINY)
+    step = (demand - _sum64(ws0).to(dt)) / denom
+    c1 = torch.maximum(step, -span)
+    lam = lam_hat + torch.minimum(c1, span)
+    sg = _sig_rn((lam - keys) * inv_tau)
+    fill0 = w * sg
+    f_sum = _sum64(fill0)
+    floor = 1e-9 * d64 + _WL_TINY
+    den = torch.maximum(f_sum, floor)
+    r64 = d64 / den
+    r = r64.to(dt)
+    fill = fill0 * r
+    alloc = (fill[:s] + fill[s:2 * s]) + fill[2 * s:]
+    # ---- the reverse
+    ua = u_alloc.to(dt)
+    d_prev = torch.zeros_like(prev)
+    d_dwell = u_dwell.to(dt)             # without locks dwell' = dwell
+    d_itc = torch.zeros((), dtype=torch.float64, device=prev.device)
+    d_itm = torch.zeros((), dtype=torch.float64, device=prev.device)
+    if min_dwell > 0:
+        xm = (alloc - prev) - DWELL_EVENT_MW
+        mi = _sig_rn(xm * inv_tau_mw)
+        zc = (dwell - 1.0) * itc
+        cd = _softplus_rn(zc) / itc
+        ud = u_dwell.to(dt)
+        d_mi = ud * (min_dwell - cd)
+        d_cd = ud * (1.0 - mi)
+        d_zm = d_mi * mi * (1.0 - mi)
+        ua = ua + d_zm * inv_tau_mw
+        d_prev = -(d_zm * inv_tau_mw)
+        d_itm = _sum64(d_zm * xm)
+        d_zc = (d_cd / itc) * _sig_rn(zc)
+        d_dwell = d_zc * itc
+        d_itc = _sum64(-(d_cd * cd) / itc + d_zc * (dwell - 1.0))
+    ua3 = torch.cat([ua, ua, ua])
+    # the renormalisation, in float64
+    dr = _sum64(ua3.double() * fill0.double())
+    dd = dr / den
+    d_den = -dr * r64 / den
+    share = _tie(floor, f_sum).double()      # 1: the floor is below F
+    dd = dd + 1e-9 * d_den * (1.0 - share)
+    dfill0 = ua3 * r + (d_den * share).to(dt)
+    d_w = dfill0 * sg
+    d_z = dfill0 * w * sg * (1.0 - sg)
+    d_lam = _sum64(d_z).to(dt) * inv_tau
+    d_keys = -(d_z * inv_tau)
+    d_it = _sum64(d_z * (lam - keys))
+    # the clip: minimum(maximum(step, -span), span)
+    to_c1 = _tie(c1, span)
+    dc1 = d_lam * to_c1
+    d_span = d_lam * (1.0 - to_c1)
+    to_step = 1.0 - _tie(step, -span)
+    d_step = dc1 * to_step
+    d_span = d_span - dc1 * (1.0 - to_step)
+    d_it = d_it + (d_span * (-span / inv_tau)).double()
+    # the Newton step
+    q = d_step / denom
+    dd = dd + q.double()
+    d_w = d_w + (-q) * s0
+    d_z0 = (-q) * w * s0 * (1.0 - s0)
+    d_keys = d_keys - d_z0 * inv_tau
+    d_it = d_it + _sum64(d_z0 * (lam_hat - keys))
+    # the widths
+    dw0, dw1, dw2 = d_w[:s], d_w[s:2 * s], d_w[2 * s:]
+    d_avail = dw2
+    if min_dwell > 0:
+        d_locked = dw0 - dw1
+        d_held = (dw1 - dw2) + d_locked * gate
+        d_zg = d_locked * held * gate * (1.0 - gate)
+        d_dwell = d_dwell + d_zg * itc
+        d_itc = d_itc + _sum64(d_zg * (dwell - 0.5))
+    else:
+        d_held = dw1 - dw2
+    to_prev = _tie(prev, avail)
+    d_prev = d_prev + d_held * to_prev
+    d_avail = d_avail + d_held * (1.0 - to_prev)
+    d_it = d_it + d_itc / _DWELL_CNT_SCALE
+    return (d_prev, d_dwell, d_avail, d_keys, dd.to(dt), d_it, d_itm)
+
+
+def _soft_dispatch_dtype(avail: torch.Tensor) -> torch.dtype:
+    return torch.float64 if avail.dtype == torch.float64 else torch.float32
+
+
+def _soft_dispatch_run(a: torch.Tensor, keys: torch.Tensor,
+                       order: torch.Tensor, demand: torch.Tensor, it, itm, *,
+                       min_dwell: int, n_bisect: int):
+    """The hour loop of `soft_dispatch_ref` and `soft_dispatch_fwd_ref`:
+    one Python step per hour over ``a`` [S, T], in its dtype and on its
+    device. Returns ``(alloc [S, T], dwell_in [S, T], lam_hat [T])``, where
+    ``dwell_in`` is each hour's entering dwell state and ``lam_hat`` its
+    bisected level; the allocation carries autograd's graph when run with
+    grad."""
+    s, t = a.shape
+    prev = torch.zeros(s, dtype=a.dtype, device=a.device)
+    dwell = torch.zeros_like(prev)
+    allocs, dwins, lams = [], [], []
+    for h in range(t):
+        dwins.append(dwell)
+        prev, dwell, lam = soft_dispatch_hour_parts(
+            prev, dwell, a[:, h], keys[h], order[h], demand[h], inv_tau=it,
+            inv_tau_mw=itm, min_dwell=min_dwell, n_bisect=n_bisect)
+        allocs.append(prev)
+        lams.append(lam)
+    return (torch.stack(allocs, dim=1), torch.stack(dwins, dim=1),
+            torch.stack(lams))
+
+
+@torch.no_grad()
+def soft_dispatch_fwd_ref(avail: torch.Tensor, keys: torch.Tensor,
+                          order: torch.Tensor, demand: torch.Tensor, inv_tau,
+                          inv_tau_mw, *, min_dwell: int = 0,
+                          n_bisect: int = 30):
+    """Plain version of the residual-emitting forward kernel: ``(alloc
+    [S, T], dwell_in [S, T], lam_hat [T])`` (see `_soft_dispatch_run`), in
+    the inputs' dtype (float64 stays float64, anything else float32), on
+    the inputs' device."""
+    dt = _soft_dispatch_dtype(avail)
+    it = torch.as_tensor(inv_tau, device=avail.device).to(dt).reshape(())
+    itm = torch.as_tensor(inv_tau_mw, device=avail.device).to(dt).reshape(())
+    return _soft_dispatch_run(avail.to(dt), keys.to(dt), order,
+                              demand.to(dt), it, itm, min_dwell=min_dwell,
+                              n_bisect=n_bisect)
+
+
+@torch.no_grad()
+def soft_dispatch_bwd_ref(avail: torch.Tensor, keys: torch.Tensor,
+                          demand: torch.Tensor, inv_tau, inv_tau_mw,
+                          alloc: torch.Tensor, dwin: torch.Tensor,
+                          lam: torch.Tensor, g: torch.Tensor, *,
+                          min_dwell: int = 0, want_dkeys: bool = True):
+    """Plain version of the backward kernel: walks the hours in reverse
+    from the forward's residuals (``alloc``, ``dwin``, ``lam``; the entering
+    allocation is ``alloc`` shifted by one hour), carrying the adjoints of
+    the (prev alloc, dwell) state and the two tau sums, and applies
+    `soft_dispatch_hour_grad` with ``u_alloc = g_t + d prev_{t+1}``.
+    Returns ``(d_avail [S, T], d_keys [T, 3S] or None, d_demand [T],
+    sum d_inv_tau, sum d_inv_tau_mw)``, the sums in float64."""
+    dt = _soft_dispatch_dtype(avail)
+    a, al, dw, gg = (x.to(dt).T for x in (avail, alloc, dwin, g))
+    keys, demand, lam = keys.to(dt), demand.to(dt), lam.to(dt)
+    it = torch.as_tensor(inv_tau, device=a.device).to(dt).reshape(())
+    itm = torch.as_tensor(inv_tau_mw, device=a.device).to(dt).reshape(())
+    t, s = a.shape
+    u_prev = torch.zeros(s, dtype=dt, device=a.device)
+    u_dwell = torch.zeros_like(u_prev)
+    acc_it = torch.zeros((), dtype=torch.float64, device=a.device)
+    acc_itm = torch.zeros_like(acc_it)
+    d_av = torch.empty((t, s), dtype=dt, device=a.device)
+    d_ke = torch.empty((t, 3 * s), dtype=dt, device=a.device)
+    d_de = torch.empty(t, dtype=dt, device=a.device)
+    for h in range(t - 1, -1, -1):
+        prev = al[h - 1] if h > 0 else torch.zeros_like(u_prev)
+        u_prev, u_dwell, d_av[h], d_ke[h], d_de[h], d_it, d_itm = \
+            soft_dispatch_hour_grad(prev, dw[h], a[h], keys[h], demand[h],
+                                    lam[h], it, itm, gg[h] + u_prev, u_dwell,
+                                    min_dwell=min_dwell)
+        acc_it = acc_it + d_it
+        acc_itm = acc_itm + d_itm
+    return (d_av.T.contiguous(), d_ke if want_dkeys else None, d_de,
+            acc_it, acc_itm)
+
+
+def _soft_dispatch_args(avail, keys, demand, tau, mw_scale):
+    dt = _soft_dispatch_dtype(avail)
+    inv_tau = 1.0 / torch.as_tensor(tau, device=avail.device).to(dt)
+    return (avail.to(dt), keys.to(dt), demand.to(dt), inv_tau,
+            inv_tau / torch.tensor(mw_scale, dtype=dt))
+
+
+def soft_dispatch_ref(avail: torch.Tensor, keys: torch.Tensor,
+                      order: torch.Tensor, demand: torch.Tensor, *, tau,
+                      min_dwell: int = 0, mw_scale: float = 0.05,
+                      n_bisect: int = 30) -> torch.Tensor:
+    """Sequential oracle of the soft (differentiable) dispatch scan, and
+    the plain version of the forward kernel.
+
+    avail: [S, T] available MW; keys/order: [T, 3S] segment keys
+    (`repro_torch.dispatch.segment_keys`) and their ascending sort; demand:
+    [T] MW. Returns the relaxed allocation [S, T], differentiable by
+    autograd in ``avail``, ``keys``, ``demand`` and ``tau`` (the native
+    baseline of the fused VJP), converging to `dispatch_ref`'s hard
+    allocation as tau -> 0. ``mw_scale`` sets the MW temperature of the
+    dwell reset gate as ``tau * mw_scale``. Float64 avail computes in
+    float64, anything else in float32, on the inputs' device."""
+    a, keys, demand, it, itm = _soft_dispatch_args(avail, keys, demand, tau,
+                                                   mw_scale)
+    return _soft_dispatch_run(a, keys, order, demand, it, itm,
+                              min_dwell=min_dwell, n_bisect=n_bisect)[0]
+
+
+def soft_dispatch_grad_ref(avail: torch.Tensor, keys: torch.Tensor,
+                           order: torch.Tensor, demand: torch.Tensor,
+                           g: torch.Tensor, *, tau, min_dwell: int = 0,
+                           mw_scale: float = 0.05, n_bisect: int = 30):
+    """Sequential oracle of the fused backward: the output cotangent ``g``
+    [S, T] pulled back through the hour recurrence by
+    `soft_dispatch_fwd_ref` then `soft_dispatch_bwd_ref`. Returns
+    ``(d_avail [S, T], d_keys [T, 3S], d_demand [T], d_tau [])``, with
+    d_tau = -itau^2 sum d_itau - itau itau_mw sum d_itau_mw."""
+    a, keys, demand, it, itm = _soft_dispatch_args(avail, keys, demand, tau,
+                                                   mw_scale)
+    alloc, dwin, lam = soft_dispatch_fwd_ref(
+        a, keys, order, demand, it, itm, min_dwell=min_dwell,
+        n_bisect=n_bisect)
+    d_av, d_ke, d_de, acc_it, acc_itm = soft_dispatch_bwd_ref(
+        a, keys, demand, it, itm, alloc, dwin, lam, g, min_dwell=min_dwell)
+    d_tau = (-(it.double() ** 2) * acc_it
+             - it.double() * itm.double() * acc_itm).to(a.dtype)
+    return d_av, d_ke, d_de, d_tau

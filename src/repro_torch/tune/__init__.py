@@ -9,15 +9,20 @@ per-row policy variables are reparameterized onto the feasible set
 `repro_torch.optim.adamw`) descends each row's CPC/CPC_AO ratio while
 annealing tau toward the hard scan. The result is re-evaluated hard and
 is never worse than the best swept policy of the row's (market, system)
-cell when the hardware parameters are uniform within the cell.
+cell when the hardware parameters are uniform within the cell. With
+``Coupling(dispatch=...)`` the objective also differentiates through the
+relaxed cross-site water-fill (`repro_torch.kernels.soft_dispatch`), so
+sites learn their fleet role.
 
   quickstart:  PYTHONPATH=src python -m repro_torch.examples.tune_policies
 """
 
 from repro_torch.execution import Coupling, ExecutionPlan
-from repro_torch.tune.objective import (PhysicalPolicy, PolicyParams,
-                                        TuneProblem, cell_index,
+from repro_torch.tune.objective import (DispatchCoupling, PhysicalPolicy,
+                                        PolicyParams, TuneProblem,
+                                        cell_index,
                                         dispatch_coupling_from_grid,
+                                        dispatch_coupling_from_numpy,
                                         init_from_grid, inverse_transform,
                                         problem_from_grid, soft_costs,
                                         soft_dispatch_ratio, soft_objective,
@@ -26,10 +31,11 @@ from repro_torch.tune.optimizer import (TuneConfig, TuneResult,
                                         cell_best_rows, hard_cpc, optimize,
                                         tune_loop, tune_loop_checkpointed)
 
-__all__ = ["Coupling", "ExecutionPlan",
+__all__ = ["Coupling", "DispatchCoupling", "ExecutionPlan",
            "PhysicalPolicy", "PolicyParams", "TuneProblem", "TuneConfig",
            "TuneResult", "cell_best_rows", "cell_index",
-           "dispatch_coupling_from_grid", "hard_cpc", "init_from_grid",
+           "dispatch_coupling_from_grid", "dispatch_coupling_from_numpy",
+           "hard_cpc", "init_from_grid",
            "inverse_transform", "problem_from_grid", "soft_costs",
            "soft_dispatch_ratio", "soft_objective", "transform", "optimize",
            "tune_loop", "tune_loop_checkpointed"]

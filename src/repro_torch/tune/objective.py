@@ -25,11 +25,18 @@ Both penalties are quadratic in the *relative* violation and weight each
 row by 1 / |its (market, system) cell|, so a grid carrying K candidate
 policies per site charges the site's mean once rather than K copies.
 
-Later slices: the dispatch-aware term (``dispatch=``, the reference's
-`DispatchCoupling`) comes with dispatch-aware tuning, ``workload=`` with
-the workload slice, and ``axis_name=`` / ``scale_rows=`` (sharded coupled
-objectives) with the multi-GPU slice; each raises `NotImplementedError`
-until then.
+Dispatch-aware tuning goes further than penalties: with a
+`DispatchCoupling` (built by `dispatch_coupling_from_grid` from a
+`repro_torch.dispatch.DispatchConfig`), the soft objective blends in the
+fleet CPC of the *dispatched* load — the relaxed schedules offer soft
+availability, the softmin water-fill (`repro_torch.kernels.soft_dispatch`,
+hand-written CUDA kernels on the card) places the demand over it at the
+same annealed temperature, and the gradient of the dispatched cost flows
+back into every site's thresholds.
+
+Later slices: ``workload=`` comes with the workload slice, and
+``axis_name=`` / ``scale_rows=`` (sharded coupled objectives) with the
+multi-GPU slice; each raises `NotImplementedError` until then.
 """
 
 from __future__ import annotations
@@ -39,7 +46,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.dispatch import (DispatchConfig, resolve_demand,
+                                  segment_keys, segment_rank)
 from repro_torch.fleet.engine import fleet_costs
+from repro_torch.kernels.soft_dispatch import soft_dispatch, soft_shed
 from repro_torch.kernels.soft_scan import soft_scan_parts
 
 
@@ -85,18 +95,100 @@ class TuneProblem(NamedTuple):
         return self.prices[self.market_idx]
 
 
-_DISPATCH_SLICE = ("dispatch-aware tuning comes to the port with its own "
-                   "slice (ROADMAP queue 1 item 8)")
+_FEAS_MARGIN_SCALE = 1.05  # the soft feasibility term defends demand plus
+                           # 5%: the annealed capacity slightly overstates
+                           # the hard schedules near the thresholds
+
+_SHED_FLOOR_FRAC = 1e-3   # relief: the soft water-fill always dispatches
+                          # at least this fraction of the demand (a ~zero
+                          # effective demand parks the level off the
+                          # sigmoid tails, and the implicit backward
+                          # divides by the vanished occupancy slope)
+
+_SEL_SCALE = 0.01   # per-cell candidate-selection temperature per unit
+                    # tau: candidate rows of a (market, system) cell are
+                    # blended by a softmax over their own soft CPC ratio
+                    # at tau * this, converging to the hard re-scoring's
+                    # per-cell argmin as tau anneals
 
 
-def dispatch_coupling_from_grid(grid, dcfg):
-    """Not yet ported (ROADMAP queue 1 item 8)."""
-    raise NotImplementedError(_DISPATCH_SLICE)
+class DispatchCoupling(NamedTuple):
+    """Static (non-tuned) data of the soft fleet-dispatch term, on the
+    tuner's device.
+
+    The dispatched fleet deploys one policy per (market, system) cell, the
+    physical site; candidate rows of a cell are blended by a soft
+    selection (see `soft_dispatch_ratio`). ``keys``/``order`` are the
+    host-precomputed `repro_torch.dispatch.segment_keys` sort the softmin
+    water-fill reuses; ``cpc_ref`` is a constant O(fleet-CPC) normaliser
+    that makes the dispatch term dimensionless. The float fields stay
+    float64 as the host computed them; the objective casts them to its
+    own dtype.
+    """
+
+    cell_id: torch.Tensor       # [B] int64 row -> covered cell (site)
+    prices: torch.Tensor        # [C, T] site prices
+    keys: torch.Tensor          # [T, 3C] segment keys
+    order: torch.Tensor         # [T, 3C] int32 ascending key sort
+    demand: torch.Tensor        # [T] fleet demand profile (MW)
+    fixed: torch.Tensor         # [B] per-row fixed cost
+    power: torch.Tensor         # [B] per-row site rating (MW)
+    migrate_cost: torch.Tensor  # [] EUR per MW moved
+    cpc_ref: torch.Tensor       # [] constant fleet-CPC normaliser
 
 
-def soft_dispatch_ratio(*args, **kwargs):
-    """Not yet ported (ROADMAP queue 1 item 8)."""
-    raise NotImplementedError(_DISPATCH_SLICE)
+def dispatch_coupling_from_numpy(fields, device=None) -> DispatchCoupling:
+    """A `DispatchCoupling` from arrays: a mapping of the field names, or
+    any record with those attributes (the reference package's coupling
+    converted with ``np.asarray``). Integers keep their meaning (cell_id
+    int64, order int32), floats land as float64, on ``device`` (default
+    the CPU)."""
+    get = (fields.__getitem__ if isinstance(fields, dict)
+           else lambda k: getattr(fields, k))
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    out = {}
+    for name in DispatchCoupling._fields:
+        a = np.array(get(name))
+        dtype = (torch.int64 if name == "cell_id" else
+                 torch.int32 if name == "order" else torch.float64)
+        out[name] = torch.as_tensor(a, device=dev).to(dtype)
+    return DispatchCoupling(**out)
+
+
+def dispatch_coupling_from_grid(grid, dcfg: DispatchConfig
+                                ) -> DispatchCoupling:
+    """Build the soft-dispatch coupling data for a `ScenarioGrid` under a
+    `repro_torch.dispatch.DispatchConfig` (same demand semantics as
+    `build_problem`: scalar, [T] profile, or ``demand_frac`` of the summed
+    per-site ratings). Host numpy, as in the reference; the result lands on
+    the grid's device."""
+    _, inverse, counts = np.unique(cell_index(grid), return_inverse=True,
+                                   return_counts=True)
+    c = len(counts)
+    t = grid.n_hours
+    cell_market = np.zeros(c, np.int64)
+    cell_market[inverse] = _np(grid.market_idx).astype(np.int64)
+    prices_c = _np(grid.prices).astype(np.float64)[cell_market]  # [C, T]
+
+    # per-site rating for the demand_frac default: candidate rows of a
+    # cell share the site, so average their (normally equal) ratings
+    w = 1.0 / counts[inverse]                                    # [B]
+    power_c = np.zeros(c)
+    np.add.at(power_c, inverse, w * _np(grid.power).astype(np.float64))
+
+    demand = np.asarray(resolve_demand(dcfg, power_c, t), np.float64)
+    keys = segment_keys(prices_c, float(dcfg.migrate_cost))
+    order, _ = segment_rank(prices_c, float(dcfg.migrate_cost), keys=keys)
+    fixed_c = np.zeros(c)
+    np.add.at(fixed_c, inverse, w * _np(grid.fixed).astype(np.float64))
+    cpc_ref = (fixed_c.sum()
+               + float((demand * prices_c.mean(axis=0)).sum())) \
+        / max(float(demand.sum()), 1e-9)
+    return dispatch_coupling_from_numpy(dict(
+        cell_id=inverse, prices=prices_c, keys=keys, order=order,
+        demand=demand, fixed=_np(grid.fixed), power=_np(grid.power),
+        migrate_cost=float(dcfg.migrate_cost), cpc_ref=cpc_ref),
+        device=grid.prices.device)
 
 
 _LVL_SCALE = 1.0 - 1e-6   # keeps off_level < 1 even when the float32
@@ -217,11 +309,106 @@ def soft_costs(raw: PolicyParams, problem: TuneProblem, tau, *,
     return costs, draw, cap
 
 
+def soft_dispatch_ratio(cap: torch.Tensor, row_ratio: torch.Tensor,
+                        coupling: DispatchCoupling, tau, *,
+                        min_dwell: int = 0, mw_scale: float = 0.05,
+                        fused: bool = False,
+                        axis_name: Optional[str] = None,
+                        relief=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fleet-level dispatched-CPC ratio of the relaxed schedules.
+
+    ``cap`` is the [B, T] soft capacity trajectory and ``row_ratio`` the
+    per-row soft CPC ratio (both from `soft_costs`). Candidate rows are
+    blended onto their sites by a per-cell softmax over ``-row_ratio`` at
+    temperature ``tau * _SEL_SCALE``; the softmin water-fill
+    (`repro_torch.kernels.soft_dispatch`) places the demand profile over
+    the resulting soft availability at the same temperature as the scan
+    relaxation; and the realised fleet cost (selected fixed + energy at
+    the allocation + matched migration flow) is normalised by
+    ``coupling.cpc_ref``. Returns ``(ratio, shortfall)``, ``shortfall``
+    being the sum over hours of the squared relative availability deficit
+    of the selected fleet against a 5%-margined demand.
+
+    ``relief`` (a duck-typed `repro_torch.dispatch.Relief`) prices
+    infeasibility instead: the smoothed shortfall (`soft_shed`) is shed
+    from the demand the water-fill places, its cost enters the fleet
+    numerator at the value-of-lost-load price, and the shortfall penalty
+    is zero.
+
+    The per-cell reductions are a [C, B] one-hot matrix applied by matrix
+    products (deterministic on the card, unlike ``index_add_``'s float
+    atomics). ``axis_name`` (sharded objectives) comes with the multi-GPU
+    slice and raises `NotImplementedError`.
+    """
+    if axis_name is not None:
+        raise NotImplementedError(
+            "soft_dispatch_ratio(axis_name=): sharded coupled objectives "
+            "come to the port with torch.distributed (ROADMAP queue 1 item "
+            "13)")
+    dtype, dev = cap.dtype, cap.device
+    c = coupling.prices.shape[0]
+    onehot = (coupling.cell_id[None, :]
+              == torch.arange(c, device=dev)[:, None])            # [C, B]
+    members = onehot.to(dtype)
+
+    # per-cell soft selection over candidates (stabilised softmax)
+    tau_t = torch.as_tensor(tau, device=dev).to(dtype)
+    score = -row_ratio / torch.clamp(tau_t * _SEL_SCALE, min=1e-12)
+    peak = torch.where(onehot, score[None, :],
+                       torch.tensor(float("-inf"), dtype=dtype,
+                                    device=dev)).amax(dim=1)      # [C]
+    expw = torch.exp(score - peak[coupling.cell_id])
+    norm = members @ expw
+    sel = expw / norm[coupling.cell_id]                           # [B]
+
+    avail = (sel * coupling.power.to(dtype))[:, None] * cap
+    avail_c = members @ avail                                     # [C, T]
+    fixed_fleet = torch.sum(sel * coupling.fixed.to(dtype))
+    demand = coupling.demand.to(dtype)
+    if relief is None:
+        d_eff = demand
+    else:
+        # shed >= the exact shortfall, so the dispatched demand never
+        # exceeds total availability; floor it so the water level stays on
+        # the sigmoid tails (the VoLL charge keeps the unclamped shed)
+        shed = soft_shed(torch.sum(avail_c, dim=0), demand, tau_t,
+                         mw_scale=mw_scale)                       # [T]
+        d_eff = torch.maximum(demand - shed, _SHED_FLOOR_FRAC * demand)
+    alloc = soft_dispatch(avail_c, coupling.keys.to(dtype), coupling.order,
+                          d_eff, tau=tau_t, min_dwell=min_dwell,
+                          mw_scale=mw_scale, fused=fused)         # [C, T]
+
+    energy = torch.sum(alloc * coupling.prices.to(dtype))
+    prev = torch.cat([torch.zeros_like(alloc[:, :1]), alloc[:, :-1]], dim=1)
+    delta = alloc - prev
+    inflow = torch.sum(torch.relu(delta), dim=0)                  # [T]
+    outflow = torch.sum(torch.relu(-delta), dim=0)
+    # matched cross-site flow min(in, out): demand ramps are not moves
+    moved = 0.5 * (inflow + outflow - torch.abs(inflow - outflow))
+    migration = coupling.migrate_cost.to(dtype) * torch.sum(moved)
+    delivered = torch.clamp(torch.sum(alloc), min=1e-9)
+    cpc_ref = coupling.cpc_ref.to(dtype)
+    if relief is None:
+        cpc_fleet = (fixed_fleet + energy + migration) / delivered
+        short = torch.relu(_FEAS_MARGIN_SCALE * demand
+                           - torch.sum(avail_c, dim=0)) \
+            / torch.clamp(demand, min=1e-9)
+        return cpc_fleet / cpc_ref, torch.sum(short ** 2)
+    shed_cost = float(relief.voll_eur_mwh) * torch.sum(shed)
+    cpc_fleet = (fixed_fleet + energy + migration + shed_cost) / delivered
+    return cpc_fleet / cpc_ref, torch.zeros((), dtype=dtype, device=dev)
+
+
 def soft_objective(raw: PolicyParams, problem: TuneProblem, tau, *,
                    power_cap_mw: Optional[float] = None,
                    min_up_hours: Optional[float] = None,
                    penalty_weight: float = 10.0,
-                   dispatch=None,
+                   dispatch: Optional[DispatchCoupling] = None,
+                   dispatch_blend: float = 0.5,
+                   dispatch_min_dwell: int = 0,
+                   dispatch_mw_scale: float = 0.05,
+                   dispatch_fused: bool = False,
+                   relief=None,
                    workload=None,
                    fused: bool = True, block_t: int = 256,
                    reduction: str = "mean",
@@ -236,16 +423,30 @@ def soft_objective(raw: PolicyParams, problem: TuneProblem, tau, *,
     absolute costs contribute comparably and one learning rate serves the
     whole grid. Returns ``(loss, aux)`` with per-row diagnostics.
 
+    With ``dispatch`` (a `DispatchCoupling`) the isolated-site term is
+    blended with the fleet-level dispatched-CPC ratio of the relaxed
+    schedules (`soft_dispatch_ratio`, co-annealed at the same ``tau``):
+
+        loss = (1 - blend) mean_b ratio_b + blend ratio_fleet + ...
+
+    plus an availability-shortfall penalty under ``penalty_weight``
+    (``relief`` replaces it with priced soft shed). ``dispatch_fused``
+    differentiates the water-fill through its fused VJP (the CUDA kernels
+    on the card); ``False`` is autograd through the plain per-hour
+    operations, which only the CPU runs. The dispatch term couples every
+    row through the shared water level, so the objective is then not
+    batch-separable (the chunked tuner refuses it).
+
     ``reduction="sum"`` (the tuner's setting) sums the per-row ratios
-    instead of averaging and scales the coupling penalties by B to
-    compensate: without coupling terms every per-row gradient is then
-    independent of which other rows share the batch, which is what lets
-    the chunked tuner reproduce the single program row for row.
-    ``dispatch``, ``workload``, ``axis_name`` and ``scale_rows`` come with
-    later slices and raise `NotImplementedError`.
+    instead of averaging and scales the coupling penalties (and the
+    dispatch term) by B to compensate: without coupling terms every
+    per-row gradient is then independent of which other rows share the
+    batch, which is what lets the chunked tuner reproduce the single
+    program row for row. ``aux["base"]`` / ``aux["coupled"]`` split the
+    loss into its separable and fleet-coupled parts. ``workload``,
+    ``axis_name`` and ``scale_rows`` come with later slices and raise
+    `NotImplementedError`.
     """
-    if dispatch is not None:
-        raise NotImplementedError(_DISPATCH_SLICE)
     if workload is not None:
         raise NotImplementedError(
             "soft_objective(workload=) comes to the port with the workload "
@@ -255,8 +456,8 @@ def soft_objective(raw: PolicyParams, problem: TuneProblem, tau, *,
             "soft_objective(axis_name=, scale_rows=): sharded coupled "
             "objectives come to the port with torch.distributed (ROADMAP "
             "queue 1 item 13)")
-    costs, draw, _ = soft_costs(raw, problem, tau, fused=fused,
-                                block_t=block_t, row_prices=row_prices)
+    costs, draw, cap = soft_costs(raw, problem, tau, fused=fused,
+                                  block_t=block_t, row_prices=row_prices)
     ratio = costs.cpc / costs.cpc_ao
     loss = torch.sum(ratio) if reduction == "sum" else torch.mean(ratio)
     scale = ratio.shape[0] if reduction == "sum" else 1.0
@@ -276,8 +477,20 @@ def soft_objective(raw: PolicyParams, problem: TuneProblem, tau, *,
         penalty = penalty + deficit ** 2
 
     zero = torch.zeros((), dtype=ratio.dtype, device=ratio.device)
-    coupled = scale * penalty_weight * penalty
+    dratio = zero
+    base = loss
+    coupled = zero
+    if dispatch is not None:
+        dratio, shortfall = soft_dispatch_ratio(
+            cap, ratio, dispatch, tau, min_dwell=dispatch_min_dwell,
+            mw_scale=dispatch_mw_scale, fused=dispatch_fused, relief=relief)
+        base = (1.0 - dispatch_blend) * loss
+        coupled = dispatch_blend * scale * dratio
+        loss = base + coupled
+        penalty = penalty + shortfall
+    coupled = coupled + scale * penalty_weight * penalty
+    loss = loss + scale * penalty_weight * penalty
     aux = {"ratio": ratio, "cpc": costs.cpc, "up_hours": costs.up_hours,
-           "penalty": penalty, "dispatch_ratio": zero, "base": loss,
+           "penalty": penalty, "dispatch_ratio": dratio, "base": base,
            "coupled": coupled, "workload": torch.zeros_like(ratio)}
-    return loss + coupled, aux
+    return loss, aux

@@ -31,11 +31,15 @@ reported CPC is never worse than the swept grid it started from.
 With ``Coupling(reeval=DispatchConfig(...))`` the selected and the
 best-swept policy sets are re-scored on the feasible cross-site
 dispatcher (`repro_torch.dispatch`, the CUDA `dispatch_scan` kernel on
-the card) and reported in `TuneResult.dispatch`.
+the card) and reported in `TuneResult.dispatch`. With
+``Coupling(dispatch=DispatchConfig(...))`` the annealed objective also
+differentiates through the relaxed water-fill dispatcher
+(`repro_torch.tune.objective.soft_dispatch_ratio`): every step launches
+the fused soft-dispatch forward and backward kernels on the card, and
+the result is re-scored on feasible dispatch under the same config.
 
-Later slices: sharded plans (ROADMAP queue 1 item 13), the soft dispatch
-coupling ``Coupling(dispatch=)`` (item 8), workloads (item 12), the
-telemetry side-outputs and events (item 9), and the reference's
+Later slices: sharded plans (ROADMAP queue 1 item 13), workloads (item
+12), the telemetry side-outputs and events (item 9), and the reference's
 deprecated `TuneConfig` spellings (``chunk_rows=``, ``power_cap_mw=``,
 ...).
 """
@@ -60,8 +64,10 @@ from repro_torch.fleet.grid import concat_rows, row_chunks
 from repro_torch.kernels.fleet_scan import fleet_scan
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState, adamw_update,
                                      tree_map)
-from repro_torch.tune.objective import (PhysicalPolicy, PolicyParams,
-                                        TuneProblem, cell_index,
+from repro_torch.tune.objective import (DispatchCoupling, PhysicalPolicy,
+                                        PolicyParams, TuneProblem,
+                                        cell_index,
+                                        dispatch_coupling_from_grid,
                                         init_from_grid, inverse_transform,
                                         problem_from_grid, soft_objective,
                                         transform)
@@ -73,11 +79,11 @@ class TuneConfig:
 
     Execution layout and fleet coupling are the `repro_torch.execution`
     pair: ``plan`` (`ExecutionPlan`: single or chunked) and ``coupling``
-    (`Coupling`: power cap, aggregate-compute floor, the hard-dispatch
-    re-scoring ``reeval`` and its shed pricing ``relief``). The
-    chunk-under-coupling legality rule is checked here, at construction.
-    Options of later slices (the soft coupling ``Coupling(dispatch=)``,
-    ``workload``) raise `NotImplementedError` here.
+    (`Coupling`: power cap, aggregate-compute floor, the dispatch-aware
+    term ``dispatch``, the hard-dispatch re-scoring ``reeval`` and its
+    shed pricing ``relief``). The chunk-under-coupling legality rule is
+    checked here, at construction. ``workload`` (a later slice) raises
+    `NotImplementedError` here.
     """
 
     steps: int = 300
@@ -91,9 +97,11 @@ class TuneConfig:
                                  # of its *own* CPC ratio (sum-reduction)
     tau_start: float = 30.0      # EUR/MWh-scale smoothing at the start
     tau_end: float = 0.3         # nearly hard by the end
-    fused: bool = True           # hand-written soft-scan VJP (False:
-                                 # autograd through the doubling scan, the
-                                 # native baseline)
+    fused: bool = True           # hand-written soft-scan and
+                                 # soft-dispatch VJPs (False: autograd
+                                 # through the plain operations, the
+                                 # native baseline; the dispatch-aware
+                                 # term runs it on the CPU only)
     block_t: int = 256           # checkpoint block length (hours)
     eval_stages: int = 4         # hard (tau -> 0) re-evaluations spread
                                  # over the anneal -> TuneResult.stage_cpc;
@@ -104,11 +112,6 @@ class TuneConfig:
 
     def __post_init__(self):
         rc = self.resolved_coupling
-        if rc.dispatch is not None:
-            raise NotImplementedError(
-                "TuneConfig: Coupling(dispatch=), the soft dispatch-aware "
-                "coupling, comes to the port with the dispatch-aware tuning "
-                "slice (ROADMAP queue 1 item 8)")
         if self.workload is not None:
             raise NotImplementedError(
                 "TuneConfig(workload=) comes to the port with the workload "
@@ -219,10 +222,14 @@ def _init_carry(raw0: PolicyParams):
     return (raw0, state0, torch.ones(b, dtype=torch.float32, device=dev))
 
 
-def _make_step(problem: TuneProblem, cfg: TuneConfig, b: int,
+def _make_step(problem: TuneProblem, cfg: TuneConfig,
+               coupling: Optional[DispatchCoupling], b: int,
                p_rows: torch.Tensor):
     """The per-step function of the Adam loop, shared by `tune_loop` and
-    the stage segments of `tune_loop_checkpointed`.
+    the stage segments of `tune_loop_checkpointed`. ``coupling`` switches
+    on the dispatch-aware term; on the card it needs ``cfg.fused`` (the
+    fused kernels), since autograd through the plain water-fill is the
+    CPU's baseline only.
 
     Every step carries a branchless finite-step guard: a row whose soft
     CPC ratio or gradient is not finite has its gradient zeroed, its
@@ -233,8 +240,15 @@ def _make_step(problem: TuneProblem, cfg: TuneConfig, b: int,
     per-step reject count streams out as ``history["guard_rejects"]``.
     """
     rc = cfg.resolved_coupling
+    if coupling is not None and not cfg.fused and p_rows.is_cuda:
+        raise ValueError(
+            "TuneConfig(fused=False) with Coupling(dispatch=) on the card: "
+            "the dispatch-aware term differentiates the water-fill through "
+            "its fused kernels; use TuneConfig(fused=True) (autograd through "
+            "the plain per-hour operations is the CPU's baseline)")
     opt = AdamWConfig(lr=cfg.lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
                       weight_decay=0.0, clip_norm=cfg.clip_norm)
+    min_dwell = rc.dispatch.min_dwell_h if rc.dispatch is not None else 0
 
     def step(carry, tau):
         raw, st, lr_scale = carry
@@ -243,8 +257,13 @@ def _make_step(problem: TuneProblem, cfg: TuneConfig, b: int,
             loss, aux = soft_objective(
                 PolicyParams(*leaves), problem, tau,
                 power_cap_mw=rc.power_cap_mw, min_up_hours=rc.min_up_hours,
-                penalty_weight=rc.penalty_weight, fused=cfg.fused,
-                block_t=cfg.block_t, reduction="sum", row_prices=p_rows)
+                penalty_weight=rc.penalty_weight, dispatch=coupling,
+                dispatch_blend=rc.dispatch_blend,
+                dispatch_min_dwell=min_dwell,
+                dispatch_mw_scale=rc.dispatch_mw_scale,
+                dispatch_fused=cfg.fused, relief=rc.relief_config,
+                fused=cfg.fused, block_t=cfg.block_t, reduction="sum",
+                row_prices=p_rows)
             grads = PolicyParams(*torch.autograd.grad(loss, leaves))
         ratio = aux["ratio"].detach()
         ok = (torch.isfinite(ratio) & torch.isfinite(grads.raw_off)
@@ -252,7 +271,7 @@ def _make_step(problem: TuneProblem, cfg: TuneConfig, b: int,
               & torch.isfinite(grads.raw_lvl))                    # [B]
         out = {"loss": loss.detach() / b, "tau": tau,
                "penalty": aux["penalty"].detach(),
-               "dispatch_ratio": aux["dispatch_ratio"],
+               "dispatch_ratio": aux["dispatch_ratio"].detach(),
                "guard_rejects": torch.sum((~ok).to(torch.float32))}
         g_safe = tree_map(lambda g: torch.where(ok, g, 0.0), grads)
         new_p, new_st, _ = adamw_update(g_safe, st, raw, opt, per_row=True,
@@ -278,13 +297,13 @@ def _make_step(problem: TuneProblem, cfg: TuneConfig, b: int,
     return step
 
 
-def _run_steps(carry, problem: TuneProblem, cfg: TuneConfig, lo: int,
-               hi: int, p_rows: torch.Tensor):
+def _run_steps(carry, problem: TuneProblem, coupling, cfg: TuneConfig,
+               lo: int, hi: int, p_rows: torch.Tensor):
     """Steps ``lo``..``hi`` of the anneal, then the boundary's hard
     re-evaluation. Returns ``(carry, outs, cpc_rows)``, all on the
     device."""
     b = carry[0].raw_off.shape[0]
-    step = _make_step(problem, cfg, b, p_rows)
+    step = _make_step(problem, cfg, coupling, b, p_rows)
     taus = _tau_schedule(cfg, p_rows.device)
     outs = []
     for i in range(lo, hi):
@@ -309,18 +328,16 @@ def tune_loop(raw0: PolicyParams, problem: TuneProblem, coupling=None, *,
     back to the host. Returns ``(raw_f, history, cpc_tuned)`` as device
     tensors: history arrays are [steps], ``history["stage_cpc"]``
     [stages] (its last entry is the mean of ``cpc_tuned``, the final hard
-    re-evaluation). ``coupling`` (the dispatch term) comes with a later
-    slice."""
-    if coupling is not None:
-        raise NotImplementedError(
-            "tune_loop(coupling=): dispatch-aware tuning comes to the port "
-            "with its own slice (ROADMAP queue 1 item 8)")
+    re-evaluation). ``coupling`` (a `DispatchCoupling`, from
+    `dispatch_coupling_from_grid`) switches on the dispatch-aware fleet
+    term."""
     p_rows = problem.row_prices()
     bounds = _stage_bounds(cfg)
     carry = _init_carry(raw0)
     outs, stage_cpc = [], []
     for lo, hi in zip(bounds[:-1], bounds[1:]):
-        carry, o, cpc_rows = _run_steps(carry, problem, cfg, lo, hi, p_rows)
+        carry, o, cpc_rows = _run_steps(carry, problem, coupling, cfg, lo,
+                                        hi, p_rows)
         outs += o
         stage_cpc.append(torch.mean(cpc_rows))
     hist = _stack(outs)
@@ -354,12 +371,9 @@ def tune_loop_checkpointed(raw0: PolicyParams, problem: TuneProblem,
     one that never died bit for bit, because the restored carry is the
     exact bytes the uninterrupted run carried and every remaining stage
     runs the same per-step code (every kernel of the step is
-    deterministic). Returns ``(raw_f, history, cpc_tuned)`` with numpy
+    deterministic). ``coupling`` switches on the dispatch-aware term as
+    in `tune_loop`. Returns ``(raw_f, history, cpc_tuned)`` with numpy
     histories."""
-    if coupling is not None:
-        raise NotImplementedError(
-            "tune_loop_checkpointed(coupling=) comes to the port with the "
-            "dispatch-aware tuning slice (ROADMAP queue 1 item 8)")
     dev = problem.market_idx.device
     raw0 = PolicyParams(*(_f32(a, dev) for a in raw0))
     p_rows = problem.row_prices()
@@ -382,8 +396,8 @@ def tune_loop_checkpointed(raw0: PolicyParams, problem: TuneProblem,
         cpc_rows = tree["cpc_rows"]
         start = k
     for k in range(start, n_stages):
-        carry, outs, cpc_rows = _run_steps(carry, problem, cfg, bounds[k],
-                                           bounds[k + 1], p_rows)
+        carry, outs, cpc_rows = _run_steps(carry, problem, coupling, cfg,
+                                           bounds[k], bounds[k + 1], p_rows)
         hists.append({kk: v.cpu().numpy() for kk, v in _stack(outs).items()})
         stage_cpc.append(np.float32(torch.mean(cpc_rows).item()))
         hist_acc = {kk: np.concatenate([hh[kk] for hh in hists])
@@ -411,7 +425,7 @@ def _take_problem(problem: TuneProblem, idx: np.ndarray) -> TuneProblem:
 
 
 def _run_loop(raw0: PolicyParams, problem: TuneProblem, cfg: TuneConfig,
-              n_rows: int):
+              n_rows: int, coupling: Optional[DispatchCoupling] = None):
     """Run the hot loop under the `ExecutionPlan`: one program, or fixed
     row chunks padded to one shape by repeating row 0 (per-row math is
     batch-independent, so the real rows are unaffected; the loss
@@ -440,7 +454,7 @@ def _run_loop(raw0: PolicyParams, problem: TuneProblem, cfg: TuneConfig,
                 for k in hists[0]}
         return (concat_rows(raws, n_rows), hist,
                 concat_rows(cpcs, n_rows))
-    raw_f, hist, cpc = tune_loop(raw0, problem, cfg=cfg)
+    raw_f, hist, cpc = tune_loop(raw0, problem, coupling, cfg=cfg)
     return raw_f, {k: v.cpu().numpy() for k, v in hist.items()}, cpc
 
 
@@ -553,14 +567,17 @@ def optimize(grid, cfg: TuneConfig = TuneConfig(), *, warm_start=None,
     best hard-CPC policy among the tuned parameters and the swept
     baselines, so when hardware parameters are uniform within a cell the
     reported ``cpc`` matches or beats the best swept policy on every row.
-    With coupling penalties configured the swept fallback is disabled
-    (swept policies ignore the constraints) and ``cpc`` reports the tuned
-    params. The hard re-evaluations run the engine's `fleet_scan` (the
-    CUDA kernel on the card). With ``Coupling(reeval=...)`` the selected
-    and the best-swept policy sets are then re-scored on feasible
-    dispatch (`_dispatch_reeval`, the CUDA `dispatch_scan` kernel on the
-    card) into `TuneResult.dispatch`; a Coupling-level ``relief`` covers
-    that re-scoring too.
+    With coupling penalties or the dispatch-aware term configured the
+    swept fallback is disabled (swept policies ignore the constraints) and
+    ``cpc`` reports the tuned params. The hard re-evaluations run the
+    engine's `fleet_scan` (the CUDA kernel on the card). With
+    ``Coupling(dispatch=...)`` every step differentiates through the
+    relaxed water-fill (the fused soft-dispatch kernels on the card). With
+    ``Coupling(reeval=...)``, or ``dispatch=`` alone, the selected and the
+    best-swept policy sets are then re-scored on feasible dispatch
+    (`_dispatch_reeval`, the CUDA `dispatch_scan` kernel on the card) into
+    `TuneResult.dispatch`; a Coupling-level ``relief`` covers that
+    re-scoring too.
     """
     dev = resolve_device(device)
     grid = grid.to(dev)
@@ -568,7 +585,10 @@ def optimize(grid, cfg: TuneConfig = TuneConfig(), *, warm_start=None,
     raw0 = _raw_start(grid, warm_start, dev)
     rc = cfg.resolved_coupling
     chunk = cfg.resolved_plan.chunk_rows
-    raw_f, hist, cpc_tuned_dev = _run_loop(raw0, problem, cfg, grid.n_rows)
+    coupling = dispatch_coupling_from_grid(grid, rc.dispatch) \
+        if rc.dispatch is not None else None
+    raw_f, hist, cpc_tuned_dev = _run_loop(raw0, problem, cfg, grid.n_rows,
+                                           coupling)
     stage_cpc = np.asarray(hist.pop("stage_cpc"), np.float64)
     cpc_tuned = cpc_tuned_dev.cpu().numpy().astype(np.float64)
 
@@ -595,6 +615,10 @@ def optimize(grid, cfg: TuneConfig = TuneConfig(), *, warm_start=None,
     if rc.binds:
         # the swept baselines ignore the coupling constraints: falling
         # back to one would silently violate them — keep the tuned params
+        # (dispatch-aware runs likewise: a per-row swept fallback judged on
+        # isolated CPC would undo the fleet roles the dispatch term taught;
+        # the swept set still competes, as a whole fleet, in the hard
+        # re-scoring below)
         source = np.zeros(cand.shape[1], np.int64)
     else:
         source = np.argmin(cand, axis=0)

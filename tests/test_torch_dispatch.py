@@ -587,6 +587,8 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="workload"):
         resolve_demand(DispatchConfig()._replace(workload=object()),
                        np.ones(2), 5)
-    with pytest.raises(NotImplementedError, match="dispatch"):
-        TuneConfig(coupling=Coupling(dispatch=DispatchConfig()))
+    # the soft coupling is ported (tests/test_torch_tune_dispatch.py) and
+    # binds the rows; the hard re-scoring alone does not
+    assert TuneConfig(coupling=Coupling(
+        dispatch=DispatchConfig())).resolved_coupling.binds
     TuneConfig(coupling=Coupling(reeval=DispatchConfig(), relief=Relief()))

@@ -1,7 +1,8 @@
 """The CUDA kernels on the card (`fleet_scan`, the soft-scan forward and
-backward, `dispatch_scan`), held against their plain PyTorch versions,
-and the backtest, the tuner and the dispatch summary on the card against
-the CPU. Marked ``gpu``:
+backward, `dispatch_scan`, the three soft-dispatch kernels), held against
+their plain PyTorch versions, and the backtest, the tuner (plain and
+dispatch-aware) and the dispatch summary on the card against the CPU.
+Marked ``gpu``:
 without a CUDA device every test skips. Imports neither JAX nor the
 reference, so it runs on a machine that has only PyTorch:
 
@@ -16,7 +17,19 @@ cotangent so the threshold sums carry no cancellation; the tuner's CPC on
 the card within rtol 1e-4 of the CPU's, with the same source per row;
 the dispatch kernel bitwise equal to its plain version (the two share
 one summation order), and so the dispatch summary on the card equal to
-the CPU's.
+the CPU's. The soft-dispatch kernels against their plain versions run on
+the CPU on the same inputs: allocations within 1e-5 MW, entering dwell
+within 1e-4, levels within 1e-3 EUR/MWh (or, in an hour where the fill
+is flat at the demand between the two levels, `soft_level_in_gap`, a
+level at which the plain hour places the same load), every backward output, from the kernel's
+residuals and from the plain version's, within 1e-4 of the larger of its
+own scale and the cotangent's (the two share every float32 operation, a
+correctly rounded exp included, and differ in the order of their float64
+sums), at the reference's soft cases and at blocks of more than one
+warp (64, 45 and 130 sites); the forward kernel's allocation equal
+to the fused forward's bit for bit (one kernel); the dispatch-aware tuner
+on the card within rtol 1e-3 of the CPU's CPCs, with the same source and
+chosen set.
 """
 
 import numpy as np
@@ -25,12 +38,21 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.tco import make_system  # noqa: E402
-from repro_torch.dispatch import DispatchConfig, segment_rank  # noqa: E402
+from repro_torch.dispatch import (DispatchConfig, segment_keys,  # noqa: E402
+                                  segment_rank)
+from repro_torch.execution import Coupling  # noqa: E402
 from repro_torch.fleet import (PolicySpec, backtest, build_grid,  # noqa: E402
                                summarize)
 from repro_torch.kernels.dispatch_scan import dispatch_scan  # noqa: E402
 from repro_torch.kernels.fleet_scan import fleet_scan  # noqa: E402
-from repro_torch.kernels.ref import dispatch_ref, fleet_scan_ref  # noqa: E402
+from repro_torch.kernels.ref import (dispatch_ref,  # noqa: E402
+                                     fleet_scan_ref, soft_dispatch_bwd_ref,
+                                     soft_dispatch_fwd_ref,
+                                     soft_dispatch_hour_fixed,
+                                     soft_dispatch_ref, soft_level_in_gap)
+from repro_torch.kernels.soft_dispatch import (  # noqa: E402
+    soft_dispatch, soft_dispatch_fused_bwd, soft_dispatch_fused_fwd,
+    soft_dispatch_scan)
 from repro_torch.kernels.soft_scan_vjp import (soft_scan_bwd,  # noqa: E402
                                                soft_scan_fwd,
                                                soft_state_fused)
@@ -212,3 +234,146 @@ def test_summarize_dispatch_on_the_card_matches_the_cpu(cuda):
         np.testing.assert_array_equal(np.asarray(getattr(gpu.dispatch, f)),
                                       np.asarray(getattr(cpu.dispatch, f)),
                                       err_msg=f)
+
+
+# (S, T, migrate_cost, min_dwell, tau): the reference's SOFT_CASES
+SOFT_DISPATCH_CASES = [(1, 64, 0.0, 0, 5.0), (5, 333, 5.0, 0, 2.0),
+                       (8, 500, 5.0, 6, 0.5), (16, 700, 3.0, 3, 20.0)]
+# blocks of more than one warp: 64 sites, and 45 and 130, which are not
+# multiples of 32
+WIDE_DISPATCH_CASES = [(64, 300, 5.0, 4, 3.0), (45, 300, 5.0, 4, 1.0),
+                       (130, 200, 3.0, 0, 2.0)]
+
+
+def _soft_dispatch_problem(s, t, mc, seed=0):
+    """The reference's `_random_case`, with a positive cotangent."""
+    r = np.random.default_rng(29 + seed)
+    prices = r.normal(80, 40, (s, t)).astype(np.float32)
+    power = r.uniform(1.0, 3.0, s).astype(np.float32)
+    on = (r.uniform(size=(s, t)) > 0.3).astype(np.float32)
+    avail = power[:, None] * (0.2 + 0.8 * on)
+    demand = np.full(t, 0.5 * float(avail.sum(axis=0).min()), np.float32)
+    keys = segment_keys(prices, mc).astype(np.float32)
+    order = segment_rank(prices, mc)[0]
+    g = r.uniform(0.5, 1.5, (s, t)).astype(np.float32)
+    return [torch.as_tensor(np.ascontiguousarray(x))
+            for x in (avail, keys, order, demand, g)]
+
+
+def _near(got, want, atol, msg):
+    torch.testing.assert_close(got.cpu().double(), want.double(), rtol=0,
+                               atol=atol, msg=msg)
+
+
+def _near_bwd(got, want, g):
+    floor = float(g.abs().max())
+    for name, x, w in zip(("d_avail", "d_keys", "d_demand", "d_itau",
+                           "d_itau_mw"), got, want):
+        scale = max(float(w.abs().max()), floor)
+        _near(x, w, 1e-4 * scale, name)
+
+
+@pytest.mark.parametrize("case", SOFT_DISPATCH_CASES + WIDE_DISPATCH_CASES)
+def test_soft_dispatch_kernels_match_plain_versions(cuda, case):
+    s, t, mc, dwell, tau = case
+    cpu = _soft_dispatch_problem(s, t, mc)
+    avail, keys, order, demand, g = (x.to(cuda) for x in cpu)
+    it = torch.tensor([1.0 / tau], dtype=torch.float32)
+    itm = it / torch.tensor(0.05)
+    before = (soft_dispatch_scan.launches, soft_dispatch_fused_fwd.launches,
+              soft_dispatch_fused_bwd.launches)
+    alone = soft_dispatch_scan(avail, keys, order, demand, tau=tau,
+                               min_dwell=dwell)
+    alloc, dwin, lam = soft_dispatch_fused_fwd(
+        avail, keys, order, demand, it.to(cuda), itm.to(cuda),
+        min_dwell=dwell)
+    back = soft_dispatch_fused_bwd(avail, keys, demand, it.to(cuda),
+                                   itm.to(cuda), alloc, dwin, lam, g,
+                                   min_dwell=dwell)
+    torch.cuda.synchronize()
+    assert (soft_dispatch_scan.launches, soft_dispatch_fused_fwd.launches,
+            soft_dispatch_fused_bwd.launches) == tuple(n + 1 for n in before)
+    assert torch.equal(alone, alloc)            # one kernel, two entries
+    p_alloc, p_dwin, p_lam = soft_dispatch_fwd_ref(
+        *cpu[:4], it, itm, min_dwell=dwell)
+    _near(alloc, p_alloc, 1e-5, "alloc")
+    _near(dwin, p_dwin, 1e-4, "dwell_in")
+    # a level may be off by more only in a gap of the fill, where it is
+    # not determined: any level there places the same load, which is what
+    # is held in such hours
+    for h in torch.nonzero((lam.cpu() - p_lam).abs() > 1e-3).flatten():
+        prev = p_alloc[:, h - 1] if h > 0 else torch.zeros(s)
+        assert soft_level_in_gap(prev, p_dwin[:, h], cpu[0][:, h],
+                                 cpu[1][h], cpu[3][h], p_lam[h],
+                                 lam.cpu()[h], it[0], min_dwell=dwell), \
+            f"level of hour {h}"
+        moved, _ = soft_dispatch_hour_fixed(
+            prev, p_dwin[:, h], cpu[0][:, h], cpu[1][h], cpu[3][h],
+            lam.cpu()[h], it[0], itm[0], min_dwell=dwell)
+        _near(moved, p_alloc[:, h], 1e-5, f"alloc at the level of hour {h}")
+    _near(alone, soft_dispatch_ref(*cpu[:4], tau=tau, min_dwell=dwell),
+          1e-5, "soft_dispatch_ref")
+    # the backward from the kernel's own residuals on both sides, then
+    # from the plain version's
+    _near_bwd(back, soft_dispatch_bwd_ref(
+        cpu[0], cpu[1], cpu[3], it, itm, alloc.cpu(), dwin.cpu(), lam.cpu(),
+        cpu[4], min_dwell=dwell), cpu[4])
+    back_p = soft_dispatch_fused_bwd(
+        avail, keys, demand, it.to(cuda), itm.to(cuda), p_alloc.to(cuda),
+        p_dwin.to(cuda), p_lam.to(cuda), g, min_dwell=dwell)
+    _near_bwd(back_p, soft_dispatch_bwd_ref(
+        cpu[0], cpu[1], cpu[3], it, itm, p_alloc, p_dwin, p_lam, cpu[4],
+        min_dwell=dwell), cpu[4])
+
+
+def test_soft_dispatch_kernels_refuse_what_they_do_not_take(cuda):
+    avail, keys, order, demand, _ = (
+        x.to(cuda) for x in _soft_dispatch_problem(4, 50, 4.0))
+    with pytest.raises(ValueError, match="float32"):
+        soft_dispatch_scan(avail.double(), keys, order, demand, tau=2.0)
+    with pytest.raises(ValueError, match="int32"):
+        soft_dispatch_scan(avail, keys, order.long(), demand, tau=2.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        soft_dispatch_scan(avail.T.contiguous().T, keys, order, demand,
+                           tau=2.0)
+    with pytest.raises(ValueError, match="on cuda"):
+        soft_dispatch_scan(avail, keys.cpu(), order, demand, tau=2.0)
+    with pytest.raises(ValueError, match=r"\[50, 12\]"):
+        soft_dispatch_scan(avail, keys[:, :6].contiguous(), order, demand,
+                           tau=2.0)
+    with pytest.raises(ValueError, match="fused=True"):
+        soft_dispatch(avail.clone().requires_grad_(True), keys, order,
+                      demand, tau=2.0)
+    # the fused route differentiates through the kernel pair
+    a = avail.clone().requires_grad_(True)
+    before = soft_dispatch_fused_bwd.launches
+    soft_dispatch(a, keys, order, demand, tau=2.0, min_dwell=2,
+                  fused=True).sum().backward()
+    assert soft_dispatch_fused_bwd.launches == before + 1
+    assert bool(torch.isfinite(a.grad).all())
+
+
+def test_dispatch_aware_optimize_on_the_card_matches_the_cpu(cuda):
+    prices = np.random.default_rng(7).lognormal(4.3, 0.5, (3, 300))
+    dcfg = DispatchConfig(demand_frac=0.25, migrate_cost=4.0, min_dwell_h=3)
+    cfg = TuneConfig(steps=20, coupling=Coupling(dispatch=dcfg))
+    results = {}
+    for dev in ("cpu", cuda):
+        grid = build_grid(prices.astype(np.float32),
+                          [make_system(4e4, 1.0, 300.0, device=dev)],
+                          [PolicySpec("ao"),
+                           PolicySpec("x5", x=0.05, off_level=0.3),
+                           PolicySpec("x10", x=0.10, off_level=0.3)],
+                          device=dev)
+        results[str(dev)] = optimize(grid, cfg, device=dev)
+    gpu, cpu = results[str(cuda)], results["cpu"]
+    np.testing.assert_array_equal(gpu.source, cpu.source)
+    np.testing.assert_allclose(gpu.cpc, cpu.cpc, rtol=1e-3)
+    assert gpu.dispatch["chosen"] == cpu.dispatch["chosen"]
+    for k in ("cpc_tuned", "cpc_swept"):
+        np.testing.assert_allclose(gpu.dispatch[k], cpu.dispatch[k],
+                                   rtol=1e-3, err_msg=k)
+    with pytest.raises(ValueError, match="fused=True"):
+        optimize(grid, TuneConfig(steps=2, fused=False,
+                                  coupling=Coupling(dispatch=dcfg)),
+                 device=cuda)

@@ -31,12 +31,13 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
                          capture_output=True, text=True).stdout.split()
     n_modules, names, bad = int(out[0]), out[1].split(","), out[2:]
     assert bad == []
-    # the 41 modules of the slices so far: package inits, core, energy,
+    # the 42 modules of the slices so far: package inits, core, energy,
     # runtime, kernels, fleet, optim, checkpoint, tune, dispatch, examples
     # and the device helper
-    assert n_modules == len(names) >= 41
+    assert n_modules == len(names) >= 42
     for name in ("repro_torch.dispatch", "repro_torch.dispatch.allocate",
                  "repro_torch.dispatch.schedule",
                  "repro_torch.kernels.dispatch_scan",
+                 "repro_torch.kernels.soft_dispatch",
                  "repro_torch.examples.fleet_dispatch"):
         assert name in names

@@ -60,10 +60,10 @@ from repro_torch.kernels.ref import fleet_scan_ref  # noqa: E402
 from repro_torch.optim import (AdamWConfig, AdamWState,  # noqa: E402
                                adamw_update)
 from repro_torch.tune import (PhysicalPolicy, PolicyParams,  # noqa: E402
-                              TuneConfig, dispatch_coupling_from_grid,
-                              hard_cpc, init_from_grid, optimize,
-                              problem_from_grid, soft_objective, transform,
-                              tune_loop, tune_loop_checkpointed)
+                              TuneConfig, hard_cpc, init_from_grid, optimize,
+                              problem_from_grid, soft_dispatch_ratio,
+                              soft_objective, transform, tune_loop,
+                              tune_loop_checkpointed)
 from repro_torch.tune.optimizer import (_ckpt_template,  # noqa: E402
                                         _init_carry, _tau_schedule)
 
@@ -461,22 +461,17 @@ def test_later_slice_options_raise(grid):
     with pytest.raises(NotImplementedError, match="item 13"):
         optimize(grid, TuneConfig(steps=2, plan=ExecutionPlan(
             mode="sharded")), device=CPU)
-    # the soft dispatch coupling; the hard re-scoring (reeval=, relief=)
-    # is ported (tests/test_torch_dispatch.py)
-    with pytest.raises(NotImplementedError, match="dispatch"):
-        TuneConfig(coupling=Coupling(dispatch=object()))
+    # the soft dispatch coupling (Coupling(dispatch=)) and the hard
+    # re-scoring are ported (tests/test_torch_tune_dispatch.py,
+    # tests/test_torch_dispatch.py); its sharded form is not
     with pytest.raises(NotImplementedError, match="workload"):
         TuneConfig(workload=object())
-    with pytest.raises(NotImplementedError, match="dispatch"):
-        soft_objective(raw, prob, 1.0, dispatch=object())
     with pytest.raises(NotImplementedError, match="workload"):
         soft_objective(raw, prob, 1.0, workload=object())
     with pytest.raises(NotImplementedError, match="item 13"):
         soft_objective(raw, prob, 1.0, axis_name="rows")
-    with pytest.raises(NotImplementedError, match="dispatch"):
-        tune_loop(raw, prob, object(), cfg=TuneConfig(steps=2))
-    with pytest.raises(NotImplementedError, match="dispatch"):
-        dispatch_coupling_from_grid(grid, None)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        soft_dispatch_ratio(None, None, None, 1.0, axis_name="rows")
     # the legality rule of the pair stays a ValueError
     with pytest.raises(ValueError, match="chunk_rows"):
         TuneConfig(plan=ExecutionPlan(mode="chunked", chunk_rows=4),
