@@ -34,14 +34,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      step), twice at 25 steps for determinism, the reference's acceptance
      grid (dispatch-aware <= re-score-only), and `tune_policies
      --dispatch-soft`;
- 11. times (median of CUDA-event runs after warm-up): each kernel, its
+ 11. the attention kernels (flash, decode) against their plain versions
+     on the card and against SDPA, at the reference's cases and the
+     serving shapes (run with phase 8's kernel checks);
+ 12. the serving path at full width: `ServingEngine` on qwen2.5-3b (bf16,
+     random parameters from a seeded generator), 8 slots x 2048, the
+     price gate on and crossing a price spike (it must close and reopen),
+     16 requests of 128-1024 prompt tokens x 32 new tokens, until all
+     complete; one request teacher-forced through the
+     kernels and through the plain attention; the `repro_torch.launch.
+     serve` launcher at the reference's defaults;
+ 13. times (median of CUDA-event runs after warm-up): each kernel, its
      plain version and its bound, the backtest at 1024 and 8192 rows,
      market generation, the tuner loop's row-steps/s (hand-written VJP
      against autograd through the doubling scan), one whole dispatch
      call split into its parts, the soft-dispatch kernels at 32 x 2190 and
      64 x 8760 beside their bounds and serial floors (the plain forward's
-     run at 64 x 8760 also holds phase 9's allocation), and a
-     dispatch-aware tuner step against an uncoupled one;
+     run at 64 x 8760 also holds phase 9's allocation), a
+     dispatch-aware tuner step against an uncoupled one, and the
+     attention kernels at the serving shapes beside SDPA;
 each path's kernel launch counts are set to 0 just before it and read
 just after. Then one JSON line describing every ported kernel and, last,
 one JSON line naming the device. Without CUDA it exits non-zero and
@@ -156,7 +167,7 @@ def phase_device() -> str:
 
 
 KERNEL_SOURCES = ("fleet_scan", "soft_scan", "dispatch_scan",
-                  "soft_dispatch")
+                  "soft_dispatch", "attention")
 
 # Probes of the card, not kernels of the port. f64_add_chain: one thread
 # adds 1.0 to x n times, each addition waiting on the last, so a chain
@@ -533,7 +544,9 @@ def _tune_grid(dev, n_markets: int = 8, n_systems: int = 4,
 
 
 def _counters():
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.dispatch_scan import dispatch_scan
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fleet_scan import fleet_scan
     from repro_torch.kernels.soft_dispatch import (soft_dispatch_fused_bwd,
                                                    soft_dispatch_fused_fwd,
@@ -544,7 +557,9 @@ def _counters():
             "soft_scan_bwd": soft_scan_bwd, "dispatch_scan": dispatch_scan,
             "soft_dispatch": soft_dispatch_scan,
             "soft_dispatch_fused_fwd": soft_dispatch_fused_fwd,
-            "soft_dispatch_fused_bwd": soft_dispatch_fused_bwd}
+            "soft_dispatch_fused_bwd": soft_dispatch_fused_bwd,
+            "flash_attention": flash_attention,
+            "decode_attention": decode_attention}
 
 
 def _zero_counters() -> dict:
@@ -1687,6 +1702,577 @@ def _soft_dispatch_records(errs: dict, times: dict, launches: dict,
     return recs
 
 
+# ---------------------------------------------------------------------------
+# the serving path: flash and decode attention (kernels 8 and 9)
+# ---------------------------------------------------------------------------
+
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the reference's
+BF16 = torch.bfloat16
+# B, Sq, Skv, H, G, Dh, causal, window, q_offset, dtype: the reference's
+# FLASH_CASES and its bf16 case (tests/test_kernels.py), the serving shapes
+# of qwen2.5-3b (16 heads in 2 KV groups, Dh 128) and a chunked prefill,
+# the longest serving shape and the chunked prefill also at float32, where
+# the tolerance (2e-5) is far below the outputs' size (~0.04 at 2048 keys)
+FLASH_SMOKE_CASES = [
+    (2, 128, 128, 4, 2, 64, True, 0, 0, torch.float32),
+    (1, 100, 100, 8, 2, 64, True, 0, 0, torch.float32),
+    (2, 64, 256, 4, 4, 32, False, 0, 0, torch.float32),
+    (1, 128, 128, 4, 1, 64, True, 32, 0, torch.float32),
+    (1, 16, 144, 4, 2, 64, True, 0, 128, torch.float32),
+    (1, 128, 128, 4, 2, 64, True, 100, 0, torch.float32),
+    (2, 96, 96, 6, 3, 128, True, 0, 0, torch.float32),
+    (1, 64, 64, 4, 4, 64, True, 0, 0, BF16),
+    (1, 128, 128, 16, 2, 128, True, 0, 0, BF16),
+    (1, 1000, 1000, 16, 2, 128, True, 0, 0, BF16),
+    (1, 2048, 2048, 16, 2, 128, True, 0, 0, BF16),
+    (1, 256, 1280, 16, 2, 128, True, 0, 1024, BF16),
+    (1, 2048, 2048, 16, 2, 128, True, 0, 0, torch.float32),
+    (1, 256, 1280, 16, 2, 128, True, 0, 1024, torch.float32),
+]
+# B, H, G, Dh, W, dtype, mask: the reference's DECODE_CASES, then the
+# serving pool (8 slots of 2048, 16 heads in 2 groups) with a linear
+# cache's mask and a rolling one's, at bf16 and at float32 (eight splits
+# folded, and whole tiles and splits with no valid slot skipped)
+DECODE_SMOKE_CASES = [
+    (2, 8, 2, 64, 100, torch.float32, "random"),
+    (1, 4, 4, 32, 256, torch.float32, "random"),
+    (3, 16, 2, 128, 77, torch.float32, "random"),
+    (1, 4, 1, 64, 513, torch.float32, "random"),
+    (8, 16, 2, 128, 2048, BF16, "linear"),
+    (8, 16, 2, 128, 2048, BF16, "rolling"),
+    (8, 16, 2, 128, 2048, torch.float32, "linear"),
+    (8, 16, 2, 128, 2048, torch.float32, "rolling"),
+]
+SERVE_ARCH = "qwen2.5-3b"
+SERVE_REQUESTS, SERVE_MAX_NEW, SERVE_SEED = 16, 32, 0
+# teacher-forced kernel vs plain logits at bf16, full width (PERF.md)
+TF_STEPS, TF_MAX_ABS = 16, 0.25
+
+
+def _attn_inputs(shapes, dtype, dev, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev).to(dtype)
+            for s in shapes]
+
+
+def _flash_mask(sq, skv, causal, window, q_offset, dev):
+    """[Sq, Skv] bool, True where query row i may see key j."""
+    qpos = q_offset + torch.arange(sq, device=dev)[:, None]
+    kpos = torch.arange(skv, device=dev)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _decode_valid(b, w, kind, dev, seed):
+    """[B, W] int8 slot validity: random (slot 0 always valid), a linear
+    cache filled to a per-row length, or a rolling cache past its wrap
+    with a 1500-position window."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        valid = rng.random((b, w)) > 0.3
+        valid[:, 0] = True
+    elif kind == "linear":
+        lens = rng.integers(129, w + 1, b)
+        valid = np.arange(w)[None] < lens[:, None]
+    else:
+        pos = rng.integers(w, 3 * w, b)
+        pb = pos[:, None] - ((pos[:, None] - np.arange(w)[None]) % w)
+        valid = (pb <= pos[:, None]) & (pb > pos[:, None] - 1500)
+    return torch.as_tensor(valid, device=dev).to(torch.int8)
+
+
+def _sdpa(q, k, v, mask=None, *, causal=False):
+    """`torch.nn.functional.scaled_dot_product_attention` on the model's
+    layout (the yardstick; the port never calls it). mask: broadcastable
+    to [B, H, Sq, Skv] bool, True = attend."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    out = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+               attn_mask=mask, is_causal=causal, enable_gqa=True)
+    return out.transpose(1, 2)
+
+
+def _sdpa_oracle(q, k, v, mask):
+    """SDPA as an extra oracle: its math backend at float32 (full float32
+    matrix products), its default backends at bf16."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    if q.dtype == torch.float32:
+        with sdpa_kernel([SDPBackend.MATH]):
+            return _sdpa(q, k, v, mask)
+    return _sdpa(q, k, v, mask)
+
+
+def _attn_err(got, want, rows=None) -> float:
+    d = (got.float() - want.float()).abs()
+    if rows is not None:
+        d = d[:, rows]
+    return float(d.max())
+
+
+def _attn_check(label, got, want, dtype, rows=None) -> float:
+    tol = ATTN_TOL[dtype]
+    g, w = got.float(), want.float()
+    if rows is not None:
+        g, w = g[:, rows], w[:, rows]
+    torch.testing.assert_close(g, w, atol=tol, rtol=tol, msg=label)
+    return _attn_err(got, want, rows)
+
+
+def phase_attention_vs_plain(dev) -> dict:
+    """Kernels 8 and 9 against their plain (blocked) versions on the card
+    and against SDPA, at the reference's cases and the serving shapes;
+    rows with no visible key are checked for finiteness only (their
+    output depends on the tiles a path visits)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import (decode_attention_plain,
+                                         flash_attention_plain)
+
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    for i, case in enumerate(FLASH_SMOKE_CASES):
+        b, sq, skv, h, g, dh, causal, win, qo, dt = case
+        q, k, v = _attn_inputs([(b, sq, h, dh), (b, skv, g, dh),
+                                (b, skv, g, dh)], dt, dev, 500 + i)
+        got = flash_attention(q, k, v, causal=causal, window=win,
+                              q_offset=qo, use_kernel=True)
+        plain = flash_attention_plain(q, k, v, causal=causal, window=win,
+                                      q_offset=qo)
+        mask = _flash_mask(sq, skv, causal, win, qo, dev)
+        oracle = _sdpa_oracle(q, k, v, mask)
+        torch.cuda.synchronize()
+        rows = mask.any(-1)
+        if not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"flash {case}: non-finite output")
+        e = _attn_check(f"flash {case} vs plain", got, plain, dt, rows)
+        e_s = _attn_check(f"flash {case} vs SDPA", got, oracle, dt, rows)
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+        print(f"[attn] flash B{b} Sq{sq} Skv{skv} H{h} G{g} Dh{dh} "
+              f"causal={causal} window={win} q_offset={qo} {dt}: max |err| "
+              f"vs plain {e:.3g}, vs SDPA {e_s:.3g}, plain vs SDPA "
+              f"{_attn_err(plain, oracle, rows):.3g}")
+    for i, case in enumerate(DECODE_SMOKE_CASES):
+        b, h, g, dh, w, dt, kind = case
+        q, k, v = _attn_inputs([(b, 1, h, dh), (b, w, g, dh),
+                                (b, w, g, dh)], dt, dev, 600 + i)
+        valid = _decode_valid(b, w, kind, dev, 700 + i)
+        got = decode_attention(q, k, v, valid, use_kernel=True)
+        plain = decode_attention_plain(q, k, v, valid)
+        oracle = _sdpa_oracle(q, k, v, valid.bool()[:, None, None, :])
+        torch.cuda.synchronize()
+        e = _attn_check(f"decode {case} vs plain", got, plain, dt)
+        e_s = _attn_check(f"decode {case} vs SDPA", got, oracle, dt)
+        errs["decode_attention"] = max(errs["decode_attention"], e)
+        print(f"[attn] decode B{b} H{h} G{g} Dh{dh} W{w} {dt} {kind} "
+              f"({int(valid.sum())} valid slots): max |err| vs plain "
+              f"{e:.3g}, vs SDPA {e_s:.3g}")
+    # strided, misaligned views (the kernels' 4-byte load path): q, k and
+    # v cut from wider rows at an offset of one element
+    for dt in (torch.float32, BF16):
+        wide = _attn_inputs([(1, 200, 16, 129), (1, 200, 2, 129),
+                             (1, 200, 2, 129)], dt, dev, 850)
+        q, k, v = (x[..., 1:] for x in wide)
+        got = flash_attention(q, k, v, causal=True, use_kernel=True)
+        e = _attn_check(f"flash strided {dt}", got,
+                        flash_attention_plain(q, k, v, causal=True), dt)
+        valid = _decode_valid(1, 200, "random", dev, 851)
+        got_d = decode_attention(q[:, :1], k, v, valid, use_kernel=True)
+        e_d = _attn_check(f"decode strided {dt}", got_d,
+                          decode_attention_plain(q[:, :1], k, v, valid), dt)
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+        errs["decode_attention"] = max(errs["decode_attention"], e_d)
+        print(f"[attn] strided views at a one-element offset, {dt}: max "
+              f"|err| vs plain flash {e:.3g}, decode {e_d:.3g}")
+    # rows with no visible key stay finite (the reference's
+    # test_flash_fully_masked_rows_are_finite), and so does a decode row
+    # whose every slot is invalid
+    q, k, v = _attn_inputs([(1, 32, 2, 16)] * 3, torch.float32, dev, 800)
+    out = flash_attention(q, k, v, causal=True, window=4, q_offset=1000)
+    q, k, v = _attn_inputs([(2, 1, 16, 128), (2, 300, 2, 128),
+                            (2, 300, 2, 128)], BF16, dev, 801)
+    none = torch.zeros((2, 300), dtype=torch.int8, device=dev)
+    out_d = decode_attention(q, k, v, none)
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(out).all())
+            and bool(torch.isfinite(out_d.float()).all())):
+        raise AssertionError("attention: a fully masked row is not finite")
+    print("[attn] fully masked flash rows and decode rows: finite")
+    return errs
+
+
+def _count_attention_plain_calls():
+    """Call counters on every plain attention function a wrapper or the
+    model could reach; returns (counts, restore)."""
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import ref
+
+    targets = [(fmod, "flash_attention_plain"),
+               (dmod, "decode_attention_plain"),
+               (ref, "flash_attention_plain"),
+               (ref, "decode_attention_plain"), (ref, "attention_ref"),
+               (ref, "decode_attention_ref")]
+    counts = {f"{m.__name__.split('.')[-1]}.{n}": 0 for m, n in targets}
+    saved = [(m, n, getattr(m, n)) for m, n in targets]
+
+    def wrap(key, fn):
+        def counted(*a, **kw):
+            counts[key] += 1
+            return fn(*a, **kw)
+        return counted
+    for m, n, fn in saved:
+        setattr(m, n, wrap(f"{m.__name__.split('.')[-1]}.{n}", fn))
+
+    def restore():
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    return counts, restore
+
+
+def _serve_requests(cfg):
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(SERVE_SEED)
+    lens = rng.integers(128, 1025, SERVE_REQUESTS)
+    return [Request(rid=i, prompt=rng.integers(2, cfg.vocab - 1,
+                                               size=int(n)).astype(np.int32),
+                    max_new=SERVE_MAX_NEW) for i, n in enumerate(lens)]
+
+
+def phase_serving(dev) -> dict:
+    """The serving path at full width: `ServingEngine` on qwen2.5-3b (36
+    layers, d_model 2048, 16 heads in 2 KV groups, bf16; random parameters
+    from a seeded torch.Generator on the card), 8 slots of 2048 positions,
+    the price gate on (germany, Psi 2, oracle), 16 requests of 128-1024
+    prompt tokens and 32 new tokens each, run until every request
+    completes. The market is replayed from half an hour before its first
+    hour above the threshold: the gate must close while admitted requests
+    decode and others wait, and reopen. Launch counts and plain-call counters set to 0 just before
+    and read just after: 36 flash launches per prefill, 36 decode launches
+    per decode step, no plain attention."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.energy.markets import generate_market
+    from repro_torch.energy.presets import region_params
+    from repro_torch.energy.stream import PriceStream
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.scheduler import (EnergyAwareScheduler,
+                                               SchedulerConfig)
+    from repro_torch.serving import ServeConfig, ServingEngine
+    from repro_torch.serving import engine as engine_mod
+
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_SEED)
+    params = init_params(gen, cfg)
+    torch.cuda.synchronize()
+    leaves = []
+
+    def walk(t):
+        for v in t.values():
+            walk(v) if isinstance(v, dict) else leaves.append(v)
+    walk(params)
+    n_params = sum(x.numel() for x in leaves)
+    param_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV "
+          f"groups, Dh {cfg.resolved_head_dim}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}; {n_params / 1e9:.3f} B parameters "
+          f"({param_bytes / 1e9:.2f} GB) drawn in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    md = generate_market(region_params("germany", seed=SERVE_SEED),
+                         device=dev)
+    prices = md.prices.cpu().numpy()
+    sched = EnergyAwareScheduler(PriceStream(prices),
+                                 SchedulerConfig(psi=2.0, mode="oracle"),
+                                 device=dev)
+    # start half an hour before the first hour above the threshold, so
+    # that the gate closes while the first 8 requests decode and 8 wait,
+    # and reopens when the price falls back
+    first_high = int(np.argmax(prices > sched.p_thresh))
+    if prices[first_high] <= sched.p_thresh or first_high == 0:
+        raise AssertionError("serving: no hour above p_thresh to gate on")
+    sched.stream.advance(first_high - 0.5)
+    scfg = ServeConfig(slots=8, max_seq=2048)
+    eng = ServingEngine(params, cfg, scfg, scheduler=sched, device=dev)
+    reqs = _serve_requests(cfg)
+    for r in reqs:
+        eng.submit(r)
+
+    times = {"prefill": [], "decode": []}
+    saved = {"prefill": engine_mod.prefill,
+             "decode": engine_mod.decode_step}
+
+    def timed(name):
+        fn = saved[name]
+
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t)
+            return out
+        return call
+    engine_mod.prefill, engine_mod.decode_step = (timed("prefill"),
+                                                   timed("decode"))
+    plain, restore = _count_attention_plain_calls()
+    try:
+        counters = _zero_counters()
+        t0 = time.perf_counter()
+        ticks = closed = drained = held = 0
+        while len(eng.completed) < SERVE_REQUESTS:
+            served = eng.tokens_served
+            eng.tick()
+            # the width this tick admitted at (the stream has not moved)
+            if eng._admission_width() < scfg.slots:
+                closed += 1
+                drained += eng.tokens_served > served   # live slots ran
+                held += len(eng.queue) > 0              # requests waited
+            ticks += 1
+            if ticks > 100_000:
+                raise AssertionError("serving: requests never completed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        restore()
+        engine_mod.prefill, engine_mod.decode_step = (saved["prefill"],
+                                                      saved["decode"])
+    n_pre, n_dec = len(times["prefill"]), len(times["decode"])
+    out = eng.summary()
+    print(f"[serve] {ticks} ticks ({ticks * scfg.hours_per_tick:.2f} h "
+          f"of market time from hour {first_high - 0.5}, p_thresh "
+          f"{sched.p_thresh:.2f} EUR/MWh, planned x {sched.planned_x:.4f}; "
+          f"the gate closed at {closed} ticks: {drained} decoding the "
+          f"admitted requests, {held} with requests waiting), "
+          f"{n_pre} prefills, {n_dec} decode "
+          f"steps, {wall:.2f} s wall; launches {launches}; plain attention "
+          f"calls {plain}")
+    if launches["flash_attention"] != cfg.n_layers * n_pre \
+            or launches["decode_attention"] != cfg.n_layers * n_dec:
+        raise AssertionError(
+            f"serving: expected {cfg.n_layers} flash launches per prefill "
+            f"and {cfg.n_layers} decode launches per step")
+    if not (drained and held):
+        raise AssertionError(f"serving: the price gate closed at {closed} "
+                             f"ticks ({drained} draining, {held} holding "
+                             f"requests back); expected both")
+    others = {k: v for k, v in launches.items()
+              if k not in ("flash_attention", "decode_attention") and v}
+    if any(plain.values()) or others:
+        raise AssertionError(f"serving: plain attention {plain} or other "
+                             f"kernels {others} ran on the main path")
+    for r in eng.completed:
+        o = np.asarray(r.output)
+        if len(o) != SERVE_MAX_NEW or o.min() < 0 or o.max() >= cfg.vocab:
+            raise AssertionError(f"request {r.rid}: bad output {o[:8]}")
+    if out["completed"] != SERVE_REQUESTS or out["queued"] != 0 \
+            or out["tokens_served"] != SERVE_REQUESTS * SERVE_MAX_NEW \
+            or not np.isfinite(out["eur_per_1k_tokens"]):
+        raise AssertionError(f"serving summary: {out}")
+    pre_ms = [t * 1e3 for t in times["prefill"]]
+    dec_ms = [t * 1e3 for t in times["decode"]]
+    lens = [len(r.prompt) for r in reqs]
+    print(f"[serve] completed {out['completed']}, tokens served "
+          f"{out['tokens_served']}, EUR/1k tokens "
+          f"{out['eur_per_1k_tokens']:.6f}, mean queue "
+          f"{out['mean_queue_h']:.4f} h, x realized "
+          f"{out['x_realized']:.4f}")
+    print(f"[serve] prefill (prompts {min(lens)}-{max(lens)}, mean "
+          f"{np.mean(lens):.0f} tokens): mean {np.mean(pre_ms):.2f} ms, "
+          f"median {np.median(pre_ms):.2f} ms; decode step (8 slots): "
+          f"mean {np.mean(dec_ms):.2f} ms, median {np.median(dec_ms):.2f} "
+          f"ms; {out['tokens_served'] / wall:.1f} tokens/s over the run "
+          f"(prefill + decode + gated ticks); peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    print(f"[serve] decode-step bound: {param_bytes / 1e9:.2f} GB of "
+          f"weights at 3.35 TB/s = "
+          f"{param_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    # where a decode step's and a prefill's time goes (after the counted
+    # run; the decode steps write the pool's next slots in place)
+    from repro_torch.models.model import decode_step, prefill
+    pos = torch.as_tensor(eng.positions, device=dev)
+    _profile(lambda: decode_step(params, eng.tokens, eng.caches, pos, cfg),
+             "decode step (8 slots)", runs=5)
+    mid = torch.as_tensor(reqs[0].prompt[:576].astype(np.int64),
+                          device=dev)[None]
+    _profile(lambda: prefill(params, {"tokens": mid}, cfg, max_seq=2048),
+             "prefill (576 tokens)", runs=3)
+    return {"cfg": cfg, "params": params, "reqs": reqs,
+            "launches": launches, "param_bytes": param_bytes,
+            "engine_ms": (np.median(pre_ms), np.median(dec_ms))}
+
+
+def phase_teacher_forced(dev, serve) -> None:
+    """One request through `prefill` + 16 `decode_step`s on the kernels,
+    then again with the model's attention switched to the plain versions
+    on the card (a switch of this script, not of the package) and fed the
+    kernel path's tokens; the logits must agree within TF_MAX_ABS."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.model import decode_step, prefill
+
+    cfg, params = serve["cfg"], serve["params"]
+    prompt = serve["reqs"][0].prompt
+
+    def run(forced=None):
+        toks = torch.as_tensor(prompt.astype(np.int64), device=dev)[None]
+        logits, caches = prefill(params, {"tokens": toks}, cfg,
+                                 max_seq=2048)
+        rows, picks = [logits[0]], [int(torch.argmax(logits[0]))]
+        pos = len(prompt)
+        for i in range(TF_STEPS):
+            tok = picks[-1] if forced is None else forced[i]
+            logits, caches = decode_step(
+                params, torch.tensor([[tok]], device=dev), caches,
+                torch.tensor([pos], device=dev), cfg)
+            rows.append(logits[0])
+            picks.append(int(torch.argmax(logits[0])))
+            pos += 1
+        return torch.stack(rows), picks
+
+    counters = _zero_counters()
+    kern, kern_toks = run()
+    n_kernel = (counters["flash_attention"].launches,
+                counters["decode_attention"].launches)
+    saved = (ops.flash_attention, ops.decode_attention)
+    ops.flash_attention = lambda q, k, v, **kw: ref.flash_attention_plain(
+        q, k, v, causal=kw["causal"], window=kw["window"],
+        q_offset=kw["q_offset"])
+    ops.decode_attention = lambda q, k, v, valid, **kw: \
+        ref.decode_attention_plain(q, k, v, valid)
+    try:
+        counters = _zero_counters()
+        plain, plain_toks = run(forced=kern_toks)
+        n_plain = (counters["flash_attention"].launches,
+                   counters["decode_attention"].launches)
+    finally:
+        ops.flash_attention, ops.decode_attention = saved
+    torch.cuda.synchronize()
+    if n_kernel != (cfg.n_layers, cfg.n_layers * TF_STEPS) \
+            or n_plain != (0, 0):
+        raise AssertionError(f"teacher forcing: launches {n_kernel} on the "
+                             f"kernels, {n_plain} on the plain path")
+    d = (kern - plain).abs()
+    agree = np.mean([a == b for a, b in zip(kern_toks, plain_toks)])
+    print(f"[serve] teacher-forced logits, prompt {len(prompt)} tokens, "
+          f"prefill + {TF_STEPS} steps, kernels vs plain attention on the "
+          f"card: max |diff| {float(d.max()):.4g}, mean "
+          f"{float(d.mean()):.4g} (logits: std {float(kern.std()):.4g}, "
+          f"max |.| {float(kern.abs().max()):.4g}); argmax agrees on "
+          f"{agree:.0%} of {TF_STEPS + 1} positions")
+    if not bool(torch.isfinite(kern).all()) or float(d.max()) > TF_MAX_ABS:
+        raise AssertionError(f"teacher-forced logits differ by more than "
+                             f"{TF_MAX_ABS}")
+
+
+def phase_serve_launcher(dev) -> None:
+    """`python -m repro_torch.launch.serve --device cuda:0`: the
+    reference's defaults (reduced qwen1.5-0.5b, 24 requests, 200 ticks,
+    price gate on) on the card, run in this process through its `main`."""
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    counters = _zero_counters()
+    rc = serve.main(["--device", str(dev)])
+    torch.cuda.synchronize()
+    print(f"[serve] launcher exit {rc}, {time.perf_counter() - t0:.2f} s; "
+          f"flash launches {counters['flash_attention'].launches}, decode "
+          f"launches {counters['decode_attention'].launches}")
+    if rc != 0 or counters["decode_attention"].launches == 0:
+        raise AssertionError("repro_torch.launch.serve failed")
+
+
+def _attn_bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    t_b, t_o = bytes_moved / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def phase_attention_times(dev, flush) -> dict:
+    """Device-only times (CUDA events, L2 flushed) of kernels 8 and 9 at
+    the serving shapes, beside SDPA on the same inputs, their plain
+    versions on the card and their bounds (the larger of the bytes at
+    3.35 TB/s and the matrix products at the 989 TFLOP/s bf16 peak)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import (decode_attention_plain,
+                                         flash_attention_plain)
+
+    recs = {}
+    for sq in (128, 1024, 2048):
+        h, g, dh = 16, 2, 128
+        q, k, v = _attn_inputs([(1, sq, h, dh), (1, sq, g, dh),
+                                (1, sq, g, dh)], BF16, dev, 900 + sq)
+        ms = _cuda_ms(lambda: flash_attention(q, k, v, causal=True),
+                      flush=flush, device_only=True)
+        lib = _cuda_ms(lambda: _sdpa(q, k, v, causal=True), flush=flush,
+                       device_only=True)
+        plain = _cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True),
+                         runs=3)
+        pairs = sq * (sq + 1) // 2
+        bound, by = _attn_bound(2 * (2 * sq * h * dh + 2 * sq * g * dh),
+                                4 * pairs * h * dh)
+        print(f"[time] flash_attention Sq=Skv={sq} causal, 16 heads / 2 "
+              f"groups, Dh 128, bf16: kernel {ms:.4f} ms, SDPA {lib:.4f} "
+              f"ms, plain {plain:.2f} ms, bound {bound:.5f} ms ({by}; "
+              f"{4 * pairs * h * dh / 1e9:.2f} GFLOP), {bound / ms:.1%} of "
+              f"bound, {4 * pairs * h * dh / ms / 1e9:.1f} TFLOP/s")
+        recs[("flash", sq)] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                               "bound_by": by, "library_ms": lib}
+    b, h, g, dh, w = 8, 16, 2, 128, 2048
+    q, k, v = _attn_inputs([(b, 1, h, dh), (b, w, g, dh), (b, w, g, dh)],
+                           BF16, dev, 950)
+    valid = _decode_valid(b, w, "linear", dev, 951)
+    mask = valid.bool()[:, None, None, :]
+    ms = _cuda_ms(lambda: decode_attention(q, k, v, valid), flush=flush,
+                  device_only=True)
+    lib = _cuda_ms(lambda: _sdpa(q, k, v, mask), flush=flush,
+                   device_only=True)
+    plain = _cuda_ms(lambda: decode_attention_plain(q, k, v, valid), runs=3)
+    # the function needs the K/V of the valid slots only (a row's output
+    # does not depend on the others'), the mask, q and o
+    n_valid = int(valid.sum())
+    bytes_moved = 2 * (2 * n_valid * g * dh + 2 * b * h * dh) + b * w
+    bound, by = _attn_bound(bytes_moved, 4 * n_valid * h * dh)
+    print(f"[time] decode_attention B={b} W={w}, 16 heads / 2 groups, Dh "
+          f"128, bf16, linear mask ({n_valid} valid slots): kernel "
+          f"{ms:.4f} ms, SDPA {lib:.4f} ms, plain {plain:.2f} ms, bound "
+          f"{bound:.5f} ms ({by}; {bytes_moved / 1e6:.1f} MB), "
+          f"{bound / ms:.1%} of bound, "
+          f"{bytes_moved / ms / 1e9:.3f} TB/s")
+    recs[("decode", w)] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                           "bound_by": by, "library_ms": lib}
+    return recs
+
+
+def _attention_records(errs: dict, times: dict, launches: dict
+                       ) -> list[dict]:
+    """Kernels 8 and 9 in the ``kernels`` line: flash at the serving
+    shape Sq = Skv = 1024 (causal, 16 heads / 2 groups, Dh 128, bf16),
+    decode at the serving pool (8 slots x 2048); launches from the
+    full-width serving run; errors the largest over
+    `phase_attention_vs_plain`'s cases."""
+    recs = []
+    for name, line, key in (("flash_attention", 42, ("flash", 1024)),
+                            ("decode_attention", 32, ("decode", 2048))):
+        t = times[key]
+        recs.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/attention.cu",
+            "replaces": f"src/repro/kernels/{name}.py:{line}",
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    return recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs only on "
@@ -1701,6 +2287,7 @@ def main() -> int:
     soft_errs = phase_soft_vs_plain(dev)
     dispatch_err = phase_dispatch_vs_plain(dev)
     sd_errs = phase_soft_dispatch_vs_plain(dev)
+    attn_errs = phase_attention_vs_plain(dev)
     torch.cuda.synchronize()
     main_run = phase_main_path(dev)
     tune = phase_tuner(dev)
@@ -1712,6 +2299,12 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_acceptance(dev)
     torch.cuda.synchronize()
+    serve = phase_serving(dev)
+    serve_launches = serve["launches"]
+    phase_teacher_forced(dev, serve)
+    del serve
+    phase_serve_launcher(dev)
+    torch.cuda.synchronize()
     fleet_rec, flush = phase_times(dev, main_run)
     soft_times = phase_soft_times(dev, flush)
     phase_tune_times(dev, tune["grid"])
@@ -1719,6 +2312,7 @@ def main() -> int:
     sd_times = phase_soft_dispatch_times(dev, flush, to_hard)
     torch.cuda.synchronize()
     phase_aware_step_times(dev, aware["grid"])
+    attn_times = phase_attention_times(dev, flush)
     torch.cuda.synchronize()
     kernels = [fleet_rec] + _soft_records(soft_errs, soft_times,
                                           tune["launches"]) + [{
@@ -1730,7 +2324,8 @@ def main() -> int:
         "bound_ms": disp_times["bound_ms"],
         "bound_by": disp_times["bound_by"], "library_ms": None}] \
         + _soft_dispatch_records(sd_errs, sd_times, aware["launches"],
-                                 to_hard["launches"])
+                                 to_hard["launches"]) \
+        + _attention_records(attn_errs, attn_times, serve_launches)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

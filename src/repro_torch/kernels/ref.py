@@ -826,3 +826,167 @@ def soft_dispatch_grad_ref(avail: torch.Tensor, keys: torch.Tensor,
     d_tau = (-(it.double() ** 2) * acc_it
              - it.double() * itm.double() * acc_itm).to(a.dtype)
     return d_av, d_ke, d_de, d_tau
+
+
+# ---------------------------------------------------------------------------
+# attention: the reference's oracles and the two kernels' plain versions
+# ---------------------------------------------------------------------------
+
+NEG_INF = -2.0 ** 30   # masked score: finite, so a fully masked online-
+                       # softmax row never forms (-inf) - (-inf)
+ATTN_TILE = 64         # query rows and keys per tile of both kernels
+DECODE_SPLIT = 64      # cache slots per block of the decode kernel
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  q_offset: int = 0) -> torch.Tensor:
+    """Dense float32 softmax attention (`repro.kernels.ref.attention_ref`).
+    q: [B,Sq,H,Dh]; k,v: [B,Skv,G,Dh]; GQA by head repetition."""
+    b, sq, h, dh = q.shape
+    skv, g = k.shape[1], k.shape[2]
+    rep = h // g
+    kh = k.repeat_interleave(rep, dim=2).float()
+    vh = v.repeat_interleave(rep, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kh) * dh ** -0.5
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    kpos = torch.arange(skv, device=q.device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    s = torch.where(mask[None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vh)
+    return out.to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         valid: torch.Tensor) -> torch.Tensor:
+    """Dense float32 softmax over a cache
+    (`repro.kernels.ref.decode_attention_ref`). q: [B,1,H,Dh];
+    k,v: [B,W,G,Dh]; valid: [B,W] bool."""
+    h, dh = q.shape[2], q.shape[3]
+    rep = h // k.shape[2]
+    kh = k.repeat_interleave(rep, dim=2).float()
+    vh = v.repeat_interleave(rep, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kh) * dh ** -0.5
+    s = torch.where(valid.bool()[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vh)
+    return out.to(q.dtype)
+
+
+def _online_step(m, l_, acc, s, v_tile, v_dtype):
+    """One tile of the online softmax, with the kernels' casts: scores
+    and the carry in float32, p rounded to V's type for p.v, the product
+    accumulated in float32. s: [..., n, kc]; v_tile: [..., kc, Dh]."""
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l_new = l_ * alpha + p.sum(dim=-1)
+    pv = torch.matmul(p.to(v_dtype).float(), v_tile.float())
+    return m_new, l_new, acc * alpha[..., None] + pv
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          q_offset: int = 0) -> torch.Tensor:
+    """The plain version of the flash kernel (`csrc/attention.cu`):
+    the same 64 x 64 tiles in the same order, the same skip of KV tiles
+    that the masks empty for a whole query tile, the same casts and the
+    same finite NEG_INF. q: [B,Sq,H,Dh]; k,v: [B,Skv,G,Dh]; returns
+    [B,Sq,H,Dh] in q's dtype. Head h reads KV group h // (H // G)."""
+    b, sq, h, dh = q.shape
+    skv, g = k.shape[1], k.shape[2]
+    r = h // g
+    dev, t = q.device, ATTN_TILE
+    qf = q.float().reshape(b, sq, g, r, dh).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)                   # [B,G,Skv,Dh]
+    vt = v.permute(0, 2, 1, 3)[:, :, None]               # [B,G,1,Skv,Dh]
+    qpos = q_offset + torch.arange(sq, device=dev)
+    q_start = q_offset + (torch.arange(sq, device=dev) // t) * t
+    m = torch.full((b, g, r, sq), NEG_INF, device=dev)
+    l_ = torch.zeros((b, g, r, sq), device=dev)
+    acc = torch.zeros((b, g, r, sq, dh), device=dev)
+    for k0 in range(0, skv, t):
+        k1 = min(k0 + t, skv)
+        # relevance of this tile to each row's query tile (uniform per tile)
+        relevant = torch.ones(sq, dtype=torch.bool, device=dev)
+        if causal:
+            relevant &= k0 <= torch.clamp(q_start + t - 1, max=skv - 1)
+        if window:
+            relevant &= (k0 + t - 1) > q_start - window
+        if not bool(relevant.any()):
+            continue
+        kpos = torch.arange(k0, k1, device=dev)
+        s = torch.einsum("bgrqd,bgkd->bgrqk", qf, kf[:, :, k0:k1]) \
+            * dh ** -0.5
+        mask = torch.ones((sq, k1 - k0), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        s = torch.where(mask, s, NEG_INF)
+        m_new, l_new, acc_new = _online_step(m, l_, acc, s,
+                                             vt[..., k0:k1, :], v.dtype)
+        m = torch.where(relevant, m_new, m)
+        l_ = torch.where(relevant, l_new, l_)
+        acc = torch.where(relevant[:, None], acc_new, acc)
+    out = acc / torch.clamp(l_, min=1e-37)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, valid: torch.Tensor
+                           ) -> torch.Tensor:
+    """The plain version of the decode kernel (`csrc/attention.cu`): the
+    cache cut into splits of ``DECODE_SPLIT`` slots, each split an online
+    softmax over tiles of 64 slots in order that skips a tile with no
+    valid slot (it would change no row that has one), the R = H // G heads
+    of a group against their group's slots, invalid slots scored NEG_INF,
+    the kernel's casts; then the splits folded in order (M = max m_j,
+    w_j = exp(m_j - M), out = sum w_j acc_j / max(sum w_j l_j, 1e-37)).
+    q: [B,1,H,Dh]; k,v: [B,W,G,Dh]; valid: [B,W] (int8 or bool, nonzero
+    = valid); returns [B,1,H,Dh] in q's dtype."""
+    b, _, h, dh = q.shape
+    w, g = k.shape[1], k.shape[2]
+    r = h // g
+    dev, t, sp = q.device, ATTN_TILE, DECODE_SPLIT
+    n = -(-w // sp)
+    pad = n * sp - w
+    ok = torch.nn.functional.pad(valid != 0, (0, pad))
+    ks = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)) \
+        .reshape(b, n, sp, g, dh)
+    vs = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)) \
+        .reshape(b, n, sp, g, dh)
+    ok = ok.reshape(b, n, sp)
+    qg = q.float().reshape(b, 1, g, r, dh)
+    m = torch.full((b, n, g, r), NEG_INF, device=dev)
+    l_ = torch.zeros((b, n, g, r), device=dev)
+    acc = torch.zeros((b, n, g, r, dh), device=dev)
+    for k0 in range(0, min(sp, w), t):      # the splits walk in step
+        tile_ok = ok[:, :, k0:k0 + t]
+        live = tile_ok.any(dim=-1)[:, :, None, None]     # [B, n, 1, 1]
+        s = torch.einsum("bngrd,bnkgd->bngrk", qg,
+                         ks[:, :, k0:k0 + t].float()) * dh ** -0.5
+        s = torch.where(tile_ok[:, :, None, None], s, NEG_INF)
+        m_new, l_new, acc_new = _online_step(
+            m, l_, acc, s, vs[:, :, k0:k0 + t].permute(0, 1, 3, 2, 4),
+            v.dtype)
+        m = torch.where(live, m_new, m)
+        l_ = torch.where(live, l_new, l_)
+        acc = torch.where(live[..., None], acc_new, acc)
+    if n == 1:
+        out = acc[:, 0] / torch.clamp(l_[:, 0], min=1e-37)[..., None]
+    else:
+        big_m = m.amax(dim=1)
+        tot_l = torch.zeros_like(big_m)
+        tot = torch.zeros_like(acc[:, 0])
+        for j in range(n):
+            wj = torch.exp(m[:, j] - big_m)
+            tot_l = tot_l + l_[:, j] * wj
+            tot = tot + acc[:, j] * wj[..., None]
+        out = tot / torch.clamp(tot_l, min=1e-37)[..., None]
+    return out.reshape(b, 1, h, dh).to(q.dtype)

@@ -1,0 +1,210 @@
+"""Attention: GQA with RoPE, optional QKV bias, sliding windows, caches.
+
+Mirrors `repro.models.attention` for one device. Full-sequence attention
+(prefill) goes to the flash kernel and decode to the decode kernel
+(`repro_torch.kernels.ops`); the route follows the device, not
+``cfg.attn_impl``: CUDA tensors always launch the hand-written kernels,
+CPU tensors run their plain versions. ``cfg.attn_impl`` stays in the
+config for parity with the reference and chooses nothing here.
+
+GQA layout: query heads are ordered grouped (h = g * rep + j), so head h
+reads KV group h // rep, as in the reference.
+
+The reference's ``constrain`` and ``_tp_align_heads`` are the identity on
+one device and are not ported, nor is its head-aligned cache
+(``cfg.kv_cache_align``): they come with the mesh slice, and such a config
+raises. The int8 KV cache (``cfg.kv_cache_dtype == "int8"``) raises: it
+comes with a later slice, and the reference's Pallas path does not take
+it either.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import (_dtype, normal_init, rope_cos_sin,
+                                       rotate)
+
+def check_cache_layout(cfg: ModelConfig) -> None:
+    """Raise for the cache layouts this slice does not port."""
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError(
+            "kv_cache_dtype='int8' (the quantised KV cache) is not ported "
+            "yet: it comes with a later serving slice")
+    if cfg.cache_heads != cfg.n_kv_heads:
+        raise NotImplementedError(
+            "kv_cache_align (a cache with replicated KV heads) is not "
+            "ported yet: it comes with the mesh slice")
+
+
+class AttnCache(NamedTuple):
+    """Decode-time KV cache. ``k``/``v``: [..., B, W, G, Dh] (W = window or
+    max_seq); ``pos_buf``: [..., B, W] absolute position per slot (-1 =
+    empty), which makes rolling (SWA) and linear caches uniform. The
+    model's caches carry a leading layer axis."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos_buf: torch.Tensor
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    h, g, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    pdt = _dtype(cfg.param_dtype)
+    p = {
+        "wq": normal_init(gen, (d, h, dh), 0.02, pdt),
+        "wk": normal_init(gen, (d, g, dh), 0.02, pdt),
+        "wv": normal_init(gen, (d, g, dh), 0.02, pdt),
+        "wo": normal_init(gen, (h, dh, d), 0.02 / (2 * cfg.n_layers) ** 0.5,
+                          pdt),
+    }
+    if cfg.qkv_bias:
+        dev = gen.device
+        p["bq"] = torch.zeros((h, dh), dtype=pdt, device=dev)
+        p["bk"] = torch.zeros((g, dh), dtype=pdt, device=dev)
+        p["bv"] = torch.zeros((g, dh), dtype=pdt, device=dev)
+    return p
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor, cdt: torch.dtype
+          ) -> torch.Tensor:
+    """x [B,S,D] @ w [D,N,Dh] -> [B,S,N,Dh]."""
+    d, n, dh = w.shape
+    return torch.matmul(x, w.to(cdt).reshape(d, n * dh)).unflatten(
+        -1, (n, dh))
+
+
+def _project_qkv(x, p, cfg: ModelConfig):
+    cdt = _dtype(cfg.dtype)
+    q = _proj(x, p["wq"], cdt)
+    k = _proj(x, p["wk"], cdt)
+    v = _proj(x, p["wv"], cdt)
+    if "bq" in p:
+        q = q + p["bq"].to(cdt)
+        k = k + p["bk"].to(cdt)
+        v = v + p["bv"].to(cdt)
+    return q, k, v
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor, cdt: torch.dtype
+              ) -> torch.Tensor:
+    """out [B,S,H,Dh] @ wo [H,Dh,D] -> [B,S,D]."""
+    h, dh, d = wo.shape
+    return torch.matmul(out.flatten(-2), wo.to(cdt).reshape(h * dh, d))
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        cfg: ModelConfig, *, causal: bool,
+                        window: int = 0, q_offset: int = 0
+                        ) -> torch.Tensor:
+    """q: [B, Sq, H, Dh]; k, v: [B, Skv, G, Dh]; returns [B, Sq, H, Dh].
+
+    The flash kernel on the card, its plain blocked version on the CPU
+    (both online-softmax over 64 x 64 tiles with an f32 carry); the
+    reference's chunk sizes ``cfg.attn_q_chunk``/``attn_kv_chunk`` are
+    passed for parity and do not change the result."""
+    return kops.flash_attention(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset, bq=cfg.attn_q_chunk,
+                                bkv=cfg.attn_kv_chunk)
+
+
+def attention_layer(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
+                    cache: Optional[AttnCache] = None,
+                    positions: Optional[torch.Tensor] = None,
+                    return_kv: bool = False,
+                    rope: Optional[tuple] = None,
+                    valid: Optional[torch.Tensor] = None,
+                    ) -> tuple[torch.Tensor, Optional[object]]:
+    """One causal self-attention layer with rope (the decoder's; the
+    reference's cross-attention and rope-free encoder modes come with the
+    audio slice), windowed by ``cfg.swa_window``.
+
+    Modes:
+      * full-sequence (cache=None): prefill; x: [B,S,D]. With
+        ``return_kv`` the second result is the projected (k, v) after
+        rope, [B,S,G,Dh] each, for the decode cache.
+      * decode (cache given): x: [B,1,D], positions: [B] absolute
+        position of the new token. The new k/v are written into
+        ``cache`` in place (slot ``pos % W``), and ``cache`` is returned;
+        the reference returns an updated copy instead.
+
+    ``rope``: the rotary (cos, sin) of these positions
+    (`layers.rope_cos_sin`), which the decoder computes once for all its
+    layers; computed here when not given.
+
+    ``valid`` (decode): the [B, W] int8 slot validity of this step. The
+    decoder writes the new positions into every layer's ``pos_buf`` and
+    computes it once for all its layers (`decode_valid`), where the
+    reference does both in each layer.
+    """
+    cdt = _dtype(cfg.dtype)
+    window = cfg.swa_window
+    b = x.shape[0]
+    q, k, v = _project_qkv(x, p, cfg)
+
+    if cache is None:
+        rope = rope or rope_cos_sin(_prefill_positions(x, positions),
+                                    q.shape[-1], cfg.rope_theta)
+        q, k = rotate(q, rope), rotate(k, rope)
+        out = blockwise_attention(q, k, v, cfg, causal=True, window=window)
+        o = _out_proj(out, p["wo"], cdt)
+        return o, ((k, v) if return_kv else None)
+
+    # ---- decode path -----------------------------------------------------
+    if x.shape[1] != 1:
+        raise ValueError(f"decode takes one token per row, got x "
+                         f"{list(x.shape)}")
+    pos = positions                                     # [B] int
+    rope = rope or rope_cos_sin(pos[:, None], q.shape[-1], cfg.rope_theta)
+    q, k = rotate(q, rope), rotate(k, rope)
+    w = cache.k.shape[1]
+    rows = torch.arange(b, device=x.device)
+    slot = pos.long() % w                   # rolling for SWA; linear: pos
+    cache.k[rows, slot] = k[:, 0].to(cache.k.dtype)
+    cache.v[rows, slot] = v[:, 0].to(cache.v.dtype)
+    out = _decode_attention(q, cache.k.to(cdt), cache.v.to(cdt), valid, cfg)
+    return _out_proj(out, p["wo"], cdt), cache
+
+
+def decode_valid(pos_buf: torch.Tensor, pos: torch.Tensor,
+                 window: int) -> torch.Tensor:
+    """[B, W] int8: 1 where a cache slot holds a key the token at ``pos``
+    may see (written, not after ``pos``, inside the window).
+    pos_buf: [B, W] slot positions (-1 = empty); pos: [B]."""
+    valid = pos_buf <= pos[:, None]
+    if window:
+        valid &= pos_buf > (pos[:, None] - window)
+    valid &= pos_buf >= 0
+    return valid.to(torch.int8)
+
+
+def _prefill_positions(x: torch.Tensor, positions=None) -> torch.Tensor:
+    """[B, S] positions of a full-sequence pass (default 0..S-1)."""
+    b, s = x.shape[:2]
+    pos = torch.arange(s, device=x.device) if positions is None \
+        else positions
+    return torch.broadcast_to(pos, (b, s))
+
+
+def _decode_attention(q, k, v, valid, cfg: ModelConfig):
+    """q: [B,1,H,Dh]; k,v: [B,W,G,Dh]; valid: [B,W] int8. The decode
+    kernel on the card, its plain version on the CPU."""
+    return kops.decode_attention(q, k, v, valid, bkv=cfg.attn_kv_chunk)
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                    device: torch.device) -> AttnCache:
+    check_cache_layout(cfg)
+    w = min(cfg.swa_window or max_seq, max_seq)
+    g, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    kv_dt = _dtype(cfg.kv_cache_dtype)
+    shp = (batch, w, g, dh)
+    return AttnCache(
+        torch.zeros(shp, dtype=kv_dt, device=device),
+        torch.zeros(shp, dtype=kv_dt, device=device),
+        torch.full((batch, w), -1, dtype=torch.int32, device=device))

@@ -1,0 +1,149 @@
+"""Public model API of the serving path (mirrors `repro.models.model`).
+
+  init_params        random parameters from a `torch.Generator`
+  params_from_numpy  the reference's parameter pytree (as numpy) carried
+                     into the port's parameters
+  prefill            full-sequence forward -> (last-position logits, caches)
+  decode_step        one token per row against the caches
+  init_cache         the empty decode cache
+
+Parameters and caches carry a leading stacked layer axis, as in the
+reference. Unlike the reference, `decode_step` updates the caches in
+place (the [L, B, W, G, Dh] pool is written, not copied) and returns the
+same object. ``loss_fn``, ``cache_specs`` and ``param_specs`` wait for the
+training and mesh slices.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.attention import (AttnCache, check_cache_layout,
+                                          init_attn_cache)
+from repro_torch.models.layers import _dtype, embed, rms_norm, unembed
+from repro_torch.models.transformer import (check_family, decoder_forward,
+                                            init_model_params)
+
+
+def init_params(key: Union[int, torch.Generator], cfg: ModelConfig, *,
+                device: DeviceLike = None) -> dict:
+    """Random parameters. ``key`` is a `torch.Generator` (its device is
+    where the parameters are drawn) or an int seed for a new generator on
+    ``device`` (default cuda)."""
+    if isinstance(key, torch.Generator):
+        gen = key
+    else:
+        gen = torch.Generator(device=resolve_device(device))
+        gen.manual_seed(int(key))
+    return init_model_params(gen, cfg)
+
+
+def _tensor(x, device: torch.device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":        # ml_dtypes: torch has no numpy view
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)     # a writable copy
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, *,
+                      device: DeviceLike = None) -> dict:
+    """The reference's parameter pytree (`repro.models.model.init_params`
+    output, leaves converted to numpy) as the port's parameters on
+    ``device``: the same nesting and names, [L, ...] stacked blocks, each
+    leaf in its own dtype."""
+    check_family(cfg)
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return _tensor(t, dev)
+    return conv({k: tree[k] for k in ("embed", "blocks", "final_norm")})
+
+
+def _cache_from_kv(k: torch.Tensor, v: torch.Tensor, w: int,
+                   cfg: ModelConfig) -> AttnCache:
+    """The decode cache from collected K/V [..., S, G, Dh].
+
+    Linear caches (w >= s) are a pad with ``pos_buf = -1`` on the empty
+    slots; rolling (sliding-window, w < s) caches scatter the last ``w``
+    positions to slot ``pos % w``."""
+    check_cache_layout(cfg)
+    s = k.shape[-3]
+    kvdt = _dtype(cfg.kv_cache_dtype)
+    dev = k.device
+    lead = tuple(k.shape[:-3])
+    tail = tuple(k.shape[-2:])
+    if w >= s:
+        kc = torch.zeros(lead + (w,) + tail, dtype=kvdt, device=dev)
+        vc = torch.zeros(lead + (w,) + tail, dtype=kvdt, device=dev)
+        kc[..., :s, :, :] = k
+        vc[..., :s, :, :] = v
+        pos = torch.full((w,), -1, dtype=torch.int32, device=dev)
+        pos[:s] = torch.arange(s, dtype=torch.int32, device=dev)
+        return AttnCache(kc, vc, pos.expand(lead + (w,)).contiguous())
+    srcpos = torch.arange(s - w, s, device=dev)
+    slots = srcpos % w
+    kc = torch.zeros(lead + (w,) + tail, dtype=kvdt, device=dev)
+    vc = torch.zeros(lead + (w,) + tail, dtype=kvdt, device=dev)
+    kc[..., slots, :, :] = k[..., s - w:, :, :].to(kvdt)
+    vc[..., slots, :, :] = v[..., s - w:, :, :].to(kvdt)
+    pos = torch.zeros((w,), dtype=torch.int32, device=dev)
+    pos[slots] = srcpos.to(torch.int32)
+    return AttnCache(kc, vc, pos.expand(lead + (w,)).contiguous())
+
+
+def prefill(params: dict, batch: dict, cfg: ModelConfig, *,
+            max_seq: Optional[int] = None) -> tuple[torch.Tensor, dict]:
+    """Full-sequence forward returning (last-position logits [B,V],
+    caches). ``batch["tokens"]``: [B,S] integer tensor (and
+    ``batch["patches"]`` [B, vis_tokens, D] for the vision frontend).
+    ``max_seq`` sets the decode cache capacity (default: the prompt
+    length; pass prompt + generation budget for serving)."""
+    check_family(cfg)
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    max_seq = max_seq or s
+    h = embed(tokens, params["embed"], cfg)
+    if cfg.frontend == "vision":
+        vt = cfg.vis_tokens
+        h = torch.cat([batch["patches"].to(h.dtype), h[:, vt:]], dim=1)
+    h, _, col = decoder_forward(params, h, cfg, collect=True)
+    w = min(cfg.swa_window or max_seq, max_seq)
+    k, v = col["attn"]
+    caches = {"attn": _cache_from_kv(k, v, w, cfg)}
+    h_last = rms_norm(h[:, -1:], params["final_norm"]["scale"], cfg.norm_eps)
+    logits = unembed(h_last, params["embed"], cfg)[:, 0]
+    return logits, caches
+
+
+def decode_step(params: dict, tokens: torch.Tensor, caches: dict,
+                positions: torch.Tensor, cfg: ModelConfig
+                ) -> tuple[torch.Tensor, dict]:
+    """One decoding step. tokens: [B,1]; positions: [B] absolute position
+    of the new token. Returns (logits [B,V], caches), the caches updated
+    in place."""
+    h = embed(tokens, params["embed"], cfg)
+    h, _, caches = decoder_forward(params, h, cfg, caches=caches,
+                                   positions=positions)
+    h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
+    logits = unembed(h, params["embed"], cfg)[:, 0]
+    return logits, caches
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+               device: DeviceLike = None) -> dict:
+    """The empty decode cache: {"attn": AttnCache} with [L, B, W, G, Dh]
+    k/v (zeros) and [L, B, W] pos_buf (-1)."""
+    check_family(cfg)
+    dev = resolve_device(device)
+    layer = init_attn_cache(cfg, batch, max_seq, dev)
+    n = cfg.n_layers
+    return {"attn": AttnCache(
+        *(x.unsqueeze(0).repeat((n,) + (1,) * x.ndim) for x in layer))}

@@ -1,0 +1,140 @@
+"""Model assembly for the dense family (and the dense backbone of vlm).
+
+Mirrors `repro.models.transformer`: parameters are nested dicts whose
+per-layer leaves are stacked on a leading layer axis ([L, ...]), as the
+reference stacks them for its scan over layers; the port loops over the
+layers in Python and indexes the stacked tensors (views, no copies). The
+decode cache is stacked the same way ([L, B, W, G, Dh]).
+
+The other families raise `NotImplementedError` naming the slice that
+ports them: ``ssm`` and ``hybrid`` (the Mamba2 SSD kernel) with the
+mamba2-1.3b serving slice, ``moe`` and ``audio`` with later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import (AttnCache, _prefill_positions,
+                                          attention_layer, decode_valid,
+                                          init_attention)
+from repro_torch.models.layers import (init_embeddings, init_mlp,
+                                       init_rms_norm, mlp, rms_norm,
+                                       rope_cos_sin)
+
+FAMILY_SLICES = {
+    "ssm": "the Mamba2 serving slice (mamba2-1.3b, the SSD scan kernel)",
+    "hybrid": "the Mamba2 serving slice (the SSD scan kernel), with "
+              "zamba2's shared attention",
+    "moe": "a later slice (the expert-parallel MoE FFN)",
+    "audio": "a later slice (whisper's encoder-decoder)",
+}
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """Raise for a family this slice does not port."""
+    if cfg.family in FAMILY_SLICES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: it comes "
+            f"with {FAMILY_SLICES[cfg.family]}")
+    if cfg.family not in ("dense", "vlm"):
+        raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def _stack(trees: list) -> dict:
+    """Per-layer parameter dicts -> one dict of [L, ...] tensors."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _init_dense_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    dev = gen.device
+    return {"ln1": init_rms_norm(cfg.d_model, dev),
+            "attn": init_attention(gen, cfg),
+            "ln2": init_rms_norm(cfg.d_model, dev),
+            "ffn": init_mlp(gen, cfg)}
+
+
+def init_model_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Random parameters drawn from ``gen`` on its device."""
+    check_family(cfg)
+    return {"embed": init_embeddings(gen, cfg),
+            "blocks": _stack([_init_dense_block(gen, cfg)
+                              for _ in range(cfg.n_layers)]),
+            "final_norm": init_rms_norm(cfg.d_model, gen.device)}
+
+
+def layer_params(blocks: dict, i: int) -> dict:
+    """Layer ``i``'s parameters: views into the stacked tensors."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in blocks.items()}
+
+
+def _attn_ffn_block(h, bp, cfg: ModelConfig, *, cache, positions,
+                    return_kv=False, rope=None, valid=None):
+    """One pre-norm attention + SwiGLU block; returns (h, cache or the
+    collected K/V). The dense block adds no auxiliary loss."""
+    resid = h
+    x = rms_norm(h, bp["ln1"]["scale"], cfg.norm_eps)
+    attn_out, new_cache = attention_layer(x, bp["attn"], cfg, cache=cache,
+                                          positions=positions,
+                                          return_kv=return_kv, rope=rope,
+                                          valid=valid)
+    h = resid + attn_out
+    resid = h
+    x = rms_norm(h, bp["ln2"]["scale"], cfg.norm_eps)
+    h = resid + mlp(x, bp["ffn"], cfg)
+    return h, new_cache
+
+
+def decoder_forward(params: dict, h: torch.Tensor, cfg: ModelConfig, *,
+                    caches: Optional[dict] = None,
+                    positions: Optional[torch.Tensor] = None,
+                    collect: bool = False):
+    """Run the decoder blocks. h: [B, S, D] embedded input.
+
+    ``caches`` ({"attn": AttnCache of [L, ...] leaves}) selects decode:
+    each layer writes its new k/v into its slice of the cache in place.
+    Returns (h, aux, new_caches); ``collect=True`` (prefill) returns the
+    per-layer K/V after rope, stacked to [L, B, S, G, Dh], as
+    ``{"attn": (k, v)}``.
+    """
+    check_family(cfg)
+    decode = caches is not None
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    # the rotary angles of these positions, shared by every layer
+    pos = positions[:, None] if decode else _prefill_positions(h, positions)
+    rope = rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
+    valid = None
+    if decode:
+        # every layer's cache holds the same positions: write the new ones
+        # into all layers' pos_buf at once and derive the slot validity
+        # once, rather than in each layer as the reference does
+        pb = caches["attn"].pos_buf                       # [L, B, W]
+        rows = torch.arange(pb.shape[1], device=pb.device)
+        pb[:, rows, positions.long() % pb.shape[-1]] = \
+            positions.to(pb.dtype)
+        valid = decode_valid(pb[0], positions, cfg.swa_window)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        bp = layer_params(params["blocks"], i)
+        cache = None
+        if decode:
+            c = caches["attn"]
+            cache = AttnCache(c.k[i], c.v[i], c.pos_buf[i])
+        h, kv = _attn_ffn_block(h, bp, cfg, cache=cache,
+                                positions=positions, return_kv=collect,
+                                rope=rope, valid=valid)
+        if collect:
+            ks.append(kv[0])
+            vs.append(kv[1])
+    if decode:
+        return h, aux, caches
+    if collect:
+        return h, aux, {"attn": (torch.stack(ks), torch.stack(vs))}
+    return h, aux, None

@@ -1,7 +1,8 @@
 """The CUDA kernels on the card (`fleet_scan`, the soft-scan forward and
-backward, `dispatch_scan`, the three soft-dispatch kernels), held against
-their plain PyTorch versions, and the backtest, the tuner (plain and
-dispatch-aware) and the dispatch summary on the card against the CPU.
+backward, `dispatch_scan`, the three soft-dispatch kernels, flash and
+decode attention), held against their plain PyTorch versions, and the
+backtest, the tuner (plain and dispatch-aware), the dispatch summary and
+the serving engine on the card against the CPU.
 Marked ``gpu``:
 without a CUDA device every test skips. Imports neither JAX nor the
 reference, so it runs on a machine that has only PyTorch:
@@ -29,7 +30,11 @@ sums), at the reference's soft cases and at blocks of more than one
 warp (64, 45 and 130 sites); the forward kernel's allocation equal
 to the fused forward's bit for bit (one kernel); the dispatch-aware tuner
 on the card within rtol 1e-3 of the CPU's CPCs, with the same source and
-chosen set.
+chosen set. The attention kernels against their plain versions on the
+card: float32 within atol = rtol = 2e-5, bfloat16 within 2e-2 (the
+reference's kernel tolerances; the two share tiles and casts and differ
+in the order of float32 sums); the reduced serving engine on the card at
+float32 returns the CPU's tokens.
 """
 
 import numpy as np
@@ -43,10 +48,15 @@ from repro_torch.dispatch import (DispatchConfig, segment_keys,  # noqa: E402
 from repro_torch.execution import Coupling  # noqa: E402
 from repro_torch.fleet import (PolicySpec, backtest, build_grid,  # noqa: E402
                                summarize)
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.inputs import reduced_config  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.dispatch_scan import dispatch_scan  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fleet_scan import fleet_scan  # noqa: E402
-from repro_torch.kernels.ref import (dispatch_ref,  # noqa: E402
-                                     fleet_scan_ref, soft_dispatch_bwd_ref,
+from repro_torch.kernels.ref import (decode_attention_plain,  # noqa: E402
+                                     dispatch_ref,
+                                     flash_attention_plain, fleet_scan_ref, soft_dispatch_bwd_ref,
                                      soft_dispatch_fwd_ref,
                                      soft_dispatch_hour_fixed,
                                      soft_dispatch_ref, soft_level_in_gap)
@@ -56,6 +66,9 @@ from repro_torch.kernels.soft_dispatch import (  # noqa: E402
 from repro_torch.kernels.soft_scan_vjp import (soft_scan_bwd,  # noqa: E402
                                                soft_scan_fwd,
                                                soft_state_fused)
+from repro_torch.models.model import init_params  # noqa: E402
+from repro_torch.serving import (Request, ServeConfig,  # noqa: E402
+                                 ServingEngine)
 from repro_torch.tune import TuneConfig, optimize  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -377,3 +390,153 @@ def test_dispatch_aware_optimize_on_the_card_matches_the_cpu(cuda):
         optimize(grid, TuneConfig(steps=2, fused=False,
                                   coupling=Coupling(dispatch=dcfg)),
                  device=cuda)
+
+
+ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+def _attn_inputs(shapes, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                            device=dev).to(dtype) for s in shapes]
+
+
+# B, Sq, Skv, H, G, Dh, window, q_offset, dtype
+@pytest.mark.parametrize("case", [
+    (1, 100, 100, 8, 2, 64, 0, 0, torch.float32),
+    (2, 200, 200, 16, 2, 128, 0, 0, torch.bfloat16),
+    (1, 70, 200, 16, 2, 32, 40, 130, torch.float32)])
+def test_flash_kernel_matches_plain_version(cuda, case):
+    b, sq, skv, h, g, dh, win, qo, dt = case
+    q, k, v = _attn_inputs([(b, sq, h, dh), (b, skv, g, dh),
+                            (b, skv, g, dh)], dt, cuda, sum(case[:8]))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True, window=win, q_offset=qo,
+                          use_kernel=True)
+    want = flash_attention_plain(q, k, v, causal=True, window=win,
+                                 q_offset=qo)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dt and got.shape == (b, sq, h, dh)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dt])
+
+
+# B, H, G, Dh, W, dtype
+@pytest.mark.parametrize("case", [(2, 8, 2, 64, 100, torch.float32),
+                                  (8, 16, 2, 128, 2048, torch.bfloat16),
+                                  (1, 4, 1, 16, 513, torch.float32)])
+def test_decode_kernel_matches_plain_version(cuda, case):
+    b, h, g, dh, w, dt = case
+    q, k, v = _attn_inputs([(b, 1, h, dh), (b, w, g, dh), (b, w, g, dh)],
+                           dt, cuda, sum(case[:5]))
+    rng = np.random.default_rng(w)
+    valid = torch.as_tensor(rng.random((b, w)) > 0.3, device=cuda)
+    valid[:, 0] = True
+    valid = valid.to(torch.int8)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, valid, use_kernel=True)
+    want = decode_attention_plain(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dt])
+
+
+# B, H, G, Dh, W, dtype; rows filled linearly to 0, 1, 65, 300 slots and
+# then to the whole cache, in turn
+@pytest.mark.parametrize("case", [(8, 16, 2, 128, 2048, torch.bfloat16),
+                                  (5, 8, 2, 64, 600, torch.float32)])
+def test_decode_kernel_skips_tiles_with_no_valid_slot(cuda, case):
+    """Tiles and whole splits with no valid slot are skipped by the kernel
+    and its plain version alike: every row agrees, and a row with no
+    valid slot is exactly 0."""
+    b, h, g, dh, w, dt = case
+    q, k, v = _attn_inputs([(b, 1, h, dh), (b, w, g, dh), (b, w, g, dh)],
+                           dt, cuda, w)
+    fill = torch.tensor([0, 1, 65, 300, w] * b, device=cuda)[:b]
+    valid = (torch.arange(w, device=cuda)[None] < fill[:, None])
+    valid = valid.to(torch.int8)
+    got = decode_attention(q, k, v, valid, use_kernel=True)
+    want = decode_attention_plain(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert bool((got[0] == 0).all())
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dt])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_attention_kernels_read_strided_misaligned_views(cuda, dt):
+    """q, k, v cut from wider rows at a one-element offset: the kernels'
+    4-byte load path, through the strides."""
+    wide = _attn_inputs([(2, 150, 8, 65), (2, 150, 2, 65), (2, 150, 2, 65)],
+                        dt, cuda, 4)
+    q, k, v = (x[..., 1:] for x in wide)
+    got = flash_attention(q, k, v, causal=True, window=50, use_kernel=True)
+    want = flash_attention_plain(q, k, v, causal=True, window=50)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dt])
+    valid = torch.ones((2, 150), dtype=torch.int8, device=cuda)
+    got = decode_attention(q[:, -1:], k, v, valid, use_kernel=True)
+    want = decode_attention_plain(q[:, -1:], k, v, valid)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dt])
+
+
+def test_attention_kernels_refuse_what_they_do_not_take(cuda):
+    q, k, v = _attn_inputs([(1, 64, 4, 64), (1, 64, 2, 64), (1, 64, 2, 64)],
+                           torch.float32, cuda, 0)
+    valid = torch.ones((1, 64), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        decode_attention(q[:, :1].half(), k.half(), v.half(), valid)
+    with pytest.raises(ValueError, match="dtype|bfloat16"):
+        flash_attention(q, k.bfloat16(), v)
+    wide = torch.zeros((1, 64, 4, 128), device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(wide, k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention(wide[:, :1], k, v, valid)
+    k3 = torch.zeros((1, 64, 3, 64), device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q, k3, k3)
+    with pytest.raises(ValueError, match="multiple"):
+        decode_attention(q[:, :1], k3, k3, valid)
+    with pytest.raises(ValueError, match="int8"):
+        decode_attention(q[:, :1], k, v, valid.bool())
+    with pytest.raises(ValueError, match="use_kernel"):
+        flash_attention(q, k, v, use_kernel=False)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen1.5-0.5b"])
+def test_serving_engine_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced engine at float32 on the card returns the CPU's tokens,
+    through the kernels: one flash launch per layer and prefill, one
+    decode launch per layer and decode step."""
+    cfg = reduced_config(get_config(arch))
+    cpu_params = init_params(5, cfg, device="cpu")
+    outputs, launches = {}, {}
+    for dev in ("cpu", cuda):
+        params = _tree_to(cpu_params, dev)
+        eng = ServingEngine(params, cfg, ServeConfig(slots=4, max_seq=48),
+                            device=dev)
+        rng = np.random.default_rng(2)
+        for i in range(6):
+            eng.submit(Request(rid=i, prompt=rng.integers(
+                2, cfg.vocab - 1, size=int(rng.integers(5, 20))).astype(
+                    np.int32), max_new=8))
+        f0, d0 = flash_attention.launches, decode_attention.launches
+        out = eng.run(ticks=30)
+        launches[str(dev)] = (flash_attention.launches - f0,
+                              decode_attention.launches - d0)
+        outputs[str(dev)] = ({r.rid: r.output for r in eng.completed},
+                             out["tokens_served"], out["completed"])
+    assert outputs[str(cuda)] == outputs["cpu"]
+    assert outputs["cpu"][2] == 6
+    assert launches["cpu"] == (0, 0)
+    assert launches[str(cuda)][0] == 6 * cfg.n_layers
+    assert launches[str(cuda)][1] % cfg.n_layers == 0
+    assert launches[str(cuda)][1] > 0

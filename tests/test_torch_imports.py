@@ -31,11 +31,22 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
                          capture_output=True, text=True).stdout.split()
     n_modules, names, bad = int(out[0]), out[1].split(","), out[2:]
     assert bad == []
-    # the 42 modules of the slices so far: package inits, core, energy,
-    # runtime, kernels, fleet, optim, checkpoint, tune, dispatch, examples
-    # and the device helper
-    assert n_modules == len(names) >= 42
-    for name in ("repro_torch.dispatch", "repro_torch.dispatch.allocate",
+    # the 70 modules of the slices so far: package inits, core, energy,
+    # runtime, kernels, fleet, optim, checkpoint, tune, dispatch, examples,
+    # the device helper, and the serving slice's configs, models, serving
+    # engine and launcher
+    assert n_modules == len(names) >= 70
+    for name in ("repro_torch.configs.base", "repro_torch.configs.inputs",
+                 "repro_torch.configs.qwen2_5_3b",
+                 "repro_torch.models.layers", "repro_torch.models.attention",
+                 "repro_torch.models.transformer", "repro_torch.models.model",
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.decode_attention",
+                 "repro_torch.kernels.ops", "repro_torch.energy.stream",
+                 "repro_torch.runtime.accounting",
+                 "repro_torch.runtime.scheduler",
+                 "repro_torch.serving.engine", "repro_torch.launch.serve",
+                 "repro_torch.dispatch", "repro_torch.dispatch.allocate",
                  "repro_torch.dispatch.schedule",
                  "repro_torch.kernels.dispatch_scan",
                  "repro_torch.kernels.soft_dispatch",
