@@ -38,21 +38,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      on the card and against SDPA, at the reference's cases and the
      serving shapes (run with phase 8's kernel checks);
  12. the serving path at full width: `ServingEngine` on qwen2.5-3b (bf16,
-     random parameters from a seeded generator), 8 slots x 2048, the
-     price gate on and crossing a price spike (it must close and reopen),
-     16 requests of 128-1024 prompt tokens x 32 new tokens, until all
-     complete; one request teacher-forced through the
-     kernels and through the plain attention; the `repro_torch.launch.
-     serve` launcher at the reference's defaults;
- 13. times (median of CUDA-event runs after warm-up): each kernel, its
+     random parameters drawn from a seed on the CPU, copied to the card),
+     8 slots x 2048, the price gate on and crossing a price spike (it
+     must close and reopen), 16 requests of 128-1024 prompt tokens x 32
+     new tokens, until all complete; one request teacher-forced through
+     the kernels and through the plain attention;
+ 13. the SSD scan kernel against its plain version on the card (the
+     reference's cases, mamba2-1.3b's serving shapes at 1024 and 1000
+     positions in bf16 and float32, with h0 and without, a scan in two
+     parts chained through h0); the Mamba2 serving path at full width:
+     the same engine, gate and requests on mamba2-1.3b (48 layers, bf16),
+     prompts of 2 to 1024 tokens, 48 SSD launches per prefill, no plain
+     SSD and no attention; a 1000-token request teacher-forced through
+     the kernel and through the plain scan; prefill of 2 and of 300 tokens
+     then decode against the longer prefills; the `repro_torch.launch.
+     serve` launcher at the reference's defaults and on reduced mamba2;
+ 14. times (median of CUDA-event runs after warm-up): each kernel, its
      plain version and its bound, the backtest at 1024 and 8192 rows,
      market generation, the tuner loop's row-steps/s (hand-written VJP
      against autograd through the doubling scan), one whole dispatch
      call split into its parts, the soft-dispatch kernels at 32 x 2190 and
      64 x 8760 beside their bounds and serial floors (the plain forward's
      run at 64 x 8760 also holds phase 9's allocation), a
-     dispatch-aware tuner step against an uncoupled one, and the
-     attention kernels at the serving shapes beside SDPA;
+     dispatch-aware tuner step against an uncoupled one, the
+     attention kernels at the serving shapes beside SDPA, and the SSD
+     kernel at 1024 and 2048 positions beside its plain version;
 each path's kernel launch counts are set to 0 just before it and read
 just after. Then one JSON line describing every ported kernel and, last,
 one JSON line naming the device. Without CUDA it exits non-zero and
@@ -61,6 +71,7 @@ prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import shutil
 import statistics
@@ -167,7 +178,7 @@ def phase_device() -> str:
 
 
 KERNEL_SOURCES = ("fleet_scan", "soft_scan", "dispatch_scan",
-                  "soft_dispatch", "attention")
+                  "soft_dispatch", "attention", "ssd_scan")
 
 # Probes of the card, not kernels of the port. f64_add_chain: one thread
 # adds 1.0 to x n times, each addition waiting on the last, so a chain
@@ -553,13 +564,14 @@ def _counters():
                                                    soft_dispatch_scan)
     from repro_torch.kernels.soft_scan_vjp import (soft_scan_bwd,
                                                    soft_scan_fwd)
+    from repro_torch.kernels.ssd_scan import ssd_scan
     return {"fleet_scan": fleet_scan, "soft_scan_fwd": soft_scan_fwd,
             "soft_scan_bwd": soft_scan_bwd, "dispatch_scan": dispatch_scan,
             "soft_dispatch": soft_dispatch_scan,
             "soft_dispatch_fused_fwd": soft_dispatch_fused_fwd,
             "soft_dispatch_fused_bwd": soft_dispatch_fused_bwd,
             "flash_attention": flash_attention,
-            "decode_attention": decode_attention}
+            "decode_attention": decode_attention, "ssd_scan": ssd_scan}
 
 
 def _zero_counters() -> dict:
@@ -1745,6 +1757,11 @@ DECODE_SMOKE_CASES = [
     (8, 16, 2, 128, 2048, torch.float32, "rolling"),
 ]
 SERVE_ARCH = "qwen2.5-3b"
+SSM_ARCH = "mamba2-1.3b"
+# the mamba2 run's fixed prompt lengths: one chunk, two, a ragged third,
+# two whole, ragged ones, four chunks less 24 and four whole, and a prompt
+# shorter than the conv (its conv tail is left-padded)
+SSM_PROMPTS = (128, 256, 300, 512, 700, 1000, 1024, 2)
 SERVE_REQUESTS, SERVE_MAX_NEW, SERVE_SEED = 16, 32, 0
 # teacher-forced kernel vs plain logits at bf16, full width (PERF.md)
 TF_STEPS, TF_MAX_ABS = 16, 0.25
@@ -1904,18 +1921,22 @@ def phase_attention_vs_plain(dev) -> dict:
     return errs
 
 
-def _count_attention_plain_calls():
-    """Call counters on every plain attention function a wrapper or the
-    model could reach; returns (counts, restore)."""
+def _count_serving_plain_calls():
+    """Call counters on every plain attention and SSD function a wrapper or
+    the model could reach; returns (counts, restore)."""
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as smod
+    from repro_torch.models import ssm as ssm_mod
 
     targets = [(fmod, "flash_attention_plain"),
                (dmod, "decode_attention_plain"),
                (ref, "flash_attention_plain"),
                (ref, "decode_attention_plain"), (ref, "attention_ref"),
-               (ref, "decode_attention_ref")]
+               (ref, "decode_attention_ref"), (smod, "ssd_scan_plain"),
+               (ref, "ssd_scan_plain"), (ref, "ssd_ref"),
+               (ssm_mod, "ssd_chunked")]
     counts = {f"{m.__name__.split('.')[-1]}.{n}": 0 for m, n in targets}
     saved = [(m, n, getattr(m, n)) for m, n in targets]
 
@@ -1933,27 +1954,53 @@ def _count_attention_plain_calls():
     return counts, restore
 
 
-def _serve_requests(cfg):
+def _serve_requests(cfg, fixed=()):
+    """16 requests of SERVE_MAX_NEW new tokens: prompts of the ``fixed``
+    lengths, then of 128-1024 tokens drawn from SERVE_SEED."""
     from repro_torch.serving import Request
 
     rng = np.random.default_rng(SERVE_SEED)
-    lens = rng.integers(128, 1025, SERVE_REQUESTS)
+    lens = list(fixed) + list(rng.integers(128, 1025,
+                                           SERVE_REQUESTS - len(fixed)))
     return [Request(rid=i, prompt=rng.integers(2, cfg.vocab - 1,
                                                size=int(n)).astype(np.int32),
                     max_new=SERVE_MAX_NEW) for i, n in enumerate(lens)]
 
 
-def phase_serving(dev) -> dict:
-    """The serving path at full width: `ServingEngine` on qwen2.5-3b (36
-    layers, d_model 2048, 16 heads in 2 KV groups, bf16; random parameters
-    from a seeded torch.Generator on the card), 8 slots of 2048 positions,
-    the price gate on (germany, Psi 2, oracle), 16 requests of 128-1024
-    prompt tokens and 32 new tokens each, run until every request
+def _serve_expect(cfg) -> dict:
+    """Each serving kernel's launches per (prefill, decode step): the dense
+    family's flash and decode attention, the ssm family's SSD scan (its
+    decode step is the plain recurrence)."""
+    if cfg.family == "ssm":
+        return {"ssd_scan": (cfg.n_layers, 0)}
+    return {"flash_attention": (cfg.n_layers, 0),
+            "decode_attention": (0, cfg.n_layers)}
+
+
+def _describe(cfg) -> str:
+    if cfg.family == "ssm":
+        return (f"{cfg.n_layers} Mamba2 layers, d_model {cfg.d_model}, "
+                f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads of P "
+                f"{cfg.ssm_head_dim}, N {cfg.ssm_state}, chunk "
+                f"{cfg.ssm_chunk}, conv {cfg.ssm_conv}")
+    return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+            f"heads / {cfg.n_kv_heads} KV groups, Dh "
+            f"{cfg.resolved_head_dim}")
+
+
+def phase_serving(dev, arch: str, fixed=(), profile_len: int = 576
+                  ) -> dict:
+    """The serving path at full width: `ServingEngine` on ``arch`` (bf16,
+    random parameters drawn from SERVE_SEED on the CPU and copied to the
+    card), 8 slots of 2048 positions, the price gate on (germany, Psi 2,
+    oracle), 16 requests (prompts of the ``fixed`` lengths, the rest of
+    128-1024 tokens) of 32 new tokens each, run until every request
     completes. The market is replayed from half an hour before its first
     hour above the threshold: the gate must close while admitted requests
-    decode and others wait, and reopen. Launch counts and plain-call counters set to 0 just before
-    and read just after: 36 flash launches per prefill, 36 decode launches
-    per decode step, no plain attention."""
+    decode and others wait, and reopen. Launch counts and plain-call
+    counters set to 0 just before and read just after: `_serve_expect`'s
+    launches per prefill and decode step, no other kernel, no plain
+    attention or SSD call."""
     from repro_torch.configs.base import get_config
     from repro_torch.energy.markets import generate_market
     from repro_torch.energy.presets import region_params
@@ -1964,12 +2011,11 @@ def phase_serving(dev) -> dict:
     from repro_torch.serving import ServeConfig, ServingEngine
     from repro_torch.serving import engine as engine_mod
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
+    in_use = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SERVE_SEED)
-    params = init_params(gen, cfg)
+    params = init_params(SERVE_SEED, cfg, device=dev)
     torch.cuda.synchronize()
     leaves = []
 
@@ -1979,11 +2025,9 @@ def phase_serving(dev) -> dict:
     walk(params)
     n_params = sum(x.numel() for x in leaves)
     param_bytes = sum(x.numel() * x.element_size() for x in leaves)
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV "
-          f"groups, Dh {cfg.resolved_head_dim}, vocab {cfg.vocab}, "
+    print(f"[serve] {cfg.name}: {_describe(cfg)}, vocab {cfg.vocab}, "
           f"{cfg.dtype}; {n_params / 1e9:.3f} B parameters "
-          f"({param_bytes / 1e9:.2f} GB) drawn in "
+          f"({param_bytes / 1e9:.2f} GB) drawn on the CPU and copied in "
           f"{time.perf_counter() - t0:.2f} s")
 
     md = generate_market(region_params("germany", seed=SERVE_SEED),
@@ -2001,7 +2045,7 @@ def phase_serving(dev) -> dict:
     sched.stream.advance(first_high - 0.5)
     scfg = ServeConfig(slots=8, max_seq=2048)
     eng = ServingEngine(params, cfg, scfg, scheduler=sched, device=dev)
-    reqs = _serve_requests(cfg)
+    reqs = _serve_requests(cfg, fixed)
     for r in reqs:
         eng.submit(r)
 
@@ -2022,7 +2066,7 @@ def phase_serving(dev) -> dict:
         return call
     engine_mod.prefill, engine_mod.decode_step = (timed("prefill"),
                                                    timed("decode"))
-    plain, restore = _count_attention_plain_calls()
+    plain, restore = _count_serving_plain_calls()
     try:
         counters = _zero_counters()
         t0 = time.perf_counter()
@@ -2047,27 +2091,28 @@ def phase_serving(dev) -> dict:
                                                       saved["decode"])
     n_pre, n_dec = len(times["prefill"]), len(times["decode"])
     out = eng.summary()
-    print(f"[serve] {ticks} ticks ({ticks * scfg.hours_per_tick:.2f} h "
-          f"of market time from hour {first_high - 0.5}, p_thresh "
+    hours = ticks * scfg.hours_per_tick
+    print(f"[serve] {cfg.name}: {ticks} ticks ({hours:.2f} h of market "
+          f"time from hour {first_high - 0.5}, p_thresh "
           f"{sched.p_thresh:.2f} EUR/MWh, planned x {sched.planned_x:.4f}; "
           f"the gate closed at {closed} ticks: {drained} decoding the "
           f"admitted requests, {held} with requests waiting), "
           f"{n_pre} prefills, {n_dec} decode "
-          f"steps, {wall:.2f} s wall; launches {launches}; plain attention "
-          f"calls {plain}")
-    if launches["flash_attention"] != cfg.n_layers * n_pre \
-            or launches["decode_attention"] != cfg.n_layers * n_dec:
-        raise AssertionError(
-            f"serving: expected {cfg.n_layers} flash launches per prefill "
-            f"and {cfg.n_layers} decode launches per step")
+          f"steps, {wall:.2f} s wall; launches {launches}; plain calls "
+          f"{plain}")
+    expect = _serve_expect(cfg)
+    for name, (per_pre, per_dec) in expect.items():
+        if launches[name] != per_pre * n_pre + per_dec * n_dec:
+            raise AssertionError(
+                f"serving {cfg.name}: {launches[name]} {name} launches; "
+                f"expected {per_pre} per prefill and {per_dec} per step")
     if not (drained and held):
         raise AssertionError(f"serving: the price gate closed at {closed} "
                              f"ticks ({drained} draining, {held} holding "
                              f"requests back); expected both")
-    others = {k: v for k, v in launches.items()
-              if k not in ("flash_attention", "decode_attention") and v}
+    others = {k: v for k, v in launches.items() if k not in expect and v}
     if any(plain.values()) or others:
-        raise AssertionError(f"serving: plain attention {plain} or other "
+        raise AssertionError(f"serving: plain calls {plain} or other "
                              f"kernels {others} ran on the main path")
     for r in eng.completed:
         o = np.asarray(r.output)
@@ -2080,46 +2125,67 @@ def phase_serving(dev) -> dict:
     pre_ms = [t * 1e3 for t in times["prefill"]]
     dec_ms = [t * 1e3 for t in times["decode"]]
     lens = [len(r.prompt) for r in reqs]
-    print(f"[serve] completed {out['completed']}, tokens served "
+    print(f"[serve] {cfg.name}: completed {out['completed']}, tokens served "
           f"{out['tokens_served']}, EUR/1k tokens "
           f"{out['eur_per_1k_tokens']:.6f}, mean queue "
           f"{out['mean_queue_h']:.4f} h, x realized "
           f"{out['x_realized']:.4f}")
-    print(f"[serve] prefill (prompts {min(lens)}-{max(lens)}, mean "
-          f"{np.mean(lens):.0f} tokens): mean {np.mean(pre_ms):.2f} ms, "
+    print(f"[serve] {cfg.name}: prefill (prompts {min(lens)}-{max(lens)}, "
+          f"mean {np.mean(lens):.0f} tokens): mean {np.mean(pre_ms):.2f} ms, "
           f"median {np.median(pre_ms):.2f} ms; decode step (8 slots): "
           f"mean {np.mean(dec_ms):.2f} ms, median {np.median(dec_ms):.2f} "
           f"ms; {out['tokens_served'] / wall:.1f} tokens/s over the run "
           f"(prefill + decode + gated ticks); peak memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
-    print(f"[serve] decode-step bound: {param_bytes / 1e9:.2f} GB of "
-          f"weights at 3.35 TB/s = "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+          f"({in_use / 1e9:.2f} GB in use before the phase)")
+    print(f"[serve] {cfg.name}: decode-step bound: {param_bytes / 1e9:.2f} GB"
+          f" of weights at 3.35 TB/s = "
           f"{param_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
     # where a decode step's and a prefill's time goes (after the counted
     # run; the decode steps write the pool's next slots in place)
     from repro_torch.models.model import decode_step, prefill
     pos = torch.as_tensor(eng.positions, device=dev)
     _profile(lambda: decode_step(params, eng.tokens, eng.caches, pos, cfg),
-             "decode step (8 slots)", runs=5)
-    mid = torch.as_tensor(reqs[0].prompt[:576].astype(np.int64),
+             f"{cfg.name} decode step (8 slots)", runs=5)
+    long = max(reqs, key=lambda r: len(r.prompt)).prompt
+    mid = torch.as_tensor(long[:profile_len].astype(np.int64),
                           device=dev)[None]
     _profile(lambda: prefill(params, {"tokens": mid}, cfg, max_seq=2048),
-             "prefill (576 tokens)", runs=3)
+             f"{cfg.name} prefill ({profile_len} tokens)", runs=3)
     return {"cfg": cfg, "params": params, "reqs": reqs,
             "launches": launches, "param_bytes": param_bytes,
             "engine_ms": (np.median(pre_ms), np.median(dec_ms))}
 
 
-def phase_teacher_forced(dev, serve) -> None:
-    """One request through `prefill` + 16 `decode_step`s on the kernels,
-    then again with the model's attention switched to the plain versions
-    on the card (a switch of this script, not of the package) and fed the
-    kernel path's tokens; the logits must agree within TF_MAX_ABS."""
-    from repro_torch.kernels import ops, ref
+def _plain_stand_ins(cfg) -> dict:
+    """The model's kernel entry points in `repro_torch.kernels.ops` and
+    the plain versions that stand in for them on the card (a switch of
+    this script, not of the package)."""
+    from repro_torch.kernels import ref
+
+    if cfg.family == "ssm":
+        return {"ssd_scan": lambda x, dt, a, b, c, chunk, h0=None:
+                ref.ssd_scan_plain(x, dt, a, b, c, chunk, h0)}
+    return {"flash_attention": lambda q, k, v, **kw:
+            ref.flash_attention_plain(q, k, v, causal=kw["causal"],
+                                      window=kw["window"],
+                                      q_offset=kw["q_offset"]),
+            "decode_attention": lambda q, k, v, valid, **kw:
+            ref.decode_attention_plain(q, k, v, valid)}
+
+
+def phase_teacher_forced(dev, serve, prompt_len: int | None = None) -> None:
+    """One request (the first, or the first of ``prompt_len`` tokens)
+    through `prefill` + 16 `decode_step`s on the kernels, then again with
+    the model's kernel entry points switched to their plain versions on the
+    card and fed the kernel path's tokens; the logits must agree within
+    TF_MAX_ABS."""
+    from repro_torch.kernels import ops
     from repro_torch.models.model import decode_step, prefill
 
     cfg, params = serve["cfg"], serve["params"]
-    prompt = serve["reqs"][0].prompt
+    prompt = next(r.prompt for r in serve["reqs"]
+                  if prompt_len is None or len(r.prompt) == prompt_len)
 
     def run(forced=None):
         toks = torch.as_tensor(prompt.astype(np.int64), device=dev)[None]
@@ -2137,32 +2203,30 @@ def phase_teacher_forced(dev, serve) -> None:
             pos += 1
         return torch.stack(rows), picks
 
+    expect = _serve_expect(cfg)
     counters = _zero_counters()
     kern, kern_toks = run()
-    n_kernel = (counters["flash_attention"].launches,
-                counters["decode_attention"].launches)
-    saved = (ops.flash_attention, ops.decode_attention)
-    ops.flash_attention = lambda q, k, v, **kw: ref.flash_attention_plain(
-        q, k, v, causal=kw["causal"], window=kw["window"],
-        q_offset=kw["q_offset"])
-    ops.decode_attention = lambda q, k, v, valid, **kw: \
-        ref.decode_attention_plain(q, k, v, valid)
+    n_kernel = {k: counters[k].launches for k in expect}
+    stand_ins = _plain_stand_ins(cfg)
+    saved = {k: getattr(ops, k) for k in stand_ins}
+    for k, fn in stand_ins.items():
+        setattr(ops, k, fn)
     try:
         counters = _zero_counters()
         plain, plain_toks = run(forced=kern_toks)
-        n_plain = (counters["flash_attention"].launches,
-                   counters["decode_attention"].launches)
+        n_plain = {k: counters[k].launches for k in expect}
     finally:
-        ops.flash_attention, ops.decode_attention = saved
+        for k, fn in saved.items():
+            setattr(ops, k, fn)
     torch.cuda.synchronize()
-    if n_kernel != (cfg.n_layers, cfg.n_layers * TF_STEPS) \
-            or n_plain != (0, 0):
+    want = {k: a + b * TF_STEPS for k, (a, b) in expect.items()}
+    if n_kernel != want or any(n_plain.values()):
         raise AssertionError(f"teacher forcing: launches {n_kernel} on the "
                              f"kernels, {n_plain} on the plain path")
     d = (kern - plain).abs()
     agree = np.mean([a == b for a, b in zip(kern_toks, plain_toks)])
-    print(f"[serve] teacher-forced logits, prompt {len(prompt)} tokens, "
-          f"prefill + {TF_STEPS} steps, kernels vs plain attention on the "
+    print(f"[serve] {cfg.name}: teacher-forced logits, prompt {len(prompt)} "
+          f"tokens, prefill + {TF_STEPS} steps, kernels vs plain on the "
           f"card: max |diff| {float(d.max()):.4g}, mean "
           f"{float(d.mean()):.4g} (logits: std {float(kern.std()):.4g}, "
           f"max |.| {float(kern.abs().max()):.4g}); argmax agrees on "
@@ -2172,21 +2236,56 @@ def phase_teacher_forced(dev, serve) -> None:
                              f"{TF_MAX_ABS}")
 
 
+def phase_prefill_vs_decode(dev, serve, steps: int = 8) -> None:
+    """On the card, for S = 2 (a prompt shorter than the conv's K - 1 = 3
+    inputs, whose conv tail is left-padded) and S = 300: prefill S tokens
+    of a request, decode its next ``steps`` tokens one at a time, and hold
+    each step's logits against the prefill of the longer prompt; within
+    TF_MAX_ABS (the decode recurrence and the chunked scan round in bf16
+    at other places)."""
+    from repro_torch.models.model import decode_step, prefill
+
+    cfg, params = serve["cfg"], serve["params"]
+    prompt = max(serve["reqs"], key=lambda r: len(r.prompt)).prompt
+    toks = torch.as_tensor(prompt.astype(np.int64), device=dev)[None]
+    for s in (2, 300):
+        _, caches = prefill(params, {"tokens": toks[:, :s]}, cfg)
+        worst = 0.0
+        for j in range(steps):
+            got, caches = decode_step(params, toks[:, s + j:s + j + 1],
+                                      caches,
+                                      torch.tensor([s + j], device=dev), cfg)
+            want, _ = prefill(params, {"tokens": toks[:, :s + j + 1]}, cfg)
+            worst = max(worst, float((got - want).abs().max()))
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError("prefill vs decode: non-finite logits")
+        print(f"[serve] {cfg.name}: prefill {s} tokens + {steps} decode "
+              f"steps vs prefill of {s + 1}..{s + steps} tokens on the card: "
+              f"max |logit diff| {worst:.4g}")
+        if worst > TF_MAX_ABS:
+            raise AssertionError(f"prefill {s} + decode differs from the "
+                                 f"longer prefill by more than {TF_MAX_ABS}")
+
+
 def phase_serve_launcher(dev) -> None:
     """`python -m repro_torch.launch.serve --device cuda:0`: the
     reference's defaults (reduced qwen1.5-0.5b, 24 requests, 200 ticks,
-    price gate on) on the card, run in this process through its `main`."""
+    price gate on) on the card, then ``--arch mamba2-1.3b`` (reduced), each
+    run in this process through its `main`."""
     from repro_torch.launch import serve
 
-    t0 = time.perf_counter()
-    counters = _zero_counters()
-    rc = serve.main(["--device", str(dev)])
-    torch.cuda.synchronize()
-    print(f"[serve] launcher exit {rc}, {time.perf_counter() - t0:.2f} s; "
-          f"flash launches {counters['flash_attention'].launches}, decode "
-          f"launches {counters['decode_attention'].launches}")
-    if rc != 0 or counters["decode_attention"].launches == 0:
-        raise AssertionError("repro_torch.launch.serve failed")
+    for arch, kernel in (("qwen1.5-0.5b", "decode_attention"),
+                         ("mamba2-1.3b", "ssd_scan")):
+        t0 = time.perf_counter()
+        counters = _zero_counters()
+        rc = serve.main(["--device", str(dev), "--arch", arch])
+        torch.cuda.synchronize()
+        ran = {k: c.launches for k, c in counters.items() if c.launches}
+        print(f"[serve] launcher --arch {arch}: exit {rc}, "
+              f"{time.perf_counter() - t0:.2f} s; launches {ran}")
+        if rc != 0 or counters[kernel].launches == 0:
+            raise AssertionError(f"repro_torch.launch.serve --arch {arch} "
+                                 "failed")
 
 
 def _attn_bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -2273,6 +2372,144 @@ def _attention_records(errs: dict, times: dict, launches: dict
     return recs
 
 
+# ---------------------------------------------------------------------------
+# the Mamba2 serving path: the SSD chunk scan (kernel 10)
+# ---------------------------------------------------------------------------
+
+SSD_TOL = 1e-4        # of the output's scale (max |y|, max |h|)
+# B, S, H, P, G, N, chunk, dtype, h0: the reference's SSD_CASES
+# (tests/test_kernels.py), then mamba2-1.3b's serving shape (64 heads of P
+# 64, one group of N 128, chunk 256) at 1024 and 1000 positions (padded),
+# with x, B and C in bf16 (as the model gives them) and in float32
+SSD_SMOKE_CASES = [
+    (2, 64, 4, 16, 1, 32, 16, torch.float32, False),
+    (1, 128, 8, 32, 2, 16, 32, torch.float32, True),
+    (2, 96, 4, 64, 1, 128, 48, torch.float32, False),
+    (1, 64, 2, 8, 1, 8, 64, torch.float32, True),
+    (1, 1024, 64, 64, 1, 128, 256, BF16, False),
+    (1, 1024, 64, 64, 1, 128, 256, torch.float32, True),
+    (1, 1000, 64, 64, 1, 128, 256, BF16, True),
+    (1, 1000, 64, 64, 1, 128, 256, torch.float32, False),
+]
+
+
+def _ssd_inputs(b, s, h, p, g, n, dtype, dev, seed):
+    """The reference tests' distributions (x ~ N(0, 1), dt = 0.1 |N|,
+    a = -|N| - 0.1, B and C ~ 0.3 N) from numpy, x/B/C in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    arrs = (rng.normal(size=(b, s, h, p)),
+            np.abs(rng.normal(size=(b, s, h))) * 0.1,
+            -np.abs(rng.normal(size=(h,))) - 0.1,
+            rng.normal(size=(b, s, g, n)) * 0.3,
+            rng.normal(size=(b, s, g, n)) * 0.3)
+    x, dt, a, bb, cc = (torch.as_tensor(v.astype(f), device=dev)
+                        for v in arrs)
+    return x.to(dtype), dt, a, bb.to(dtype), cc.to(dtype)
+
+
+def _ssd_check(label, y, h, wy, wh) -> float:
+    """Max |err| of y and h against the plain version's, each within
+    SSD_TOL of its scale; returns the larger absolute error."""
+    worst = 0.0
+    parts = []
+    for name, got, want in (("y", y, wy), ("h_T", h, wh)):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"ssd {label}: non-finite {name}")
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        parts.append(f"{name} max |err| {err:.3g} ({err / scale:.3g} of "
+                     f"its scale {scale:.3g})")
+        if err > SSD_TOL * scale:
+            raise AssertionError(f"ssd {label}: {name} differs by {err:.3g},"
+                                 f" more than {SSD_TOL} of {scale:.3g}")
+        worst = max(worst, err)
+    print(f"[ssd] {label}: " + ", ".join(parts))
+    return worst
+
+
+def phase_ssd_vs_plain(dev) -> float:
+    """Kernel 10 against `ssd_scan_plain` on the card, through
+    `ops.ssd_scan` (which pads a ragged length): the reference's cases and
+    the serving shapes, with h0 and without, and a sequence scanned in two
+    parts chained through h0 against the one-part scan."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_scan_plain
+
+    worst = 0.0
+    for i, case in enumerate(SSD_SMOKE_CASES):
+        b, s, h, p, g, n, l, dt_, with_h0 = case
+        x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, g, n, dt_, dev, 1000 + i)
+        h0 = (torch.as_tensor(np.random.default_rng(i).normal(
+            size=(b, h, p, n)).astype(np.float32) * 0.5, device=dev)
+            if with_h0 else None)
+        y, hl = ops.ssd_scan(x, dt, a, bb, cc, l, h0)
+        wy, wh = ssd_scan_plain(x, dt, a, bb, cc, l, h0)
+        torch.cuda.synchronize()
+        worst = max(worst, _ssd_check(
+            f"B{b} S{s} H{h} P{p} G{g} N{n} L{l} {dt_}"
+            f"{' h0' if with_h0 else ''}", y, hl, wy, wh))
+    # two parts chained through h0 (700 + 324 positions, both ragged)
+    x, dt, a, bb, cc = _ssd_inputs(1, 1024, 64, 64, 1, 128, BF16, dev, 1100)
+    y, hl = ops.ssd_scan(x, dt, a, bb, cc, 256)
+    y1, h1 = ops.ssd_scan(x[:, :700], dt[:, :700], a, bb[:, :700],
+                          cc[:, :700], 256)
+    y2, h2 = ops.ssd_scan(x[:, 700:], dt[:, 700:], a, bb[:, 700:],
+                          cc[:, 700:], 256, h1)
+    wy, wh = ssd_scan_plain(x, dt, a, bb, cc, 256)
+    torch.cuda.synchronize()
+    worst = max(worst, _ssd_check("two parts 700 + 324 through h0 vs plain",
+                                  torch.cat([y1, y2], dim=1), h2, wy, wh))
+    _ssd_check("two parts vs the kernel in one part",
+               torch.cat([y1, y2], dim=1), h2, y, hl)
+    return worst
+
+
+def _ssd_bound(b, s, h, p, g, n, l, x_bytes) -> tuple[float, float, str]:
+    """(bound ms, GFLOP, what bounds it) of one scan from zeros (no h0):
+    the products the function needs, C B^T once per group and chunk on the
+    lower triangle, the masked scores times x dt and B^T (x dt decay) for
+    each head and chunk, C h_in for each head and chunk but the first
+    (its h_in is 0), at the 67 TFLOP/s float32 peak; the bytes of x, B, C
+    (``x_bytes`` an element), dt, a, y and h_T (float32) at 3.35 TB/s."""
+    nc = -(-s // l)
+    tri = l * (l + 1) // 2
+    ops_ = 2 * b * (nc * (g * tri * n + h * tri * p + h * l * n * p)
+                    + (nc - 1) * h * l * n * p)
+    bytes_ = (x_bytes * (b * s * h * p + 2 * b * s * g * n)
+              + 4 * (b * s * h + h + b * s * h * p + b * h * p * n))
+    t_o, t_b = ops_ / FP32_OPS_PER_S, bytes_ / HBM_BYTES_PER_S
+    return max(t_o, t_b) * 1e3, ops_ / 1e9, \
+        "operations" if t_o >= t_b else "bytes"
+
+
+def phase_ssd_times(dev, flush) -> dict:
+    """Device-only times (CUDA events, L2 flushed) of kernel 10 at the
+    serving shape (one layer's 1024-token prefill: 64 heads of P 64, N 128,
+    chunk 256, bf16 x/B/C as the model gives them) and at 2048 positions,
+    beside its plain version on the card and its bound. No single PyTorch
+    call computes this scan, so there is no library time."""
+    from repro_torch.kernels.ref import ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    recs = {}
+    for s in (1024, 2048):
+        x, dt, a, bb, cc = _ssd_inputs(1, s, 64, 64, 1, 128, BF16, dev,
+                                       1200 + s)
+        ms = _cuda_ms(lambda: ssd_scan(x, dt, a, bb, cc, 256), flush=flush,
+                      device_only=True)
+        plain = _cuda_ms(lambda: ssd_scan_plain(x, dt, a, bb, cc, 256),
+                         runs=3)
+        bound, gflop, by = _ssd_bound(1, s, 64, 64, 1, 128, 256, 2)
+        print(f"[time] ssd_scan S={s}, 64 heads of P 64, N 128, chunk 256, "
+              f"bf16: kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
+              f"{bound:.5f} ms ({by}; {gflop:.2f} GFLOP), {bound / ms:.1%} "
+              f"of bound, {gflop / ms:.2f} TFLOP/s")
+        recs[s] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                   "bound_by": by, "library_ms": None}
+    return recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs only on "
@@ -2288,6 +2525,7 @@ def main() -> int:
     dispatch_err = phase_dispatch_vs_plain(dev)
     sd_errs = phase_soft_dispatch_vs_plain(dev)
     attn_errs = phase_attention_vs_plain(dev)
+    ssd_err = phase_ssd_vs_plain(dev)
     torch.cuda.synchronize()
     main_run = phase_main_path(dev)
     tune = phase_tuner(dev)
@@ -2299,10 +2537,17 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_acceptance(dev)
     torch.cuda.synchronize()
-    serve = phase_serving(dev)
+    serve = phase_serving(dev, SERVE_ARCH)
     serve_launches = serve["launches"]
     phase_teacher_forced(dev, serve)
     del serve
+    gc.collect()                  # free qwen's weights before mamba2's
+    torch.cuda.empty_cache()
+    mamba = phase_serving(dev, SSM_ARCH, SSM_PROMPTS, profile_len=1024)
+    ssm_launches = mamba["launches"]
+    phase_teacher_forced(dev, mamba, prompt_len=1000)
+    phase_prefill_vs_decode(dev, mamba)
+    del mamba
     phase_serve_launcher(dev)
     torch.cuda.synchronize()
     fleet_rec, flush = phase_times(dev, main_run)
@@ -2313,6 +2558,7 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_aware_step_times(dev, aware["grid"])
     attn_times = phase_attention_times(dev, flush)
+    ssd_times = phase_ssd_times(dev, flush)
     torch.cuda.synchronize()
     kernels = [fleet_rec] + _soft_records(soft_errs, soft_times,
                                           tune["launches"]) + [{
@@ -2325,7 +2571,12 @@ def main() -> int:
         "bound_by": disp_times["bound_by"], "library_ms": None}] \
         + _soft_dispatch_records(sd_errs, sd_times, aware["launches"],
                                  to_hard["launches"]) \
-        + _attention_records(attn_errs, attn_times, serve_launches)
+        + _attention_records(attn_errs, attn_times, serve_launches) + [{
+            "name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:41",
+            "launches": ssm_launches["ssd_scan"], "max_abs_err": ssd_err,
+            **ssd_times[1024]}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

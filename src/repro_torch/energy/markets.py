@@ -13,11 +13,12 @@ Components:
   negatives   renewable-surplus hours can push prices below zero
 
 The generator is split in two. `market_draws` makes the five standard
-random tensors (`MarketDraws`) from a `torch.Generator` seeded with
-``params.seed``; everything else is deterministic shaping of those draws,
-so a caller can pass its own ``draws=`` (the parity tests pass the JAX
-reference's). The same seed gives other draws than `jax.random`, and other
-draws on the CPU than on the card.
+random tensors (`MarketDraws`) from a CPU `torch.Generator` seeded with
+``params.seed`` and copies them to the target device; everything else is
+deterministic shaping of those draws, so a caller can pass its own
+``draws=`` (the parity tests pass the JAX reference's). The same seed
+gives other draws than `jax.random`, but the same draws on the CPU and on
+the card.
 
 The three AR(1) recurrences and the spike chain are sequential in time:
 `generate_markets` runs one loop over T for all N markets at once.
@@ -98,16 +99,20 @@ _CLOUD_RHO = 0.97
 
 def market_draws(seed: int, n_hours: int, *,
                  device: DeviceLike = None) -> MarketDraws:
-    """Draws of one market from a `torch.Generator` seeded with ``seed``."""
+    """Draws of one market from a CPU `torch.Generator` seeded with
+    ``seed``, copied to ``device``: one seed gives the same draws on every
+    device (CUDA's Philox stream is not the CPU's), as the reference's
+    draws are the same on every backend."""
     dev = resolve_device(device)
-    g = torch.Generator(device=dev).manual_seed(int(seed))
+    g = torch.Generator().manual_seed(int(seed))
 
     def normal():
-        return torch.randn(n_hours, generator=g, device=dev)
+        return torch.randn(n_hours, generator=g)
 
     cloud, wind, noise = normal(), normal(), normal()
-    spike_u = torch.rand(n_hours, generator=g, device=dev)
-    return MarketDraws(cloud, wind, noise, spike_u, normal())
+    spike_u = torch.rand(n_hours, generator=g)
+    return MarketDraws(*(d.to(dev) for d in (cloud, wind, noise, spike_u,
+                                             normal())))
 
 
 def _ar1(innov: torch.Tensor, rho: torch.Tensor,

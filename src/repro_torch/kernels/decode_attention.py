@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (DTYPE_CODES,
-                                                 check_operands,
+                                                 check_operands, refuse_grad,
                                                  vectorizable)
 from repro_torch.kernels.ref import DECODE_SPLIT, decode_attention_plain
 
@@ -89,7 +89,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The route follows the tensors' device: CUDA tensors launch the kernel,
     CPU tensors run the plain `decode_attention_plain`. ``use_kernel``
-    only asserts the route.
+    only asserts the route. On CUDA tensors it is forward only: inputs
+    that require grad, with grad mode on, raise.
     """
     if use_kernel is not None and use_kernel != q.is_cuda:
         raise ValueError(
@@ -98,6 +99,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "the plain version; move the tensors instead")
     if not q.is_cuda:
         return decode_attention_plain(q, k, v, valid)
+    refuse_grad("decode_attention", q, k, v)
     return _launch(q, k, v, valid)
 
 

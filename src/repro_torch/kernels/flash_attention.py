@@ -64,6 +64,19 @@ def check_operands(name: str, q: torch.Tensor, kv: tuple,
                          f"{g} KV groups")
 
 
+def refuse_grad(name: str, *xs) -> None:
+    """Raise where grad mode is on and an input requires grad: the kernels
+    are forward only (they save no residuals and have no backward), so a
+    result would come back with no autograd history and the gradient would
+    be lost without a word. Their plain versions, on CPU tensors, are
+    PyTorch operations and do carry gradients."""
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in xs):
+        raise ValueError(
+            f"{name} on CUDA tensors is forward only (the kernel has no "
+            "backward): detach the inputs, or run under torch.no_grad()")
+
+
 def vectorizable(*xs: torch.Tensor) -> bool:
     """True where every row of every tensor starts on a 16-byte boundary,
     so the kernels may load 16 bytes at a time."""
@@ -115,7 +128,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The route follows the tensors' device: CUDA tensors launch the kernel,
     CPU tensors run the plain `flash_attention_plain`. ``use_kernel``
     only asserts the route: ``True`` raises on CPU tensors and ``False``
-    on CUDA tensors.
+    on CUDA tensors. On CUDA tensors it is forward only: inputs that
+    require grad, with grad mode on, raise (`refuse_grad`).
     """
     if use_kernel is not None and use_kernel != q.is_cuda:
         raise ValueError(
@@ -126,6 +140,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal,
                                      window=int(window),
                                      q_offset=int(q_offset))
+    refuse_grad("flash_attention", q, k, v)
     return _launch(q, k, v, causal, int(window), int(q_offset))
 
 

@@ -1,21 +1,31 @@
-"""Entry points of the attention kernels in the model's layout.
+"""Entry points of the serving path's kernels in the model's layout.
 
-The model calls these (`repro_torch.models.attention`), as the reference
-calls `repro.kernels.ops`. The reference's wrappers transpose to
-[B, heads, seq, Dh], pad to TPU blocks of ``bq``/``bkv`` rows and pick
-interpret mode off the TPU; the port's kernels read the model's
+The model calls these (`repro_torch.models.attention`,
+`repro_torch.models.ssm`), as the reference calls `repro.kernels.ops`.
+The reference's attention wrappers transpose to [B, heads, seq, Dh], pad
+to TPU blocks of ``bq``/``bkv`` rows and pick interpret mode off the
+TPU; the port's kernels read the model's
 [B, S, heads, Dh] layout through strides, pick their own 64-row tiles and
 mask the ragged edge themselves. ``bq``/``bkv`` are accepted so that call
 sites keep their shape, and ignored. The route follows the tensors'
 device: kernels on CUDA tensors, their plain versions on CPU tensors.
+
+`ssd_scan` keeps the reference's contract: it zero-pads the sequence to a
+chunk multiple and cuts the padding off y. The kernel carries the state
+in the model's [B,H,P,N] layout, so the reference's transposes to and
+from the TPU kernel's [B,H,N,P] have no counterpart.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels.ref import _pad_seq
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -39,3 +49,23 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if valid.dtype != torch.int8:
         valid = valid.to(torch.int8)
     return _decode.decode_attention(q, k, v, valid)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, chunk: int,
+             h0: Optional[torch.Tensor] = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan (Mamba2), the contract of
+    `repro_torch.models.ssm.ssd_chunked`: x [B,S,H,P]; dt [B,S,H]
+    post-softplus; a [H] negative; b, c [B,S,G,N]; h0 [B,H,P,N] or None.
+    Returns y [B,S,H,P] and h_last [B,H,P,N], float32. A sequence that is
+    not a multiple of ``chunk`` is zero-padded, which is exact because the
+    padded dt is 0 (decay exp(0) = 1, no state added)."""
+    s = x.shape[1]
+    pad = (-s) % chunk
+    if pad:
+        y, h_last = _ssd.ssd_scan(*(_pad_seq(t, pad) for t in (x, dt)), a,
+                                  *(_pad_seq(t, pad) for t in (b, c)),
+                                  chunk, h0)
+        return y[:, :s], h_last
+    return _ssd.ssd_scan(x, dt, a, b, c, chunk, h0)

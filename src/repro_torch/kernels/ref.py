@@ -990,3 +990,100 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
             tot = tot + acc[:, j] * wj[..., None]
         out = tot / torch.clamp(tot_l, min=1e-37)[..., None]
     return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the Mamba2 SSD chunk scan: the reference's oracle and the kernel's plain
+# version
+# ---------------------------------------------------------------------------
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor, c: torch.Tensor, h0=None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sequential (unchunked) SSD recurrence in float32
+    (`repro.kernels.ref.ssd_ref`), the ground-truth oracle.
+
+    x: [B,S,H,P]; dt: [B,S,H] (post-softplus); a: [H] (negative);
+    b, c: [B,S,G,N]; h0: [B,H,P,N] or None. Returns y [B,S,H,P] and
+    h_last [B,H,P,N], float32:
+
+        h_t = h_{t-1} exp(dt_t a) + dt_t x_t b_t^T ;  y_t = h_t c_t
+    """
+    bsz, s, nh, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    rep = nh // g
+    bh = b.repeat_interleave(rep, dim=2).float()
+    ch = c.repeat_interleave(rep, dim=2).float()
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    h = (torch.zeros((bsz, nh, p, n), device=x.device) if h0 is None
+         else h0.float())
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * af[None, :])                 # [B,H]
+        upd = torch.einsum("bh,bhp,bhn->bhpn", dtf[:, t], xf[:, t],
+                           bh[:, t])
+        h = h * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, ch[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero-pad dimension 1 (the sequence) of ``t`` by ``pad`` at the end."""
+    return torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+
+
+def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor, c: torch.Tensor, chunk: int, h0=None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the SSD kernel (`csrc/ssd_scan.cu`), in its
+    three passes and with its casts (every input to float32 first):
+
+    1. per chunk of ``chunk`` positions: cum = cumsum(dt a), and the state
+       the chunk adds, B^T (x dt exp(cum_last - cum)) [P, N];
+    2. in chunk order, the state entering each chunk:
+       h <- h exp(cum_last) + that chunk's state, from h0 (or zeros);
+    3. per chunk: y = ((C B^T) o Lmat) (x dt) + (C h_in) exp(cum), with
+       Lmat[i, j] = exp(cum_i - cum_j) taken only where j <= i (above the
+       diagonal the exponent is positive and overflows) and 0 elsewhere;
+       C B^T once per group, shared by its H // G heads.
+
+    The sequence is zero-padded to a multiple of ``chunk`` (exact: a
+    padded dt of 0 decays nothing and adds nothing). The state is carried
+    as [B, H, P, N], the model's layout, as the kernel carries it.
+    x: [B,S,H,P]; dt: [B,S,H]; a: [H]; b, c: [B,S,G,N]; h0: [B,H,P,N] or
+    None. Returns y [B,S,H,P] and h_last [B,H,P,N], float32."""
+    bsz, s, nh, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    rep = nh // g
+    pad = (-s) % chunk
+    if pad:
+        x, dt, b, c = (_pad_seq(t, pad) for t in (x, dt, b, c))
+    nc, ln = (s + pad) // chunk, chunk
+    xf = x.float().reshape(bsz, nc, ln, g, rep, p)
+    dtf = dt.float().reshape(bsz, nc, ln, g, rep)
+    bf = b.float().reshape(bsz, nc, ln, g, n)
+    cf = c.float().reshape(bsz, nc, ln, g, n)
+    cum = torch.cumsum(dtf * a.float().reshape(g, rep), dim=2)
+    xdt = xf * dtf[..., None]                         # [B,nc,L,G,R,P]
+    # 1. the state each chunk adds
+    w = xdt * torch.exp(cum[:, :, -1:] - cum)[..., None]
+    st = torch.einsum("bcjgn,bcjgrp->bcgrpn", bf, w)  # [B,nc,G,R,P,N]
+    # 2. the state entering each chunk, in order
+    h = (torch.zeros((bsz, g, rep, p, n), device=x.device) if h0 is None
+         else h0.float().reshape(bsz, g, rep, p, n))
+    h_in = torch.empty_like(st)
+    for ci in range(nc):
+        h_in[:, ci] = h
+        h = h * torch.exp(cum[:, ci, -1])[..., None, None] + st[:, ci]
+    # 3. the outputs
+    tril = torch.ones((ln, ln), dtype=torch.bool, device=x.device).tril()
+    diff = cum[:, :, :, None] - cum[:, :, None, :]    # [B,nc,Li,Lj,G,R]
+    keep = tril[:, :, None, None]
+    lmat = torch.exp(diff.masked_fill(~keep, 0.0)).masked_fill(~keep, 0.0)
+    cb = torch.einsum("bcign,bcjgn->bcijg", cf, bf)   # [B,nc,Li,Lj,G]
+    scores = cb[..., None] * lmat
+    y = torch.einsum("bcijgr,bcjgrp->bcigrp", scores, xdt)
+    y_off = torch.einsum("bcign,bcgrpn->bcigrp", cf, h_in)
+    y = y + y_off * torch.exp(cum)[..., None]
+    return (y.reshape(bsz, nc * ln, nh, p)[:, :s],
+            h.reshape(bsz, nh, p, n))

@@ -52,19 +52,20 @@ class AttnCache(NamedTuple):
     pos_buf: torch.Tensor
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   device=None) -> dict:
     d = cfg.d_model
     h, g, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     pdt = _dtype(cfg.param_dtype)
+    dev = device or gen.device
     p = {
-        "wq": normal_init(gen, (d, h, dh), 0.02, pdt),
-        "wk": normal_init(gen, (d, g, dh), 0.02, pdt),
-        "wv": normal_init(gen, (d, g, dh), 0.02, pdt),
+        "wq": normal_init(gen, (d, h, dh), 0.02, pdt, dev),
+        "wk": normal_init(gen, (d, g, dh), 0.02, pdt, dev),
+        "wv": normal_init(gen, (d, g, dh), 0.02, pdt, dev),
         "wo": normal_init(gen, (h, dh, d), 0.02 / (2 * cfg.n_layers) ** 0.5,
-                          pdt),
+                          pdt, dev),
     }
     if cfg.qkv_bias:
-        dev = gen.device
         p["bq"] = torch.zeros((h, dh), dtype=pdt, device=dev)
         p["bk"] = torch.zeros((g, dh), dtype=pdt, device=dev)
         p["bv"] = torch.zeros((g, dh), dtype=pdt, device=dev)

@@ -23,12 +23,13 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def normal_init(gen: torch.Generator, shape, scale: float,
-                dtype: torch.dtype) -> torch.Tensor:
+                dtype: torch.dtype, device=None) -> torch.Tensor:
     """``scale`` times a standard normal draw (float32), cast to ``dtype``;
-    drawn on the generator's device."""
+    drawn on the generator's device and then moved to ``device`` (default:
+    the generator's)."""
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (x.mul_(scale)).to(dtype)
+    return (x.mul_(scale)).to(dtype).to(device or gen.device)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
@@ -83,13 +84,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # dense MLPs
 # ---------------------------------------------------------------------------
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     pdt = _dtype(cfg.param_dtype)
     scale_out = 0.02 / (2 * cfg.n_layers) ** 0.5
-    return {"w1": normal_init(gen, (d, f), 0.02, pdt),
-            "w2": normal_init(gen, (f, d), scale_out, pdt),
-            "w3": normal_init(gen, (d, f), 0.02, pdt)}
+    return {"w1": normal_init(gen, (d, f), 0.02, pdt, device),
+            "w2": normal_init(gen, (f, d), scale_out, pdt, device),
+            "w3": normal_init(gen, (d, f), 0.02, pdt, device)}
 
 
 def mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -104,11 +105,14 @@ def mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
 # embeddings / unembedding
 # ---------------------------------------------------------------------------
 
-def init_embeddings(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init_embeddings(gen: torch.Generator, cfg: ModelConfig,
+                    device=None) -> dict:
     pdt = _dtype(cfg.param_dtype)
-    p = {"tok": normal_init(gen, (cfg.vocab, cfg.d_model), 0.02, pdt)}
+    p = {"tok": normal_init(gen, (cfg.vocab, cfg.d_model), 0.02, pdt,
+                            device)}
     if not cfg.tie_embeddings:
-        p["unembed"] = normal_init(gen, (cfg.d_model, cfg.vocab), 0.02, pdt)
+        p["unembed"] = normal_init(gen, (cfg.d_model, cfg.vocab), 0.02, pdt,
+                                   device)
     return p
 
 

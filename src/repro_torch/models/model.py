@@ -9,9 +9,10 @@
 
 Parameters and caches carry a leading stacked layer axis, as in the
 reference. Unlike the reference, `decode_step` updates the caches in
-place (the [L, B, W, G, Dh] pool is written, not copied) and returns the
-same object. ``loss_fn``, ``cache_specs`` and ``param_specs`` wait for the
-training and mesh slices.
+place (the [L, B, W, G, Dh] pool, or the SSM conv and state pool, is
+written, not copied) and returns the same object. The dense, vlm and
+ssm families are ported. ``loss_fn``, ``cache_specs`` and
+``param_specs`` wait for the training and mesh slices.
 """
 
 from __future__ import annotations
@@ -26,21 +27,22 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (AttnCache, check_cache_layout,
                                           init_attn_cache)
 from repro_torch.models.layers import _dtype, embed, rms_norm, unembed
+from repro_torch.models.ssm import SSMCache, init_ssm_cache
 from repro_torch.models.transformer import (check_family, decoder_forward,
                                             init_model_params)
 
 
 def init_params(key: Union[int, torch.Generator], cfg: ModelConfig, *,
                 device: DeviceLike = None) -> dict:
-    """Random parameters. ``key`` is a `torch.Generator` (its device is
-    where the parameters are drawn) or an int seed for a new generator on
-    ``device`` (default cuda)."""
+    """Random parameters. ``key`` is a `torch.Generator` (the parameters
+    are drawn and kept on its device) or an int seed: then a CPU generator
+    draws them, leaf by leaf, and each leaf is copied to ``device``
+    (default cuda), so one seed gives the same parameters on every device
+    (CUDA's Philox stream is not the CPU's)."""
     if isinstance(key, torch.Generator):
-        gen = key
-    else:
-        gen = torch.Generator(device=resolve_device(device))
-        gen.manual_seed(int(key))
-    return init_model_params(gen, cfg)
+        return init_model_params(key, cfg)
+    gen = torch.Generator().manual_seed(int(key))
+    return init_model_params(gen, cfg, resolve_device(device))
 
 
 def _tensor(x, device: torch.device) -> torch.Tensor:
@@ -115,9 +117,12 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, *,
         vt = cfg.vis_tokens
         h = torch.cat([batch["patches"].to(h.dtype), h[:, vt:]], dim=1)
     h, _, col = decoder_forward(params, h, cfg, collect=True)
-    w = min(cfg.swa_window or max_seq, max_seq)
-    k, v = col["attn"]
-    caches = {"attn": _cache_from_kv(k, v, w, cfg)}
+    if cfg.family == "ssm":
+        caches = col
+    else:
+        w = min(cfg.swa_window or max_seq, max_seq)
+        k, v = col["attn"]
+        caches = {"attn": _cache_from_kv(k, v, w, cfg)}
     h_last = rms_norm(h[:, -1:], params["final_norm"]["scale"], cfg.norm_eps)
     logits = unembed(h_last, params["embed"], cfg)[:, 0]
     return logits, caches
@@ -140,10 +145,17 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict,
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device: DeviceLike = None) -> dict:
     """The empty decode cache: {"attn": AttnCache} with [L, B, W, G, Dh]
-    k/v (zeros) and [L, B, W] pos_buf (-1)."""
+    k/v (zeros) and [L, B, W] pos_buf (-1); for the ssm family
+    {"ssm": SSMCache} with [L, B, K-1, conv_dim] conv inputs and
+    [L, B, H, P, N] float32 states (zeros; ``max_seq`` does not size
+    them)."""
     check_family(cfg)
     dev = resolve_device(device)
-    layer = init_attn_cache(cfg, batch, max_seq, dev)
     n = cfg.n_layers
+    if cfg.family == "ssm":
+        layer = init_ssm_cache(cfg, batch, dev)
+        return {"ssm": SSMCache(
+            *(x.unsqueeze(0).repeat((n,) + (1,) * x.ndim) for x in layer))}
+    layer = init_attn_cache(cfg, batch, max_seq, dev)
     return {"attn": AttnCache(
         *(x.unsqueeze(0).repeat((n,) + (1,) * x.ndim) for x in layer))}

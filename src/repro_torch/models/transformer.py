@@ -1,14 +1,16 @@
-"""Model assembly for the dense family (and the dense backbone of vlm).
+"""Model assembly for the dense family (and the dense backbone of vlm)
+and the ssm family (Mamba2).
 
 Mirrors `repro.models.transformer`: parameters are nested dicts whose
 per-layer leaves are stacked on a leading layer axis ([L, ...]), as the
 reference stacks them for its scan over layers; the port loops over the
 layers in Python and indexes the stacked tensors (views, no copies). The
-decode cache is stacked the same way ([L, B, W, G, Dh]).
+decode caches are stacked the same way ([L, B, W, G, Dh] K/V, [L, B, ...]
+SSM conv and state).
 
 The other families raise `NotImplementedError` naming the slice that
-ports them: ``ssm`` and ``hybrid`` (the Mamba2 SSD kernel) with the
-mamba2-1.3b serving slice, ``moe`` and ``audio`` with later slices.
+ports them: ``hybrid`` (zamba2's weight-shared attention over Mamba2
+blocks), ``moe`` and ``audio`` with later slices.
 """
 
 from __future__ import annotations
@@ -24,11 +26,12 @@ from repro_torch.models.attention import (AttnCache, _prefill_positions,
 from repro_torch.models.layers import (init_embeddings, init_mlp,
                                        init_rms_norm, mlp, rms_norm,
                                        rope_cos_sin)
+from repro_torch.models.ssm import (SSMCache, init_ssm, ssm_block,
+                                    ssm_prefill_with_cache)
 
 FAMILY_SLICES = {
-    "ssm": "the Mamba2 serving slice (mamba2-1.3b, the SSD scan kernel)",
-    "hybrid": "the Mamba2 serving slice (the SSD scan kernel), with "
-              "zamba2's shared attention",
+    "hybrid": "a later slice (zamba2's weight-shared attention block over "
+              "the Mamba2 blocks, with one KV cache per application)",
     "moe": "a later slice (the expert-parallel MoE FFN)",
     "audio": "a later slice (whisper's encoder-decoder)",
 }
@@ -40,7 +43,7 @@ def check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: it comes "
             f"with {FAMILY_SLICES[cfg.family]}")
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "ssm"):
         raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -52,21 +55,35 @@ def _stack(trees: list) -> dict:
     return torch.stack(trees)
 
 
-def _init_dense_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    dev = gen.device
+def _init_dense_block(gen: torch.Generator, cfg: ModelConfig,
+                      dev: torch.device) -> dict:
     return {"ln1": init_rms_norm(cfg.d_model, dev),
-            "attn": init_attention(gen, cfg),
+            "attn": init_attention(gen, cfg, dev),
             "ln2": init_rms_norm(cfg.d_model, dev),
-            "ffn": init_mlp(gen, cfg)}
+            "ffn": init_mlp(gen, cfg, dev)}
 
 
-def init_model_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """Random parameters drawn from ``gen`` on its device."""
+def _init_ssm_block(gen: torch.Generator, cfg: ModelConfig,
+                    dev: torch.device) -> dict:
+    return {"ln": init_rms_norm(cfg.d_model, dev),
+            "ssm": init_ssm(gen, cfg, dev)}
+
+
+_BLOCK_INIT = {"dense": _init_dense_block, "vlm": _init_dense_block,
+               "ssm": _init_ssm_block}
+
+
+def init_model_params(gen: torch.Generator, cfg: ModelConfig,
+                      device: Optional[torch.device] = None) -> dict:
+    """Random parameters drawn from ``gen`` on its device, each leaf moved
+    to ``device`` (default: the generator's) as soon as it is drawn."""
     check_family(cfg)
-    return {"embed": init_embeddings(gen, cfg),
-            "blocks": _stack([_init_dense_block(gen, cfg)
+    dev = device or gen.device
+    block_init = _BLOCK_INIT[cfg.family]
+    return {"embed": init_embeddings(gen, cfg, dev),
+            "blocks": _stack([block_init(gen, cfg, dev)
                               for _ in range(cfg.n_layers)]),
-            "final_norm": init_rms_norm(cfg.d_model, gen.device)}
+            "final_norm": init_rms_norm(cfg.d_model, dev)}
 
 
 def layer_params(blocks: dict, i: int) -> dict:
@@ -98,15 +115,19 @@ def decoder_forward(params: dict, h: torch.Tensor, cfg: ModelConfig, *,
                     collect: bool = False):
     """Run the decoder blocks. h: [B, S, D] embedded input.
 
-    ``caches`` ({"attn": AttnCache of [L, ...] leaves}) selects decode:
-    each layer writes its new k/v into its slice of the cache in place.
-    Returns (h, aux, new_caches); ``collect=True`` (prefill) returns the
-    per-layer K/V after rope, stacked to [L, B, S, G, Dh], as
-    ``{"attn": (k, v)}``.
+    ``caches`` ({"attn": AttnCache} or {"ssm": SSMCache} of [L, ...]
+    leaves) selects decode: each layer writes its new k/v (or conv and
+    state) into its slice of the cache in place. Returns (h, aux,
+    new_caches); ``collect=True`` (prefill) returns the per-layer K/V after
+    rope, stacked to [L, B, S, G, Dh], as ``{"attn": (k, v)}``, or the SSM
+    decode cache as ``{"ssm": SSMCache}`` of [L, B, ...] leaves.
     """
     check_family(cfg)
     decode = caches is not None
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family == "ssm":
+        h, new_caches = _ssm_forward(params, h, cfg, caches, collect)
+        return h, aux, new_caches
     # the rotary angles of these positions, shared by every layer
     pos = positions[:, None] if decode else _prefill_positions(h, positions)
     rope = rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
@@ -138,3 +159,33 @@ def decoder_forward(params: dict, h: torch.Tensor, cfg: ModelConfig, *,
     if collect:
         return h, aux, {"attn": (torch.stack(ks), torch.stack(vs))}
     return h, aux, None
+
+
+def _ssm_forward(params: dict, h: torch.Tensor, cfg: ModelConfig,
+                 caches: Optional[dict], collect: bool):
+    """The ssm family's blocks (pre-norm Mamba2 with a residual); returns
+    (h, caches): decode writes each layer's new conv and state into the
+    pool in place; prefill (``collect``) stacks each layer's
+    `ssm_prefill_with_cache` cache."""
+    convs, states = [], []
+    for i in range(cfg.n_layers):
+        bp = layer_params(params["blocks"], i)
+        x = rms_norm(h, bp["ln"]["scale"], cfg.norm_eps)
+        if caches is not None:
+            pool = caches["ssm"]
+            out, new = ssm_block(x, bp["ssm"], cfg,
+                                 cache=SSMCache(pool.conv[i], pool.state[i]))
+            pool.conv[i].copy_(new.conv)
+            pool.state[i].copy_(new.state)
+        elif collect:
+            out, new = ssm_prefill_with_cache(x, bp["ssm"], cfg)
+            convs.append(new.conv)
+            states.append(new.state)
+        else:
+            out, _ = ssm_block(x, bp["ssm"], cfg)
+        h = h + out
+    if caches is not None:
+        return h, caches
+    if collect:
+        return h, {"ssm": SSMCache(torch.stack(convs), torch.stack(states))}
+    return h, None

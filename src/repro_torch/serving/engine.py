@@ -2,8 +2,8 @@
 
 Continuous batching over a fixed pool of decode slots: arriving requests
 are prefilled into free slots; every engine tick runs one batched
-`decode_step` for all slots. The KV cache pool is allocated once at
-``max_seq`` and slots are recycled.
+`decode_step` for all slots. The cache pool (KV, or SSM conv and state)
+is allocated once at ``max_seq`` and slots are recycled.
 
 Variable capacity for serving (the paper's technique on the inference
 side): the *admission width* follows the energy price. At high prices the
@@ -18,22 +18,23 @@ filled slot), one batched `decode_step`, greedy argmax, the meter's tick.
 The pool is updated in place (`decode_step` writes the new k/v, and a
 prefilled request is copied into its slot), where the reference replaces
 it; the engine runs eagerly where the reference jits the decode step.
-On the card every prefill launches the flash kernel once per layer and
-every tick the decode kernel once per layer.
+On the card a dense model's prefill launches the flash kernel once per
+layer and every tick the decode kernel once per layer; an SSM model's
+prefill launches the SSD scan kernel once per layer, and its decode step
+is the plain one-token recurrence.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.attention import AttnCache
 from repro_torch.models.model import decode_step, init_cache, prefill
 from repro_torch.runtime.accounting import CostMeter
 
@@ -176,8 +177,10 @@ class ServingEngine:
         return self.summary()
 
 
-def _slot_set(pool: AttnCache, one: AttnCache, slot: int) -> None:
-    """Write a batch-1 cache into slot ``slot`` of the pooled cache, in
-    place: every leaf is [L, B, ...], ``one``'s with B = 1."""
+def _slot_set(pool: NamedTuple, one: NamedTuple, slot: int) -> None:
+    """Write a batch-1 cache (`AttnCache` or `SSMCache`) into slot ``slot``
+    of the pooled cache, leaf by leaf, in place: every leaf is [L, B, ...],
+    ``one``'s with B = 1 and otherwise the pool's shape (an SSM prefill's
+    conv tail always holds K-1 rows, left-padded with zeros)."""
     for p, o in zip(pool, one):
         p[:, slot] = o[:, 0].to(p.dtype)

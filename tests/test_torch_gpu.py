@@ -1,8 +1,10 @@
 """The CUDA kernels on the card (`fleet_scan`, the soft-scan forward and
 backward, `dispatch_scan`, the three soft-dispatch kernels, flash and
-decode attention), held against their plain PyTorch versions, and the
-backtest, the tuner (plain and dispatch-aware), the dispatch summary and
-the serving engine on the card against the CPU.
+decode attention, the SSD chunk scan), held against their plain PyTorch
+versions, and the backtest, the tuner (plain and dispatch-aware), the
+dispatch summary and the serving engine (dense and mamba2) on the card
+against the CPU; one seed's market and parameters drawn for the card
+equal the CPU's; the three serving kernels refuse inputs that need grad.
 Marked ``gpu``:
 without a CUDA device every test skips. Imports neither JAX nor the
 reference, so it runs on a machine that has only PyTorch:
@@ -34,7 +36,10 @@ chosen set. The attention kernels against their plain versions on the
 card: float32 within atol = rtol = 2e-5, bfloat16 within 2e-2 (the
 reference's kernel tolerances; the two share tiles and casts and differ
 in the order of float32 sums); the reduced serving engine on the card at
-float32 returns the CPU's tokens.
+float32 returns the CPU's tokens. The SSD kernel against its plain
+version on the card: y and the final state within 1e-4 of the output's
+scale (the two share every cast and differ in the order of float32 sums,
+the cumsum's included).
 """
 
 import numpy as np
@@ -540,3 +545,148 @@ def test_serving_engine_on_the_card_matches_the_cpu(cuda, arch):
     assert launches[str(cuda)][0] == 6 * cfg.n_layers
     assert launches[str(cuda)][1] % cfg.n_layers == 0
     assert launches[str(cuda)][1] > 0
+
+
+# ---------------------------------------------------------------------------
+# the Mamba2 slice: the SSD kernel, card draws, the gradient guard
+# ---------------------------------------------------------------------------
+
+SSD_SCALE_TOL = 1e-4     # of the output's scale (max |y|, max |h|)
+
+
+def _ssd_inputs(b, s, h, p, g, n, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    xs = (rng.normal(size=(b, s, h, p)),
+          np.abs(rng.normal(size=(b, s, h))) * 0.1,
+          -np.abs(rng.normal(size=(h,))) - 0.1,
+          rng.normal(size=(b, s, g, n)) * 0.3,
+          rng.normal(size=(b, s, g, n)) * 0.3)
+    x, dt, a, bb, cc = (torch.as_tensor(v.astype(f), device=dev) for v in xs)
+    return x.to(dtype), dt, a, bb.to(dtype), cc.to(dtype)
+
+
+def _scale_close(got, want, what):
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert err <= SSD_SCALE_TOL * scale, f"{what}: {err:.3g} of {scale:.3g}"
+
+
+# B, S, H, P, G, N, chunk, dtype, with h0: the reference's SSD_CASES, then
+# mamba2-1.3b's serving shape (64 heads of P 64, N 128, chunk 256) at a
+# ragged length in bf16 with h0
+@pytest.mark.parametrize("case", [
+    (2, 64, 4, 16, 1, 32, 16, torch.float32, False),
+    (1, 128, 8, 32, 2, 16, 32, torch.float32, True),
+    (2, 96, 4, 64, 1, 128, 48, torch.float32, False),
+    (1, 64, 2, 8, 1, 8, 64, torch.float32, True),
+    (1, 1000, 64, 64, 1, 128, 256, torch.bfloat16, True)])
+def test_ssd_kernel_matches_plain_version(cuda, case):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    b, s, h, p, g, n, l, dt_, with_h0 = case
+    x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, g, n, dt_, cuda, sum(case[:7]))
+    h0 = (torch.randn((b, h, p, n), device=cuda) * 0.5 if with_h0 else None)
+    before = ssd_scan.launches
+    y, hl = ops.ssd_scan(x, dt, a, bb, cc, l, h0)
+    wy, wh = ssd_scan_plain(x, dt, a, bb, cc, l, h0)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == torch.float32 and y.shape == (b, s, h, p)
+    assert bool(torch.isfinite(y).all())
+    _scale_close(y, wy, "y")
+    _scale_close(hl, wh, "h_last")
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    x, dt, a, bb, cc = _ssd_inputs(1, 64, 4, 16, 1, 32, torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        ssd_scan(x[:, :60], dt[:, :60], a, bb[:, :60], cc[:, :60], 16)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_scan(x, dt.double(), a, bb, cc, 16)
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_scan(x, dt, a, bb.bfloat16(), cc, 16)
+    with pytest.raises(ValueError, match="on"):
+        ssd_scan(x, dt, a.cpu(), bb, cc, 16)
+    with pytest.raises(ValueError, match="use_kernel"):
+        ssd_scan(x, dt, a, bb, cc, 16, use_kernel=False)
+
+
+def test_draws_on_the_card_equal_the_cpus(cuda):
+    """One seed, the same draws on every device: a market's draws equal,
+    its prices within float32 rounding; a reduced config's parameters
+    equal, leaf by leaf (dense and ssm)."""
+    from repro_torch.energy.markets import generate_market, market_draws
+    from repro_torch.energy.presets import region_params
+    mp = region_params("germany", seed=3)
+    for a, b in zip(market_draws(3, 8760, device=cuda),
+                    market_draws(3, 8760, device="cpu")):
+        assert torch.equal(a.cpu(), b)
+    got = generate_market(mp, device=cuda).prices.cpu()
+    want = generate_market(mp, device="cpu").prices
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+    for arch in ("qwen2.5-3b", "mamba2-1.3b"):
+        cfg = reduced_config(get_config(arch))
+        gp = init_params(7, cfg, device=cuda)
+        cp = init_params(7, cfg, device="cpu")
+
+        def walk(x, y):
+            if isinstance(x, dict):
+                for k in x:
+                    walk(x[k], y[k])
+            else:
+                assert x.is_cuda and torch.equal(x.cpu(), y)
+        walk(gp, cp)
+
+
+def test_kernels_refuse_inputs_that_require_grad(cuda):
+    """Flash, decode and SSD are forward only on the card: inputs that
+    require grad raise while grad mode is on, and run under no_grad."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    q, k, v = _attn_inputs([(1, 64, 4, 64), (1, 64, 2, 64), (1, 64, 2, 64)],
+                           torch.float32, cuda, 0)
+    valid = torch.ones((1, 64), dtype=torch.int8, device=cuda)
+    x, dt, a, bb, cc = _ssd_inputs(1, 64, 4, 16, 1, 32, torch.float32, cuda)
+    qg = q.clone().requires_grad_()
+    xg = x.clone().requires_grad_()
+    with pytest.raises(ValueError, match="forward only"):
+        flash_attention(qg, k, v)
+    with pytest.raises(ValueError, match="forward only"):
+        decode_attention(qg[:, :1], k, v, valid)
+    with pytest.raises(ValueError, match="forward only"):
+        ssd_scan(xg, dt, a, bb, cc, 16)
+    with pytest.raises(ValueError, match="forward only"):
+        ssd_scan(x, dt, a.clone().requires_grad_(), bb, cc, 16)
+    with torch.no_grad():
+        flash_attention(qg, k, v)
+        decode_attention(qg[:, :1], k, v, valid)
+        ssd_scan(xg, dt, a, bb, cc, 16)
+    torch.cuda.synchronize()
+
+
+def test_mamba2_engine_on_the_card_matches_the_cpu(cuda):
+    """Reduced mamba2 at float32: the engine on the card returns the CPU's
+    tokens, with one SSD launch per layer and prefill (prompts of 2 to 19
+    tokens against chunk 8) and none on the CPU."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    cfg = reduced_config(get_config("mamba2-1.3b"))
+    cpu_params = init_params(5, cfg, device="cpu")
+    outputs, launches = {}, {}
+    for dev in ("cpu", cuda):
+        eng = ServingEngine(_tree_to(cpu_params, dev), cfg,
+                            ServeConfig(slots=4, max_seq=48), device=dev)
+        rng = np.random.default_rng(2)
+        for i in range(6):
+            eng.submit(Request(rid=i, prompt=rng.integers(
+                2, cfg.vocab - 1, size=int(rng.integers(2, 20))).astype(
+                    np.int32), max_new=8))
+        s0 = ssd_scan.launches
+        out = eng.run(ticks=30)
+        launches[str(dev)] = ssd_scan.launches - s0
+        outputs[str(dev)] = ({r.rid: r.output for r in eng.completed},
+                             out["tokens_served"], out["completed"])
+    assert outputs[str(cuda)] == outputs["cpu"]
+    assert outputs["cpu"][2] == 6
+    assert launches == {"cpu": 0, str(cuda): 6 * cfg.n_layers}

@@ -31,11 +31,12 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
                          capture_output=True, text=True).stdout.split()
     n_modules, names, bad = int(out[0]), out[1].split(","), out[2:]
     assert bad == []
-    # the 70 modules of the slices so far: package inits, core, energy,
+    # the 72 modules of the slices so far: package inits, core, energy,
     # runtime, kernels, fleet, optim, checkpoint, tune, dispatch, examples,
-    # the device helper, and the serving slice's configs, models, serving
-    # engine and launcher
-    assert n_modules == len(names) >= 70
+    # the device helper, the serving slice's configs, models, serving
+    # engine and launcher, and the Mamba2 slice's ssm model, SSD kernel
+    # and serving example
+    assert n_modules == len(names) >= 72
     for name in ("repro_torch.configs.base", "repro_torch.configs.inputs",
                  "repro_torch.configs.qwen2_5_3b",
                  "repro_torch.models.layers", "repro_torch.models.attention",
@@ -50,5 +51,8 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
                  "repro_torch.dispatch.schedule",
                  "repro_torch.kernels.dispatch_scan",
                  "repro_torch.kernels.soft_dispatch",
-                 "repro_torch.examples.fleet_dispatch"):
+                 "repro_torch.examples.fleet_dispatch",
+                 "repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
+                 "repro_torch.configs.mamba2_1_3b",
+                 "repro_torch.examples.price_aware_serving"):
         assert name in names

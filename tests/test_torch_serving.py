@@ -18,6 +18,8 @@ and must agree exactly. The reference's engine tests
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,6 +38,7 @@ from repro.serving import engine as jengine  # noqa: E402
 from repro_torch.configs import base  # noqa: E402
 from repro_torch.configs.inputs import reduced_config  # noqa: E402
 from repro_torch.energy import stream  # noqa: E402
+from repro_torch.examples import price_aware_serving  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 from repro_torch.runtime import accounting, scheduler  # noqa: E402
@@ -43,6 +46,7 @@ from repro_torch.serving.engine import (Request, ServeConfig,  # noqa: E402
                                         ServingEngine)
 
 CPU = torch.device("cpu")
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _configs():
@@ -53,6 +57,10 @@ def _configs():
         "qwen2.5-3b-smoke": q3,
         "gqa-16-2": q3.replace(name="gqa-16-2", n_heads=16, n_kv_heads=2,
                                head_dim=16),
+        # the ssm family: chunk 8, so prompts of 5, 8 and 13 tokens take a
+        # padded chunk, a whole one and a whole and a padded one
+        "mamba2-1.3b-smoke": jinputs.reduced_config(
+            jbase.get_config("mamba2-1.3b")),
     }
 
 
@@ -264,12 +272,49 @@ def test_eur_per_1k_tokens_matches_tick_accounting(small_model):
     assert eng.meter.tco == pytest.approx(tco)
 
 
-def test_ssm_engine_raises_until_its_slice():
-    """The reference serves mamba2 too; the port's SSM family comes with
-    the next slice and says so."""
-    cfg = reduced_config(base.get_config("mamba2-1.3b"))
-    with pytest.raises(NotImplementedError, match="mamba2"):
+def test_hybrid_engine_raises_until_its_slice():
+    """The reference serves zamba2 too; the port's hybrid family comes
+    with a later slice and says so."""
+    cfg = reduced_config(base.get_config("zamba2-1.2b"))
+    with pytest.raises(NotImplementedError, match="zamba2"):
         ServingEngine({}, cfg, ServeConfig(slots=2, max_seq=32), device=CPU)
+
+
+def _reference_example():
+    spec = importlib.util.spec_from_file_location(
+        "_reference_price_aware_serving",
+        ROOT / "examples" / "price_aware_serving.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_price_aware_serving_example_matches_reference(capsys):
+    """`repro_torch.examples.price_aware_serving` against the reference's
+    example on the same prices (the reference's south_australia market)
+    and parameters, both engines, at 30 requests over 100 ticks of 0.5 h
+    from 20 h before the year's highest price: the same table (tokens,
+    queue and x exactly; costs within rel 1e-9, host float64 in the same
+    order)."""
+    ref_ex = _reference_example()
+    jcfg = CONFIGS["qwen1.5-0.5b-smoke"]
+    jp, cfg, params = _carry(jcfg, seed=0)
+    prices = np.asarray(ref_ex.generate_market(
+        ref_ex.region_params("south_australia")).prices)
+    rows = []
+    for gated in (False, True):
+        want = ref_ex.run(gated, prices, jp, jcfg, n_requests=30, ticks=100)
+        got = price_aware_serving.run(gated, prices, params, cfg,
+                                      n_requests=30, ticks=100, device=CPU)
+        for key in ("tokens_served", "completed", "queued", "mean_queue_h",
+                    "x_realized", "energy_mwh"):
+            assert got[key] == want[key], (gated, key)
+        for key in ("eur_per_1k_tokens", "energy_cost", "tco"):
+            assert got[key] == pytest.approx(want[key], rel=1e-9), key
+        rows.append(("price-gated" if gated else "always-on", got))
+    assert rows[0][1]["completed"] > 0
+    price_aware_serving.report(rows)
+    assert "price-gated" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------------------
