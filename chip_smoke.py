@@ -6,7 +6,10 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every CUDA kernel from `src/` (one nvcc per source, all
-     started together; sm_90a), printing ptxas' registers and spills;
+     started together; sm_90a), printing ptxas' registers and spills, and
+     for the eight bf16 attention kernels (flash and decode at Dh 16-128)
+     their registers, spills and HMMA instructions in the SASS (they must
+     run on the tensor cores);
   3. each kernel against its plain PyTorch version on the card;
   4. the backtest path at full size: the Lichtenberg case study, then
      the fleet backtest and summary of the repo's benchmark grid (16
@@ -35,8 +38,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      grid (dispatch-aware <= re-score-only), and `tune_policies
      --dispatch-soft`;
  11. the attention kernels (flash, decode) against their plain versions
-     on the card and against SDPA, at the reference's cases and the
-     serving shapes (run with phase 8's kernel checks);
+     on the card and against SDPA, at the reference's cases, the serving
+     shapes and the tensor-core (bf16) kernels' head dims and heads per
+     group (run with phase 8's kernel checks); the decode kernel's
+     ticket counters back at 0;
  12. the serving path at full width: `ServingEngine` on qwen2.5-3b (bf16,
      random parameters drawn from a seed on the CPU, copied to the card),
      8 slots x 2048, the price gate on and crossing a price spike (it
@@ -61,7 +66,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      64 x 8760 beside their bounds and serial floors (the plain forward's
      run at 64 x 8760 also holds phase 9's allocation), a
      dispatch-aware tuner step against an uncoupled one, the
-     attention kernels at the serving shapes beside SDPA, and the SSD
+     attention kernels at the serving shapes in turns with SDPA, and the SSD
      kernel at 1024 and 2048 positions beside its plain version;
 each path's kernel launch counts are set to 0 just before it and read
 just after. Then one JSON line describing every ported kernel and, last,
@@ -73,6 +78,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -105,6 +111,13 @@ def _cuda_ms(fn, runs: int = TIMED_RUNS, flush: torch.Tensor | None = None,
     ``device_only`` first queues a spin kernel, so the card is still busy
     when the host has queued the start event and ``fn``'s launches: the
     events then time the device work alone, not the host's enqueueing."""
+    return statistics.median(_cuda_times(fn, runs, flush, device_only))
+
+
+def _cuda_times(fn, runs: int = TIMED_RUNS,
+                flush: torch.Tensor | None = None,
+                device_only: bool = False) -> list[float]:
+    """`_cuda_ms`'s ``runs`` times of ``fn()`` in ms, each one."""
     fn()
     times = []
     for _ in range(runs):
@@ -119,7 +132,7 @@ def _cuda_ms(fn, runs: int = TIMED_RUNS, flush: torch.Tensor | None = None,
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
 
 
 def _scan_inputs(b: int, t: int, seed: int, dev):
@@ -248,6 +261,69 @@ def phase_build() -> None:
                 print(f"[build]   {line.strip()}")
         if name is not None:
             build.load(name)
+        if name == "attention":
+            _report_tensor_core_kernels(log, build.library_path(name))
+
+
+# the bf16 instantiations of the attention kernels (the tensor-core designs)
+MMA_KERNEL = re.compile(r"(flash|decode)_mma_kernelILi(\d+)E")
+
+
+def _report_tensor_core_kernels(log: str, lib: Path) -> None:
+    """Registers and spills (ptxas) and the tensor-core instructions in the
+    SASS (cuobjdump, from nvcc's toolkit: HMMA for mma.sync, HGMMA for
+    wgmma) of the eight bf16 attention kernels, flash and decode at Dh 16,
+    32, 64 and 128. Fails if one is missing or has no tensor-core
+    instruction."""
+    info, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'|Function properties for "
+                      r"(\S+)", line)
+        if m:
+            name = m.group(1) or m.group(2)
+            continue
+        k = MMA_KERNEL.search(name or "")
+        if not k:
+            continue
+        rec = info.setdefault((k.group(1), int(k.group(2))), {})
+        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line):
+            rec["spill"] = (int(m.group(1)), int(m.group(2)))
+        if m := re.search(r"Used (\d+) registers", line):
+            rec["registers"] = int(m.group(1))
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    hmma, name = {}, None
+    if cuobjdump.exists():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for line in sass.splitlines():
+            if m := re.search(r"Function : (\S+)", line):
+                k = MMA_KERNEL.search(m.group(1))
+                name = (k.group(1), int(k.group(2))) if k else None
+                if name:
+                    hmma[name] = 0
+            elif name and ("HMMA" in line or "HGMMA" in line):
+                hmma[name] += 1
+    for kind in ("flash", "decode"):
+        for dh in (16, 32, 64, 128):
+            rec = info.get((kind, dh), {})
+            if "registers" not in rec:
+                raise AssertionError(f"build: no ptxas record of the bf16 "
+                                     f"{kind} kernel at Dh {dh}")
+            n = hmma.get((kind, dh))
+            if cuobjdump.exists() and not n:
+                raise AssertionError(f"build: the bf16 {kind} kernel at Dh "
+                                     f"{dh} has no tensor-core instruction "
+                                     "(HMMA, HGMMA) in its SASS")
+            st, ld = rec.get("spill", (0, 0))
+            print(f"[build] bf16 {kind}_mma_kernel Dh {dh}: "
+                  f"{rec['registers']} registers, spill stores {st} B, "
+                  f"spill loads {ld} B, "
+                  + (f"{n} HMMA/HGMMA instructions in its SASS"
+                     if n is not None
+                     else "SASS not read (no cuobjdump)"))
 
 
 def phase_kernel_vs_plain(dev) -> None:
@@ -1725,7 +1801,9 @@ BF16 = torch.bfloat16
 # FLASH_CASES and its bf16 case (tests/test_kernels.py), the serving shapes
 # of qwen2.5-3b (16 heads in 2 KV groups, Dh 128) and a chunked prefill,
 # the longest serving shape and the chunked prefill also at float32, where
-# the tolerance (2e-5) is far below the outputs' size (~0.04 at 2048 keys)
+# the tolerance (2e-5) is far below the outputs' size (~0.04 at 2048 keys),
+# then the tensor-core (bf16) kernel at Dh 16 and 32, a window with an
+# offset, a non-causal case and a window edge inside a tile
 FLASH_SMOKE_CASES = [
     (2, 128, 128, 4, 2, 64, True, 0, 0, torch.float32),
     (1, 100, 100, 8, 2, 64, True, 0, 0, torch.float32),
@@ -1741,11 +1819,16 @@ FLASH_SMOKE_CASES = [
     (1, 256, 1280, 16, 2, 128, True, 0, 1024, BF16),
     (1, 2048, 2048, 16, 2, 128, True, 0, 0, torch.float32),
     (1, 256, 1280, 16, 2, 128, True, 0, 1024, torch.float32),
+    (1, 130, 130, 16, 2, 16, True, 0, 0, BF16),
+    (1, 70, 200, 16, 2, 32, True, 40, 130, BF16),
+    (2, 64, 256, 4, 4, 32, False, 0, 0, BF16),
+    (1, 128, 128, 4, 2, 64, True, 100, 0, BF16),
 ]
 # B, H, G, Dh, W, dtype, mask: the reference's DECODE_CASES, then the
 # serving pool (8 slots of 2048, 16 heads in 2 groups) with a linear
-# cache's mask and a rolling one's, at bf16 and at float32 (eight splits
-# folded, and whole tiles and splits with no valid slot skipped)
+# cache's mask and a rolling one's, at bf16 and at float32 (eight 256-slot
+# splits folded, and whole tiles and splits with no valid slot skipped),
+# then the tensor-core (bf16) kernel at 1, 16 and 32 heads a group
 DECODE_SMOKE_CASES = [
     (2, 8, 2, 64, 100, torch.float32, "random"),
     (1, 4, 4, 32, 256, torch.float32, "random"),
@@ -1755,6 +1838,9 @@ DECODE_SMOKE_CASES = [
     (8, 16, 2, 128, 2048, BF16, "rolling"),
     (8, 16, 2, 128, 2048, torch.float32, "linear"),
     (8, 16, 2, 128, 2048, torch.float32, "rolling"),
+    (2, 2, 2, 64, 300, BF16, "random"),
+    (3, 32, 2, 128, 700, BF16, "random"),
+    (2, 32, 1, 64, 1000, BF16, "random"),
 ]
 SERVE_ARCH = "qwen2.5-3b"
 SSM_ARCH = "mamba2-1.3b"
@@ -1918,7 +2004,20 @@ def phase_attention_vs_plain(dev) -> dict:
             and bool(torch.isfinite(out_d.float()).all())):
         raise AssertionError("attention: a fully masked row is not finite")
     print("[attn] fully masked flash rows and decode rows: finite")
+    _check_ticket_counters()
     return errs
+
+
+def _check_ticket_counters() -> None:
+    """The decode kernel's ticket counters (one int32 buffer per device
+    and stream) are all back at 0 after every call."""
+    from repro_torch.kernels import decode_attention as dmod
+
+    torch.cuda.synchronize()
+    left = {k: int(buf.count_nonzero()) for k, buf in dmod._counters.items()}
+    if any(left.values()):
+        raise AssertionError(f"decode: ticket counters left nonzero {left}")
+    print(f"[attn] decode ticket counters: {len(left)} buffer(s), all 0")
 
 
 def _count_serving_plain_calls():
@@ -2293,11 +2392,23 @@ def _attn_bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
+def _in_turns(kernel, library, flush) -> tuple[float, float]:
+    """Device-only times (`_cuda_times`, L2 flushed) of a kernel and the
+    library call on the same inputs, in turns: kernel, library, library,
+    kernel; the median of each one's 2 x TIMED_RUNS runs."""
+    k1 = _cuda_times(kernel, flush=flush, device_only=True)
+    l1 = _cuda_times(library, flush=flush, device_only=True)
+    l2 = _cuda_times(library, flush=flush, device_only=True)
+    k2 = _cuda_times(kernel, flush=flush, device_only=True)
+    return statistics.median(k1 + k2), statistics.median(l1 + l2)
+
+
 def phase_attention_times(dev, flush) -> dict:
     """Device-only times (CUDA events, L2 flushed) of kernels 8 and 9 at
-    the serving shapes, beside SDPA on the same inputs, their plain
-    versions on the card and their bounds (the larger of the bytes at
-    3.35 TB/s and the matrix products at the 989 TFLOP/s bf16 peak)."""
+    the serving shapes, in turns with SDPA on the same inputs, beside
+    their plain versions on the card and their bounds (the larger of the
+    bytes at 3.35 TB/s and the matrix products at the 989 TFLOP/s bf16
+    peak)."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import (decode_attention_plain,
@@ -2308,20 +2419,22 @@ def phase_attention_times(dev, flush) -> dict:
         h, g, dh = 16, 2, 128
         q, k, v = _attn_inputs([(1, sq, h, dh), (1, sq, g, dh),
                                 (1, sq, g, dh)], BF16, dev, 900 + sq)
-        ms = _cuda_ms(lambda: flash_attention(q, k, v, causal=True),
-                      flush=flush, device_only=True)
-        lib = _cuda_ms(lambda: _sdpa(q, k, v, causal=True), flush=flush,
-                       device_only=True)
+        ms, lib = _in_turns(lambda: flash_attention(q, k, v, causal=True),
+                            lambda: _sdpa(q, k, v, causal=True), flush)
         plain = _cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True),
                          runs=3)
         pairs = sq * (sq + 1) // 2
-        bound, by = _attn_bound(2 * (2 * sq * h * dh + 2 * sq * g * dh),
-                                4 * pairs * h * dh)
+        bytes_moved = 2 * (2 * sq * h * dh + 2 * sq * g * dh)
+        ops = 4 * pairs * h * dh
+        bound, by = _attn_bound(bytes_moved, ops)
         print(f"[time] flash_attention Sq=Skv={sq} causal, 16 heads / 2 "
               f"groups, Dh 128, bf16: kernel {ms:.4f} ms, SDPA {lib:.4f} "
-              f"ms, plain {plain:.2f} ms, bound {bound:.5f} ms ({by}; "
-              f"{4 * pairs * h * dh / 1e9:.2f} GFLOP), {bound / ms:.1%} of "
-              f"bound, {4 * pairs * h * dh / ms / 1e9:.1f} TFLOP/s")
+              f"ms ({ms / lib:.2f}x), plain {plain:.2f} ms, bound "
+              f"{bound:.5f} ms ({by}; {ops / 1e9:.2f} GFLOP, "
+              f"{bytes_moved / 1e6:.2f} MB), {bound / ms:.1%} of bound; "
+              f"kernel {ops / ms / 1e9:.1f} TFLOP/s, "
+              f"{bytes_moved / ms / 1e9:.3f} TB/s; SDPA "
+              f"{ops / lib / 1e9:.1f} TFLOP/s")
         recs[("flash", sq)] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
                                "bound_by": by, "library_ms": lib}
     b, h, g, dh, w = 8, 16, 2, 128, 2048
@@ -2329,22 +2442,23 @@ def phase_attention_times(dev, flush) -> dict:
                            BF16, dev, 950)
     valid = _decode_valid(b, w, "linear", dev, 951)
     mask = valid.bool()[:, None, None, :]
-    ms = _cuda_ms(lambda: decode_attention(q, k, v, valid), flush=flush,
-                  device_only=True)
-    lib = _cuda_ms(lambda: _sdpa(q, k, v, mask), flush=flush,
-                   device_only=True)
+    ms, lib = _in_turns(lambda: decode_attention(q, k, v, valid),
+                        lambda: _sdpa(q, k, v, mask), flush)
     plain = _cuda_ms(lambda: decode_attention_plain(q, k, v, valid), runs=3)
     # the function needs the K/V of the valid slots only (a row's output
     # does not depend on the others'), the mask, q and o
     n_valid = int(valid.sum())
     bytes_moved = 2 * (2 * n_valid * g * dh + 2 * b * h * dh) + b * w
-    bound, by = _attn_bound(bytes_moved, 4 * n_valid * h * dh)
+    ops = 4 * n_valid * h * dh
+    bound, by = _attn_bound(bytes_moved, ops)
     print(f"[time] decode_attention B={b} W={w}, 16 heads / 2 groups, Dh "
           f"128, bf16, linear mask ({n_valid} valid slots): kernel "
-          f"{ms:.4f} ms, SDPA {lib:.4f} ms, plain {plain:.2f} ms, bound "
-          f"{bound:.5f} ms ({by}; {bytes_moved / 1e6:.1f} MB), "
-          f"{bound / ms:.1%} of bound, "
-          f"{bytes_moved / ms / 1e9:.3f} TB/s")
+          f"{ms:.4f} ms, SDPA {lib:.4f} ms ({ms / lib:.2f}x), plain "
+          f"{plain:.2f} ms, bound {bound:.5f} ms ({by}; "
+          f"{bytes_moved / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP), "
+          f"{bound / ms:.1%} of bound; kernel "
+          f"{bytes_moved / ms / 1e9:.3f} TB/s, {ops / ms / 1e9:.2f} "
+          f"TFLOP/s; SDPA {bytes_moved / lib / 1e9:.3f} TB/s")
     recs[("decode", w)] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
                            "bound_by": by, "library_ms": lib}
     return recs

@@ -9,6 +9,12 @@ tensors, with the same tiles, skip of tiles that hold no valid slot,
 splits of the cache, casts and int8 validity mask. There is no fallback:
 on a CUDA tensor the kernel is built, launched and checked, or the call
 raises. ``decode_attention.launches`` counts kernel launches.
+
+The kernel folds its splits in the same launch: the block that takes the
+last ticket on a (batch row, group) counter folds them and resets the
+counter. The counters live in one int32 buffer per (device, stream),
+made by ``torch.zeros`` and left at 0 by every call, so no call clears
+them and calls on two streams never share one.
 """
 
 from __future__ import annotations
@@ -26,15 +32,32 @@ from repro_torch.kernels.ref import DECODE_SPLIT, decode_attention_plain
 
 MAX_HEADS_PER_GROUP = 32
 
+# (device index, stream handle) -> int32 ticket counters, all 0 between calls
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+
 
 def _library() -> ctypes.CDLL:
     lib = build.load("attention")
     lib.decode_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
         + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_float,
                                      ctypes.c_void_p])
     lib.decode_attention_fwd.restype = ctypes.c_int
     return lib
+
+
+def _ticket_counters(device: torch.device, stream: int, n: int
+                     ) -> torch.Tensor:
+    """The ticket counters of ``stream`` on ``device``, at least ``n`` of
+    them, all 0: allocated with ``torch.zeros`` on first use and regrown
+    (to zeros) when a call has more (batch row, group) pairs."""
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        size = n if buf is None else max(n, 2 * buf.numel())
+        buf = _counters[key] = torch.zeros(size, dtype=torch.int32,
+                                           device=device)
+    return buf
 
 
 def _launch(q, k, v, valid) -> torch.Tensor:
@@ -60,19 +83,22 @@ def _launch(q, k, v, valid) -> torch.Tensor:
     out = torch.empty((b, 1, h, dh), dtype=q.dtype, device=q.device)
     n_split = -(-w // DECODE_SPLIT)
     r = h // g
-    # scratch of the split pass: (m, l) [B, G, n, R] and acc [..., Dh]
-    part = torch.empty((b * g * n_split * r * (dh + 2),) if n_split > 1
-                       else (0,), dtype=torch.float32, device=q.device)
+    # scratch of the splits: acc [B, G, n, R, Dh] first (16-byte aligned),
+    # then m and l [B, G, n, R]
     n_ml = b * g * n_split * r
-    ptrs = ((part.data_ptr(), part.data_ptr() + 4 * n_ml,
-             part.data_ptr() + 8 * n_ml) if n_split > 1 else (None,) * 3)
+    part = torch.empty((n_ml * (dh + 2),) if n_split > 1 else (0,),
+                       dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        ptrs = ((part.data_ptr() + 4 * n_ml * dh,
+                 part.data_ptr() + 4 * n_ml * (dh + 1), part.data_ptr(),
+                 _ticket_counters(q.device, stream, b * g).data_ptr())
+                if n_split > 1 else (None,) * 4)
         err = lib.decode_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
             out.data_ptr(), *ptrs, DTYPE_CODES[q.dtype], b, w, h, g, dh,
             q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3],
-            valid.stride(0), int(vectorizable(k, v)), dh ** -0.5, stream)
+            valid.stride(0), int(vectorizable(q, k, v)), dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -6,7 +6,9 @@
 the plain `repro_torch.kernels.ref.flash_attention_plain` on CPU tensors.
 The two share their tiles, their skip of masked tiles and their casts
 (scores and carry in float32, p rounded to v's type for p.v, the output
-in q's type), so they differ only in the order of float32 sums. There is
+in q's type), so they differ only in the order of float32 sums (bf16
+inputs run on the tensor cores, whose bf16 products are exact in
+float32). There is
 no fallback: on a CUDA tensor the kernel is built, launched and checked,
 or the call raises. ``flash_attention.launches`` counts kernel launches.
 """
@@ -109,7 +111,7 @@ def _launch(q, k, v, causal: bool, window: int, q_offset: int
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             DTYPE_CODES[q.dtype], b, sq, skv, h, g, dh, *strides,
             int(causal), int(window), int(q_offset),
-            int(vectorizable(k, v)), dh ** -0.5, stream)
+            int(vectorizable(q, k, v)), dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -835,7 +835,7 @@ def soft_dispatch_grad_ref(avail: torch.Tensor, keys: torch.Tensor,
 NEG_INF = -2.0 ** 30   # masked score: finite, so a fully masked online-
                        # softmax row never forms (-inf) - (-inf)
 ATTN_TILE = 64         # query rows and keys per tile of both kernels
-DECODE_SPLIT = 64      # cache slots per block of the decode kernel
+DECODE_SPLIT = 256     # cache slots per block of the decode kernel
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

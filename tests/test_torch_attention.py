@@ -120,6 +120,26 @@ def test_flash_plain_bf16(case):
         np.testing.assert_allclose(_np(got), _np(want), **BF16)
 
 
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_flash_plain_bf16_head_dims(dh):
+    """bf16 in and out at each head dim the kernels take, with a ragged Sq
+    (100 rows: a query tile of 36) at GQA 2:1, against the reference's
+    interpret-mode kernel at bf16 and its float32 oracle: the plain
+    version mirrors the tensor-core kernel, which takes bf16 at every Dh."""
+    rng = np.random.default_rng(dh)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(_normal(rng, 1, 100, heads, dh), "bfloat16")
+        for heads in (4, 2, 2))
+    got = flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 100, 4, dh)
+    pallas = jops.flash_attention(jq, jk, jv, causal=True, bq=32, bkv=32)
+    oracle = jref.attention_ref(jq.astype(jnp.float32),
+                                jk.astype(jnp.float32),
+                                jv.astype(jnp.float32), causal=True)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(_np(got), _np(want), **BF16)
+
+
 @pytest.mark.parametrize("chunks", [(16, 32), (8, 16)])
 def test_flash_plain_matches_model_blockwise(chunks):
     """The port's plain flash == the reference model's XLA blockwise
@@ -235,11 +255,14 @@ def test_decode_plain_bf16_and_masked_rows():
 
 # B, H, G, D, W and the valid slots of each row as [start, stop) ranges:
 # a linear cache filled to a few lengths (whole tiles and splits past the
-# fill hold no valid slot) and a window late in the cache (the first
-# tiles are empty, the row's first valid tile comes after them)
+# fill hold no valid slot), a window late in the cache (the first tiles
+# are empty, the row's first valid tile comes after them), and a cache of
+# five 256-slot splits (DECODE_SPLIT) whose rows leave the first two, or
+# the last four, splits without a valid slot
 SPARSE_DECODE_CASES = [
     (4, 16, 2, 32, 600, [(0, 1), (0, 65), (0, 300), (0, 600)]),
     (2, 8, 2, 64, 700, [(300, 420), (513, 700)]),
+    (3, 16, 2, 64, 1100, [(0, 100), (600, 1100), (0, 1100)]),
 ]
 
 
@@ -282,3 +305,28 @@ def test_wrappers_route_by_device():
     with pytest.raises(ValueError, match="use_kernel"):
         decode_attention(q[:, :1], k, k, torch.ones((1, 8), dtype=torch.int8),
                          use_kernel=True)
+
+
+def test_decode_ticket_counters_are_per_stream_and_grow_as_zeros():
+    """The decode kernel's ticket counters: one zeroed int32 buffer per
+    (device, stream), reused while it is large enough and replaced by a
+    larger zeroed one when a call has more (batch row, group) pairs. The
+    buffer logic is plain torch, checked here on CPU tensors with stand-in
+    stream handles; the kernel that uses them is checked on the card."""
+    from repro_torch.kernels import decode_attention as dmod
+
+    cpu = torch.device("cpu")
+    keys = [(cpu.index, s) for s in (-1, -2)]
+    try:
+        a = dmod._ticket_counters(cpu, -1, 4)
+        assert a.dtype == torch.int32 and a.numel() == 4
+        assert dmod._ticket_counters(cpu, -1, 3) is a
+        b = dmod._ticket_counters(cpu, -2, 4)
+        assert b is not a
+        a[:] = 7                              # not copied into the new one
+        grown = dmod._ticket_counters(cpu, -1, 5)
+        assert grown.numel() == 8 and int(grown.count_nonzero()) == 0
+        assert dmod._ticket_counters(cpu, -1, 20).numel() == 20
+    finally:
+        for k in keys:
+            dmod._counters.pop(k, None)

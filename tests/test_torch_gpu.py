@@ -407,19 +407,33 @@ def _attn_inputs(shapes, dtype, dev, seed):
                             device=dev).to(dtype) for s in shapes]
 
 
-# B, Sq, Skv, H, G, Dh, window, q_offset, dtype
+# B, Sq, Skv, H, G, Dh, causal, window, q_offset, dtype: float32 (the
+# CUDA-core kernel), then bf16 (the tensor-core kernel) at the four head
+# dims, ragged Sq of 100 and 1000, Skv > Sq with q_offset, windows and
+# non-causal cases
 @pytest.mark.parametrize("case", [
-    (1, 100, 100, 8, 2, 64, 0, 0, torch.float32),
-    (2, 200, 200, 16, 2, 128, 0, 0, torch.bfloat16),
-    (1, 70, 200, 16, 2, 32, 40, 130, torch.float32)])
+    (1, 100, 100, 8, 2, 64, True, 0, 0, torch.float32),
+    (2, 200, 200, 16, 2, 128, True, 0, 0, torch.bfloat16),
+    (1, 70, 200, 16, 2, 32, True, 40, 130, torch.float32),
+    (1, 100, 100, 8, 2, 16, True, 0, 0, torch.bfloat16),
+    (2, 1000, 1000, 16, 2, 32, True, 0, 0, torch.bfloat16),
+    (1, 200, 200, 4, 4, 64, True, 0, 0, torch.bfloat16),
+    (1, 1000, 1000, 16, 2, 128, True, 0, 0, torch.bfloat16),
+    (1, 70, 300, 16, 2, 128, True, 0, 230, torch.bfloat16),
+    (1, 70, 200, 16, 2, 32, True, 40, 130, torch.bfloat16),
+    (1, 256, 256, 8, 2, 64, True, 100, 0, torch.bfloat16),
+    (2, 64, 256, 4, 4, 32, False, 0, 0, torch.bfloat16),
+    (1, 100, 170, 8, 2, 16, False, 0, 0, torch.bfloat16),
+    (1, 130, 130, 16, 2, 128, False, 0, 0, torch.bfloat16)])
 def test_flash_kernel_matches_plain_version(cuda, case):
-    b, sq, skv, h, g, dh, win, qo, dt = case
+    b, sq, skv, h, g, dh, causal, win, qo, dt = case
     q, k, v = _attn_inputs([(b, sq, h, dh), (b, skv, g, dh),
-                            (b, skv, g, dh)], dt, cuda, sum(case[:8]))
+                            (b, skv, g, dh)], dt, cuda,
+                            sum(case[:6]) + win + qo)
     before = flash_attention.launches
-    got = flash_attention(q, k, v, causal=True, window=win, q_offset=qo,
+    got = flash_attention(q, k, v, causal=causal, window=win, q_offset=qo,
                           use_kernel=True)
-    want = flash_attention_plain(q, k, v, causal=True, window=win,
+    want = flash_attention_plain(q, k, v, causal=causal, window=win,
                                  q_offset=qo)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
@@ -427,10 +441,17 @@ def test_flash_kernel_matches_plain_version(cuda, case):
     torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dt])
 
 
-# B, H, G, Dh, W, dtype
+# B, H, G, Dh, W, dtype: float32 (the CUDA-core kernel), then bf16 (the
+# tensor-core kernel) at R = H / G of 1, 8, 16 and 32 heads a group (one
+# and two row tiles), with one split and with several
 @pytest.mark.parametrize("case", [(2, 8, 2, 64, 100, torch.float32),
                                   (8, 16, 2, 128, 2048, torch.bfloat16),
-                                  (1, 4, 1, 16, 513, torch.float32)])
+                                  (1, 4, 1, 16, 513, torch.float32),
+                                  (2, 2, 2, 64, 300, torch.bfloat16),
+                                  (1, 8, 1, 32, 64, torch.bfloat16),
+                                  (3, 32, 2, 128, 700, torch.bfloat16),
+                                  (2, 32, 1, 64, 1000, torch.bfloat16),
+                                  (2, 64, 2, 16, 513, torch.bfloat16)])
 def test_decode_kernel_matches_plain_version(cuda, case):
     b, h, g, dh, w, dt = case
     q, k, v = _attn_inputs([(b, 1, h, dh), (b, w, g, dh), (b, w, g, dh)],
@@ -466,6 +487,43 @@ def test_decode_kernel_skips_tiles_with_no_valid_slot(cuda, case):
     torch.cuda.synchronize()
     assert bool((got[0] == 0).all())
     torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dt])
+
+
+def test_decode_kernel_folds_in_its_launch_and_resets_its_counters(cuda):
+    """The splits are folded in the kernel's own launch, by the block that
+    takes a (batch row, group) counter's last ticket: two calls in a row
+    on one stream, then two at once on two streams, each agree with the
+    plain version, and every stream's counters are back at 0."""
+    from repro_torch.kernels import decode_attention as dmod
+
+    b, h, g, dh, w = 8, 16, 2, 128, 2048
+    cases = []
+    for seed in range(4):
+        q, k, v = _attn_inputs([(b, 1, h, dh), (b, w, g, dh),
+                                (b, w, g, dh)], torch.bfloat16, cuda, seed)
+        fill = torch.as_tensor(np.random.default_rng(seed).integers(
+            1, w + 1, b), device=cuda)
+        valid = (torch.arange(w, device=cuda)[None] < fill[:, None])
+        cases.append((q, k, v, valid.to(torch.int8)))
+    want = [decode_attention_plain(*c) for c in cases]
+    before = decode_attention.launches
+    got = [decode_attention(*cases[0]), decode_attention(*cases[1])]
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s1):
+        got.append(decode_attention(*cases[2]))
+    with torch.cuda.stream(s2):
+        got.append(decode_attention(*cases[3]))
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 4
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x.float(), y.float(),
+                                   **ATTN_TOL[torch.bfloat16])
+    idx = cases[0][0].device.index
+    bufs = [dmod._counters[(idx, s.cuda_stream)] for s in (s1, s2)]
+    assert bufs[0].data_ptr() != bufs[1].data_ptr()
+    for buf in dmod._counters.values():
+        assert int(buf.count_nonzero()) == 0
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
