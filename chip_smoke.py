@@ -6,10 +6,13 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every CUDA kernel from `src/` (one nvcc per source, all
-     started together; sm_90a), printing ptxas' registers and spills, and
-     for the eight bf16 attention kernels (flash and decode at Dh 16-128)
+     started together; sm_90a), printing ptxas' registers and spills, for
+     the eight bf16 attention kernels (flash and decode at Dh 16-128)
      their registers, spills and HMMA instructions in the SASS (they must
-     run on the tensor cores);
+     run on the tensor cores), and for the ten soft-dispatch kernels
+     (forward and backward chain, with and without dwell locks, for blocks
+     of up to 512 and 1024 threads; the backward's coefficient kernel)
+     their registers and spills;
   3. each kernel against its plain PyTorch version on the card;
   4. the backtest path at full size: the Lichtenberg case study, then
      the fleet backtest and summary of the repo's benchmark grid (16
@@ -28,7 +31,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   8. the soft-dispatch kernels (forward, fused forward, fused backward)
      against their plain versions at the reference's four soft cases, the
      tuner's 32 sites x 2190 h at tau 30 and 0.3, a case with zero-demand
-     hours and three blocks of more than one warp (64, 45 and 130 sites);
+     hours and groups of more than one warp (64, 45, 130 and 1024 sites:
+     four bisection levels a round down to one);
   9. soft -> hard convergence at full width: the forward kernel at
      tau 1e-3 against `dispatch_scan` on the dispatch benchmark's 64 sites
      x 8760 h;
@@ -63,14 +67,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      market generation, the tuner loop's row-steps/s (hand-written VJP
      against autograd through the doubling scan), one whole dispatch
      call split into its parts, the soft-dispatch kernels at 32 x 2190 and
-     64 x 8760 beside their bounds and serial floors (the plain forward's
-     run at 64 x 8760 also holds phase 9's allocation), a
-     dispatch-aware tuner step against an uncoupled one, the
-     attention kernels at the serving shapes in turns with SDPA, and the SSD
-     kernel at 1024 and 2048 positions beside its plain version;
+     64 x 8760 beside their bounds and the serial floors of their design
+     and of the one-step design before it (the plain forward's run at
+     64 x 8760 also holds phase 9's allocation), a dispatch-aware tuner
+     step (dwell 4, as `optimize` runs it) against an uncoupled one, the
+     attention kernels at the serving shapes in turns with SDPA, and the
+     SSD kernel at 1024 and 2048 positions beside its plain version;
 each path's kernel launch counts are set to 0 just before it and read
-just after. Then one JSON line describing every ported kernel and, last,
-one JSON line naming the device. Without CUDA it exits non-zero and
+just after. Then one JSON line describing every ported kernel (a counted
+launch is one wrapper call; ``device_launches`` counts, in the same run,
+the kernels those calls put on the card) and, last, one JSON line naming
+the device. Without CUDA it exits non-zero and
 prints no result.
 """
 
@@ -199,6 +206,8 @@ KERNEL_SOURCES = ("fleet_scan", "soft_scan", "dispatch_scan",
 # dispatch_scan's serial prefix walk). warp_sum_chain: one warp runs n
 # float64 butterfly sums (five dependent shuffle + add steps each, the
 # reduction of the soft-dispatch kernels), each waiting on the last.
+# barrier_chain: a block runs n block barriers back to back (the barrier
+# after each round of the soft-dispatch forward's bisection).
 F64_CHAIN_SRC = r"""
 #include <cuda_runtime.h>
 __global__ void f64_add_chain_kernel(double* out, int n) {
@@ -220,6 +229,15 @@ __global__ void warp_sum_chain_kernel(double* out, int n) {
 }
 extern "C" int warp_sum_chain(double* out, int n, void* stream) {
   warp_sum_chain_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(out, n);
+  return (int)cudaGetLastError();
+}
+__global__ void barrier_chain_kernel(double* out, int n) {
+  for (int i = 0; i < n; ++i) __syncthreads();
+  if (threadIdx.x == 0) out[0] += n;
+}
+extern "C" int barrier_chain(double* out, int n, int threads,
+                             void* stream) {
+  barrier_chain_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(out, n);
   return (int)cudaGetLastError();
 }
 """
@@ -263,6 +281,49 @@ def phase_build() -> None:
             build.load(name)
         if name == "attention":
             _report_tensor_core_kernels(log, build.library_path(name))
+        if name == "soft_dispatch":
+            _report_soft_dispatch_kernels(log)
+
+
+SD_KERNEL = re.compile(r"soft_(fwd|bwd_coef|bwd_chain)_kernelILb([01])E"
+                       r"(?:Li(\d+)E)?")
+
+
+def _report_soft_dispatch_kernels(log: str) -> None:
+    """Registers and spills (ptxas) of the soft-dispatch kernels: the
+    forward and the backward's chain, with and without dwell locks, each
+    built for blocks of up to 512 and of 1024 threads, and the backward's
+    coefficient kernel with and without locks. Fails if one is missing."""
+    info, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'|Function properties for "
+                      r"(\S+)", line)
+        if m:
+            name = m.group(1) or m.group(2)
+            continue
+        k = SD_KERNEL.search(name or "")
+        if not k:
+            continue
+        rec = info.setdefault(k.groups(), {})
+        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line):
+            rec["spill"] = (int(m.group(1)), int(m.group(2)))
+        if m := re.search(r"Used (\d+) registers", line):
+            rec["registers"] = int(m.group(1))
+    want = [(kind, locks, bound) for kind in ("fwd", "bwd_chain")
+            for locks in "01" for bound in ("512", "1024")]
+    want += [("bwd_coef", locks, None) for locks in "01"]
+    for key in want:
+        rec = info.get(key, {})
+        if "registers" not in rec:
+            raise AssertionError(f"build: no ptxas record of soft_{key[0]}"
+                                 f"_kernel {key[1:]}")
+        st, ld = rec.get("spill", (0, 0))
+        print(f"[build] soft_{key[0]}_kernel, "
+              f"{'dwell locks' if key[1] == '1' else 'no locks'}"
+              + (f", blocks of up to {key[2]} threads" if key[2] else "")
+              + f": {rec['registers']} registers, spill stores {st} B, "
+              f"spill loads {ld} B")
 
 
 # the bf16 instantiations of the attention kernels (the tensor-core designs)
@@ -538,12 +599,13 @@ def phase_main_path(dev) -> dict:
     report(lichtenberg(dev))
 
     # ---- counted run: the main path at full size through the entry points
-    fleet_scan.launches = 0
+    fleet_scan.launches = fleet_scan.device_launches = 0
     markets, grid = _bench_grid(16, 8, dev)
     rep = backtest(grid, device=dev)
     summ = summarize(grid, rep)
     torch.cuda.synchronize()
     launches = {"fleet_scan": fleet_scan.launches}
+    device = {"fleet_scan": fleet_scan.device_launches}
     print(f"[main] grid {grid.n_markets} x {grid.n_systems} x "
           f"{grid.n_policies} = {grid.n_rows} rows x {grid.n_hours} h; "
           f"launches {launches}")
@@ -601,8 +663,9 @@ def phase_main_path(dev) -> dict:
                   for g, e in zip(got, exact))
     print(f"[main] fleet_scan on the grid's {tuple(p_rows.shape)} block: "
           f"max |err| vs plain-f64 {max_abs:.3g}")
-    return {"grid": grid, "launches": launches, "scan_args": scan_args,
-            "max_abs_err": max_abs, "markets": markets}
+    return {"grid": grid, "launches": launches, "device_launches": device,
+            "scan_args": scan_args, "max_abs_err": max_abs,
+            "markets": markets}
 
 
 def _tune_grid(dev, n_markets: int = 8, n_systems: int = 4,
@@ -653,8 +716,14 @@ def _counters():
 def _zero_counters() -> dict:
     counters = _counters()
     for fn in counters.values():
-        fn.launches = 0
+        fn.launches = fn.device_launches = 0
     return counters
+
+
+def _device_launches(counters: dict) -> dict:
+    """The kernels each wrapper's counted calls put on the card, read from
+    the C side's count of the launches it issued."""
+    return {k: fn.device_launches for k, fn in counters.items()}
 
 
 def phase_tuner(dev) -> dict:
@@ -676,6 +745,7 @@ def phase_tuner(dev) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    device = _device_launches(counters)
     print(f"[tune] optimize {grid.n_rows} rows x {grid.n_hours} h x "
           f"{cfg.steps} steps: {wall:.2f} s wall (first call); launches "
           f"{launches}")
@@ -745,7 +815,8 @@ def phase_tuner(dev) -> dict:
     print(f"[tune] demo exit {rc}, {time.perf_counter() - t0:.2f} s")
     if rc != 0:
         raise AssertionError("tune_policies: guarantee broken")
-    return {"grid": grid, "launches": launches, "res": res}
+    return {"grid": grid, "launches": launches, "device_launches": device,
+            "res": res}
 
 
 def _check_reeval(res, launches: int, grid, dcfg, dev, *,
@@ -831,6 +902,7 @@ def phase_dispatch_path(dev) -> dict:
     summ = summarize(grid, backtest(grid, device=dev), dispatch_cfg=cfg)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
+    device = _device_launches(counters)
     print(f"[dispatch] summarize over {grid.n_markets} sites x "
           f"{grid.n_hours} h: {time.perf_counter() - t0:.2f} s; launches "
           f"{launches}")
@@ -853,7 +925,8 @@ def phase_dispatch_path(dev) -> dict:
           f"energy {d.energy_cost:.1f}, moves {d.n_migrations}, migration "
           f"{d.migration_mw:.2f} MW, capacity slack "
           f"{d.slack_capacity_mw:.3f} MW; card == CPU bit for bit")
-    return {"launches": launches["dispatch_scan"], "problem": problem}
+    return {"launches": launches["dispatch_scan"], "device_launches": device,
+            "problem": problem}
 
 
 def phase_checkpoint(dev, grid) -> None:
@@ -1007,9 +1080,10 @@ def phase_soft_dispatch_vs_plain(dev) -> dict:
     and on the plain version's (see `_bwd_error`), and the forward
     kernel's allocation equal to the fused forward's bit for bit. Cases:
     the reference's four soft cases, the tuner's 32 sites x 2190 h at
-    tau 30 and 0.3, zero-demand hours, and blocks of more than one warp
-    (64 sites, and 45 and 130, which are not multiples of 32). Returns
-    each case's largest error per kernel and its count of gap hours."""
+    tau 30 and 0.3, zero-demand hours, and groups of more than one warp
+    (64 sites, 45 and 130, which are not multiples of 32, and 1024: four
+    bisection levels a round down to one). Returns each case's largest
+    error per kernel and its count of gap hours."""
     from repro_torch.kernels.ref import (soft_dispatch_bwd_ref,
                                          soft_dispatch_fwd_ref,
                                          soft_dispatch_ref)
@@ -1031,7 +1105,9 @@ def phase_soft_dispatch_vs_plain(dev) -> dict:
               ("a part warp 45 x 300, fee 5, dwell 4, tau 1",
                (45, 300, 5.0, 4, 1.0, 4, ())),
               ("five warps 130 x 200, fee 3, dwell 0, tau 2",
-               (130, 200, 3.0, 0, 2.0, 5, ()))]
+               (130, 200, 3.0, 0, 2.0, 5, ())),
+              ("32 warps 1024 x 16, fee 3, dwell 4, tau 3",
+               (1024, 16, 3.0, 4, 3.0, 6, ()))]
     out = {}
     for label, (s, t, mc, dw, tau, seed, zero) in cases:
         cpu = _soft_dispatch_case(s, t, mc, seed, zero)
@@ -1116,6 +1192,7 @@ def phase_soft_to_hard(dev) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    device = _device_launches(counters)
     if launches["soft_dispatch"] != 1 or launches["dispatch_scan"] != 1:
         raise AssertionError(f"soft -> hard: launches {launches}")
     soft_np = soft.cpu().numpy()
@@ -1131,7 +1208,8 @@ def phase_soft_to_hard(dev) -> dict:
           " MW")
     if not (abs(rel_cpc) <= 1e-3 and abs(rel_mwh) <= 1e-5):
         raise AssertionError("soft -> hard: CPC or delivered MWh apart")
-    return {"launches": launches["soft_dispatch"], "args": args,
+    return {"launches": launches["soft_dispatch"], "device_launches": device,
+            "args": args,
             "soft": soft, "tau": tau, "min_dwell": problem.min_dwell_h}
 
 
@@ -1180,6 +1258,7 @@ def phase_dispatch_aware_tuner(dev, rescore) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
+        device = _device_launches(counters)
     finally:
         restore()
     print(f"[aware] optimize with Coupling(dispatch=) {grid.n_rows} rows x "
@@ -1222,7 +1301,7 @@ def phase_dispatch_aware_tuner(dev, rescore) -> dict:
         raise AssertionError("dispatch-aware optimize is not deterministic")
     print("[aware] 25 steps twice: parameters, CPCs and the hard allocation "
           "equal bit for bit")
-    return {"launches": launches, "grid": grid}
+    return {"launches": launches, "device_launches": device, "grid": grid}
 
 
 def _acceptance_grid(dev):
@@ -1437,25 +1516,32 @@ def phase_times(dev, main: dict) -> tuple[dict, torch.Tensor]:
     }, flush
 
 
+def _chain_ns(name: str, lo: int, hi: int, dev, *extra) -> float:
+    """Latency of one step of the probe library's chain ``name`` on the
+    card, in ns: the difference of two chains (``lo`` and ``hi`` steps)
+    timed by CUDA events."""
+    import ctypes
+
+    fn = getattr(ctypes.CDLL(str(PROBE_DIR / "libf64_add_chain.so")), name)
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * (1 + len(extra)) \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    buf = torch.ones(32, dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def chain(n):
+        if fn(buf.data_ptr(), n, *extra, stream) != 0:
+            raise RuntimeError(f"{name} launch failed")
+
+    ms = {n: _cuda_ms(lambda: chain(n), runs=5) for n in (lo, hi)}
+    return (ms[hi] - ms[lo]) * 1e6 / (hi - lo)
+
+
 def _f64_add_ns(dev) -> float:
     """Latency of one dependent float64 addition on the card, in ns: the
     difference of two chains (1.1e6 and 1e5 additions) in one thread,
     timed by CUDA events."""
-    import ctypes
-
-    fn = ctypes.CDLL(str(PROBE_DIR / "libf64_add_chain.so")).f64_add_chain
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    buf = torch.zeros(1, dtype=torch.float64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def chain(n):
-        if fn(buf.data_ptr(), n, stream) != 0:
-            raise RuntimeError("f64 add chain launch failed")
-
-    lo, hi = 100_000, 1_100_000
-    ms = {n: _cuda_ms(lambda: chain(n), runs=5) for n in (lo, hi)}
-    return (ms[hi] - ms[lo]) * 1e6 / (hi - lo)
+    return _chain_ns("f64_add_chain", 100_000, 1_100_000, dev)
 
 
 def _dispatch_bound(s: int, t: int) -> tuple[float, str]:
@@ -1541,23 +1627,14 @@ def phase_dispatch_times(dev, flush, problem) -> dict:
 
 def _warp_sum_ns(dev) -> float:
     """Latency of one dependent float64 warp butterfly sum (five shuffle +
-    add steps, and the probe's one multiply) on the card, in ns: the
-    difference of two chains (2e5 and 2e4 sums) timed by CUDA events."""
-    import ctypes
+    add steps, and the probe's one multiply) on the card, in ns."""
+    return _chain_ns("warp_sum_chain", 20_000, 200_000, dev)
 
-    fn = ctypes.CDLL(str(PROBE_DIR / "libf64_add_chain.so")).warp_sum_chain
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    buf = torch.ones(32, dtype=torch.float64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def chain(n):
-        if fn(buf.data_ptr(), n, stream) != 0:
-            raise RuntimeError("warp sum chain launch failed")
-
-    lo, hi = 20_000, 200_000
-    ms = {n: _cuda_ms(lambda: chain(n), runs=5) for n in (lo, hi)}
-    return (ms[hi] - ms[lo]) * 1e6 / (hi - lo)
+def _barrier_ns(dev, threads: int) -> float:
+    """Latency of one block barrier of ``threads`` threads on the card,
+    every thread arriving at once, in ns."""
+    return _chain_ns("barrier_chain", 20_000, 200_000, dev, threads)
 
 
 def _soft_dispatch_bound(s: int, t: int, kernel: str,
@@ -1581,12 +1658,36 @@ def _soft_dispatch_bound(s: int, t: int, kernel: str,
     return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
 
+def _soft_dispatch_floors(s: int, t: int, kernel: str, red_ns: float,
+                          bar_ns: float, n_bisect: int = 30) -> dict:
+    """The serial floors of a soft-dispatch kernel at S x T, in ms. The
+    forward's: T x ((rounds + 2) x the warp sum + rounds x the block
+    barrier), rounds = ceil(n_bisect / k) bisection rounds of k levels (the
+    kernel's own k at S sites) and the Newton step's two sums; the design
+    before it, one bisection step a sum, took T x (n_bisect + 3) = T x 33
+    warp sums. The backward's chain: T x 2 warp sums (the design before
+    it, which recomputed the Newton step and the fill each hour: T x 4)."""
+    if kernel == "bwd":
+        return {"floor_ms": t * 2 * red_ns * 1e-6,
+                "floor": "T x 2 warp sums",
+                "one_step_floor_ms": t * 4 * red_ns * 1e-6}
+    from repro_torch.kernels.soft_dispatch import _library
+
+    k = _library().soft_dispatch_fwd_levels(s)
+    rounds = -(-n_bisect // k)
+    return {"floor_ms": t * ((rounds + 2) * red_ns + rounds * bar_ns) * 1e-6,
+            "floor": f"T x ({rounds} + 2 warp sums + {rounds} barriers), "
+                     f"k = {k}",
+            "one_step_floor_ms": t * (n_bisect + 3) * red_ns * 1e-6}
+
+
 def phase_soft_dispatch_times(dev, flush, big) -> dict:
     """The three soft-dispatch kernels (device only, L2 flushed) at the
     tuner's 32 x 2190 (tau 3, dwell 4) and at the soft -> hard phase's
     64 x 8760 (its problem, tau and dwell, ``big``), beside their bytes
-    bound and the serial floor of the design (T x 33 dependent warp sums
-    forward, T x 4 backward); the plain versions on the host at 32 x 2190,
+    bound and the serial floors of the design and of the one-step design
+    before it (see
+    `_soft_dispatch_floors`); the plain versions on the host at 32 x 2190,
     and the forward's at 64 x 8760 (one run each). That plain run's
     allocation holds the main path's (the forward kernel's at 64 x 8760)
     within SD_TOL["alloc"], and the fused forward's allocation there
@@ -1595,7 +1696,8 @@ def phase_soft_dispatch_times(dev, flush, big) -> dict:
     from repro_torch.kernels.ref import (soft_dispatch_bwd_ref,
                                          soft_dispatch_fwd_ref,
                                          soft_dispatch_ref)
-    from repro_torch.kernels.soft_dispatch import (soft_dispatch_fused_bwd,
+    from repro_torch.kernels.soft_dispatch import (_library,
+                                                   soft_dispatch_fused_bwd,
                                                    soft_dispatch_fused_fwd,
                                                    soft_dispatch_scan)
 
@@ -1612,6 +1714,10 @@ def phase_soft_dispatch_times(dev, flush, big) -> dict:
             tau, dwell = 3.0, 4
             cpu = _soft_dispatch_case(s, t, 5.0, seed=1)
             avail, keys, order, demand, g = (x.to(dev) for x in cpu)
+        threads = _library().soft_dispatch_fwd_threads(s)
+        bar_ns = _barrier_ns(dev, threads)
+        print(f"[time] block barrier of {threads} threads on the card: "
+              f"{bar_ns:.2f} ns")
         it, itm = _inv_taus(tau)
         itd, itmd = it.to(dev), itm.to(dev)
         alloc, dwin, lam = soft_dispatch_fused_fwd(avail, keys, order,
@@ -1643,18 +1749,18 @@ def phase_soft_dispatch_times(dev, flush, big) -> dict:
             plain_ms = _host_ms(plain, runs=1) \
                 if s == 32 or name == "fwd" else None
             bound, by = _soft_dispatch_bound(s, t, name)
-            n_red = 4 if name == "bwd" else 33
-            serial = t * n_red * red_ns * 1e-6
+            fl = _soft_dispatch_floors(s, t, name, red_ns, bar_ns)
             rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                          "bound_by": by, "serial_ms": serial}
+                          "bound_by": by, **fl}
             print(f"[time] soft_dispatch {name} {label} (tau {tau}, dwell "
                   f"{dwell}): kernel {ms:.3f} ms "
                   f"({ms * 1e6 / t:.0f} ns per hour), plain "
                   + (f"{plain_ms:.1f} ms (host)" if plain_ms else "—")
-                  + f", bound {bound:.4f} ms ({by}), serial floor of the "
-                  f"design {serial:.3f} ms (T x {n_red} x {red_ns:.2f} ns), "
-                  f"{bound / ms:.3%} of the bound, {serial / ms:.1%} of the "
-                  "serial floor")
+                  + f", bound {bound:.4f} ms ({by}), {bound / ms:.3%} of the "
+                  f"bound; serial floor of the design {fl['floor_ms']:.3f} "
+                  f"ms ({fl['floor']}), {fl['floor_ms'] / ms:.1%} of it; "
+                  f"the one-step design's floor "
+                  f"{fl['one_step_floor_ms']:.3f} ms")
         if s == 64:
             if not torch.equal(alloc, big["soft"]):
                 raise AssertionError("soft_dispatch 64 x 8760: the fused "
@@ -1678,21 +1784,26 @@ def phase_aware_step_times(dev, grid, steps: int = 50) -> None:
     """`tune_loop` at 256 x 2190 with the dispatch term against the same
     loop without it, in turns within this call (coupled, uncoupled,
     uncoupled, coupled), per step; and the device's busy share over a
-    profiled 10-step coupled loop."""
+    profiled 10-step coupled loop. The coupled loop runs the config
+    `optimize` runs on the main path (`Coupling(dispatch=)` at dwell 4, so
+    the dwell-locked kernels)."""
     from repro_torch.dispatch import DispatchConfig
-    from repro_torch.tune import (TuneConfig, dispatch_coupling_from_grid,
+    from repro_torch.tune import (Coupling, TuneConfig,
+                                  dispatch_coupling_from_grid,
                                   init_from_grid, problem_from_grid,
                                   tune_loop)
 
     problem = problem_from_grid(grid)
     raw0 = init_from_grid(grid)
-    coupling = dispatch_coupling_from_grid(grid, DispatchConfig(
-        demand_frac=0.3, migrate_cost=5.0, min_dwell_h=4))
-    cfg = TuneConfig(steps=steps)
-    runs = {"coupled": coupling, "uncoupled": None}
+    dcfg = DispatchConfig(demand_frac=0.3, migrate_cost=5.0, min_dwell_h=4)
+    coupling = dispatch_coupling_from_grid(grid, dcfg)
+    runs = {"coupled": (coupling, TuneConfig(
+                steps=steps, coupling=Coupling(dispatch=dcfg))),
+            "uncoupled": (None, TuneConfig(steps=steps))}
     times = {k: [] for k in runs}
     for k in ("coupled", "uncoupled", "uncoupled", "coupled"):
-        times[k].append(_host_ms(lambda: tune_loop(raw0, problem, runs[k],
+        c, cfg = runs[k]
+        times[k].append(_host_ms(lambda: tune_loop(raw0, problem, c,
                                                    cfg=cfg), runs=1))
     for k, v in times.items():
         ms = statistics.median(v) / steps
@@ -1701,8 +1812,10 @@ def phase_aware_step_times(dev, grid, steps: int = 50) -> None:
               f"{', '.join(f'{x:.1f}' for x in v)} ms), "
               f"{grid.n_rows / (ms / 1e3):.4g} row-steps/s")
     _profile(lambda: tune_loop(raw0, problem, coupling,
-                               cfg=TuneConfig(steps=10)),
-             "dispatch-aware tune_loop 10 steps", runs=1)
+                               cfg=TuneConfig(steps=10,
+                                              coupling=Coupling(
+                                                  dispatch=dcfg))),
+             "dispatch-aware tune_loop 10 steps (dwell 4)", runs=1)
 
 
 def _profile(fn, label: str, runs: int = 10) -> None:
@@ -2184,6 +2297,7 @@ def phase_serving(dev, arch: str, fixed=(), profile_len: int = 576
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
+        device = _device_launches(counters)
     finally:
         restore()
         engine_mod.prefill, engine_mod.decode_step = (saved["prefill"],
@@ -2252,7 +2366,8 @@ def phase_serving(dev, arch: str, fixed=(), profile_len: int = 576
     _profile(lambda: prefill(params, {"tokens": mid}, cfg, max_seq=2048),
              f"{cfg.name} prefill ({profile_len} tokens)", runs=3)
     return {"cfg": cfg, "params": params, "reqs": reqs,
-            "launches": launches, "param_bytes": param_bytes,
+            "launches": launches, "device_launches": device,
+            "param_bytes": param_bytes,
             "engine_ms": (np.median(pre_ms), np.median(dec_ms))}
 
 
@@ -2653,12 +2768,14 @@ def main() -> int:
     torch.cuda.synchronize()
     serve = phase_serving(dev, SERVE_ARCH)
     serve_launches = serve["launches"]
+    serve_device = serve["device_launches"]
     phase_teacher_forced(dev, serve)
     del serve
     gc.collect()                  # free qwen's weights before mamba2's
     torch.cuda.empty_cache()
     mamba = phase_serving(dev, SSM_ARCH, SSM_PROMPTS, profile_len=1024)
     ssm_launches = mamba["launches"]
+    ssm_device = mamba["device_launches"]
     phase_teacher_forced(dev, mamba, prompt_len=1000)
     phase_prefill_vs_decode(dev, mamba)
     del mamba
@@ -2691,6 +2808,22 @@ def main() -> int:
             "replaces": "src/repro/kernels/ssd_scan.py:41",
             "launches": ssm_launches["ssd_scan"], "max_abs_err": ssd_err,
             **ssd_times[1024]}]
+    # the kernels on the card in the run whose calls ``launches`` counts
+    device = {"fleet_scan": main_run["device_launches"],
+              "soft_scan_fwd": tune["device_launches"],
+              "soft_scan_bwd": tune["device_launches"],
+              "dispatch_scan": disp["device_launches"],
+              "soft_dispatch": to_hard["device_launches"],
+              "soft_dispatch_fused_fwd": aware["device_launches"],
+              "soft_dispatch_fused_bwd": aware["device_launches"],
+              "flash_attention": serve_device,
+              "decode_attention": serve_device, "ssd_scan": ssm_device}
+    for rec in kernels:
+        n = device[rec["name"]][rec["name"]]
+        if n < rec["launches"] or (n > 0) != (rec["launches"] > 0):
+            raise AssertionError(f"{rec['name']}: {rec['launches']} counted "
+                                 f"calls but {n} kernels on the card")
+        rec["device_launches"] = n
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -83,3 +83,13 @@ def load(name: str) -> ctypes.CDLL:
             build(name)
         _loaded[name] = ctypes.CDLL(str(lib_path))
     return _loaded[name]
+
+
+def kernels_launched(name: str) -> int:
+    """How many kernels the library built from ``csrc/<name>.cu`` has
+    launched in this process: its C entries count each launch they issue,
+    so a wrapper reads this before and after its call to count the
+    kernels that call put on the card."""
+    fn = load(name).kernels_launched
+    fn.argtypes, fn.restype = [], ctypes.c_ulonglong
+    return fn()

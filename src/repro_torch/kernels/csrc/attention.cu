@@ -144,11 +144,17 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
 
 namespace {
+
+// Kernels this library has launched in this process, counted on the host
+// where each launch is issued; kernels_launched() reads it, and the
+// wrappers count a call's launches on the card as its difference.
+std::atomic<unsigned long long> g_launched{0};
 
 using bf16 = __nv_bfloat16;
 
@@ -300,6 +306,7 @@ int start(void (*kernel)(A), dim3 grid, size_t smem, cudaStream_t stream,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kThreads, smem, stream>>>(a);
+  ++g_launched;
   return (int)cudaGetLastError();
 }
 
@@ -1334,6 +1341,10 @@ int launch_dh(const Args& a, int B, int Dh, cudaStream_t stream) {
 }  // namespace decode
 
 }  // namespace
+
+extern "C" unsigned long long kernels_launched() {
+  return g_launched.load();
+}
 
 // q [B, Sq, H, Dh], k and v [B, Skv, G, Dh], read through their strides
 // (elements; the last dimension contiguous); o [B, Sq, H, Dh] contiguous.

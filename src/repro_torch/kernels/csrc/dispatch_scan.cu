@@ -62,9 +62,15 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
 
 namespace {
+
+// Kernels this library has launched in this process, counted on the host
+// where each launch is issued; kernels_launched() reads it, and the
+// wrappers count a call's launches on the card as its difference.
+std::atomic<unsigned long long> g_launched{0};
 
 constexpr int kMaxTile = 32;          // hours staged per tile, at most
 constexpr int kMaxThreads = 1024;
@@ -172,6 +178,10 @@ __global__ void __launch_bounds__(kMaxThreads) dispatch_scan_kernel(
 
 }  // namespace
 
+extern "C" unsigned long long kernels_launched() {
+  return g_launched.load();
+}
+
 extern "C" int dispatch_scan_f32(const float* avail, const int* rank,
                                  const float* demand, float* out, int S,
                                  int T, int min_dwell, void* stream) {
@@ -187,5 +197,6 @@ extern "C" int dispatch_scan_f32(const float* avail, const int* rank,
   if (threads > kMaxThreads) threads = kMaxThreads;
   dispatch_scan_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
       avail, rank, demand, out, S, T, min_dwell, H);
+  ++g_launched;
   return (int)cudaGetLastError();
 }

@@ -36,9 +36,15 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
 
 namespace {
+
+// Kernels this library has launched in this process, counted on the host
+// where each launch is issued; kernels_launched() reads it, and the
+// wrappers count a call's launches on the card as its difference.
+std::atomic<unsigned long long> g_launched{0};
 
 constexpr int kRows = 128;  // rows per block = threads per block
 constexpr int kTile = 32;   // hours staged through shared memory at a time
@@ -153,6 +159,10 @@ __global__ void fleet_scan_stitch(const float* __restrict__ rec,
 
 }  // namespace
 
+extern "C" unsigned long long kernels_launched() {
+  return g_launched.load();
+}
+
 extern "C" {
 
 // Floats of pass-1 scratch that fleet_scan_f32 needs for B rows and
@@ -177,10 +187,12 @@ int fleet_scan_f32(const float* prices, const float* p_on, const float* p_off,
   const dim3 grid1((B + kRows - 1) / kRows, n_chunks);
   fleet_scan_chunks<<<grid1, kRows, 0, s>>>(prices, p_on, p_off, off_level,
                                             idle_frac, scratch, B, T, chunk);
+  ++g_launched;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fleet_scan_stitch<<<(B + 255) / 256, 256, 0, s>>>(scratch, out, B,
                                                     n_chunks);
+  ++g_launched;
   return (int)cudaGetLastError();
 }
 

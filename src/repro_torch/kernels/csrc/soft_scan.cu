@@ -50,9 +50,15 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
 
 namespace {
+
+// Kernels this library has launched in this process, counted on the host
+// where each launch is issued; kernels_launched() reads it, and the
+// wrappers count a call's launches on the card as its difference.
+std::atomic<unsigned long long> g_launched{0};
 
 constexpr int kRows = 128;  // rows per block = threads per block
 constexpr int kTile = 32;   // hours staged through shared memory at a time
@@ -355,6 +361,10 @@ bool bad_shape(int B, int T, int chunk) {
 
 }  // namespace
 
+extern "C" unsigned long long kernels_launched() {
+  return g_launched.load();
+}
+
 extern "C" {
 
 // Doubles of scratch soft_scan_fwd_f32 needs.
@@ -384,13 +394,16 @@ int soft_scan_fwd_f32(const float* prices, const float* p_on,
   const dim3 grid((B + kRows - 1) / kRows, nc);
   soft_fwd_compose<<<grid, kRows, 0, st>>>(prices, p_on, p_off, itau, scratch,
                                            B, T, chunk);
+  ++g_launched;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   soft_fwd_stitch<<<(B + 255) / 256, 256, 0, st>>>(scratch, carries, B, nc);
+  ++g_launched;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   soft_fwd_apply<<<grid, kRows, 0, st>>>(prices, p_on, p_off, itau, carries,
                                          s, B, T, chunk, nc);
+  ++g_launched;
   return (int)cudaGetLastError();
 }
 
@@ -412,17 +425,21 @@ int soft_scan_bwd_f32(const float* prices, const float* g, const float* p_on,
   const dim3 grid((B + kRows - 1) / kRows, nc);
   soft_bwd_compose<<<grid, kRows, 0, st>>>(prices, g, p_on, p_off, itau, maps,
                                            B, T, chunk);
+  ++g_launched;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   soft_bwd_stitch<<<(B + 255) / 256, 256, 0, st>>>(maps, seeds, B, nc);
+  ++g_launched;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   soft_bwd_apply<<<grid, kRows, 0, st>>>(prices, g, p_on, p_off, itau,
                                          carries, seeds, sub, part, d_p, B, T,
                                          chunk, nc);
+  ++g_launched;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   soft_bwd_reduce<<<(B + 255) / 256, 256, 0, st>>>(part, sums, B, nc);
+  ++g_launched;
   return (int)cudaGetLastError();
 }
 

@@ -60,7 +60,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace {
+
+// Kernels this library has launched in this process, counted on the host
+// where each launch is issued; kernels_launched() reads it, and the
+// wrappers count a call's launches on the card as its difference.
+std::atomic<unsigned long long> g_launched{0};
 
 constexpr int TILE = 64;      // positions / state rows / columns per tile
 constexpr int KS = 32;        // contraction slab
@@ -352,11 +359,13 @@ int launch(const void* x, const float* dt, const float* a, const void* b,
   if (err != cudaSuccess) return (int)err;
   ssd_chunk_state_kernel<T><<<dim3(tiles_n * tiles_p, d.nc, bh), THREADS,
                               smem1, stream>>>(xt, dt, a, bt, cum, st, d);
+  ++g_launched;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long pn = (long long)d.P * d.N;
   ssd_state_pass_kernel<<<dim3((unsigned)((pn + THREADS - 1) / THREADS), bh),
                           THREADS, 0, stream>>>(cum, h0, st, h_last, d);
+  ++g_launched;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem3 =
@@ -367,10 +376,15 @@ int launch(const void* x, const float* dt, const float* a, const void* b,
   if (err != cudaSuccess) return (int)err;
   ssd_chunk_out_kernel<T><<<dim3(tiles_i * tiles_p, d.nc, bh), THREADS,
                             smem3, stream>>>(xt, bt, ct, cum, dt, st, y, d);
+  ++g_launched;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+extern "C" unsigned long long kernels_launched() {
+  return g_launched.load();
+}
 
 // x: [B, S, H, P] (dtype 0 float32, 1 bfloat16; the last dimension
 // contiguous), dt: [B, S, H] float32, a: [H] float32, b and c: [B, S, G, N]

@@ -8,7 +8,9 @@ and the plain `repro_torch.kernels.ref.decode_attention_plain` on CPU
 tensors, with the same tiles, skip of tiles that hold no valid slot,
 splits of the cache, casts and int8 validity mask. There is no fallback:
 on a CUDA tensor the kernel is built, launched and checked, or the call
-raises. ``decode_attention.launches`` counts kernel launches.
+raises. ``decode_attention.launches`` counts kernel launches,
+``decode_attention.device_launches`` the kernels on the card (one a
+call: the splits fold in the same launch).
 
 The kernel folds its splits in the same launch: the block that takes the
 last ticket on a (batch row, group) counter folds them and resets the
@@ -88,6 +90,7 @@ def _launch(q, k, v, valid) -> torch.Tensor:
     n_ml = b * g * n_split * r
     part = torch.empty((n_ml * (dh + 2),) if n_split > 1 else (0,),
                        dtype=torch.float32, device=q.device)
+    n0 = build.kernels_launched("attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ptrs = ((part.data_ptr() + 4 * n_ml * dh,
@@ -103,6 +106,8 @@ def _launch(q, k, v, valid) -> torch.Tensor:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
     decode_attention.launches += 1
+    decode_attention.device_launches += \
+        build.kernels_launched("attention") - n0
     return out
 
 
@@ -130,3 +135,4 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attention.launches = 0
+decode_attention.device_launches = 0

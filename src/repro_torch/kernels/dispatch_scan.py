@@ -8,7 +8,8 @@ tensors; the two agree bit for bit (one summation order, see
 `repro_torch.kernels.ref.dispatch_alloc_hour`). There is no fallback: on
 a CUDA tensor the kernel is built, launched and checked, or the call
 raises; the plain version never runs on the card's data.
-``dispatch_scan.launches`` counts kernel launches.
+``dispatch_scan.launches`` counts kernel launches, and
+``dispatch_scan.device_launches`` the kernels on the card (one a call).
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ def _launch(avail: torch.Tensor, rank: torch.Tensor, demand: torch.Tensor,
     _check("demand", demand, torch.float32, (t,), dev)
     lib = _library()
     out = torch.empty((s, t), dtype=torch.float32, device=dev)
+    n0 = build.kernels_launched("dispatch_scan")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dispatch_scan_f32(avail.data_ptr(), rank.data_ptr(),
@@ -66,6 +68,8 @@ def _launch(avail: torch.Tensor, rank: torch.Tensor, demand: torch.Tensor,
         raise RuntimeError(f"dispatch_scan kernel launch failed: CUDA "
                            f"error {err}")
     dispatch_scan.launches += 1
+    dispatch_scan.device_launches += \
+        build.kernels_launched("dispatch_scan") - n0
     return out
 
 
@@ -94,3 +98,4 @@ def dispatch_scan(avail: torch.Tensor, rank: torch.Tensor,
 
 
 dispatch_scan.launches = 0
+dispatch_scan.device_launches = 0

@@ -10,7 +10,8 @@ in q's type), so they differ only in the order of float32 sums (bf16
 inputs run on the tensor cores, whose bf16 products are exact in
 float32). There is
 no fallback: on a CUDA tensor the kernel is built, launched and checked,
-or the call raises. ``flash_attention.launches`` counts kernel launches.
+or the call raises. ``flash_attention.launches`` counts kernel launches,
+``flash_attention.device_launches`` the kernels on the card (one a call).
 """
 
 from __future__ import annotations
@@ -105,6 +106,7 @@ def _launch(q, k, v, causal: bool, window: int, q_offset: int
     lib = _library()
     out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
     strides = [s for x in (q, k, v) for s in x.stride()[:3]]
+    n0 = build.kernels_launched("attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
@@ -116,6 +118,7 @@ def _launch(q, k, v, causal: bool, window: int, q_offset: int
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention.launches += 1
+    flash_attention.device_launches += build.kernels_launched("attention") - n0
     return out
 
 
@@ -147,3 +150,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.device_launches = 0

@@ -4,7 +4,9 @@
 ``repro/kernels/fleet_scan.py::_fleet_kernel``) on CUDA tensors and the
 plain `repro_torch.kernels.ref.fleet_scan_ref` on CPU tensors. There is
 no fallback: on a CUDA tensor the kernel is built, launched and checked,
-or the call raises. ``fleet_scan.launches`` counts kernel launches.
+or the call raises. ``fleet_scan.launches`` counts the wrapper's calls
+that launch, ``fleet_scan.device_launches`` the kernels they put on
+the card (two a call: the chunk pass and the stitch).
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ def _launch(prices: torch.Tensor, p_on, p_off, off_level,
     scratch = torch.empty(lib.fleet_scan_scratch_floats(b, n_chunks),
                           dtype=torch.float32, device=dev)
     out = torch.empty((4, b), dtype=torch.float32, device=dev)
+    n0 = build.kernels_launched("fleet_scan")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fleet_scan_f32(prices.data_ptr(),
@@ -70,6 +73,7 @@ def _launch(prices: torch.Tensor, p_on, p_off, off_level,
         raise RuntimeError(f"fleet_scan kernel launch failed: CUDA error "
                            f"{err}")
     fleet_scan.launches += 1
+    fleet_scan.device_launches += build.kernels_launched("fleet_scan") - n0
     return FleetScanOut(out[0], out[1], out[2], out[3])
 
 
@@ -94,3 +98,4 @@ def fleet_scan(prices: torch.Tensor, p_on, p_off, off_level, idle_frac, *,
 
 
 fleet_scan.launches = 0
+fleet_scan.device_launches = 0

@@ -449,6 +449,48 @@ def _bisect_level(keys: torch.Tensor, widths: torch.Tensor, demand, lam0,
         return 0.5 * (lo + hi)
 
 
+def _bisect_level_tree(keys: torch.Tensor, widths: torch.Tensor, demand,
+                       lam0, inv_tau, *, n_bisect: int = 30,
+                       levels: int = 4) -> torch.Tensor:
+    """`_bisect_level` as the forward kernel takes it, ``levels`` levels of
+    the bisection tree a round (used by the tests): from the round's
+    bracket, each of the 2^levels - 1 nodes of the round's tree forms its
+    midpoint by replaying its path from the bracket with the same
+    ``0.5 * (lo + hi)``, its comparison is taken, and then the decisions
+    are walked down the tree to the next bracket. The last round takes the
+    levels that remain. Every midpoint is the one the sequential bisection
+    forms on that branch, so the result equals `_bisect_level`'s bit for
+    bit."""
+    with torch.no_grad():
+        span = _WL_SIGMA_SPAN / inv_tau
+        lo, hi = lam0 - span, lam0 + span
+        d64 = torch.as_tensor(demand).double()
+        b = 0
+        while b < n_bisect:
+            nl = min(levels, n_bisect - b)
+            below = {}
+            for node in range(1, 2 ** nl):
+                lo_n, hi_n = lo, hi
+                for d in range(node.bit_length() - 2, -1, -1):
+                    mid = 0.5 * (lo_n + hi_n)
+                    if (node >> d) & 1:
+                        lo_n = mid
+                    else:
+                        hi_n = mid
+                mid = 0.5 * (lo_n + hi_n)
+                below[node] = bool(
+                    _sum64(widths * _sig_rn((mid - keys) * inv_tau)) < d64)
+            node = 1
+            for _ in range(nl):
+                mid = 0.5 * (lo + hi)
+                if below[node]:
+                    lo, node = mid, 2 * node + 1
+                else:
+                    hi, node = mid, 2 * node
+            b += nl
+        return 0.5 * (lo + hi)
+
+
 def soft_water_level_fixed(keys: torch.Tensor, widths: torch.Tensor, demand,
                            lam_hat, inv_tau) -> torch.Tensor:
     """The differentiable half of `soft_water_level`: one Newton correction
@@ -775,6 +817,132 @@ def soft_dispatch_bwd_ref(avail: torch.Tensor, keys: torch.Tensor,
                                     min_dwell=min_dwell)
         acc_it = acc_it + d_it
         acc_itm = acc_itm + d_itm
+    return (d_av.T.contiguous(), d_ke if want_dkeys else None, d_de,
+            acc_it, acc_itm)
+
+
+@torch.no_grad()
+def soft_dispatch_bwd_two_pass_ref(avail: torch.Tensor, keys: torch.Tensor,
+                                   demand: torch.Tensor, inv_tau, inv_tau_mw,
+                                   alloc: torch.Tensor, dwin: torch.Tensor,
+                                   lam: torch.Tensor, g: torch.Tensor, *,
+                                   min_dwell: int = 0,
+                                   want_dkeys: bool = True):
+    """`soft_dispatch_bwd_ref` in the backward kernels' two passes (used by
+    the tests): first, for all hours at once, everything an hour's adjoint
+    needs that depends on the forward's residuals alone -- the widths, the
+    lock gate, the Newton step and the fill, the floor's and the clip's
+    tie shares, the dwell factors; then the reversed chain over hours, with
+    only what depends on the adjoint of (prev alloc, dwell): the two sums
+    and the linear arithmetic around them. Every element-wise operation is
+    `soft_dispatch_hour_grad`'s; the sums of the first pass run over all
+    hours at once. Same returns as `soft_dispatch_bwd_ref`."""
+    dt = _soft_dispatch_dtype(avail)
+    a, al, dw, gg = (x.to(dt).T for x in (avail, alloc, dwin, g))   # [T, S]
+    keys, demand, lam = keys.to(dt), demand.to(dt), lam.to(dt)
+    it = torch.as_tensor(inv_tau, device=a.device).to(dt).reshape(())
+    itm = torch.as_tensor(inv_tau_mw, device=a.device).to(dt).reshape(())
+    t, s = a.shape
+    itc = it / _DWELL_CNT_SCALE
+    span = _WL_SIGMA_SPAN / it
+    # ---- pass 1: the coefficients of every hour
+    prev = torch.cat([torch.zeros_like(a[:1]), al[:-1]])
+    held = torch.minimum(prev, a)
+    if min_dwell > 0:
+        gate = _sig_rn((dw - 0.5) * itc)
+        locked = gate * held
+    else:
+        gate = locked = torch.zeros_like(held)
+    w = torch.cat([locked, held - locked, a - held], dim=1)       # [T, 3S]
+    lam_hat = lam[:, None]
+    s0 = _sig_rn((lam_hat - keys) * it)
+    ws0 = w * s0
+    denom = torch.clamp((ws0 * (1.0 - s0)).double().sum(1).to(dt) * it,
+                        min=_WL_TINY)                              # [T]
+    step = (demand - ws0.double().sum(1).to(dt)) / denom
+    c1 = torch.maximum(step, -span)
+    lam_n = lam + torch.minimum(c1, span)
+    sg = _sig_rn((lam_n[:, None] - keys) * it)
+    fill0 = w * sg
+    f_sum = fill0.double().sum(1)
+    d64 = demand.double()
+    floor = 1e-9 * d64 + _WL_TINY
+    den = torch.maximum(f_sum, floor)
+    r64 = d64 / den
+    r = r64.to(dt)
+    share = _tie(floor, f_sum).double()
+    to_c1, to_step = _tie(c1, span), 1.0 - _tie(step, -span)
+    to_prev = _tie(prev, a)
+    lk, l0k = lam_n[:, None] - keys, lam_hat - keys
+    if min_dwell > 0:
+        fill = fill0 * r[:, None]
+        alloc_h = (fill[:, :s] + fill[:, s:2 * s]) + fill[:, 2 * s:]
+        xm = (alloc_h - prev) - DWELL_EVENT_MW
+        mi = _sig_rn(xm * itm)
+        zc = (dw - 1.0) * itc
+        cd = _softplus_rn(zc) / itc
+        sz = _sig_rn(zc)
+    # ---- pass 2: the reversed chain
+    u_prev = torch.zeros(s, dtype=dt, device=a.device)
+    u_dwell = torch.zeros_like(u_prev)
+    acc_it = torch.zeros((), dtype=torch.float64, device=a.device)
+    acc_itm = torch.zeros_like(acc_it)
+    d_av = torch.empty((t, s), dtype=dt, device=a.device)
+    d_ke = torch.empty((t, 3 * s), dtype=dt, device=a.device)
+    d_de = torch.empty(t, dtype=dt, device=a.device)
+    for h in range(t - 1, -1, -1):
+        ua = gg[h] + u_prev
+        d_prev = torch.zeros_like(u_prev)
+        d_dwell = u_dwell
+        d_itc = torch.zeros((), dtype=torch.float64, device=a.device)
+        if min_dwell > 0:
+            d_mi = u_dwell * (min_dwell - cd[h])
+            d_cd = u_dwell * (1.0 - mi[h])
+            d_zm = d_mi * mi[h] * (1.0 - mi[h])
+            ua = ua + d_zm * itm
+            d_prev = -(d_zm * itm)
+            acc_itm = acc_itm + _sum64(d_zm * xm[h])
+            d_zc = (d_cd / itc) * sz[h]
+            d_dwell = d_zc * itc
+            d_itc = _sum64(-(d_cd * cd[h]) / itc + d_zc * (dw[h] - 1.0))
+        ua3 = torch.cat([ua, ua, ua])
+        dr = _sum64(ua3.double() * fill0[h].double())
+        dd = dr / den[h]
+        d_den = -dr * r64[h] / den[h]
+        dd = dd + 1e-9 * d_den * (1.0 - share[h])
+        dfill0 = ua3 * r[h] + (d_den * share[h]).to(dt)
+        d_w = dfill0 * sg[h]
+        d_z = dfill0 * w[h] * sg[h] * (1.0 - sg[h])
+        d_lam = _sum64(d_z).to(dt) * it
+        d_keys = -(d_z * it)
+        d_it = _sum64(d_z * lk[h])
+        dc1 = d_lam * to_c1[h]
+        d_span = d_lam * (1.0 - to_c1[h])
+        d_step = dc1 * to_step[h]
+        d_span = d_span - dc1 * (1.0 - to_step[h])
+        d_it = d_it + (d_span * (-span / it)).double()
+        q = d_step / denom[h]
+        dd = dd + q.double()
+        d_w = d_w + (-q) * s0[h]
+        d_z0 = (-q) * w[h] * s0[h] * (1.0 - s0[h])
+        d_keys = d_keys - d_z0 * it
+        d_it = d_it + _sum64(d_z0 * l0k[h])
+        dw0, dw1, dw2 = d_w[:s], d_w[s:2 * s], d_w[2 * s:]
+        d_avail = dw2
+        if min_dwell > 0:
+            d_locked = dw0 - dw1
+            d_held = (dw1 - dw2) + d_locked * gate[h]
+            d_zg = d_locked * held[h] * gate[h] * (1.0 - gate[h])
+            d_dwell = d_dwell + d_zg * itc
+            d_itc = d_itc + _sum64(d_zg * (dw[h] - 0.5))
+        else:
+            d_held = dw1 - dw2
+        u_prev = d_prev + d_held * to_prev[h]
+        d_av[h] = d_avail + d_held * (1.0 - to_prev[h])
+        d_ke[h] = d_keys
+        d_de[h] = dd.to(dt)
+        u_dwell = d_dwell
+        acc_it = acc_it + (d_it + d_itc / _DWELL_CNT_SCALE)
     return (d_av.T.contiguous(), d_ke if want_dkeys else None, d_de,
             acc_it, acc_itm)
 

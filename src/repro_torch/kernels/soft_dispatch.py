@@ -20,7 +20,9 @@ The route follows the tensors' device:
     whose forward launches the residual-emitting kernel (the port of the
     TPU kernel ``repro/kernels/soft_dispatch.py::_fused_fwd_kernel``) and
     whose backward launches the reversed-time adjoint kernel (the port of
-    ``_fused_bwd_kernel``), both in ``csrc/soft_dispatch.cu``;
+    ``_fused_bwd_kernel``; two launches a call: an hour-parallel pass of
+    the coefficients into a scratch buffer, then the reversed chain), both
+    in ``csrc/soft_dispatch.cu``;
   * CUDA, ``fused=False``: the forward-only kernel (the port of
     ``_soft_dispatch_kernel``), which raises if an input requires grad;
   * CPU, ``fused=True``: the plain `soft_dispatch_fwd_ref` /
@@ -30,7 +32,9 @@ The route follows the tensors' device:
 
 There is no fallback: a CUDA tensor launches a kernel or the call raises.
 ``soft_dispatch_scan.launches``, ``soft_dispatch_fused_fwd.launches`` and
-``soft_dispatch_fused_bwd.launches`` count kernel launches.
+``soft_dispatch_fused_bwd.launches`` count the wrappers' kernel calls, and
+their ``device_launches`` the kernels those calls put on the card (one a
+forward call, two a backward call).
 """
 
 from __future__ import annotations
@@ -49,9 +53,13 @@ def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn, n_ptr, n_int in ((lib.soft_dispatch_f32, 7, 4),
                              (lib.soft_dispatch_fused_fwd_f32, 9, 4),
-                             (lib.soft_dispatch_fused_bwd_f32, 13, 3)):
+                             (lib.soft_dispatch_fused_bwd_f32, 14, 3)):
         fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
         fn.restype = i32
+    lib.soft_dispatch_bwd_scratch_floats.argtypes = [i32] * 3
+    lib.soft_dispatch_bwd_scratch_floats.restype = ctypes.c_longlong
+    for fn in (lib.soft_dispatch_fwd_levels, lib.soft_dispatch_fwd_threads):
+        fn.argtypes, fn.restype = [i32], i32
     return lib
 
 
@@ -129,6 +137,7 @@ def soft_dispatch_scan(avail: torch.Tensor, keys: torch.Tensor,
                           int(min_dwell))
     lib = _library()
     alloc = torch.empty((s, t), dtype=torch.float32, device=dev)
+    n0 = build.kernels_launched("soft_dispatch")
     with torch.cuda.device(dev):
         err = lib.soft_dispatch_f32(
             avail.data_ptr(), keys.data_ptr(), order.data_ptr(),
@@ -137,6 +146,8 @@ def soft_dispatch_scan(avail: torch.Tensor, keys: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "soft_dispatch")
     soft_dispatch_scan.launches += 1
+    soft_dispatch_scan.device_launches += \
+        build.kernels_launched("soft_dispatch") - n0
     return alloc
 
 
@@ -159,6 +170,7 @@ def soft_dispatch_fused_fwd(avail: torch.Tensor, keys: torch.Tensor,
     alloc = torch.empty((s, t), dtype=torch.float32, device=dev)
     dwin = torch.empty_like(alloc)
     lam = torch.empty(t, dtype=torch.float32, device=dev)
+    n0 = build.kernels_launched("soft_dispatch")
     with torch.cuda.device(dev):
         err = lib.soft_dispatch_fused_fwd_f32(
             avail.data_ptr(), keys.data_ptr(), order.data_ptr(),
@@ -168,6 +180,8 @@ def soft_dispatch_fused_fwd(avail: torch.Tensor, keys: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "soft_dispatch_fused_fwd")
     soft_dispatch_fused_fwd.launches += 1
+    soft_dispatch_fused_fwd.device_launches += \
+        build.kernels_launched("soft_dispatch") - n0
     return alloc, dwin, lam
 
 
@@ -181,7 +195,13 @@ def soft_dispatch_fused_bwd(avail: torch.Tensor, keys: torch.Tensor,
     d_inv_tau, sum d_inv_tau_mw)``: the VJP of `soft_dispatch_fused_fwd`'s
     allocation for the cotangent ``g`` [S, T], from its residuals; the two
     sums are float64. CUDA tensors launch the kernel, CPU tensors run the
-    plain `soft_dispatch_bwd_ref`."""
+    plain `soft_dispatch_bwd_ref`.
+
+    On the card a call allocates a scratch buffer of every hour's
+    coefficients, ``T x stride`` float32 with ``stride = 12 + 28 S`` (20 S
+    without dwell locks) rounded up to a multiple of 4: 4 T (12 + 28 S)
+    bytes, 8.0 MB at 32 sites x 2190 h, 63 MB at 64 x 8760, and at most
+    1.0 GB (1024 sites x 8760 h)."""
     if not avail.is_cuda:
         return soft_dispatch_bwd_ref(avail, keys, demand, inv_tau,
                                      inv_tau_mw, alloc, dwin, lam, g,
@@ -199,22 +219,33 @@ def soft_dispatch_fused_bwd(avail: torch.Tensor, keys: torch.Tensor,
         if want_dkeys else None
     d_demand = torch.empty(t, dtype=torch.float32, device=dev)
     sums = torch.empty(2, dtype=torch.float64, device=dev)
+    # the coefficients of every hour, written by the first of the two
+    # launches and read by the second: per call, on the call's stream
+    scratch = torch.empty(
+        lib.soft_dispatch_bwd_scratch_floats(s, t, int(min_dwell)),
+        dtype=torch.float32, device=dev)
+    n0 = build.kernels_launched("soft_dispatch")
     with torch.cuda.device(dev):
         err = lib.soft_dispatch_fused_bwd_f32(
             avail.data_ptr(), keys.data_ptr(), demand.data_ptr(),
             alloc.data_ptr(), dwin.data_ptr(), lam.data_ptr(), g.data_ptr(),
             inv_tau.data_ptr(), inv_tau_mw.data_ptr(), d_avail.data_ptr(),
             d_keys.data_ptr() if want_dkeys else None, d_demand.data_ptr(),
-            sums.data_ptr(), s, t, int(min_dwell),
+            sums.data_ptr(), scratch.data_ptr(), s, t, int(min_dwell),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "soft_dispatch_fused_bwd")
     soft_dispatch_fused_bwd.launches += 1
+    soft_dispatch_fused_bwd.device_launches += \
+        build.kernels_launched("soft_dispatch") - n0
     return d_avail, d_keys, d_demand, sums[0], sums[1]
 
 
 soft_dispatch_scan.launches = 0
+soft_dispatch_scan.device_launches = 0
 soft_dispatch_fused_fwd.launches = 0
+soft_dispatch_fused_fwd.device_launches = 0
 soft_dispatch_fused_bwd.launches = 0
+soft_dispatch_fused_bwd.device_launches = 0
 
 
 class _SoftDispatchFused(torch.autograd.Function):

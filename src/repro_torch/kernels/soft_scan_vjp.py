@@ -18,7 +18,9 @@ the TPU kernel pair ``repro/kernels/soft_scan_vjp.py::_fwd_kernel`` and
 `soft_scan_fwd_ref` / `soft_scan_bwd_ref`, which follow the inputs'
 dtype (so ``torch.autograd.gradcheck`` runs in float64). There is no
 fallback: a CUDA tensor launches the kernel or the call raises.
-``soft_scan_fwd.launches`` and ``soft_scan_bwd.launches`` count launches.
+``soft_scan_fwd.launches`` and ``soft_scan_bwd.launches`` count the
+wrappers' calls that launch, their ``device_launches`` the kernels those
+calls put on the card (three a forward, four a backward).
 """
 
 from __future__ import annotations
@@ -107,6 +109,7 @@ def soft_scan_fwd(p: torch.Tensor, p_on: torch.Tensor, p_off: torch.Tensor,
                           dtype=torch.float64, device=dev)
     s = torch.empty((b, t), dtype=torch.float32, device=dev)
     carries = torch.empty((b, nb), dtype=torch.float32, device=dev)
+    n0 = build.kernels_launched("soft_scan")
     with torch.cuda.device(dev):
         err = lib.soft_scan_fwd_f32(
             p.data_ptr(), p_on.data_ptr(), p_off.data_ptr(),
@@ -116,6 +119,7 @@ def soft_scan_fwd(p: torch.Tensor, p_on: torch.Tensor, p_off: torch.Tensor,
         raise RuntimeError(f"soft_scan_fwd kernel launch failed: CUDA "
                            f"error {err}")
     soft_scan_fwd.launches += 1
+    soft_scan_fwd.device_launches += build.kernels_launched("soft_scan") - n0
     return s, carries
 
 
@@ -146,6 +150,7 @@ def soft_scan_bwd(p: torch.Tensor, p_on: torch.Tensor, p_off: torch.Tensor,
     d_p = torch.empty((b, t), dtype=torch.float32, device=dev) \
         if want_dp else None
     sums = torch.empty((3, b), dtype=torch.float32, device=dev)
+    n0 = build.kernels_launched("soft_scan")
     with torch.cuda.device(dev):
         err = lib.soft_scan_bwd_f32(
             p.data_ptr(), g.data_ptr(), p_on.data_ptr(), p_off.data_ptr(),
@@ -156,13 +161,16 @@ def soft_scan_bwd(p: torch.Tensor, p_on: torch.Tensor, p_off: torch.Tensor,
         raise RuntimeError(f"soft_scan_bwd kernel launch failed: CUDA "
                            f"error {err}")
     soft_scan_bwd.launches += 1
+    soft_scan_bwd.device_launches += build.kernels_launched("soft_scan") - n0
     # the row sum of d_inv_tau in float64, in a fixed order
     d_it = sums[2].double().sum().to(torch.float32)
     return d_p, sums[0], sums[1], d_it
 
 
 soft_scan_fwd.launches = 0
+soft_scan_fwd.device_launches = 0
 soft_scan_bwd.launches = 0
+soft_scan_bwd.device_launches = 0
 
 
 class _SoftState(torch.autograd.Function):

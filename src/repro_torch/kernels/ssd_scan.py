@@ -9,8 +9,8 @@ chunk outputs) with the same casts and the state in the same [B,H,P,N]
 layout, so they differ only in the order of float32 sums. There is no
 fallback: on a CUDA tensor the kernel is built, launched and checked, or
 the call raises. The kernel is forward only. ``ssd_scan.launches`` counts
-kernel launches (one per call: the three passes are one launch of the
-wrapper).
+the wrapper's calls that launch, ``ssd_scan.device_launches`` the kernels
+they put on the card (three a call, one for each pass).
 """
 
 from __future__ import annotations
@@ -94,6 +94,7 @@ def _launch(x, dt, a, b, c, chunk: int, h0
                      device=dev)
     h0c = None if h0 is None else h0.to(torch.float32).contiguous()
     strides = [st_ for t in (x, dt, b, c) for st_ in t.stride()[:3]]
+    n0 = build.kernels_launched("ssd_scan")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ssd_scan_fwd(
@@ -106,6 +107,7 @@ def _launch(x, dt, a, b, c, chunk: int, h0
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error "
                            f"{err}")
     ssd_scan.launches += 1
+    ssd_scan.device_launches += build.kernels_launched("ssd_scan") - n0
     return y, h_last
 
 
@@ -137,3 +139,4 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 ssd_scan.launches = 0
+ssd_scan.device_launches = 0

@@ -29,12 +29,17 @@ residuals and from the plain version's, within 1e-4 of the larger of its
 own scale and the cotangent's (the two share every float32 operation, a
 correctly rounded exp included, and differ in the order of their float64
 sums), at the reference's soft cases and at blocks of more than one
-warp (64, 45 and 130 sites); the forward kernel's allocation equal
-to the fused forward's bit for bit (one kernel); the dispatch-aware tuner
-on the card within rtol 1e-3 of the CPU's CPCs, with the same source and
-chosen set. The attention kernels against their plain versions on the
-card: float32 within atol = rtol = 2e-5, bfloat16 within 2e-2 (the
-reference's kernel tolerances; the two share tiles and casts and differ
+warp (64, 45 and 130 sites), and at one to 32 warps a group with every
+count of bisection levels a round (1 to 1024 sites, 400 among them;
+n_bisect 0, 7, 30, 31, zero-demand hours; a second run equal bit for
+bit); the forward kernel's allocation equal to the fused forward's bit
+for bit (one kernel); one kernel on the card a forward call and two a
+backward call; the backward's scratch the call's own (two streams' calls
+equal each run alone); the dispatch-aware tuner on the card within rtol
+1e-3 of the CPU's CPCs, with the same source and chosen set. The
+attention kernels against their plain versions on the card: float32
+within atol = rtol = 2e-5, bfloat16 within 2e-2 (the reference's kernel
+tolerances; the two share tiles and casts and differ
 in the order of float32 sums); the reduced serving engine on the card at
 float32 returns the CPU's tokens. The SSD kernel against its plain
 version on the card: y and the final state within 1e-4 of the output's
@@ -291,29 +296,32 @@ def _near_bwd(got, want, g):
         _near(x, w, 1e-4 * scale, name)
 
 
-@pytest.mark.parametrize("case", SOFT_DISPATCH_CASES + WIDE_DISPATCH_CASES)
-def test_soft_dispatch_kernels_match_plain_versions(cuda, case):
-    s, t, mc, dwell, tau = case
-    cpu = _soft_dispatch_problem(s, t, mc)
+def _hold_soft_dispatch(cuda, cpu, dwell, tau, n_bisect=30):
+    """The three soft-dispatch kernels on ``cpu``'s problem against their
+    plain versions (see the module's docstring); returns the kernels'
+    outputs."""
     avail, keys, order, demand, g = (x.to(cuda) for x in cpu)
+    s = avail.shape[0]
     it = torch.tensor([1.0 / tau], dtype=torch.float32)
     itm = it / torch.tensor(0.05)
-    before = (soft_dispatch_scan.launches, soft_dispatch_fused_fwd.launches,
-              soft_dispatch_fused_bwd.launches)
+    counted = (soft_dispatch_scan, soft_dispatch_fused_fwd,
+               soft_dispatch_fused_bwd)
+    before = [(fn.launches, fn.device_launches) for fn in counted]
     alone = soft_dispatch_scan(avail, keys, order, demand, tau=tau,
-                               min_dwell=dwell)
+                               min_dwell=dwell, n_bisect=n_bisect)
     alloc, dwin, lam = soft_dispatch_fused_fwd(
         avail, keys, order, demand, it.to(cuda), itm.to(cuda),
-        min_dwell=dwell)
+        min_dwell=dwell, n_bisect=n_bisect)
     back = soft_dispatch_fused_bwd(avail, keys, demand, it.to(cuda),
                                    itm.to(cuda), alloc, dwin, lam, g,
                                    min_dwell=dwell)
     torch.cuda.synchronize()
-    assert (soft_dispatch_scan.launches, soft_dispatch_fused_fwd.launches,
-            soft_dispatch_fused_bwd.launches) == tuple(n + 1 for n in before)
+    # one call each; on the card one kernel a forward, two a backward
+    assert [(fn.launches, fn.device_launches) for fn in counted] == [
+        (n + 1, k + d) for (n, k), d in zip(before, (1, 1, 2))]
     assert torch.equal(alone, alloc)            # one kernel, two entries
     p_alloc, p_dwin, p_lam = soft_dispatch_fwd_ref(
-        *cpu[:4], it, itm, min_dwell=dwell)
+        *cpu[:4], it, itm, min_dwell=dwell, n_bisect=n_bisect)
     _near(alloc, p_alloc, 1e-5, "alloc")
     _near(dwin, p_dwin, 1e-4, "dwell_in")
     # a level may be off by more only in a gap of the fill, where it is
@@ -329,7 +337,8 @@ def test_soft_dispatch_kernels_match_plain_versions(cuda, case):
             prev, p_dwin[:, h], cpu[0][:, h], cpu[1][h], cpu[3][h],
             lam.cpu()[h], it[0], itm[0], min_dwell=dwell)
         _near(moved, p_alloc[:, h], 1e-5, f"alloc at the level of hour {h}")
-    _near(alone, soft_dispatch_ref(*cpu[:4], tau=tau, min_dwell=dwell),
+    _near(alone, soft_dispatch_ref(*cpu[:4], tau=tau, min_dwell=dwell,
+                                   n_bisect=n_bisect),
           1e-5, "soft_dispatch_ref")
     # the backward from the kernel's own residuals on both sides, then
     # from the plain version's
@@ -342,6 +351,68 @@ def test_soft_dispatch_kernels_match_plain_versions(cuda, case):
     _near_bwd(back_p, soft_dispatch_bwd_ref(
         cpu[0], cpu[1], cpu[3], it, itm, p_alloc, p_dwin, p_lam, cpu[4],
         min_dwell=dwell), cpu[4])
+    return (alloc, dwin, lam) + tuple(back)
+
+
+@pytest.mark.parametrize("case", SOFT_DISPATCH_CASES + WIDE_DISPATCH_CASES)
+def test_soft_dispatch_kernels_match_plain_versions(cuda, case):
+    s, t, mc, dwell, tau = case
+    _hold_soft_dispatch(cuda, _soft_dispatch_problem(s, t, mc), dwell, tau)
+
+
+# sites -> (hours, the forward's bisection levels a round): one to 32 warps
+# a group; four levels down to one (at 321 to 512 sites three groups of 11
+# to 16 warps do not fit the block's 32, so one level a round there too)
+SOFT_DISPATCH_WIDTHS = {1: (80, 4), 5: (80, 4), 32: (80, 4), 33: (60, 3),
+                        45: (60, 3), 64: (60, 3), 130: (40, 2),
+                        400: (20, 1), 1024: (12, 1)}
+
+
+@pytest.mark.parametrize("s", sorted(SOFT_DISPATCH_WIDTHS))
+def test_soft_dispatch_kernels_at_every_group_width(cuda, s):
+    """At one to 32 warps a group and every levels-a-round count, for
+    n_bisect 0, 7, 30 and 31, with and without dwell locks and with
+    zero-demand hours: the kernels against their plain versions, and a
+    second run equal to the first bit for bit."""
+    from repro_torch.kernels.soft_dispatch import _library
+
+    t, levels = SOFT_DISPATCH_WIDTHS[s]
+    assert _library().soft_dispatch_fwd_levels(s) == levels
+    cpu = _soft_dispatch_problem(s, t, 4.0, seed=s)
+    cpu[3][[0, t // 2, t // 2 + 1, t - 1]] = 0.0
+    for dwell in (0, 4):
+        for n_bisect in (0, 7, 30, 31):
+            first = _hold_soft_dispatch(cuda, cpu, dwell, 3.0, n_bisect)
+            again = _hold_soft_dispatch(cuda, cpu, dwell, 3.0, n_bisect)
+            for x, y in zip(first, again):
+                assert torch.equal(x, y), (dwell, n_bisect)
+            assert bool((first[0][:, [0, t - 1]] == 0.0).all())
+
+
+def test_soft_dispatch_backward_keeps_no_state_between_calls(cuda):
+    """The backward's scratch is the call's own: two problems' backwards
+    issued back to back on two streams equal each one run alone."""
+    probs = []
+    for s, t, seed in ((32, 300, 1), (45, 200, 2)):
+        cpu = _soft_dispatch_problem(s, t, 5.0, seed=seed)
+        avail, keys, order, demand, g = (x.to(cuda) for x in cpu)
+        it = torch.tensor([1.0 / 3.0], device=cuda)
+        itm = it / 0.05
+        res = soft_dispatch_fused_fwd(avail, keys, order, demand, it, itm,
+                                      min_dwell=4)
+        probs.append((avail, keys, demand, it, itm, *res, g))
+    alone = [soft_dispatch_fused_bwd(*p, min_dwell=4) for p in probs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in probs]
+    both = []
+    for st, p in zip(streams, probs):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            both.append(soft_dispatch_fused_bwd(*p, min_dwell=4))
+    torch.cuda.synchronize()
+    for a, b in zip(alone, both):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
 
 
 def test_soft_dispatch_kernels_refuse_what_they_do_not_take(cuda):

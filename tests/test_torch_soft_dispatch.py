@@ -39,7 +39,15 @@ Tolerances, and why:
 - Float64 checks (torch only): the hand-written hour adjoint equals
   autograd through `soft_dispatch_hour_fixed` within 1e-12 of the output
   scale; `gradcheck` of the fused VJP at its defaults.
+- The kernels' restructurings in their plain mirrors: the bisection taken
+  k levels of the tree a round (`_bisect_level_tree`) equals the
+  sequential one bit for bit, flat-locked gap hour included; the two-pass
+  backward (`soft_dispatch_bwd_two_pass_ref`) equals the hour-by-hour one
+  bit for bit in float32, and in float64 on continuous availabilities is
+  within the gradient tolerance above of the reference's oracle.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -415,6 +423,119 @@ def test_level_in_gap_needs_a_flat_fill_at_the_demand(lam_other, demand,
                                 torch.tensor(lam_other), torch.tensor(2.0),
                                 min_dwell=0)
     assert got is in_gap
+
+
+# ---------------------------------------------------------------------------
+# the kernels' two restructurings, in their plain mirrors: the bisection k
+# levels a round, and the backward's coefficient pass ahead of its chain
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _run(case_index):
+    """The plain forward's residuals on a `SOFT_CASES` case (its entering
+    states), with its inputs, as torch tensors."""
+    s, t, mc, dwell, tau = SOFT_CASES[case_index]
+    _, avail, keys, order, demand = _case(s, t, mc)
+    it, itm = _inv_taus(tau)
+    x = _t(avail, keys, order, demand)
+    res = ref.soft_dispatch_fwd_ref(*x, torch.tensor(it), torch.tensor(itm),
+                                    min_dwell=dwell)
+    return x, res, torch.tensor(it), dwell
+
+
+def _bisection_hour(case_index, h):
+    """(keys, widths, demand, hard level) of hour h of a case, from the plain
+    forward's entering state, as `soft_dispatch_hour_parts` forms them."""
+    (avail, keys, order, demand), (alloc, dwin, _), it, dwell = \
+        _run(case_index)
+    prev = alloc[:, h - 1] if h > 0 else torch.zeros_like(alloc[:, 0])
+    widths = ref._hour_widths(prev, dwin[:, h], avail[:, h], inv_tau=it,
+                              min_dwell=dwell)
+    o = order[h].long()
+    cums = torch.cumsum(widths[o].double(), 0)
+    below = torch.sum(cums < demand[h].double())
+    lam0 = keys[h][o][torch.clamp(below, max=keys.shape[1] - 1)]
+    return keys[h], widths, demand[h], lam0, it
+
+
+# an hour of each of the four soft cases, and hour 13 of the flat-locked
+# third one, where the fill is flat at the demand about the level
+BISECTION_HOURS = [(0, 32), (1, 48), (2, 48), (3, 48), (2, 13)]
+
+
+def test_the_flat_locked_hour_is_a_gap_of_the_fill():
+    (avail, keys, _, demand), (alloc, dwin, lam), it, dwell = _run(2)
+    assert ref.soft_level_in_gap(alloc[:, 12], dwin[:, 13], avail[:, 13],
+                                 keys[13], demand[13], lam[13] - 0.5,
+                                 lam[13] + 0.5, it, min_dwell=dwell)
+
+
+@pytest.mark.parametrize("n_bisect", [0, 1, 7, 30, 31])
+@pytest.mark.parametrize("levels", [1, 2, 3, 4, 5])
+def test_bisection_by_rounds_of_levels_equals_the_sequential_one(levels,
+                                                                  n_bisect):
+    """The forward kernel's bisection, k levels of the tree a round, in its
+    plain mirror: the same level as `_bisect_level`, bit for bit."""
+    for case_index, h in BISECTION_HOURS:
+        keys, widths, demand, lam0, it = _bisection_hour(case_index, h)
+        want = ref._bisect_level(keys, widths, demand, lam0, it,
+                                 n_bisect=n_bisect)
+        got = ref._bisect_level_tree(keys, widths, demand, lam0, it,
+                                     n_bisect=n_bisect, levels=levels)
+        assert torch.equal(got, want), (case_index, h, float(got),
+                                        float(want))
+
+
+@pytest.mark.parametrize("case", SOFT_CASES + [(8, 60, 5.0, 4, 3.0)])
+def test_two_pass_backward_equals_the_hour_by_hour_one(case):
+    """The backward kernels' two passes in their plain mirror (every hour's
+    coefficients at once, then the chain) against `soft_dispatch_bwd_ref`
+    on the plain forward's residuals, float32: equal bit for bit (both
+    sum each hour's short rows in order on the CPU). The last case has
+    zero-demand hours."""
+    s, t, mc, dwell, tau = case
+    zero = (0, 5, 6) if t == 60 else ()
+    _, avail, keys, order, demand = (_smooth_case(s, t, mc, seed=3,
+                                                  zero_hours=zero)
+                                     if zero else _case(s, t, mc))
+    g = np.random.default_rng(8).normal(size=(s, t)).astype(np.float32)
+    it, itm = (torch.tensor(x) for x in _inv_taus(tau))
+    x = _t(avail, keys, order, demand)
+    res = ref.soft_dispatch_fwd_ref(*x, it, itm, min_dwell=dwell)
+    args = (x[0], x[1], x[3], it, itm, *res, torch.as_tensor(g))
+    want = ref.soft_dispatch_bwd_ref(*args, min_dwell=dwell)
+    got = ref.soft_dispatch_bwd_two_pass_ref(*args, min_dwell=dwell)
+    for name, a, b in zip(("d_avail", "d_keys", "d_demand", "d_itau",
+                           "d_itau_mw"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("case", [(5, 48, 5.0, 0, 2.0), (16, 48, 3.0, 3, 20.0),
+                                  (4, 48, 4.0, 3, 3.0)])
+def test_two_pass_backward_float64_matches_reference(case):
+    """The two-pass mirror in float64, on continuous availabilities,
+    against the reference's sequential gradient oracle (float32, so within
+    GRAD_REL of each output's scale)."""
+    s, t, mc, dwell, tau = case
+    prices, avail, keys, order, demand = _smooth_case(s, t, mc, seed=21)
+    g = np.random.default_rng(9).normal(size=(s, t)).astype(np.float32)
+    want = jref.soft_dispatch_grad_ref(jnp.asarray(avail), jnp.asarray(keys),
+                                       order, demand, g, tau=tau,
+                                       min_dwell=dwell)
+    f64 = torch.float64
+    a, k, d, gg = (torch.tensor(x, dtype=f64) for x in (avail, keys, demand,
+                                                         g))
+    it = 1.0 / torch.tensor(tau, dtype=f64)
+    itm = it / torch.tensor(0.05, dtype=f64)
+    res = ref.soft_dispatch_fwd_ref(a, k, torch.as_tensor(order), d, it, itm,
+                                    min_dwell=dwell)
+    d_av, d_ke, d_de, s_it, s_itm = ref.soft_dispatch_bwd_two_pass_ref(
+        a, k, d, it, itm, *res, gg, min_dwell=dwell)
+    assert d_av.dtype == f64
+    d_tau = -(it ** 2) * s_it - it * itm * s_itm
+    for name, x, w in (("d_avail", d_av, want[0]), ("d_keys", d_ke, want[1]),
+                       ("d_demand", d_de, want[2]), ("d_tau", d_tau, want[3])):
+        _close_rel(x.numpy(), np.asarray(w), msg=name)
 
 
 # ---------------------------------------------------------------------------
