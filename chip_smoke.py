@@ -12,7 +12,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      run on the tensor cores), and for the ten soft-dispatch kernels
      (forward and backward chain, with and without dwell locks, for blocks
      of up to 512 and 1024 threads; the backward's coefficient kernel)
-     their registers and spills;
+     their registers and spills, and for the SSD scan's output kernels
+     (and the bf16 chunk-state kernel) their registers, spills and HMMA
+     instructions in the SASS (the tensor-core ones, for bf16 inputs, must
+     have some);
   3. each kernel against its plain PyTorch version on the card;
   4. the backtest path at full size: the Lichtenberg case study, then
      the fleet backtest and summary of the repo's benchmark grid (16
@@ -54,8 +57,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      the kernels and through the plain attention;
  13. the SSD scan kernel against its plain version on the card (the
      reference's cases, mamba2-1.3b's serving shapes at 1024 and 1000
-     positions in bf16 and float32, with h0 and without, a scan in two
-     parts chained through h0); the Mamba2 serving path at full width:
+     positions in bf16 and float32, with h0 and without, several heads a
+     group with ragged head sets, one head a group, rows that take no
+     16-byte copies, a scan in two parts chained through h0); the Mamba2
+     serving path at full width:
      the same engine, gate and requests on mamba2-1.3b (48 layers, bf16),
      prompts of 2 to 1024 tokens, 48 SSD launches per prefill, no plain
      SSD and no attention; a 1000-token request teacher-forced through
@@ -65,14 +70,18 @@ Phases, in order; any failure raises and the script exits non-zero:
  14. times (median of CUDA-event runs after warm-up): each kernel, its
      plain version and its bound, the backtest at 1024 and 8192 rows,
      market generation, the tuner loop's row-steps/s (hand-written VJP
-     against autograd through the doubling scan), one whole dispatch
-     call split into its parts, the soft-dispatch kernels at 32 x 2190 and
+     against autograd through the doubling scan), the dispatch kernel at
+     1, 8, 64 and 512 sites with the positions its walk sums an hour and
+     its design's serial floor, on the six instances phase 7's
+     `fleet_dispatch` example gave it (the counted path's time), one
+     whole dispatch call split into its parts, the soft-dispatch kernels at 32 x 2190 and
      64 x 8760 beside their bounds and the serial floors of their design
      and of the one-step design before it (the plain forward's run at
      64 x 8760 also holds phase 9's allocation), a dispatch-aware tuner
      step (dwell 4, as `optimize` runs it) against an uncoupled one, the
      attention kernels at the serving shapes in turns with SDPA, and the
-     SSD kernel at 1024 and 2048 positions beside its plain version;
+     SSD kernel at 1024 and 2048 positions, each pass's device time, the
+     work it issues, beside its plain version and bound;
 each path's kernel launch counts are set to 0 just before it and read
 just after. Then one JSON line describing every ported kernel (a counted
 launch is one wrapper call; ``device_launches`` counts, in the same run,
@@ -281,8 +290,32 @@ def phase_build() -> None:
             build.load(name)
         if name == "attention":
             _report_tensor_core_kernels(log, build.library_path(name))
+        if name == "ssd_scan":
+            _report_ssd_kernels(log, build.library_path(name))
         if name == "soft_dispatch":
             _report_soft_dispatch_kernels(log)
+
+
+def _ptxas_records(log: str, pattern: re.Pattern) -> dict:
+    """Registers and spills (ptxas) of the kernels whose mangled names
+    ``pattern`` matches, keyed by the match's groups."""
+    info, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'|Function properties for "
+                      r"(\S+)", line)
+        if m:
+            name = m.group(1) or m.group(2)
+            continue
+        k = pattern.search(name or "")
+        if not k:
+            continue
+        rec = info.setdefault(k.groups(), {})
+        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line):
+            rec["spill"] = (int(m.group(1)), int(m.group(2)))
+        if m := re.search(r"Used (\d+) registers", line):
+            rec["registers"] = int(m.group(1))
+    return info
 
 
 SD_KERNEL = re.compile(r"soft_(fwd|bwd_coef|bwd_chain)_kernelILb([01])E"
@@ -294,22 +327,7 @@ def _report_soft_dispatch_kernels(log: str) -> None:
     forward and the backward's chain, with and without dwell locks, each
     built for blocks of up to 512 and of 1024 threads, and the backward's
     coefficient kernel with and without locks. Fails if one is missing."""
-    info, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"entry function '([^']+)'|Function properties for "
-                      r"(\S+)", line)
-        if m:
-            name = m.group(1) or m.group(2)
-            continue
-        k = SD_KERNEL.search(name or "")
-        if not k:
-            continue
-        rec = info.setdefault(k.groups(), {})
-        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line):
-            rec["spill"] = (int(m.group(1)), int(m.group(2)))
-        if m := re.search(r"Used (\d+) registers", line):
-            rec["registers"] = int(m.group(1))
+    info = _ptxas_records(log, SD_KERNEL)
     want = [(kind, locks, bound) for kind in ("fwd", "bwd_chain")
             for locks in "01" for bound in ("512", "1024")]
     want += [("bwd_coef", locks, None) for locks in "01"]
@@ -326,6 +344,37 @@ def _report_soft_dispatch_kernels(log: str) -> None:
               f"spill loads {ld} B")
 
 
+def _sass_tensor_core_counts(lib: Path, pattern: re.Pattern) -> dict | None:
+    """Tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma) in the
+    SASS of each kernel of ``lib`` whose name ``pattern`` matches, keyed by
+    the match's groups (cuobjdump, from nvcc's toolkit); None without
+    cuobjdump."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        return None
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            k = pattern.search(m.group(1))
+            name = k.groups() if k else None
+            if name:
+                counts[name] = 0
+        elif name and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    return counts
+
+
+def _report_mma(label: str, rec: dict, n) -> None:
+    st, ld = rec.get("spill", (0, 0))
+    print(f"[build] {label}: {rec['registers']} registers, spill stores "
+          f"{st} B, spill loads {ld} B, "
+          + (f"{n} HMMA/HGMMA instructions in its SASS" if n is not None
+             else "SASS not read (no cuobjdump)"))
+
+
 # the bf16 instantiations of the attention kernels (the tensor-core designs)
 MMA_KERNEL = re.compile(r"(flash|decode)_mma_kernelILi(\d+)E")
 
@@ -336,55 +385,57 @@ def _report_tensor_core_kernels(log: str, lib: Path) -> None:
     wgmma) of the eight bf16 attention kernels, flash and decode at Dh 16,
     32, 64 and 128. Fails if one is missing or has no tensor-core
     instruction."""
-    info, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"entry function '([^']+)'|Function properties for "
-                      r"(\S+)", line)
-        if m:
-            name = m.group(1) or m.group(2)
-            continue
-        k = MMA_KERNEL.search(name or "")
-        if not k:
-            continue
-        rec = info.setdefault((k.group(1), int(k.group(2))), {})
-        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line):
-            rec["spill"] = (int(m.group(1)), int(m.group(2)))
-        if m := re.search(r"Used (\d+) registers", line):
-            rec["registers"] = int(m.group(1))
-    from repro_torch.kernels import build
-    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
-    hmma, name = {}, None
-    if cuobjdump.exists():
-        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                              capture_output=True, text=True,
-                              check=True).stdout
-        for line in sass.splitlines():
-            if m := re.search(r"Function : (\S+)", line):
-                k = MMA_KERNEL.search(m.group(1))
-                name = (k.group(1), int(k.group(2))) if k else None
-                if name:
-                    hmma[name] = 0
-            elif name and ("HMMA" in line or "HGMMA" in line):
-                hmma[name] += 1
+    info = _ptxas_records(log, MMA_KERNEL)
+    hmma = _sass_tensor_core_counts(lib, MMA_KERNEL)
     for kind in ("flash", "decode"):
         for dh in (16, 32, 64, 128):
-            rec = info.get((kind, dh), {})
+            rec = info.get((kind, str(dh)), {})
             if "registers" not in rec:
                 raise AssertionError(f"build: no ptxas record of the bf16 "
                                      f"{kind} kernel at Dh {dh}")
-            n = hmma.get((kind, dh))
-            if cuobjdump.exists() and not n:
+            n = None if hmma is None else hmma.get((kind, str(dh)), 0)
+            if hmma is not None and not n:
                 raise AssertionError(f"build: the bf16 {kind} kernel at Dh "
                                      f"{dh} has no tensor-core instruction "
                                      "(HMMA, HGMMA) in its SASS")
-            st, ld = rec.get("spill", (0, 0))
-            print(f"[build] bf16 {kind}_mma_kernel Dh {dh}: "
-                  f"{rec['registers']} registers, spill stores {st} B, "
-                  f"spill loads {ld} B, "
-                  + (f"{n} HMMA/HGMMA instructions in its SASS"
-                     if n is not None
-                     else "SASS not read (no cuobjdump)"))
+            _report_mma(f"bf16 {kind}_mma_kernel Dh {dh}", rec, n)
+
+
+# the SSD scan's chunk-state and output kernels: the pass, tensor-core or
+# not, x's type (the CUDA-core output kernel's: f float32, 13__nv_bfloat16
+# bf16, for rows the tensor-core kernels do not take) and the heads a
+# block (output kernels)
+SSD_KERNEL = re.compile(r"ssd_chunk_(out|state)(_mma|)_kernel"
+                        r"(?:I(f|13__nv_bfloat16|)(?:Li(\d+)E)?)?")
+
+
+def _report_ssd_kernels(log: str, lib: Path) -> None:
+    """Registers and spills of the SSD scan's chunk-state and output
+    kernels (on the tensor cores for bf16, and on the CUDA cores in
+    float32 for float32 and for bf16 rows the first do not take) and the
+    tensor-core instructions in their SASS. Fails if one is missing or a
+    tensor-core one (every product on mma.sync) has no tensor-core
+    instruction."""
+    info = _ptxas_records(log, SSD_KERNEL)
+    hmma = _sass_tensor_core_counts(lib, SSD_KERNEL)
+    for key, label in (
+            (("state", "_mma", None, None),
+             "bf16 ssd_chunk_state_mma_kernel"),
+            (("out", "_mma", "", str(SSD_HEADS)),
+             "bf16 ssd_chunk_out_mma_kernel"),
+            (("out", "", "13__nv_bfloat16", str(SSD_HEADS)),
+             "bf16 ssd_chunk_out_kernel"),
+            (("out", "", "f", str(SSD_HEADS)),
+             "float32 ssd_chunk_out_kernel")):
+        rec = info.get(key, {})
+        if "registers" not in rec:
+            raise AssertionError(f"build: no ptxas record of the {label}")
+        n = None if hmma is None else hmma.get(key, 0)
+        if key[1] == "_mma" and hmma is not None and not n:
+            raise AssertionError(f"build: the {label} has no tensor-core "
+                                 "instruction (HMMA) in its SASS")
+        _report_mma(label + (f", {SSD_HEADS} heads a block"
+                             if key[0] == "out" else ""), rec, n)
 
 
 def phase_kernel_vs_plain(dev) -> None:
@@ -881,16 +932,27 @@ def phase_dispatch_path(dev) -> dict:
     `fleet_dispatch` example (8 sites x 8760 h, six dispatches), then
     `summarize(dispatch_cfg=)` over the dispatch benchmark's 64 sites x
     8760 h; the 64-site result is checked for feasibility and held
-    against the same call on the CPU."""
-    from repro_torch.dispatch import DispatchConfig
+    against the same call on the CPU. The inputs `dispatch` hands the
+    kernel in the example are kept (``example``) for phase 14 to time."""
+    from repro_torch.dispatch import DispatchConfig, allocate
     from repro_torch.examples import fleet_dispatch
     from repro_torch.fleet import backtest, summarize
 
     grid, problem = _dispatch_fleet(64, dev)
+    example, kernel_fn = [], allocate.dispatch_scan
+
+    def keeping(avail, rank, demand, *, min_dwell=0):
+        example.append(((avail, rank, demand), min_dwell))
+        return kernel_fn(avail, rank, demand, min_dwell=min_dwell)
+
     counters = _zero_counters()
     print("[dispatch] repro_torch.examples.fleet_dispatch on the card:")
     t0 = time.perf_counter()
-    fleet_dispatch.run(dev)
+    allocate.dispatch_scan = keeping
+    try:
+        fleet_dispatch.run(dev)
+    finally:
+        allocate.dispatch_scan = kernel_fn
     torch.cuda.synchronize()
     n_example = counters["dispatch_scan"].launches
     print(f"[dispatch] example: {time.perf_counter() - t0:.2f} s, "
@@ -926,7 +988,7 @@ def phase_dispatch_path(dev) -> dict:
           f"{d.migration_mw:.2f} MW, capacity slack "
           f"{d.slack_capacity_mw:.3f} MW; card == CPU bit for bit")
     return {"launches": launches["dispatch_scan"], "device_launches": device,
-            "problem": problem}
+            "problem": problem, "example": example}
 
 
 def phase_checkpoint(dev, grid) -> None:
@@ -1566,47 +1628,82 @@ def _host_ms(fn, runs: int) -> float:
     return statistics.median(times)
 
 
-def phase_dispatch_times(dev, flush, problem) -> dict:
+def phase_dispatch_times(dev, flush, problem, example) -> dict:
     """The dispatch kernel (device only, L2 flushed) at S x 8760 for S in
-    1, 8, 64 and 512, beside its bytes bound and the serial floor of its
-    design (T x 3S dependent float64 additions); the plain version (on the
-    CPU) at 8 and 64 sites; and one whole 64-site `dispatch` call split
-    into the host segment sort, the kernel and `summarize_alloc`."""
+    1, 8, 64 and 512, each run also held bit for bit against the plain
+    mirror of its walk (`dispatch_cut_ref`, on the host), which counts the
+    sorted positions the walk sums each hour before it stops at the demand;
+    beside its bytes bound and the serial floor of its design: the walked
+    positions times a dependent float64 addition, plus two block barriers
+    an hour above 32 sites (one warp runs the hour at 32 or fewer); the
+    floor of the design before it (T x 3S additions) for comparison; the
+    plain version (on the CPU) at 8 and 64 sites. Then the same on the
+    six instances of the `fleet_dispatch` example (``example``: the inputs
+    phase 7's counted run gave the kernel), and the counted path's kernel
+    time: those six and the 64-site instance. Last, one whole 64-site
+    `dispatch` call split into the host segment sort, the kernel and
+    `summarize_alloc`."""
     from repro_torch.dispatch import dispatch, segment_rank, summarize_alloc
     from repro_torch.kernels.dispatch_scan import dispatch_scan
+    from repro_torch.kernels.ref import dispatch_cut_ref
 
     add_ns = _f64_add_ns(dev)
     print(f"[time] dependent float64 addition on the card: {add_ns:.3f} ns")
-    out = {}
+    cases = []
     for s in (1, 8, 64, 512):
-        if s == 64:
-            prob = problem
-        else:
-            prob = _random_dispatch(s, 8760, 5.0, 4, 600 + s)
-        args = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
-                for a in (prob.avail_mw, prob.rank, prob.demand_mw)]
-        t = prob.avail_mw.shape[1]
+        prob = problem if s == 64 \
+            else _random_dispatch(s, 8760, 5.0, 4, 600 + s)
+        cases.append((s, f"{s} x {prob.avail_mw.shape[1]}",
+                      [torch.as_tensor(np.ascontiguousarray(a)) for a in
+                       (prob.avail_mw, prob.rank, prob.demand_mw)],
+                      prob.min_dwell_h))
+    for k, (args, dwell) in enumerate(example):
+        s, t = args[0].shape
+        cases.append((f"example {k}", f"{s} x {t}, fleet_dispatch "
+                      f"instance {k + 1} of {len(example)}, dwell {dwell}",
+                      [a.cpu() for a in args], dwell))
+    out = {}
+    for key, label, cpu_args, dwell in cases:
+        s, t = cpu_args[0].shape
+        args = [a.to(dev) for a in cpu_args]
 
         def kernel():
-            return dispatch_scan(*args, min_dwell=prob.min_dwell_h)
+            return dispatch_scan(*args, min_dwell=dwell)
 
+        want, walked = dispatch_cut_ref(*cpu_args, min_dwell=dwell)
+        if not torch.equal(kernel().cpu(), want):
+            raise AssertionError(f"dispatch_scan {label}: kernel differs "
+                                 "from the mirror of its walk")
         ms = _cuda_ms(kernel, runs=5, flush=flush, device_only=True)
         bound, by = _dispatch_bound(s, t)
-        serial = t * 3 * s * add_ns * 1e-6
+        threads = min(-(-s // 32) * 32, 1024)
+        bar_ns = _barrier_ns(dev, threads) if s > 32 else 0.0
+        n_bar = 2 if s > 32 else 0
+        walked_sum = int(walked.sum())
+        serial = (walked_sum * add_ns + t * n_bar * bar_ns) * 1e-6
+        old = t * 3 * s * add_ns * 1e-6
         rec = {"ms": ms, "bound_ms": bound, "bound_by": by,
-               "serial_ms": serial, "plain_ms": None}
-        if s in (8, 64):
-            cpu_args = [a.cpu() for a in args]
+               "serial_ms": serial, "plain_ms": None,
+               "walked": walked_sum / (t * 3 * s)}
+        if key in (8, 64):
             rec["plain_ms"] = _host_ms(
-                lambda: dispatch_scan(*cpu_args, min_dwell=prob.min_dwell_h),
-                runs=2)
-        out[s] = rec
-        print(f"[time] dispatch_scan {s} x {t}: kernel {ms:.4f} ms "
+                lambda: dispatch_scan(*cpu_args, min_dwell=dwell), runs=2)
+        out[key] = rec
+        print(f"[time] dispatch_scan {label}: kernel {ms:.4f} ms "
               f"({ms * 1e6 / t:.1f} ns per hour), plain "
               + (f"{rec['plain_ms']:.1f} ms" if rec["plain_ms"] else "—")
-              + f", bound {bound:.4f} ms ({by}), serial floor of the design "
-              f"{serial:.4f} ms (T x 3S x {add_ns:.3f} ns), {bound / ms:.2%} "
-              f"of the bytes bound, {serial / ms:.1%} of the serial floor")
+              + f", bound {bound:.4f} ms ({by}); the walk sums "
+              f"{walked_sum / t:.1f} of {3 * s} positions an hour "
+              f"({rec['walked']:.3f} of 3S); serial floor of the design "
+              f"{serial:.4f} ms (walked positions x {add_ns:.3f} ns"
+              + (f" + {n_bar} x {bar_ns:.2f} ns barriers an hour" if n_bar
+                 else ", one warp") + f"), {serial / ms:.1%} of it; the "
+              f"previous design's floor {old:.4f} ms (T x 3S additions); "
+              f"{bound / ms:.2%} of the bytes bound")
+    inst = [out[f"example {k}"]["ms"] for k in range(len(example))]
+    print(f"[time] dispatch_scan on the counted path: {sum(inst):.4f} ms "
+          f"on the example's {len(inst)} instances + {out[64]['ms']:.4f} ms "
+          f"at 64 sites = {sum(inst) + out[64]['ms']:.4f} ms")
 
     prices = problem.prices
     rank_ms = _host_ms(lambda: segment_rank(prices, problem.migrate_cost),
@@ -2609,7 +2706,10 @@ SSD_TOL = 1e-4        # of the output's scale (max |y|, max |h|)
 # B, S, H, P, G, N, chunk, dtype, h0: the reference's SSD_CASES
 # (tests/test_kernels.py), then mamba2-1.3b's serving shape (64 heads of P
 # 64, one group of N 128, chunk 256) at 1024 and 1000 positions (padded),
-# with x, B and C in bf16 (as the model gives them) and in float32
+# with x, B and C in bf16 (as the model gives them) and in float32; then
+# the output kernel's head sets: several heads a group with a ragged last
+# set (H 12 / G 2, H 6 / G 1), one head a group (G = H), and B and C rows
+# that take no 16-byte copies (N 20, P 24)
 SSD_SMOKE_CASES = [
     (2, 64, 4, 16, 1, 32, 16, torch.float32, False),
     (1, 128, 8, 32, 2, 16, 32, torch.float32, True),
@@ -2619,6 +2719,11 @@ SSD_SMOKE_CASES = [
     (1, 1024, 64, 64, 1, 128, 256, torch.float32, True),
     (1, 1000, 64, 64, 1, 128, 256, BF16, True),
     (1, 1000, 64, 64, 1, 128, 256, torch.float32, False),
+    (1, 512, 12, 64, 2, 128, 128, BF16, True),
+    (2, 320, 6, 32, 1, 64, 64, torch.float32, False),
+    (1, 160, 4, 16, 4, 32, 32, BF16, True),
+    (1, 160, 4, 16, 4, 32, 32, torch.float32, False),
+    (1, 96, 4, 24, 1, 20, 32, BF16, True),
 ]
 
 
@@ -2694,29 +2799,93 @@ def phase_ssd_vs_plain(dev) -> float:
     return worst
 
 
+BF16_OPS_PER_S = 989e12      # H100 SXM bf16 on the tensor cores, dense
+
+
 def _ssd_bound(b, s, h, p, g, n, l, x_bytes) -> tuple[float, float, str]:
-    """(bound ms, GFLOP, what bounds it) of one scan from zeros (no h0):
-    the products the function needs, C B^T once per group and chunk on the
-    lower triangle, the masked scores times x dt and B^T (x dt decay) for
-    each head and chunk, C h_in for each head and chunk but the first
-    (its h_in is 0), at the 67 TFLOP/s float32 peak; the bytes of x, B, C
-    (``x_bytes`` an element), dt, a, y and h_T (float32) at 3.35 TB/s."""
+    """(bound ms, GFLOP needed, what bounds it) of one scan from zeros (no
+    h0). The products the function needs: C B^T once per group and chunk
+    on the lower triangle, the masked scores times x dt and B^T (x dt
+    decay) for each head and chunk, C h_in for each head and chunk but the
+    first (its h_in is 0). With bf16 x, B and C (``x_bytes`` 2) the kernel
+    runs them all on the tensor cores, the float32 operand of the last
+    three in three bf16 parts: they count three times at the 989 TFLOP/s
+    bf16 peak, C B^T once; in float32 they count once at 67 TFLOP/s. The
+    bytes: x, B and C (``x_bytes`` an element), dt, a, y and h_T (float32)
+    at 3.35 TB/s."""
     nc = -(-s // l)
     tri = l * (l + 1) // 2
-    ops_ = 2 * b * (nc * (g * tri * n + h * tri * p + h * l * n * p)
-                    + (nc - 1) * h * l * n * p)
+    ops_cb = 2 * b * nc * g * tri * n
+    ops_f32 = 2 * b * (nc * (h * tri * p + h * l * n * p)
+                       + (nc - 1) * h * l * n * p)
     bytes_ = (x_bytes * (b * s * h * p + 2 * b * s * g * n)
               + 4 * (b * s * h + h + b * s * h * p + b * h * p * n))
-    t_o, t_b = ops_ / FP32_OPS_PER_S, bytes_ / HBM_BYTES_PER_S
-    return max(t_o, t_b) * 1e3, ops_ / 1e9, \
+    if x_bytes == 2:
+        t_o = (ops_cb + 3 * ops_f32) / BF16_OPS_PER_S
+    else:
+        t_o = (ops_cb + ops_f32) / FP32_OPS_PER_S
+    t_b = bytes_ / HBM_BYTES_PER_S
+    return max(t_o, t_b) * 1e3, (ops_cb + ops_f32) / 1e9, \
         "operations" if t_o >= t_b else "bytes"
+
+
+def _ssd_issued(b, s, h, p, g, n, l, hs, has_h0) -> float:
+    """GFLOP the bf16 kernel issues on the tensor cores for one scan
+    (`csrc/ssd_scan.cu`, mma.sync m16n8k16), counted from its tiling: pass
+    1 per (b, h, chunk, 64 columns of P) over rows of N in 16s and the
+    chunk's positions in 64s, three parts; pass 3 per row tile and set of
+    ``hs`` heads, S_j = C_i B_j^T once per key tile j <= i (N in 64s),
+    then for each head C_i h_in (N in 16s; not in chunk 0 without h0) and
+    the scores times x (64 keys a key tile; on the diagonal tile warp w's
+    16 rows against keys below 16 w + 16), three parts each."""
+    nc, t = -(-s // l), 64
+    tp, ti = -(-p // t), -(-l // t)
+    n16, n64 = -(-n // 16) * 16, -(-n // t) * t
+    sets = -(-(h // g) // hs)
+    flop = b * h * nc * tp * 2 * n16 * (-(-l // t) * t) * t * 3   # pass 1
+    diag = sum(2 * 16 * t * 16 * (w + 1) for w in range(4)) * 3
+    for it in range(ti):
+        for j in range(it + 1):
+            flop += b * nc * g * sets * tp * 2 * t * t * n64
+            flop += b * nc * h * tp * (2 * t * t * t * 3 if j < it else diag)
+        flop += b * (nc - (0 if has_h0 else 1)) * h * tp * 2 * t * t * n16 * 3
+    return flop / 1e9
+
+
+def _pass_times_us(fn, flush: torch.Tensor, runs: int = 10) -> dict:
+    """Device time per call (us) of each kernel ``fn`` puts on the card, by
+    kernel name, from `torch.profiler` (CUPTI) over ``runs`` calls, each
+    after ``flush`` is overwritten (L2 flushed, as `_cuda_ms` times it;
+    the flush's own kernel is among the names)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / runs
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+SSD_PASSES = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")
+
+
+SSD_HEADS = 2     # heads a block of the output kernel (kHeads)
 
 
 def phase_ssd_times(dev, flush) -> dict:
     """Device-only times (CUDA events, L2 flushed) of kernel 10 at the
     serving shape (one layer's 1024-token prefill: 64 heads of P 64, N 128,
     chunk 256, bf16 x/B/C as the model gives them) and at 2048 positions,
-    beside its plain version on the card and its bound. No single PyTorch
+    beside its plain version on the card, its bound and the work it
+    issues; each pass's device time under the profiler. No single PyTorch
     call computes this scan, so there is no library time."""
     from repro_torch.kernels.ref import ssd_scan_plain
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -2727,13 +2896,24 @@ def phase_ssd_times(dev, flush) -> dict:
                                        1200 + s)
         ms = _cuda_ms(lambda: ssd_scan(x, dt, a, bb, cc, 256), flush=flush,
                       device_only=True)
+        passes = _pass_times_us(lambda: ssd_scan(x, dt, a, bb, cc, 256),
+                                flush)
+        by_pass = {name: sum(us for k, us in passes.items() if name in k)
+                   for name in SSD_PASSES}
         plain = _cuda_ms(lambda: ssd_scan_plain(x, dt, a, bb, cc, 256),
                          runs=3)
         bound, gflop, by = _ssd_bound(1, s, 64, 64, 1, 128, 256, 2)
+        issued = _ssd_issued(1, s, 64, 64, 1, 128, 256, SSD_HEADS, False)
         print(f"[time] ssd_scan S={s}, 64 heads of P 64, N 128, chunk 256, "
-              f"bf16: kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
-              f"{bound:.5f} ms ({by}; {gflop:.2f} GFLOP), {bound / ms:.1%} "
-              f"of bound, {gflop / ms:.2f} TFLOP/s")
+              f"bf16: kernel {ms:.4f} ms, passes under the profiler (L2 "
+              "flushed) "
+              + ", ".join(f"{k} {v:.1f} us" for k, v in by_pass.items())
+              + f"; plain {plain:.3f} ms, bound {bound:.5f} ms ({by}; "
+              f"{gflop:.2f} GFLOP needed, counted three times at the bf16 "
+              f"peak but C B^T), {bound / ms:.1%} of bound, "
+              f"{gflop / ms:.2f} TFLOP/s of needed work; issued "
+              f"{issued:.2f} GFLOP on the tensor cores "
+              f"({issued / ms:.1f} TFLOP/s)")
         recs[s] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
                    "bound_by": by, "library_ms": None}
     return recs
@@ -2784,7 +2964,8 @@ def main() -> int:
     fleet_rec, flush = phase_times(dev, main_run)
     soft_times = phase_soft_times(dev, flush)
     phase_tune_times(dev, tune["grid"])
-    disp_times = phase_dispatch_times(dev, flush, disp["problem"])[64]
+    disp_times = phase_dispatch_times(dev, flush, disp["problem"],
+                                      disp["example"])[64]
     sd_times = phase_soft_dispatch_times(dev, flush, to_hard)
     torch.cuda.synchronize()
     phase_aware_step_times(dev, aware["grid"])

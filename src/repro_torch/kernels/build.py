@@ -2,9 +2,10 @@
 
 Each kernel source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface and loaded with `ctypes`.
-The build happens on first use and is keyed by a hash of the source and
-the flags, so a changed source is rebuilt and an unchanged one is loaded
-from ``build/repro_torch_kernels/`` at the root of the checkout.
+The build happens on first use and is keyed by a hash of the source, the
+``csrc/`` headers it includes and the flags, so a changed source or
+header is rebuilt and an unchanged one is loaded from
+``build/repro_torch_kernels/`` at the root of the checkout.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -30,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCE_FLAGS = {"soft_dispatch": ("-fmad=false",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}   # one CDLL per library per process
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 
 def nvcc_path() -> str:
@@ -43,13 +46,29 @@ def nvcc_path() -> str:
 
 
 def flags(name: str) -> tuple:
-    """nvcc's flags for ``csrc/<name>.cu``."""
-    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+    """nvcc's flags for ``csrc/<name>.cu`` (``csrc/`` on the include path,
+    so that a copy of a source built elsewhere finds its headers)."""
+    return NVCC_FLAGS + ("-I", str(CSRC)) + SOURCE_FLAGS.get(name, ())
+
+
+def _source_bytes(path: Path, seen: set) -> bytes:
+    """The file's bytes followed by those of each ``csrc/`` header it
+    includes with quotes, recursively, each once."""
+    text = path.read_bytes()
+    out = [text]
+    for inc in _LOCAL_INCLUDE.findall(text):
+        header = CSRC / inc.decode()
+        if header not in seen:
+            seen.add(header)
+            out.append(_source_bytes(header, seen))
+    return b"".join(out)
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
+    src = _source_bytes(CSRC / f"{name}.cu", set())
+    # the flags without the include path, which names this checkout
+    key_flags = NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+    key = hashlib.sha256(src + " ".join(key_flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 
 

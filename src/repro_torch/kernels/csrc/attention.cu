@@ -149,6 +149,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "mma.cuh"
+
 namespace {
 
 // Kernels this library has launched in this process, counted on the host
@@ -216,70 +218,8 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
   }
 }
 
-// ---- the bf16 kernels' building blocks: cp.async, ldmatrix, mma.sync --
-
-// Shared row pitch of a bf16 tile of width DH for ldmatrix: rows of a
-// multiple of 16 bytes plus 16 bytes, so that the eight 16-byte rows one
-// ldmatrix phase reads start in eight distinct groups of four banks.
-template <int DH>
-__host__ __device__ constexpr int mma_pitch() {
-  return DH + 8;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory (address dst), bypassing
-// registers and L1; with full = false the 16 bytes are zero-filled and
-// nothing is read.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Waits until at most N of this thread's commit groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_u32(p)));
-}
-
-// d += a b on the tensor cores: a 16 x 16 (row), b 16 x 8 (col), bf16;
-// d 16 x 8 float32. Thread l of the warp holds d rows l/4 and l/4 + 8,
-// columns 2 (l%4) and 2 (l%4) + 1: d[0..1] and d[2..3].
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// ---- the bf16 kernels' building blocks (cp.async, ldmatrix, mma.sync)
+// are in mma.cuh ----
 
 // 2^x by the special function unit (MUFU.EX2), denormal results flushed
 // to 0: exp(s - m) of the softmax as 2^((s - m) log2(e)), the same p up to

@@ -308,6 +308,88 @@ def dispatch_alloc_hour(prev: torch.Tensor, dwell: torch.Tensor,
     return alloc, dwell
 
 
+WALK_STEP = 8   # sorted positions the kernel's walk sums between tests
+
+
+def dispatch_alloc_hour_cut(prev: torch.Tensor, dwell: torch.Tensor,
+                            avail: torch.Tensor, rank: torch.Tensor, demand,
+                            *, min_dwell: int
+                            ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """`dispatch_alloc_hour` as the CUDA kernel takes it since its walk
+    stops at the demand (used by the tests and to count the walk).
+
+    When every width is >= 0, the exclusive prefix over the sorted widths
+    never decreases, and neither does its float32 rounding; so once the
+    float64 prefix reaches the demand (and with it its rounding, the
+    demand being a float32), every later segment fills ``min(max(demand
+    - pre, 0), w) = 0``. The kernel's thread 0 sums the prefix in steps of
+    `WALK_STEP` positions (sequentially in float64, as here) and tests the
+    sum at the end of each step: it stops at the end of the first step
+    whose sum reaches the demand (the cut). The fill takes +inf for the
+    prefix at ranks at or past the cut, which gives the same 0 through the
+    same operations; below the cut it reads the prefix, rounded once to
+    float32. An hour with a negative (or NaN) width, or whose demand no
+    step reaches before the last, has its cut at 3S: the walk goes to the
+    end. The prefix is summed here over all positions; below the cut its
+    values are the walk's.
+
+    Arguments as `dispatch_alloc_hour`. Returns ``(alloc [S], dwell' [S],
+    cut)``: the cut is the number of sorted positions the walk sums.
+    """
+    s = prev.shape[0]
+    n3 = 3 * s
+    held = torch.minimum(prev, avail)
+    if min_dwell > 0:
+        locked = torch.where(dwell > 0.0, held, torch.zeros_like(held))
+    else:
+        locked = torch.zeros_like(held)
+    widths = torch.cat([locked, held - locked, avail - held])
+    sw = torch.empty_like(widths)
+    sw[rank] = widths
+    incl = torch.cumsum(sw.double(), 0)
+    excl = torch.cat([incl.new_zeros(1), incl[:-1]]).to(torch.float32)
+    cut = n3
+    if bool((widths >= 0.0).all()):
+        # the ends of the steps that leave more to walk
+        ends = torch.arange(WALK_STEP - 1, max(n3 - 1, WALK_STEP - 1),
+                            WALK_STEP)
+        hit = torch.nonzero(incl[ends] >= torch.as_tensor(demand).double())
+        if hit.numel():
+            cut = int(ends[hit[0, 0]]) + 1
+    before = torch.where(rank < cut, excl[rank],
+                         torch.tensor(float("inf"), dtype=torch.float32))
+    fill = torch.minimum(torch.clamp(demand - before, min=0.0), widths)
+    alloc = (fill[:s] + fill[s:2 * s]) + fill[2 * s:]
+    if min_dwell > 0:
+        margin = prev + torch.tensor(DWELL_EVENT_MW, dtype=torch.float32)
+        dwell = torch.where(alloc > margin,
+                            torch.full_like(dwell, float(min_dwell)),
+                            torch.clamp(dwell - 1.0, min=0.0))
+    return alloc, dwell, cut
+
+
+def dispatch_cut_ref(avail: torch.Tensor, rank: torch.Tensor,
+                     demand: torch.Tensor, *, min_dwell: int = 0
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`dispatch_ref` through `dispatch_alloc_hour_cut`: the allocation
+    [S, T] and the sorted positions the kernel's walk sums each hour [T]
+    (int64), both on the CPU."""
+    a = avail.to("cpu", torch.float32)
+    r = rank.to("cpu", torch.int64)
+    d = demand.to("cpu", torch.float32)
+    s, t = a.shape
+    a_t = a.T.contiguous()
+    prev = torch.zeros(s, dtype=torch.float32)
+    dwell = torch.zeros(s, dtype=torch.float32)
+    out = torch.empty((t, s), dtype=torch.float32)
+    walked = torch.empty(t, dtype=torch.int64)
+    for h in range(t):
+        prev, dwell, walked[h] = dispatch_alloc_hour_cut(
+            prev, dwell, a_t[h], r[h], d[h], min_dwell=min_dwell)
+        out[h] = prev
+    return out.T.contiguous(), walked
+
+
 def dispatch_ref(avail: torch.Tensor, rank: torch.Tensor,
                  demand: torch.Tensor, *, min_dwell: int = 0
                  ) -> torch.Tensor:

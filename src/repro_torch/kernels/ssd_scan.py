@@ -8,7 +8,10 @@ two run the same three passes (chunk states, the sequential state pass,
 chunk outputs) with the same casts and the state in the same [B,H,P,N]
 layout, so they differ only in the order of float32 sums. There is no
 fallback: on a CUDA tensor the kernel is built, launched and checked, or
-the call raises. The kernel is forward only. ``ssd_scan.launches`` counts
+the call raises. With bf16 x, B and C every product of the kernel runs on
+the tensor cores, a float32 operand in three bf16 parts (float32
+accuracy); float32 inputs run on the CUDA cores. The kernel is forward
+only. ``ssd_scan.launches`` counts
 the wrapper's calls that launch, ``ssd_scan.device_launches`` the kernels
 they put on the card (three a call, one for each pass).
 """
@@ -90,7 +93,7 @@ def _launch(x, dt, a, b, c, chunk: int, h0
     y = torch.empty((bsz, s, nh, p), dtype=torch.float32, device=dev)
     h_last = torch.empty((bsz, nh, p, n), dtype=torch.float32, device=dev)
     cum = torch.empty((bsz, nh, s), dtype=torch.float32, device=dev)
-    st = torch.empty((bsz, nh, s // chunk, p, n), dtype=torch.float32,
+    st = torch.empty((bsz, nh, s // chunk, n, p), dtype=torch.float32,
                      device=dev)
     h0c = None if h0 is None else h0.to(torch.float32).contiguous()
     strides = [st_ for t in (x, dt, b, c) for st_ in t.stride()[:3]]

@@ -65,6 +65,7 @@ from repro.kernels.ref import dispatch_alloc_hour as jax_alloc_hour  # noqa: E40
 from repro.kernels.ref import dispatch_ref as jax_dispatch_ref  # noqa: E402
 from repro.tune.objective import PhysicalPolicy as JaxPhysicalPolicy  # noqa: E402
 from repro.tune.optimizer import _dispatch_reeval as jax_dispatch_reeval  # noqa: E402
+from _dispatch_cases import cut_case  # noqa: E402
 from repro_torch.core.tco import make_system  # noqa: E402
 from repro_torch.dispatch import (DispatchConfig,  # noqa: E402
                                   DispatchInfeasible, DispatchProblem,
@@ -77,7 +78,9 @@ from repro_torch.fleet import (backtest, build_grid,  # noqa: E402
                                grid_from_numpy, summarize)
 from repro_torch.fleet.grid import TENSOR_FIELDS  # noqa: E402
 from repro_torch.kernels.dispatch_scan import dispatch_scan  # noqa: E402
-from repro_torch.kernels.ref import dispatch_alloc_hour, dispatch_ref  # noqa: E402
+from repro_torch.kernels.ref import (dispatch_alloc_hour,  # noqa: E402
+                                     dispatch_alloc_hour_cut,
+                                     dispatch_cut_ref, dispatch_ref)
 from repro_torch.tune import PhysicalPolicy, TuneConfig, optimize  # noqa: E402
 from repro_torch.tune.optimizer import (_dispatch_reeval,  # noqa: E402
                                         cell_best_rows)
@@ -553,6 +556,66 @@ def test_optimize_rescoring_meets_demand(small_fleet):
     assert res.dispatch["tuned"].n_shed_hours > 0
     assert res.dispatch["infeasible_tuned"] is None
     assert np.isfinite(res.dispatch["cpc_tuned"])
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's walk, which stops at the demand: its plain mirror
+# (`dispatch_alloc_hour_cut`) held bit for bit against the plain hour
+# ---------------------------------------------------------------------------
+
+
+CUT_CASES = [("plain", 1, 64, 5.0, 0), ("plain", 7, 300, 5.0, 4),
+             ("plain", 64, 120, 5.0, 4), ("plain", 33, 150, 0.0, 0),
+             ("zero demand", 16, 120, 5.0, 4), ("above total", 16, 120, 5.0, 4),
+             ("ties", 12, 150, 0.0, 3), ("negative avail", 9, 150, 5.0, 2)]
+
+
+@pytest.mark.parametrize("case", CUT_CASES)
+def test_cut_walk_equals_plain_hour(case):
+    kind, s, t, mc, dwell = case
+    avail, rank, demand = cut_case(kind, s, t, mc, seed=s * 100 + t)
+    prev = dwell_a = torch.zeros(s)
+    n3 = 3 * s
+    cuts = []
+    for h in range(t):
+        args = (_t(avail[:, h]), _t(rank[h]).long(), _t(demand[h]))
+        a, d, cut = dispatch_alloc_hour_cut(prev, dwell_a, *args,
+                                            min_dwell=dwell)
+        prev, dwell_a = dispatch_alloc_hour(prev, dwell_a, *args,
+                                            min_dwell=dwell)
+        assert torch.equal(a, prev) and torch.equal(d, dwell_a), (kind, h)
+        assert cut == n3 or cut % 8 == 0
+        negative = bool((avail[:, h] < 0).any())
+        if negative or demand[h] > avail[:, h].astype(np.float64).sum():
+            assert cut == n3, h          # a negative width, or a short fill
+        elif demand[h] <= 0:             # the first run's sum reaches it
+            assert cut == min(8, n3), h
+        cuts.append(cut)
+    if kind in ("plain", "ties") and s > 1:
+        assert np.mean(cuts) < n3 - 1    # the walk does stop early
+    got, walked = dispatch_cut_ref(_t(avail), _t(rank), _t(demand),
+                                   min_dwell=dwell)
+    assert torch.equal(got, dispatch_ref(_t(avail), _t(rank), _t(demand),
+                                         min_dwell=dwell))
+    assert walked.tolist() == cuts
+
+
+def test_cut_walk_under_relief_equals_dispatch():
+    """A relieved problem (demand above availability and a power cap)
+    through `dispatch` equals the mirror on the kernel's inputs."""
+    avail, rank, demand = cut_case("above total", 16, 200, 5.0, seed=11)
+    prices = np.random.default_rng(11).normal(80, 40, avail.shape) \
+        .astype(np.float32)
+    rank = segment_rank(prices, 5.0)[1]
+    cap = float(0.8 * avail.sum(axis=0).max())
+    prob = _problem("port", prices, avail, demand, 5.0, 4, power_cap=cap,
+                    relief=Relief())
+    res = dispatch(prob, device=CPU)
+    assert res.n_shed_hours > 0
+    got, _ = dispatch_cut_ref(_t(avail), _t(rank),
+                              _t(np.minimum(demand, cap).astype(np.float32)),
+                              min_dwell=4)
+    np.testing.assert_array_equal(got.numpy(), res.alloc_mw)
 
 
 # ---------------------------------------------------------------------------

@@ -52,6 +52,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _dispatch_cases import cut_case  # noqa: E402
 from repro_torch.core.tco import make_system  # noqa: E402
 from repro_torch.dispatch import (DispatchConfig, segment_keys,  # noqa: E402
                                   segment_rank)
@@ -215,17 +216,36 @@ def test_optimize_on_the_card_matches_the_cpu(cuda):
     assert np.all(gpu.cpc <= gpu.cpc_swept_best * (1 + 1e-6))
 
 
+# 2500-4400 sites: 3-5 sites a thread (the 4- and 8-site instantiations),
+# one buffer of one hour (two at 3100), the walk's widths and prefix in
+# float32 storage above ~3030 sites
 @pytest.mark.parametrize("case", [(1, 64, 0.0, 0), (5, 333, 5.0, 0),
                                   (16, 500, 5.0, 6), (64, 200, 0.0, 3),
-                                  (512, 300, 5.0, 4)])
+                                  (512, 300, 5.0, 4),
+                                  ("zero demand", 16, 500, 5.0, 4),
+                                  ("above total", 40, 500, 5.0, 4),
+                                  ("ties", 12, 500, 0.0, 3),
+                                  ("negative avail", 9, 500, 5.0, 2),
+                                  ("negative avail", 70, 300, 5.0, 2),
+                                  ("plain", 8, 8760, 5.0, 4),
+                                  ("plain", 1100, 60, 5.0, 4),
+                                  ("plain", 2500, 48, 5.0, 4),
+                                  ("plain", 3100, 48, 5.0, 4),
+                                  ("plain", 3500, 48, 5.0, 4),
+                                  ("plain", 4400, 48, 5.0, 4),
+                                  ("negative avail", 3500, 48, 5.0, 2)])
 def test_dispatch_kernel_matches_plain_version(cuda, case):
-    s, t, mc, dwell = case
-    rng = np.random.default_rng(s + t)
-    prices = rng.normal(80, 40, (s, t)).astype(np.float32)
-    avail = rng.uniform(0.0, 400.0 / s, (s, t)).astype(np.float32)
-    demand = (rng.uniform(0.3, 1.05, t) * avail.sum(axis=0)) \
-        .astype(np.float32)
-    rank = segment_rank(prices, mc)[1]
+    if isinstance(case[0], str):
+        kind, s, t, mc, dwell = case
+        avail, rank, demand = cut_case(kind, s, t, mc, seed=s + t)
+    else:
+        s, t, mc, dwell = case
+        rng = np.random.default_rng(s + t)
+        prices = rng.normal(80, 40, (s, t)).astype(np.float32)
+        avail = rng.uniform(0.0, 400.0 / s, (s, t)).astype(np.float32)
+        demand = (rng.uniform(0.3, 1.05, t) * avail.sum(axis=0)) \
+            .astype(np.float32)
+        rank = segment_rank(prices, mc)[1]
     args = [torch.as_tensor(a) for a in (avail, rank, demand)]
     want = dispatch_ref(*args, min_dwell=dwell)
     before = dispatch_scan.launches
@@ -237,6 +257,24 @@ def test_dispatch_kernel_matches_plain_version(cuda, case):
                       args[2].to(cuda))
     with pytest.raises(ValueError, match="CUDA tensors launch the kernel"):
         dispatch_scan(*(a.to(cuda) for a in args), use_kernel=False)
+
+
+def test_dispatch_under_relief_on_the_card_matches_the_cpu(cuda):
+    """Demand above availability and a power cap, relieved: `dispatch` on
+    the card (the kernel) equals the CPU (the plain version)."""
+    from repro_torch.dispatch import DispatchProblem, Relief, dispatch
+    avail, rank, demand = cut_case("above total", 16, 600, 5.0, seed=12)
+    prices = np.random.default_rng(12).normal(80, 40, avail.shape) \
+        .astype(np.float32)
+    prob = DispatchProblem(
+        prices=prices, avail_mw=avail, demand_mw=demand,
+        power_cap_mw=float(0.8 * avail.sum(axis=0).max()), migrate_cost=5.0,
+        min_dwell_h=4, compute_floor_mwh=0.0, fixed_cost=1e3, order=None,
+        rank=segment_rank(prices, 5.0)[1], relief=Relief())
+    gpu, cpu = dispatch(prob, device=cuda), dispatch(prob, device="cpu")
+    assert cpu.n_shed_hours > 0
+    np.testing.assert_array_equal(gpu.alloc_mw, cpu.alloc_mw)
+    assert gpu.n_shed_hours == cpu.n_shed_hours
 
 
 def test_summarize_dispatch_on_the_card_matches_the_cpu(cuda):
@@ -703,14 +741,35 @@ def _scale_close(got, want, what):
 
 # B, S, H, P, G, N, chunk, dtype, with h0: the reference's SSD_CASES, then
 # mamba2-1.3b's serving shape (64 heads of P 64, N 128, chunk 256) at a
-# ragged length in bf16 with h0
-@pytest.mark.parametrize("case", [
+# ragged length in bf16 with h0; then the kernel's head sets of 2: several
+# heads a group (H 12 / G 2, H 6 / G 1), 3 a group with a ragged last set
+# (H 6 / G 2), one head a group (G = H, the set's second group idle), B and
+# C rows that take no 16-byte copies (N 20, P 24), a partial second slab
+# of N (N 96, P 24) and N past the tensor-core passes' 128 (N 136), a chunk
+# that is not a multiple of the 64-row tile, and the serving shape in bf16
+# and float32 with and without h0
+SSD_GPU_CASES = [
     (2, 64, 4, 16, 1, 32, 16, torch.float32, False),
     (1, 128, 8, 32, 2, 16, 32, torch.float32, True),
     (2, 96, 4, 64, 1, 128, 48, torch.float32, False),
     (1, 64, 2, 8, 1, 8, 64, torch.float32, True),
-    (1, 1000, 64, 64, 1, 128, 256, torch.bfloat16, True)])
-def test_ssd_kernel_matches_plain_version(cuda, case):
+    (1, 1000, 64, 64, 1, 128, 256, torch.bfloat16, True),
+    (1, 512, 12, 64, 2, 128, 128, torch.bfloat16, True),
+    (2, 320, 6, 32, 1, 64, 64, torch.float32, False),
+    (1, 384, 6, 64, 1, 128, 128, torch.bfloat16, False),
+    (1, 256, 6, 64, 2, 128, 64, torch.bfloat16, True),
+    (1, 160, 4, 16, 4, 32, 32, torch.bfloat16, True),
+    (1, 160, 4, 16, 4, 32, 32, torch.float32, False),
+    (1, 96, 4, 24, 1, 20, 32, torch.bfloat16, True),
+    (1, 192, 4, 24, 1, 96, 64, torch.bfloat16, True),
+    (1, 128, 4, 32, 1, 136, 64, torch.bfloat16, True),
+    (2, 96, 4, 64, 1, 128, 48, torch.bfloat16, False),
+    (1, 1024, 64, 64, 1, 128, 256, torch.bfloat16, False),
+    (1, 1024, 64, 64, 1, 128, 256, torch.float32, True),
+    (1, 1024, 64, 64, 1, 128, 256, torch.float32, False)]
+
+
+def _hold_ssd(cuda, case):
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ssd_scan_plain
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -726,6 +785,28 @@ def test_ssd_kernel_matches_plain_version(cuda, case):
     assert bool(torch.isfinite(y).all())
     _scale_close(y, wy, "y")
     _scale_close(hl, wh, "h_last")
+
+
+@pytest.mark.parametrize("case", SSD_GPU_CASES)
+def test_ssd_kernel_matches_plain_version(cuda, case):
+    _hold_ssd(cuda, case)
+
+
+def test_ssd_kernel_is_one_wrapper_call_a_scan(cuda):
+    """A scan is one counted wrapper call and three kernels on the card
+    (chunk states, state pass, outputs), whatever the head sets."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    x, dt, a, bb, cc = _ssd_inputs(1, 512, 12, 64, 2, 128, torch.bfloat16,
+                                   cuda)
+    calls, dev = ssd_scan.launches, ssd_scan.device_launches
+    lib0 = build.kernels_launched("ssd_scan")
+    for _ in range(3):
+        ssd_scan(x, dt, a, bb, cc, 128)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == calls + 3
+    assert ssd_scan.device_launches == dev + 9
+    assert build.kernels_launched("ssd_scan") == lib0 + 9
 
 
 def test_ssd_kernel_refuses_what_it_does_not_take(cuda):

@@ -137,3 +137,43 @@ def test_build_key_follows_the_source():
     assert path == build.library_path("fleet_scan")
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("libfleet_scan-") and path.suffix == ".so"
+
+
+def test_build_key_follows_the_included_headers(monkeypatch, tmp_path):
+    """A changed csrc/ header rebuilds every source that includes it (and
+    only those); the key does not name the checkout's path."""
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\n// a\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "k.cu").write_text('  #include "a.cuh"\n#include <x.h>\n')
+    (tmp_path / "plain.cu").write_text("// no header\n")
+    keys = [build.library_path("k"), build.library_path("plain")]
+    (tmp_path / "b.cuh").write_text("// b, changed\n")
+    changed = build.library_path("k")
+    assert changed != keys[0]
+    assert build.library_path("plain") == keys[1]
+    assert str(tmp_path) in build.flags("k")
+    (tmp_path / "elsewhere").mkdir()
+    for f in ("a.cuh", "b.cuh", "k.cu"):
+        (tmp_path / "elsewhere" / f).write_bytes((tmp_path / f).read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path / "elsewhere")
+    assert build.library_path("k") == changed
+
+
+def test_scan_probe_variants_match_the_sources():
+    """Every text substitution of `scan_probe.py` (each a variant of the
+    SSD or dispatch kernel it times on the card) matches the sources."""
+    import importlib.util
+    root = build.CSRC.parents[3]
+    spec = importlib.util.spec_from_file_location("scan_probe",
+                                                  root / "scan_probe.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    ssd = (build.CSRC / "ssd_scan.cu").read_text()
+    disp = (build.CSRC / "dispatch_scan.cu").read_text()
+    todo = probe.variants(ssd, disp)
+    assert todo["ssd as built"] == ("ssd_scan", ssd)
+    assert todo["dispatch as built"] == ("dispatch_scan", disp)
+    changed = [name for name, (lib, text) in todo.items()
+               if text != (ssd if lib == "ssd_scan" else disp)]
+    assert len(changed) == len(todo) - 2
