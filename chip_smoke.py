@@ -467,8 +467,15 @@ def phase_kernel_vs_plain(dev) -> None:
               f"plain-f64: " + ", ".join(errs))
 
 
+# (B, T, block_t): the tuner's 256 x 2190 (one window of 256 x 9 hours)
+# and the backtest's 1024 x 8760 (three of 256 x 12); rows that cross
+# windows and end ragged, block_t 1, 48 and 100 (windows that start inside
+# a block: the backward sweeps from its carry) and block_t >= T (one
+# window; or, at 6000 h, two windows inside one block)
 SOFT_SHAPES = [(1, 64, 64), (5, 333, 64), (130, 1000, 256),
-               (256, 2190, 256), (64, 4097, 256), (1024, 8760, 256)]
+               (256, 2190, 256), (64, 4097, 256), (1024, 8760, 256),
+               (3, 5000, 100), (2, 8761, 48), (1, 31, 256), (4, 700, 1),
+               (2, 6000, 8192)]
 SOFT_TAU = 3.0       # mid-anneal: gates neither flat nor saturated
 
 
@@ -490,7 +497,13 @@ def phase_soft_vs_plain(dev) -> dict:
     1e-5; d_p within rtol 2e-5 + atol 1e-5 max|d_p|; the sums d_p_on,
     d_p_off and d_tau within rtol 2e-5 of their float64 values. The max
     |err| of the plain float32 run is printed beside the kernel's, and
-    |d_tau| beside its tolerance."""
+    |d_tau| beside its tolerance. Each kernel also equals, bit for bit,
+    its segmented mirror (`ref.soft_scan_fwd_seg_ref` / `_bwd_seg_ref`,
+    the kernel's windows, maps, scans and sums in plain PyTorch) run on the
+    card, and a second launch equals the first; each call puts one kernel
+    on the card."""
+    from repro_torch.kernels.ref import (soft_scan_bwd_seg_ref,
+                                         soft_scan_fwd_seg_ref)
     from repro_torch.kernels.soft_scan_vjp import (soft_scan_bwd,
                                                    soft_scan_fwd)
 
@@ -498,6 +511,7 @@ def phase_soft_vs_plain(dev) -> dict:
     for i, (b, t, bt) in enumerate(SOFT_SHAPES):
         p, p_on, p_off, itau, g = _soft_inputs(b, t, 200 + i, dev)
         f64 = [x.double() for x in (p, p_on, p_off, itau)]
+        n0 = (soft_scan_fwd.device_launches, soft_scan_bwd.device_launches)
         s, carr = soft_scan_fwd(p, p_on, p_off, itau, block_t=bt,
                                 use_kernel=True)
         s32, c32 = soft_scan_fwd(p, p_on, p_off, itau, block_t=bt,
@@ -505,6 +519,16 @@ def phase_soft_vs_plain(dev) -> dict:
         s64, c64 = soft_scan_fwd(*f64, block_t=bt, use_kernel=False)
         got = soft_scan_bwd(p, p_on, p_off, itau, carr, g, block_t=bt,
                             use_kernel=True)
+        if (soft_scan_fwd.device_launches - n0[0],
+                soft_scan_bwd.device_launches - n0[1]) != (1, 1):
+            raise AssertionError(f"soft_scan {b}x{t}/{bt}: a call put "
+                                 "other than one kernel on the card")
+        mirror = (*soft_scan_fwd_seg_ref(p, p_on, p_off, itau, bt),
+                  *soft_scan_bwd_seg_ref(p, p_on, p_off, itau, carr, g, bt))
+        again = (*soft_scan_fwd(p, p_on, p_off, itau, block_t=bt,
+                                use_kernel=True),
+                 *soft_scan_bwd(p, p_on, p_off, itau, carr, g, block_t=bt,
+                                use_kernel=True))
         plain = soft_scan_bwd(p, p_on, p_off, itau, c32, g, block_t=bt,
                               use_kernel=False)
         exact = soft_scan_bwd(*f64, c64, g.double(), block_t=bt,
@@ -543,7 +567,19 @@ def phase_soft_vs_plain(dev) -> dict:
         print(f"[kernel] {lab}: max |err| kernel/plain-f32 vs plain-f64: "
               + ", ".join(f"{k} {a:.3g}/{b_:.3g}"
                           for k, (a, b_) in errs.items()))
-        out[(b, t)] = errs
+        names = ("s", "carries", "d_p", "d_p_on", "d_p_off", "d_inv_tau")
+        kernel = (s, carr, *got)
+        for name, x, m, y in zip(names, kernel, mirror, again):
+            if not torch.equal(x, m):
+                raise AssertionError(
+                    f"{lab} {name}: the kernel differs from its segmented "
+                    f"mirror on the card by up to "
+                    f"{float((x.double() - m.double()).abs().max()):.3g}")
+            if not torch.equal(x, y):
+                raise AssertionError(f"{lab} {name}: two launches differ")
+        print(f"[kernel] {lab}: equal to the segmented mirror on the card "
+              f"and to a second launch, bit for bit; one kernel a call")
+        out[(b, t, bt)] = errs
     return out
 
 
@@ -804,6 +840,9 @@ def phase_tuner(dev) -> dict:
         if launches[k] < cfg.steps:
             raise AssertionError(f"the tuner launched {k} {launches[k]} "
                                  f"times in {cfg.steps} steps")
+        if device[k] != launches[k]:
+            raise AssertionError(f"{k}: {launches[k]} calls put {device[k]} "
+                                 "kernels on the card, not one each")
     if launches["fleet_scan"] < 1:
         raise AssertionError("the hard re-evaluations never launched "
                              "fleet_scan")
@@ -1952,7 +1991,7 @@ def _soft_records(errs: dict, times: dict, launches: dict) -> list[dict]:
     """The soft-scan kernels' entries of the ``kernels`` line, at the
     tuner's shape (256 x 2190; the backward as the tuner runs it, without
     d_p)."""
-    e, t = errs[(256, 2190)], times[(256, 2190)]
+    e, t = errs[(256, 2190, 256)], times[(256, 2190)]
     src = "src/repro_torch/kernels/csrc/soft_scan.cu"
     recs = []
     for name, line, key, err in (

@@ -27,9 +27,11 @@ BUILD_DIR = (_HERE.parents[2] / "build" / "repro_torch_kernels"
              if _HERE.parents[1].name == "src" else _HERE / "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# flags of one source only: the soft-dispatch kernels round every float32
-# operation as their plain version does, with no fused multiply-add
-SOURCE_FLAGS = {"soft_dispatch": ("-fmad=false",)}
+# flags of one source only: the soft-dispatch and soft-scan kernels round
+# every float32 (and float64) operation as their plain versions (and the
+# soft scan's segmented mirrors) do, with no fused multiply-add
+SOURCE_FLAGS = {"soft_dispatch": ("-fmad=false",),
+                "soft_scan": ("-fmad=false",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}   # one CDLL per library per process
 _LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)

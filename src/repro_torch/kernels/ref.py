@@ -248,6 +248,190 @@ def soft_scan_bwd_ref(p: torch.Tensor, p_on: torch.Tensor,
     return torch.cat(d_p, dim=1), acc[0], acc[1], torch.sum(acc[2])
 
 
+SOFT_SCAN_THREADS = 256   # the soft-scan kernels' threads a row (NT)
+SOFT_SCAN_MAX_SEG = 12    # the most hours a thread owns in a window
+
+
+def soft_scan_seg(t: int, nt: int = SOFT_SCAN_THREADS,
+                  max_seg: int = SOFT_SCAN_MAX_SEG) -> int:
+    """Hours a thread owns in a window of the soft-scan kernels (L): as
+    few windows of at most ``nt * max_seg`` hours as cover ``t``, then the
+    fewest hours a thread that still covers ``t`` in that many."""
+    nw = -(-t // (nt * max_seg))
+    return -(-t // (nw * nt))
+
+
+def _seg_window(p: torch.Tensor, p_on, p_off, inv_tau, nt: int, seg: int):
+    """One window p [B, n] (n <= nt * seg) laid out as the kernels'
+    threads own its hours, [B, nt, seg] (zeros past n): the prices, their
+    gates a, f and alpha, and which hours exist [nt, seg]."""
+    b, n = p.shape
+    pp = torch.nn.functional.pad(p, (0, nt * seg - n)).reshape(b, nt, seg)
+    valid = (torch.arange(nt * seg, device=p.device) < n).reshape(nt, seg)
+    a, f, alpha, _ = soft_gates(pp, p_on[:, None, None],
+                                p_off[:, None, None], inv_tau)
+    return pp, a, f, alpha, valid
+
+
+def _seg_maps(a, alpha, valid):
+    """Each thread's segment map s -> A s + B, composed in float64 in hour
+    order."""
+    wide = torch.float64
+    m = torch.ones(a.shape[:2], dtype=wide, device=a.device)
+    c = torch.zeros_like(m)
+    for j in range(a.shape[2]):
+        v, al = valid[:, j], alpha[..., j].to(wide)
+        m, c = (torch.where(v, al * m, m),
+                torch.where(v, al * c + a[..., j].to(wide), c))
+    return m, c
+
+
+def _block_scan(m, c, x, reverse: bool):
+    """The kernels' block scan of the threads' maps [B, nt] from x [B]:
+    Kogge-Stone within each warp of 32 (in lane order, or against it), the
+    warp totals folded in order from x. Returns the value entering each
+    thread's segment [B, nt] and the value after the window [B]."""
+    b, nt = m.shape
+    m, c = m.reshape(b, nt // 32, 32), c.reshape(b, nt // 32, 32)
+    lane = torch.arange(32, device=m.device)
+    d = 1
+    while d < 32:
+        if reverse:
+            mp = torch.cat([m[..., d:], m[..., 32 - d:]], -1)
+            cp = torch.cat([c[..., d:], c[..., 32 - d:]], -1)
+            take = lane + d < 32
+        else:
+            mp = torch.cat([m[..., :d], m[..., :32 - d]], -1)
+            cp = torch.cat([c[..., :d], c[..., :32 - d]], -1)
+            take = lane >= d
+        m, c = torch.where(take, m * mp, m), torch.where(take, m * cp + c, c)
+        d *= 2
+    # each lane's exclusive map (the identity at the warp's first lane)
+    one, zero = torch.ones_like(m[..., :1]), torch.zeros_like(c[..., :1])
+    if reverse:
+        me = torch.cat([m[..., 1:], one], -1)
+        ce = torch.cat([c[..., 1:], zero], -1)
+        tm, tc, order = m[..., 0], c[..., 0], range(nt // 32 - 1, -1, -1)
+    else:
+        me = torch.cat([one, m[..., :-1]], -1)
+        ce = torch.cat([zero, c[..., :-1]], -1)
+        tm, tc, order = m[..., 31], c[..., 31], range(nt // 32)
+    xw = torch.empty_like(tm)
+    for k in order:
+        xw[:, k] = x
+        x = tm[:, k] * x + tc[:, k]
+    return (me * xw[..., None] + ce).reshape(b, nt), x
+
+
+def soft_scan_fwd_seg_ref(p: torch.Tensor, p_on: torch.Tensor,
+                          p_off: torch.Tensor, inv_tau, block_t: int, *,
+                          nt: int = SOFT_SCAN_THREADS,
+                          seg: int | None = None):
+    """`soft_scan_fwd_ref` as the CUDA kernel computes it (used by the
+    tests and the chip check, never by the wrappers): windows of
+    ``nt * seg`` hours (``seg`` defaults to `soft_scan_seg`), each thread's
+    segment map composed in float64, one block scan a window from its
+    entering state (s_{-1} = 1, then the last window's exit state, in
+    float64), each segment rerun in the inputs' dtype from its entering
+    state rounded once; the carries are the rerun states at the block
+    ends. Returns ``(s [B, T], carries [B, ceil(T / block_t)])``."""
+    b, t = p.shape
+    seg = seg or soft_scan_seg(t, nt)
+    w = nt * seg
+    s_in = torch.ones(b, dtype=torch.float64, device=p.device)
+    out = []
+    for t0 in range(0, t, w):
+        n = min(w, t - t0)
+        _, a, _, alpha, valid = _seg_window(p[:, t0:t0 + n], p_on, p_off,
+                                            inv_tau, nt, seg)
+        x, s_in = _block_scan(*_seg_maps(a, alpha, valid), s_in, False)
+        s = x.to(p.dtype)
+        cols = []
+        for j in range(seg):
+            s = torch.where(valid[:, j], alpha[..., j] * s + a[..., j], s)
+            cols.append(s)
+        out.append(torch.stack(cols, -1).reshape(b, w)[:, :n])
+    s_all = torch.cat(out, 1)
+    nb = -(-t // block_t)
+    ones = torch.ones((b, 1), dtype=p.dtype, device=p.device)
+    idx = torch.arange(1, nb, device=p.device) * block_t - 1
+    return s_all, torch.cat([ones, s_all[:, idx]], dim=1)
+
+
+def soft_scan_bwd_seg_ref(p: torch.Tensor, p_on: torch.Tensor,
+                          p_off: torch.Tensor, inv_tau, carries: torch.Tensor,
+                          g: torch.Tensor, block_t: int, *,
+                          nt: int = SOFT_SCAN_THREADS,
+                          seg: int | None = None):
+    """`soft_scan_bwd_ref` as the CUDA kernel computes it (used by the
+    tests and the chip check, never by the wrappers): the windows of
+    `soft_scan_fwd_seg_ref` from the last to the first. A window's
+    entering state is its block's carry, swept forward (composed and
+    scanned in pieces of one window) where the window starts inside the
+    block; its forward maps are scanned from it and its adjoint maps
+    w -> A w + Q (w = alpha_{t1} u_{t1}, composed backwards in float64)
+    against the thread order from the later window's seed; each segment
+    reruns its states and walks back through `soft_gate_grad` in the
+    inputs' dtype, adding each thread's three sums in float64, which a
+    tree over the ``nt`` threads then adds. Returns ``(d_p [B, T],
+    d_p_on [B], d_p_off [B], d_inv_tau [])``."""
+    b, t = p.shape
+    seg = seg or soft_scan_seg(t, nt)
+    w = nt * seg
+    wide = torch.float64
+    pon, poff = p_on[:, None], p_off[:, None]
+    w_in = torch.zeros(b, dtype=wide, device=p.device)
+    acc = [torch.zeros((b, nt), dtype=wide, device=p.device)
+           for _ in range(3)]
+    d_p = []
+    for t0 in range(((t - 1) // w) * w, -1, -w):
+        n = min(w, t - t0)
+        c = t0 // block_t
+        s_in = carries[:, c].to(wide)
+        for h in range(c * block_t, t0, w):
+            _, a, _, alpha, valid = _seg_window(p[:, h:min(h + w, t0)],
+                                                p_on, p_off, inv_tau, nt,
+                                                seg)
+            s_in = _block_scan(*_seg_maps(a, alpha, valid), s_in, False)[1]
+        pw, a, f, alpha, valid = _seg_window(p[:, t0:t0 + n], p_on, p_off,
+                                             inv_tau, nt, seg)
+        gw = torch.nn.functional.pad(g[:, t0:t0 + n], (0, w - n)) \
+            .reshape(b, nt, seg)
+        m_q = torch.ones((b, nt), dtype=wide, device=p.device)
+        q = torch.zeros_like(m_q)
+        for j in range(seg - 1, -1, -1):
+            v, al = valid[:, j], alpha[..., j].to(wide)
+            u = gw[..., j].to(wide) + q
+            m_q, q = torch.where(v, al * m_q, m_q), torch.where(v, al * u, q)
+        x, _ = _block_scan(*_seg_maps(a, alpha, valid), s_in, False)
+        y, w_in = _block_scan(m_q, q, w_in, True)
+        s = x.to(p.dtype)
+        s_prev = []
+        for j in range(seg):
+            s_prev.append(s)
+            s = torch.where(valid[:, j], alpha[..., j] * s + a[..., j], s)
+        wt = y.to(p.dtype)
+        cols = [None] * seg
+        for j in range(seg - 1, -1, -1):
+            v = valid[:, j]
+            u = gw[..., j] + wt
+            dp, don, doff, dit = soft_gate_grad(
+                pw[..., j], s_prev[j], u, pon, poff, inv_tau,
+                gates=(a[..., j], f[..., j]))
+            acc = [torch.where(v, x_ + d.to(wide), x_)
+                   for x_, d in zip(acc, (don, doff, dit))]
+            wt = torch.where(v, alpha[..., j] * u, wt)
+            cols[j] = dp
+        d_p.insert(0, torch.stack(cols, -1).reshape(b, w)[:, :n])
+    st = nt // 2
+    while st > 0:
+        acc = [x_[:, :st] + x_[:, st:2 * st] for x_ in acc]
+        st //= 2
+    sums = [x_[:, 0].to(p.dtype) for x_ in acc]
+    return (torch.cat(d_p, 1), sums[0], sums[1],
+            torch.sum(sums[2].double()).to(p.dtype))
+
+
 DWELL_EVENT_MW = 1e-3  # allocation increase (MW) that counts as a fresh
                        # placement and rearms the dwell lock: far above
                        # float32 rounding, far below any real move

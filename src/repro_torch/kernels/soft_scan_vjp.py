@@ -20,7 +20,8 @@ dtype (so ``torch.autograd.gradcheck`` runs in float64). There is no
 fallback: a CUDA tensor launches the kernel or the call raises.
 ``soft_scan_fwd.launches`` and ``soft_scan_bwd.launches`` count the
 wrappers' calls that launch, their ``device_launches`` the kernels those
-calls put on the card (three a forward, four a backward).
+calls put on the card (one a call). ``block_t`` is any positive number of
+hours, on the card as on the CPU.
 """
 
 from __future__ import annotations
@@ -34,20 +35,15 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import soft_scan_bwd_ref, soft_scan_fwd_ref
 
 DEFAULT_BLOCK_T = 256
-_TILE = 32   # the kernels stage 32-hour tiles; block_t must be a multiple
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load("soft_scan")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.soft_scan_fwd_f32.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
+    lib.soft_scan_fwd_f32.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
     lib.soft_scan_fwd_f32.restype = i32
-    lib.soft_scan_bwd_f32.argtypes = [ptr] * 9 + [i32] * 3 + [ptr]
+    lib.soft_scan_bwd_f32.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
     lib.soft_scan_bwd_f32.restype = i32
-    for fn in (lib.soft_scan_fwd_scratch_doubles,
-               lib.soft_scan_bwd_scratch_doubles):
-        fn.argtypes = [i32] * 3
-        fn.restype = ctypes.c_longlong
     return lib
 
 
@@ -65,9 +61,9 @@ def _check_block(p: torch.Tensor, block_t: int) -> tuple[int, int]:
     if p.ndim != 2 or p.shape[0] == 0 or p.shape[1] == 0:
         raise ValueError(f"soft_scan: prices must be [B, T] with B, T > 0, "
                          f"got {tuple(p.shape)}")
-    if block_t <= 0 or block_t % _TILE:
-        raise ValueError(f"soft_scan: the CUDA kernels need block_t a "
-                         f"positive multiple of {_TILE}, got {block_t}")
+    if block_t <= 0:
+        raise ValueError(f"soft_scan: block_t must be positive, got "
+                         f"{block_t}")
     return p.shape
 
 
@@ -105,16 +101,14 @@ def soft_scan_fwd(p: torch.Tensor, p_on: torch.Tensor, p_off: torch.Tensor,
     _check("inv_tau", inv_tau, (1,), dev)
     lib = _library()
     nb = -(-t // block_t)
-    scratch = torch.empty(lib.soft_scan_fwd_scratch_doubles(b, t, block_t),
-                          dtype=torch.float64, device=dev)
     s = torch.empty((b, t), dtype=torch.float32, device=dev)
     carries = torch.empty((b, nb), dtype=torch.float32, device=dev)
     n0 = build.kernels_launched("soft_scan")
     with torch.cuda.device(dev):
         err = lib.soft_scan_fwd_f32(
             p.data_ptr(), p_on.data_ptr(), p_off.data_ptr(),
-            inv_tau.data_ptr(), scratch.data_ptr(), s.data_ptr(),
-            carries.data_ptr(), b, t, block_t, _stream(dev))
+            inv_tau.data_ptr(), s.data_ptr(), carries.data_ptr(), b, t,
+            block_t, _stream(dev))
     if err != 0:
         raise RuntimeError(f"soft_scan_fwd kernel launch failed: CUDA "
                            f"error {err}")
@@ -145,8 +139,6 @@ def soft_scan_bwd(p: torch.Tensor, p_on: torch.Tensor, p_off: torch.Tensor,
     _check("inv_tau", inv_tau, (1,), dev)
     _check("carries", carries, (b, nb), dev)
     lib = _library()
-    scratch = torch.empty(lib.soft_scan_bwd_scratch_doubles(b, t, block_t),
-                          dtype=torch.float64, device=dev)
     d_p = torch.empty((b, t), dtype=torch.float32, device=dev) \
         if want_dp else None
     sums = torch.empty((3, b), dtype=torch.float32, device=dev)
@@ -154,7 +146,7 @@ def soft_scan_bwd(p: torch.Tensor, p_on: torch.Tensor, p_off: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.soft_scan_bwd_f32(
             p.data_ptr(), g.data_ptr(), p_on.data_ptr(), p_off.data_ptr(),
-            inv_tau.data_ptr(), carries.data_ptr(), scratch.data_ptr(),
+            inv_tau.data_ptr(), carries.data_ptr(),
             d_p.data_ptr() if want_dp else None, sums.data_ptr(), b, t,
             block_t, _stream(dev))
     if err != 0:

@@ -16,7 +16,11 @@ Tolerances: start counts equal; fleet-scan sums within rtol 2e-5 / atol
 plain run's own running-sum drift over 8760 hours exceeds 2e-5); soft
 states within atol 1e-5 and soft gradients within rtol 2e-5 (d_p: atol
 1e-5 max|d_p|) of the plain blocked versions in float64, with a positive
-cotangent so the threshold sums carry no cancellation; the tuner's CPC on
+cotangent so the threshold sums carry no cancellation, at any positive
+block_t, and equal bit for bit to their segmented mirrors run on the card
+(the kernels' windows, maps, scans and sums in plain PyTorch, every
+operation rounded once as the kernels, built without FMA contraction,
+round it); the tuner's CPC on
 the card within rtol 1e-4 of the CPU's, with the same source per row;
 the dispatch kernel bitwise equal to its plain version (the two share
 one summation order), and so the dispatch summary on the card equal to
@@ -68,6 +72,8 @@ from repro_torch.kernels.fleet_scan import fleet_scan  # noqa: E402
 from repro_torch.kernels.ref import (decode_attention_plain,  # noqa: E402
                                      dispatch_ref,
                                      flash_attention_plain, fleet_scan_ref, soft_dispatch_bwd_ref,
+                                     soft_scan_bwd_seg_ref,
+                                     soft_scan_fwd_seg_ref,
                                      soft_dispatch_fwd_ref,
                                      soft_dispatch_hour_fixed,
                                      soft_dispatch_ref, soft_level_in_gap)
@@ -189,8 +195,8 @@ def test_soft_kernels_refuse_what_they_do_not_take(cuda):
         soft_scan_fwd(p.T.contiguous().T, p_on, p_off, itau)
     with pytest.raises(ValueError, match="on cuda"):
         soft_scan_fwd(p, p_on.cpu(), p_off, itau)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        soft_scan_fwd(p, p_on, p_off, itau, block_t=48)
+    with pytest.raises(ValueError, match="positive"):
+        soft_scan_fwd(p, p_on, p_off, itau, block_t=0)
     _, carries = soft_scan_fwd(p, p_on, p_off, itau)
     with pytest.raises(ValueError, match="g must be"):
         soft_scan_bwd(p, p_on, p_off, itau, carries, g[:, :50])
@@ -198,6 +204,42 @@ def test_soft_kernels_refuse_what_they_do_not_take(cuda):
         soft_scan_bwd(p, p_on, p_off, itau, carries[:, :0], g)
     s = soft_state_fused(p, p_on, p_off, tau=3.0)   # autograd route
     assert s.shape == p.shape
+
+
+@pytest.mark.parametrize("case", [(3, 2190, 1), (3, 2190, 48),
+                                  (3, 5000, 100), (2, 8761, 256),
+                                  (1, 31, 256), (3, 2190, 2190),
+                                  (2, 6000, 8192)])
+def test_soft_kernels_take_any_block_t(cuda, case):
+    """Any positive block_t, as the reference takes (block_t >= T too, and
+    windows that start inside a block). Each kernel equals its segmented
+    mirror run on the card bit for bit, and a second launch the first."""
+    b, t, bt = case
+    p, p_on, p_off, itau, g = _soft_inputs(b, t, sum(case), cuda)
+    f64 = [x.double() for x in (p, p_on, p_off, itau)]
+    n0 = (soft_scan_fwd.device_launches, soft_scan_bwd.device_launches)
+    s, carries = soft_scan_fwd(p, p_on, p_off, itau, block_t=bt)
+    got = soft_scan_bwd(p, p_on, p_off, itau, carries, g, block_t=bt)
+    assert (soft_scan_fwd.device_launches, soft_scan_bwd.device_launches) \
+        == (n0[0] + 1, n0[1] + 1)
+    assert carries.shape == (b, -(-t // bt))
+    s64, c64 = soft_scan_fwd(*f64, block_t=bt, use_kernel=False)
+    want = soft_scan_bwd(*f64, c64, g.double(), block_t=bt,
+                         use_kernel=False)
+    torch.testing.assert_close(s.double(), s64, rtol=0, atol=1e-5)
+    torch.testing.assert_close(carries.double(), c64, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[0].double(), want[0], rtol=2e-5,
+                               atol=1e-5 * float(want[0].abs().max()))
+    for k in (1, 2, 3):
+        torch.testing.assert_close(got[k].double(), want[k], rtol=2e-5,
+                                   atol=0.0)
+    mirror = (*soft_scan_fwd_seg_ref(p, p_on, p_off, itau, bt),
+              *soft_scan_bwd_seg_ref(p, p_on, p_off, itau, carries, g, bt))
+    again = (*soft_scan_fwd(p, p_on, p_off, itau, block_t=bt),
+             *soft_scan_bwd(p, p_on, p_off, itau, carries, g, block_t=bt))
+    for x, m, y in zip((s, carries, *got), mirror, again):
+        assert torch.equal(x, m)
+        assert torch.equal(x, y)
 
 
 def test_optimize_on_the_card_matches_the_cpu(cuda):

@@ -162,18 +162,27 @@ def test_build_key_follows_the_included_headers(monkeypatch, tmp_path):
 
 def test_scan_probe_variants_match_the_sources():
     """Every text substitution of `scan_probe.py` (each a variant of the
-    SSD or dispatch kernel it times on the card) matches the sources."""
+    SSD, dispatch or soft-scan kernel it times on the card) matches the
+    sources, and the soft-scan variants' layouts read back."""
     import importlib.util
     root = build.CSRC.parents[3]
     spec = importlib.util.spec_from_file_location("scan_probe",
                                                   root / "scan_probe.py")
     probe = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(probe)
-    ssd = (build.CSRC / "ssd_scan.cu").read_text()
-    disp = (build.CSRC / "dispatch_scan.cu").read_text()
-    todo = probe.variants(ssd, disp)
-    assert todo["ssd as built"] == ("ssd_scan", ssd)
-    assert todo["dispatch as built"] == ("dispatch_scan", disp)
+    src = {lib: (build.CSRC / f"{lib}.cu").read_text()
+           for lib in ("ssd_scan", "dispatch_scan", "soft_scan")}
+    todo = probe.variants(src["ssd_scan"], src["dispatch_scan"],
+                          src["soft_scan"])
+    assert todo["ssd as built"] == ("ssd_scan", src["ssd_scan"])
+    assert todo["dispatch as built"] == ("dispatch_scan",
+                                         src["dispatch_scan"])
+    assert todo["soft as built"] == ("soft_scan", src["soft_scan"])
     changed = [name for name, (lib, text) in todo.items()
-               if text != (ssd if lib == "ssd_scan" else disp)]
-    assert len(changed) == len(todo) - 2
+               if text != src[lib]]
+    assert len(changed) == len(todo) - 3
+    empty = todo["soft, empty kernels"][1]
+    assert empty.count("if (T > 0) return;") == 2
+    layouts = {probe._soft_layout(text) for name, (lib, text) in todo.items()
+               if lib == "soft_scan"}
+    assert layouts == {(256, 12), (128, 12), (512, 12), (256, 8), (256, 16)}

@@ -13,6 +13,18 @@ gradient nearly cancels is held to the pair's scale), tau's own; the
 plain blocked versions against the reference's blocked XLA forward
 within atol 1e-6 (the same sequential order). `torch.autograd.gradcheck`
 runs in float64.
+
+The segmented mirrors of the CUDA kernels (`soft_scan_fwd_seg_ref`,
+`soft_scan_bwd_seg_ref`: windows of nt x L hours, float64 segment maps
+and block scans, float32 reruns) are held at the chip's tolerances, on
+inputs drawn as `chip_smoke.py` draws its own (tau 3, a positive
+cotangent: every hour's threshold terms of one sign, so their sums carry
+no cancellation; where they cancel, as at tau 2 with a signed cotangent,
+the plain float32 version misses these tolerances by as much): states
+and carries within atol 1e-5 of the float64 plain versions and of the
+reference's blocked XLA path; d_p within rtol 2e-5 + atol 1e-5
+max|d_p|; d_p_on, d_p_off and d_inv_tau within rtol 2e-5. In float64 the mirrors equal the float64 plain versions
+within 1e-12 (the same recurrence in another order).
 """
 
 import numpy as np
@@ -27,11 +39,15 @@ from repro.kernels.ref import soft_scan_grad_ref as jax_grad_ref  # noqa: E402
 from repro.kernels.ref import soft_scan_ref as jax_soft_scan_ref  # noqa: E402
 from repro.kernels.soft_scan import soft_fleet_scan as jax_soft_fleet_scan  # noqa: E402
 from repro.kernels.soft_scan import soft_state as jax_soft_state  # noqa: E402
-from repro.kernels.soft_scan_vjp import _xla_fwd  # noqa: E402
+from repro.kernels.soft_scan_vjp import _xla_bwd, _xla_fwd  # noqa: E402
 from repro.kernels.soft_scan_vjp import soft_state_fused as jax_fused  # noqa: E402
-from repro_torch.kernels.ref import (soft_scan_bwd_ref,  # noqa: E402
-                                     soft_scan_fwd_ref, soft_scan_grad_ref,
-                                     soft_scan_ref)
+from repro_torch.kernels.ref import (SOFT_SCAN_MAX_SEG,  # noqa: E402
+                                     SOFT_SCAN_THREADS, soft_scan_bwd_ref,
+                                     soft_scan_bwd_seg_ref,
+                                     soft_scan_fwd_ref,
+                                     soft_scan_fwd_seg_ref,
+                                     soft_scan_grad_ref, soft_scan_ref,
+                                     soft_scan_seg)
 from repro_torch.kernels.soft_scan import soft_fleet_scan, soft_state  # noqa: E402
 from repro_torch.kernels.soft_scan_vjp import (soft_scan_bwd,  # noqa: E402
                                                soft_scan_fwd,
@@ -205,3 +221,116 @@ def test_backward_skips_price_gradient_when_prices_need_none():
                          tau=torch.tensor(3.0), block_t=32)
     (s * torch.tensor(w)).sum().backward()
     assert on_t.grad is not None and bool(torch.isfinite(on_t.grad).all())
+
+
+# (B, T, block_t, nt, seg): the kernels' layout at small T through small
+# windows (seg None: the kernels' own L for nt)
+SEG_CASES = [(1, 7, 4, 32, 1),          # B = 1, T < nt, one hour a thread
+             (3, 40, 64, 256, None),    # T < nt, block_t >= T
+             (4, 333, 48, 32, 4),       # 3 windows, the last ragged
+             (2, 513, 100, 64, 3),      # block_t divides no window start
+             (2, 1000, 1, 64, 3),       # block_t 1: every hour a carry
+             (3, 1300, 2000, 64, 3),    # block_t >= T, 7 windows: sweeps
+             (2, 700, 96, 128, None),   # nt 128, L 6, T not a multiple
+             (1, 600, 256, 512, None),  # nt 512, L 2
+             (2, 2190, 256, 256, None)]  # the tuner's layout: 256 x 9
+
+
+SEG_TAU = 3.0
+
+
+def _seg_inputs(b, t, seed, dtype=np.float32):
+    """`chip_smoke.py`'s soft-scan inputs: prices, thresholds, inv_tau [1]
+    and a positive cotangent g [B, T]."""
+    rng = np.random.default_rng(seed)
+    p = rng.normal(80, 40, (b, t)).astype(np.float32)
+    p_off = rng.uniform(40, 160, b).astype(np.float32)
+    p_on = (p_off * rng.uniform(0.7, 1.0, b)).astype(np.float32)
+    g = np.random.default_rng(seed + 7).uniform(0.5, 1.5, (b, t))
+    itau = np.array([1.0 / SEG_TAU], np.float32)
+    return [torch.tensor(a.astype(dtype)) for a in (p, p_on, p_off, itau,
+                                                    g)]
+
+
+def _seg_run(b, t, bt, nt, seg, dtype):
+    p, p_on, p_off, itau, g = _seg_inputs(b, t, b + t + bt, dtype)
+    s, carries = soft_scan_fwd_seg_ref(p, p_on, p_off, itau, bt, nt=nt,
+                                       seg=seg)
+    grads = soft_scan_bwd_seg_ref(p, p_on, p_off, itau, carries, g, bt,
+                                  nt=nt, seg=seg)
+    f64 = [x.double() for x in (p, p_on, p_off, itau)]
+    s64, c64 = soft_scan_fwd_ref(*f64, bt)
+    exact = soft_scan_bwd_ref(*f64, c64, g.double(), bt)
+    return (p, p_on, p_off, itau, g), (s, carries, grads), \
+        (s64, c64, exact)
+
+
+def _hold_chip_tolerances(s, carries, grads, s_w, c_w, want, label):
+    _close(s, s_w, atol=1e-5, name=f"{label} s")
+    _close(carries, c_w, atol=1e-5, name=f"{label} carries")
+    want = [np.asarray(x, np.float64) for x in want]
+    _close(grads[0], want[0], rtol=2e-5, atol=1e-5 * np.abs(want[0]).max(),
+           name=f"{label} d_p")
+    for k, name in ((1, "d_p_on"), (2, "d_p_off"), (3, "d_inv_tau")):
+        _close(grads[k], want[k], rtol=2e-5, name=f"{label} {name}")
+
+
+@pytest.mark.parametrize("b,t,bt,nt,seg", SEG_CASES)
+def test_seg_mirrors_match_plain_versions_and_reference(b, t, bt, nt, seg):
+    (p, p_on, p_off, itau, g), (s, carries, grads), (s64, c64, exact) = \
+        _seg_run(b, t, bt, nt, seg, np.float32)
+    assert carries.shape == (b, -(-t // bt))
+    _hold_chip_tolerances(s, carries, grads, s64, c64, exact, "plain f64")
+    # the reference's blocked XLA path on the same float32 inputs
+    j = [jnp.asarray(x.numpy()) for x in (p, p_on, p_off)]
+    jt = jnp.asarray(itau.numpy()[0])
+    js, jc = _xla_fwd(*j, jt, bt)
+    jgrads = _xla_bwd(*j, jt, jc, jnp.asarray(g.numpy()), bt)
+    _hold_chip_tolerances(s, carries, grads, np.asarray(js), np.asarray(jc),
+                          jgrads, "reference xla")
+
+
+@pytest.mark.parametrize("b,t,bt,nt,seg", SEG_CASES)
+def test_seg_mirrors_in_float64_equal_plain_versions(b, t, bt, nt, seg):
+    _, (s, carries, grads), (s64, c64, exact) = _seg_run(b, t, bt, nt, seg,
+                                                         np.float64)
+    assert s.dtype == torch.float64
+    for name, got, want in zip(("s", "carries", "d_p", "d_p_on", "d_p_off",
+                                "d_inv_tau"), (s, carries, *grads),
+                               (s64, c64, *exact)):
+        scale = max(float(want.abs().max()), 1.0)
+        _close(got, want, atol=1e-12 * scale, name=name)
+
+
+def test_seg_mirrors_match_reference_pallas_kernels_in_interpret_mode():
+    b, t, bt = 3, 333, 64
+    (p, p_on, p_off, itau, g), (s, _, grads), _ = _seg_run(
+        b, t, bt, 64, 2, np.float32)
+    want_s = jax_fused(p.numpy(), p_on.numpy(), p_off.numpy(),
+                       tau=SEG_TAU, block_t=bt, use_pallas=True,
+                       interpret=True)
+    _close(s, np.asarray(want_s), atol=1e-5, name="s")
+
+    def jloss(p_, on_, off_, tau_):
+        return jnp.sum(g.numpy() * jax_fused(p_, on_, off_, tau=tau_,
+                                             block_t=bt, use_pallas=True,
+                                             interpret=True))
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+        p.numpy(), p_on.numpy(), p_off.numpy(), jnp.float32(SEG_TAU))
+    d_tau = -float(itau[0]) ** 2 * grads[3].double()
+    _close(grads[0], np.asarray(want[0]), rtol=2e-5,
+           atol=1e-5 * float(np.abs(want[0]).max()), name="d_p")
+    for name, got, w in (("d_p_on", grads[1], want[1]),
+                         ("d_p_off", grads[2], want[2]),
+                         ("d_tau", d_tau, want[3])):
+        _close(got, np.asarray(w), rtol=2e-5, name=name)
+
+
+def test_seg_layout_covers_each_row_in_as_few_windows_as_fit():
+    nt, most = SOFT_SCAN_THREADS, SOFT_SCAN_MAX_SEG
+    for t in (1, 31, 256, 2190, 3072, 3073, 4097, 8760, 8761, 20000):
+        seg = soft_scan_seg(t)
+        nw = -(-t // (nt * seg))
+        assert 1 <= seg <= most and nw == -(-t // (nt * most))
+        assert seg == 1 or nw * nt * (seg - 1) < t   # no shorter L fits
+    assert soft_scan_seg(2190) == 9 and soft_scan_seg(8760) == 12
