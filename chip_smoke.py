@@ -16,10 +16,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      (and the bf16 chunk-state kernel) their registers, spills and HMMA
      instructions in the SASS (the tensor-core ones, for bf16 inputs, must
      have some);
-  3. each kernel against its plain PyTorch version on the card;
+  3. each kernel against its plain PyTorch version on the card (the
+     fleet scan also bit for bit against its segmented mirror run on the
+     card, and read through ``market_idx`` against its gathered form);
   4. the backtest path at full size: the Lichtenberg case study, then
      the fleet backtest and summary of the repo's benchmark grid (16
-     German market draws x 8 systems x 8 policies = 1024 rows x 8760 h);
+     German market draws x 8 systems x 8 policies = 1024 rows x 8760 h),
+     whose scan reads the 16 markets through the grid's index;
   5. the tuner path at full width: `optimize` on the tuner benchmark's
      grid (8 market draws x 4 systems x 8 policies = 256 rows x 2190 h,
      200 annealed Adam steps) with the hard-dispatch re-scoring of its 32
@@ -68,7 +71,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      then decode against the longer prefills; the `repro_torch.launch.
      serve` launcher at the reference's defaults and on reduced mamba2;
  14. times (median of CUDA-event runs after warm-up): each kernel, its
-     plain version and its bound, the backtest at 1024 and 8192 rows,
+     plain version and its bound (the fleet scan through ``market_idx``
+     and on the gathered block, and at the tuner's 256 x 2190), the
+     backtest at 1024 and 8192 rows,
      market generation, the tuner loop's row-steps/s (hand-written VJP
      against autograd through the doubling scan), the dispatch kernel at
      1, 8, 64 and 512 sites with the positions its walk sums an hour and
@@ -438,21 +443,68 @@ def _report_ssd_kernels(log: str, lib: Path) -> None:
                              if key[0] == "out" else ""), rec, n)
 
 
+# the chip check's shapes of phase 3, and two windows of 256 x 36 hours
+FLEET_SHAPES = [(1, 64), (5, 333), (130, 1000), (1024, 8760), (64, 4097),
+                (3, 9300)]
+
+
+def _fleet_equal(lab: str, pairs) -> None:
+    """Fails unless each (name, x, y) of ``pairs`` is equal bit for bit."""
+    for name, x, y in pairs:
+        for field, a, b in zip(x._fields, x, y):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"{lab}: {field} differs from the {name} by up to "
+                    f"{float((a.double() - b.double()).abs().max()):.3g}")
+
+
 def phase_kernel_vs_plain(dev) -> None:
     """n_starts equal to the plain float32 version; sums within rtol 2e-5
     of the plain version run in float64 on the same (float32) inputs,
     which follows the same trajectory without float32 accumulation error
     (at 8760 h the plain float32 running sum of a non-dyadic capacity
-    level drifts by ~1e-4 relative, more than the kernel's chunked sums)."""
-    from repro_torch.kernels.fleet_scan import fleet_scan
-    from repro_torch.kernels.ref import fleet_scan_ref
+    level drifts by ~1e-4 relative, more than the kernel's sums: each
+    thread adds its hours in float32, a tree adds the threads in float64).
+    Every output equal bit for bit to the segmented mirror
+    (`ref.fleet_scan_seg_ref`, the kernel's runs, max-scan, replays and
+    tree in plain PyTorch) run on the card, to a second launch, and, read
+    through ``market_idx`` from an [N, T] block (N = B / 8), to the same
+    kernel on the gathered [B, T] block; one kernel on the card a call."""
+    import ctypes
 
-    for i, (b, t) in enumerate([(1, 64), (5, 333), (130, 1000),
-                                (1024, 8760), (64, 4097)]):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fleet_scan import fleet_scan
+    from repro_torch.kernels.ref import (FLEET_SCAN_THREADS, fleet_scan_ref,
+                                         fleet_scan_seg, fleet_scan_seg_ref)
+
+    lib = build.load("fleet_scan")
+    lib.fleet_scan_threads.argtypes = []
+    lib.fleet_scan_seg.argtypes = [ctypes.c_int]
+    lib.fleet_scan_threads.restype = lib.fleet_scan_seg.restype = ctypes.c_int
+    for t in (1, 64, 256, 257, 2190, 8760, 9216, 9217, 20000):
+        layout = (lib.fleet_scan_threads(), lib.fleet_scan_seg(t))
+        if layout != (FLEET_SCAN_THREADS, fleet_scan_seg(t)):
+            raise AssertionError(f"fleet_scan: the kernel's layout {layout} "
+                                 f"at T {t} is not its mirror's")
+    for i, (b, t) in enumerate(FLEET_SHAPES):
         args = _scan_inputs(b, t, seed=100 + i, dev=dev)
+        n0 = fleet_scan.device_launches
         got = fleet_scan(*args, use_kernel=True)
+        if fleet_scan.device_launches - n0 != 1:
+            raise AssertionError(f"fleet_scan {b}x{t}: a call put other "
+                                 "than one kernel on the card")
         plain = fleet_scan(*args, use_kernel=False)
         exact = fleet_scan_ref(args[0].double(), *args[1:])
+        mirror = fleet_scan_seg_ref(*args)
+        again = fleet_scan(*args, use_kernel=True)
+        n = max(1, b // 8)
+        markets = _scan_inputs(n, t, seed=150 + i, dev=dev)[0]
+        mi = torch.as_tensor(np.random.default_rng(160 + i).integers(
+            0, n, b), device=dev)
+        indexed = fleet_scan(markets, *args[1:], market_idx=mi,
+                             use_kernel=True)
+        gathered = fleet_scan(markets[mi].contiguous(), *args[1:],
+                              use_kernel=True)
         torch.cuda.synchronize()
         if not torch.equal(got.n_starts, plain.n_starts):
             raise AssertionError(f"fleet_scan {b}x{t}: n_starts differ")
@@ -465,6 +517,15 @@ def phase_kernel_vs_plain(dev) -> None:
                         f"{float((getattr(plain, name).double() - e).abs().max()):.3g}")
         print(f"[kernel] fleet_scan {b}x{t}: max |err| kernel/plain-f32 vs "
               f"plain-f64: " + ", ".join(errs))
+        lab = f"fleet_scan {b}x{t}"
+        _fleet_equal(lab, [("segmented mirror on the card", got, mirror),
+                           ("second launch", got, again),
+                           (f"gathered form ({n} markets)", indexed,
+                            gathered)])
+        print(f"[kernel] {lab}: equal to the segmented mirror on the card "
+              f"and to a second launch, bit for bit; read through "
+              f"market_idx from {n} markets equal to the gathered form; "
+              "one kernel a call")
 
 
 # (B, T, block_t): the tuner's 256 x 2190 (one window of 256 x 9 hours)
@@ -680,7 +741,7 @@ def phase_main_path(dev) -> dict:
     from repro_torch.examples.quickstart import lichtenberg, report
     from repro_torch.fleet import PolicySpec, backtest, build_grid, summarize
     from repro_torch.kernels.fleet_scan import fleet_scan
-    from repro_torch.kernels.ref import fleet_scan_ref
+    from repro_torch.kernels.ref import fleet_scan_ref, fleet_scan_seg_ref
 
     print("[main] Lichtenberg case study (Section IV-A) on the card:")
     report(lichtenberg(dev))
@@ -738,20 +799,33 @@ def phase_main_path(dev) -> dict:
           "within rtol 1e-5, n_starts equal")
     print_tables(grid, summ)
 
-    # the kernel on the main path's own inputs, held as in phase 3
-    p_rows = grid.prices[grid.market_idx].contiguous()
-    scan_args = (p_rows, grid.p_on, grid.p_off, grid.off_level,
+    # the kernel on the main path's own inputs, as the backtest calls it
+    # (the grid's markets read through its index), held as in phase 3
+    scan_args = (grid.prices, grid.p_on, grid.p_off, grid.off_level,
                  grid.idle_frac)
-    got = fleet_scan(*scan_args, use_kernel=True)
+    got = fleet_scan(*scan_args, market_idx=grid.market_idx,
+                     use_kernel=True)
+    p_rows = grid.prices[grid.market_idx].contiguous()
     exact = fleet_scan_ref(p_rows.double(), *scan_args[1:])
+    plain = fleet_scan_ref(p_rows, *scan_args[1:])
+    if not torch.equal(got.n_starts, plain.n_starts):
+        raise AssertionError("fleet_scan on the grid: n_starts differ")
     for g, e in zip(got, exact):
         torch.testing.assert_close(g.double(), e, rtol=2e-5, atol=1e-3)
+    _fleet_equal("fleet_scan on the grid", [
+        ("gathered form", got, fleet_scan(p_rows, *scan_args[1:],
+                                          use_kernel=True)),
+        ("segmented mirror on the card", got,
+         fleet_scan_seg_ref(p_rows, *scan_args[1:]))])
     max_abs = max(float((g.double() - e).abs().max())
                   for g, e in zip(got, exact))
-    print(f"[main] fleet_scan on the grid's {tuple(p_rows.shape)} block: "
-          f"max |err| vs plain-f64 {max_abs:.3g}")
+    print(f"[main] fleet_scan on the grid's {tuple(grid.prices.shape)} "
+          f"markets through its {grid.n_rows}-row index: max |err| vs "
+          f"plain-f64 {max_abs:.3g}; equal bit for bit to the kernel on "
+          f"the gathered {tuple(p_rows.shape)} block and to the segmented "
+          "mirror on the card")
     return {"grid": grid, "launches": launches, "device_launches": device,
-            "scan_args": scan_args, "max_abs_err": max_abs,
+            "max_abs_err": max_abs,
             "markets": markets}
 
 
@@ -1555,6 +1629,20 @@ def phase_tune_times(dev, grid, steps: int = 200) -> None:
              "tune_loop 20 steps", runs=1)
 
 
+def _fleet_bound(b: int, t: int, n: int | None = None
+                 ) -> tuple[float, str, int]:
+    """Least time for `fleet_scan` on an H100 SXM: each input read once
+    (with ``n`` markets, the [N, T] block, the int64 index and the four
+    [B] parameters; without, the [B, T] block and the parameters) and the
+    [4, B] sums written once, at 3.35 TB/s; 10 float32 operations a
+    row-hour (compares, selects, adds) at 67 TFLOP/s. Returns (ms, what
+    bounds it, bytes)."""
+    nbytes = (n * t * 4 + b * (8 + 16) if n is not None
+              else b * t * 4 + b * 16) + b * 16
+    tb, to = nbytes / HBM_BYTES_PER_S, 10 * b * t / FP32_OPS_PER_S
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations", nbytes
+
+
 def phase_times(dev, main: dict) -> tuple[dict, torch.Tensor]:
     from repro_torch.energy.markets import generate_markets
     from repro_torch.fleet import backtest
@@ -1562,25 +1650,55 @@ def phase_times(dev, main: dict) -> tuple[dict, torch.Tensor]:
 
     flush = torch.empty(128 * 2 ** 20 // 4, dtype=torch.float32,
                         device=dev)          # 128 MB > the 50 MB L2
-    args = main["scan_args"]
-    b, t = args[0].shape
-    ms = _cuda_ms(lambda: fleet_scan(*args, use_kernel=True), runs=20,
-                  flush=flush, device_only=True)
-    hot_ms = _cuda_ms(lambda: fleet_scan(*args, use_kernel=True), runs=20,
-                      device_only=True)
-    plain_ms = _cuda_ms(lambda: fleet_scan(*args, use_kernel=False))
-    bytes_moved = b * t * 4 + 4 * b * 4 + 4 * b * 4
-    ops = b * t * 10          # compares, selects and adds per row-hour
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
-    bound_by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= \
-        ops / FP32_OPS_PER_S else "operations"
-    print(f"[time] fleet_scan {b}x{t}: kernel {ms:.4f} ms (L2 flushed; "
-          f"{hot_ms:.4f} ms with the block in L2), "
-          f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
-          f"({bytes_moved / 1e6:.1f} MB at 3.35 TB/s), "
-          f"{bound_ms / ms:.1%} of bound")
+
+    def fleet_times(grid, plain_runs: int = 0) -> dict:
+        """The kernel (device only) on ``grid``'s markets through its
+        index, L2 flushed and L2-hot, and on the gathered [B, T] block,
+        L2 flushed; the plain version (gather and `fleet_scan_ref`) on the
+        same inputs where ``plain_runs``."""
+        args = (grid.prices, grid.p_on, grid.p_off, grid.off_level,
+                grid.idle_frac)
+        mi = grid.market_idx
+        rows = grid.prices[mi].contiguous()
+
+        def call():
+            fleet_scan(*args, market_idx=mi, use_kernel=True)
+        out = {"ms": _cuda_ms(call, runs=20, flush=flush, device_only=True),
+               "hot_ms": _cuda_ms(call, runs=20, device_only=True),
+               "gathered_ms": _cuda_ms(
+                   lambda: fleet_scan(rows, *args[1:], use_kernel=True),
+                   runs=20, flush=flush, device_only=True),
+               "plain_ms": _cuda_ms(
+                   lambda: fleet_scan(*args, market_idx=mi,
+                                      use_kernel=False),
+                   runs=plain_runs) if plain_runs else None}
+        b, (n, t) = grid.n_rows, grid.prices.shape
+        out["bound"], out["gathered_bound"] = (_fleet_bound(b, t, n),
+                                               _fleet_bound(b, t))
+        bd, gb = out["bound"], out["gathered_bound"]
+        print(f"[time] fleet_scan {b}x{t} through market_idx ({n} "
+              f"markets): kernel {out['ms']:.4f} ms (L2 flushed; "
+              f"{out['hot_ms']:.4f} ms L2-hot)"
+              + (f", plain {out['plain_ms']:.2f} ms" if plain_runs else "")
+              + f", bound {bd[0]:.5f} ms ({bd[1]}: {bd[2] / 1e6:.2f} MB, "
+              f"{10 * b * t / 1e9:.3f} GFLOP at 67 TFLOP/s), "
+              f"{bd[0] / out['ms']:.1%} of bound; gathered [B, T] "
+              f"{out['gathered_ms']:.4f} ms (L2 flushed), its bound "
+              f"{gb[0]:.4f} ms ({gb[1]}: {gb[2] / 1e6:.1f} MB at 3.35 TB/s)")
+        return out
 
     grid = main["grid"]
+    main_t = fleet_times(grid, plain_runs=3)
+    # the tuner's hard re-scoring takes the [B, T] form at its 256 x 2190
+    tune = _scan_inputs(256, 2190, seed=400, dev=dev)
+    tune_ms = _cuda_ms(lambda: fleet_scan(*tune, use_kernel=True), runs=20,
+                       flush=flush, device_only=True)
+    tb = _fleet_bound(256, 2190)
+    print(f"[time] fleet_scan 256x2190 gathered [B, T] (the tuner's "
+          f"re-scoring): kernel {tune_ms:.4f} ms (L2 flushed), bound "
+          f"{tb[0]:.5f} ms ({tb[1]}: {tb[2] / 1e6:.2f} MB at 3.35 TB/s), "
+          f"{tb[0] / tune_ms:.1%} of bound")
+
     e2e_ms = _cuda_ms(lambda: backtest(grid, device=dev))
     print(f"[time] backtest {grid.n_rows} rows x {grid.n_hours} h: "
           f"{e2e_ms:.3f} ms, {grid.n_rows / (e2e_ms / 1e3):.4g} rows/s")
@@ -1591,15 +1709,10 @@ def phase_times(dev, main: dict) -> tuple[dict, torch.Tensor]:
 
     markets, big = _bench_grid(64, 16, dev)
     big_ms = _cuda_ms(lambda: backtest(big, device=dev))
-    p_big = big.prices[big.market_idx].contiguous()
-    big_args = (p_big, big.p_on, big.p_off, big.off_level, big.idle_frac)
-    big_kernel_ms = _cuda_ms(lambda: fleet_scan(*big_args), flush=flush,
-                             device_only=True)
     print(f"[time] backtest {big.n_rows} rows x {big.n_hours} h "
-          f"({p_big.numel() * 4 / 1e6:.0f} MB gathered): {big_ms:.3f} ms, "
-          f"{big.n_rows / (big_ms / 1e3):.4g} rows/s; kernel "
-          f"{big_kernel_ms:.4f} ms, bound "
-          f"{p_big.numel() * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms")
+          f"({big.n_markets} markets read through market_idx): "
+          f"{big_ms:.3f} ms, {big.n_rows / (big_ms / 1e3):.4g} rows/s")
+    fleet_times(big)
     gen64_ms = _cuda_ms(lambda: generate_markets(markets, device=dev),
                         runs=5)
     print(f"[time] market generation (setup) {len(markets)} x "
@@ -1607,13 +1720,15 @@ def phase_times(dev, main: dict) -> tuple[dict, torch.Tensor]:
 
     _profile(lambda: backtest(grid, device=dev),
              f"backtest {grid.n_rows} rows")
+    bound_ms, bound_by, _ = main_t["bound"]
     return {
         "name": "fleet_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fleet_scan.cu",
         "replaces": "src/repro/kernels/fleet_scan.py:40",
         "launches": main["launches"]["fleet_scan"],
-        "max_abs_err": main["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "max_abs_err": main["max_abs_err"], "ms": main_t["ms"],
+        "plain_ms": main_t["plain_ms"], "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
     }, flush
 
 

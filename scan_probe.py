@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Where the SSD chunk scan, the dispatch scan and the soft scan spend
-their time, on one GPU.
+"""Where the SSD chunk scan, the dispatch scan, the soft scan and the
+fleet scan spend their time, on one GPU.
 
-    python3 scan_probe.py [--parent DIR]
+    python3 scan_probe.py [--parent DIR] [--only ssd,dispatch,soft,fleet]
 
-Builds `src/repro_torch/kernels/csrc/ssd_scan.cu`, `dispatch_scan.cu` and
-`soft_scan.cu` as they are and in variants with one part taken out or
-changed (each a text substitution of the source that must match, built by
-nvcc in parallel into `build/scan_probe/`), then times each variant with
-`chip_smoke.py`'s device-only CUDA events (L2 flushed, medians):
+Builds `src/repro_torch/kernels/csrc/ssd_scan.cu`, `dispatch_scan.cu`,
+`soft_scan.cu` and `fleet_scan.cu` as they are and in variants with one
+part taken out or changed (each a text substitution of the source that
+must match, built by nvcc in parallel into `build/scan_probe/`), then
+times each variant with `chip_smoke.py`'s device-only CUDA events (L2
+flushed, medians); ``--only`` keeps the named kernels:
 
 - the SSD scan at mamba2-1.3b's 1024-token prefill (64 heads of P 64,
   N 128, chunk 256, bf16), with each pass's device time under the
@@ -27,18 +28,32 @@ nvcc in parallel into `build/scan_probe/`), then times each variant with
   returning at once (a launch's fixed cost at the shape; its outputs are
   not checked). Each other variant must equal, bit for bit, the
   segmented mirror (`ref.soft_scan_fwd_seg_ref` / `_bwd_seg_ref`) at its
-  threads and hours, run on the card, or the probe fails.
+  threads and hours, run on the card, or the probe fails;
+- the fleet scan on the benchmark grid's markets read through
+  ``market_idx`` (1024 rows from 16 markets, 8192 from 64) and on the
+  gathered [B, T] blocks, at the tuner's 256 x 2190 and at
+  `chip_smoke.py`'s odd shapes (gathered), with 128, 256 or 512 threads a
+  row, at most 12, 18 or 36 hours a thread, 16- or 4-byte loads where the
+  rows allow 16, a register cap of 2, 4 or 6 blocks an SM; and, for their
+  time only, no replay (nor its loads), no last-event search and an empty
+  kernel (a launch's fixed cost). Each other variant must equal, bit for
+  bit, the segmented mirror (`ref.fleet_scan_seg_ref`) at its threads and
+  hours, run on the card, or the probe fails.
 
-``--parent DIR`` also builds the three sources of another checkout (for
+``--parent DIR`` also builds the kept sources of another checkout (for
 example the parent commit, unpacked with `git archive`) and times them
 first and last, in turns with this tree's. Its SSD and dispatch sources
 take the same C entry points; its soft scan, where it is the earlier
-three- and four-launch design, takes a scratch pointer, and is called
-with its own signature. Then, each in a process of its own, it profiles 20 steps of
-`tune_loop` at the tuner's 256 x 2190 with each checkout's whole package
-(`chip_smoke.py`'s `_profile`: wall time, the card's busy time and share,
-the kernels by device time), in turns: parent, this tree, this tree,
-parent.
+three- and four-launch design, and its fleet scan, where it is the
+earlier two-launch design on a gathered block, take a scratch pointer,
+and are called with their own signatures (the parent's indexed time is
+its backtest's: the engine's gather, then the kernel). Then, each in a
+process of its own, it profiles 20 steps of `tune_loop` at the tuner's
+256 x 2190 (soft) and 10 backtests of the 1024-row grid, with the
+backtest's wall time at 1024 and 8192 rows (fleet), with each checkout's
+whole package (`chip_smoke.py`'s `_profile`: wall time, the card's busy
+time and share, the kernels by device time), in turns: parent, this
+tree, this tree, parent.
 
 A variant that takes a part out computes garbage; only its time means
 anything. Prints one line a variant and needs CUDA.
@@ -84,6 +99,19 @@ SOFT_ROW = "  const int row = blockIdx.x;\n"
 SOFT_SHAPES = ((256, 2190), (1024, 8760))
 SOFT_BLOCK_T = 256
 
+# fleet_scan.cu: threads a row, hours a thread, staging, the search for a
+# run's last event, registers
+FLEET_THREADS = "constexpr int kThreads = 256;   // NT"
+FLEET_SEGS = "#define FLEET_SEGS 1, 2, 4, 9, 18, 36\n"
+FLEET_VEC = ("      T % 4 == 0 && reinterpret_cast<std::uintptr_t>(prices) % 16 "
+             "== 0;")
+FLEET_NOW = "  const float now = x > q.p_off ? 0.0f : (x <= q.p_on ? 1.0f : on);\n"
+FLEET_SEARCH = "block_exclusive_max(last_event(r, k0, m, q), all, tot);"
+FLEET_BLOCKS = "constexpr int kMinBlocks = 4;"
+FLEET_ROW = "  const int row = blockIdx.x;\n"
+FLEET_ODD = ((1, 64), (5, 333), (130, 1000), (64, 4097))
+FAMILIES = ("ssd", "dispatch", "soft", "fleet")
+
 
 # dispatch variants that must equal each other (and the source as it is)
 # bit for bit
@@ -100,9 +128,40 @@ def _sub(text: str, pairs) -> str:
     return text
 
 
-def variants(ssd: str, disp: str, soft: str) -> dict[str, tuple[str, str]]:
+def variants(ssd: str, disp: str, soft: str,
+             fleet: str) -> dict[str, tuple[str, str]]:
     """name -> (library, source)."""
     return {
+        "fleet as built": ("fleet_scan", fleet),
+        "fleet, 128 threads a row": (
+            "fleet_scan", _sub(fleet, [(FLEET_THREADS,
+                                        FLEET_THREADS.replace("256", "128"))])),
+        "fleet, 512 threads a row": (
+            "fleet_scan", _sub(fleet, [(FLEET_THREADS,
+                                        FLEET_THREADS.replace("256", "512"))])),
+        "fleet, at most 18 hours a thread": (
+            "fleet_scan", _sub(fleet, [(FLEET_SEGS,
+                                        FLEET_SEGS.replace(", 36", ""))])),
+        "fleet, at most 12 hours a thread": (
+            "fleet_scan", _sub(fleet, [(FLEET_SEGS, FLEET_SEGS.replace(
+                "18, 36", "12"))])),
+        "fleet, 4-byte loads only": (
+            "fleet_scan", _sub(fleet, [(FLEET_VEC, "      false;")])),
+        "fleet, no replay or its loads (timing only)": (
+            "fleet_scan", _sub(fleet, [(FLEET_NOW, "  if (q.p_on > -3e38f) "
+                                        "return;\n" + FLEET_NOW)])),
+        "fleet, no last-event search (timing only)": (
+            "fleet_scan", _sub(fleet, [(FLEET_SEARCH, FLEET_SEARCH.replace(
+                "last_event(r, k0, m, q)", "-1"))])),
+        "fleet, at least 2 blocks an SM": (
+            "fleet_scan", _sub(fleet, [(FLEET_BLOCKS,
+                                        FLEET_BLOCKS.replace("4", "2"))])),
+        "fleet, at least 6 blocks an SM": (
+            "fleet_scan", _sub(fleet, [(FLEET_BLOCKS,
+                                        FLEET_BLOCKS.replace("4", "6"))])),
+        "fleet, empty kernel": (
+            "fleet_scan", _sub(fleet, [(FLEET_ROW, "  if (T > 0) return;\n"
+                                        + FLEET_ROW)])),
         "soft as built": ("soft_scan", soft),
         "soft, 128 threads a row": (
             "soft_scan", _sub(soft, [(SOFT_THREADS,
@@ -169,6 +228,122 @@ cfg = TuneConfig(steps=20)
 cs._profile(lambda: tune_loop(raw0, problem, cfg=cfg),
             f"tune_loop 20 steps, {label}", runs=1)
 """
+
+
+# one checkout's backtest under the profiler and its wall time at 1024 and
+# 8192 rows, run as ``python -c BACKTEST ROOT LABEL``
+BACKTEST = """
+import sys
+root, label = sys.argv[1], sys.argv[2]
+sys.path[:0] = [root + "/src", root]
+import torch
+import chip_smoke as cs
+from repro_torch.fleet import backtest
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+for n, s in ((16, 8), (64, 16)):
+    grid = cs._bench_grid(n, s, dev)[1]
+    ms = cs._cuda_ms(lambda: backtest(grid, device=dev), runs=20)
+    print(f"[probe] backtest {grid.n_rows} rows x {grid.n_hours} h, "
+          f"{label}: {ms:.4f} ms wall (CUDA events around the call, median "
+          "of 20)", flush=True)
+    if n == 16:
+        cs._profile(lambda: backtest(grid, device=dev),
+                    f"backtest {grid.n_rows} rows, {label}")
+"""
+
+
+def _fleet_calls(lib: ctypes.CDLL, parent: bool, prices, params, mi):
+    """(the call, its [4, B] output) of one fleet-scan library on [N, T]
+    prices read through ``mi`` (None: prices is [B, T]), through its C
+    entry; the parent's, which takes only [B, T] and a scratch pointer,
+    gathers the rows inside the call where ``mi`` is given."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    b = prices.shape[0] if mi is None else mi.shape[0]
+    t = prices.shape[1]
+    out = torch.empty((4, b), dtype=torch.float32, device=prices.device)
+    stream = torch.cuda.current_stream(prices.device).cuda_stream
+    pp = [x.data_ptr() for x in params]
+    if not parent:
+        lib.fleet_scan_f32.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
+
+        def call():
+            rc = lib.fleet_scan_f32(prices.data_ptr(),
+                                    None if mi is None else mi.data_ptr(),
+                                    *pp, out.data_ptr(), b, prices.shape[0],
+                                    t, stream)
+            if rc:
+                raise RuntimeError(f"probe: fleet scan launch failed: {rc}")
+        return call, out
+    chunk = 256
+    lib.fleet_scan_scratch_floats.argtypes = [i32] * 2
+    lib.fleet_scan_scratch_floats.restype = ctypes.c_longlong
+    lib.fleet_scan_f32.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
+    scratch = torch.empty(lib.fleet_scan_scratch_floats(b, -(-t // chunk)),
+                          dtype=torch.float32, device=prices.device)
+
+    def call():
+        rows = prices if mi is None else prices[mi]
+        rc = lib.fleet_scan_f32(rows.data_ptr(), *pp, scratch.data_ptr(),
+                                out.data_ptr(), b, t, chunk, stream)
+        if rc:
+            raise RuntimeError(f"probe: fleet scan launch failed: {rc}")
+    return call, out
+
+
+def _fleet_layout(text: str) -> tuple[int, tuple]:
+    """(threads a row, the hours a thread may own) of a fleet_scan.cu
+    text."""
+    nt = int(re.search(r"constexpr int kThreads = (\d+);", text)[1])
+    segs = re.search(r"#define FLEET_SEGS ([\d, ]+)\n", text)[1]
+    return nt, tuple(int(x) for x in segs.split(","))
+
+
+def _probe_fleet(name, so, text, inputs, flush) -> None:
+    from repro_torch.kernels.ref import fleet_scan_seg, fleet_scan_seg_ref
+    import chip_smoke as cs
+    parent = "parent" in name
+    lib = ctypes.CDLL(str(so))
+    parts = []
+    for label, (prices, params, mi) in inputs.items():
+        call, out = _fleet_calls(lib, parent, prices, params, mi)
+        ms = cs._cuda_ms(call, runs=20, flush=flush, device_only=True)
+        parts.append(f"{label} {ms:.4f} ms")
+        if parent or "empty" in name or "timing only" in name:
+            continue
+        call()
+        rows = prices if mi is None else prices[mi]
+        nt, segs = _fleet_layout(text)
+        want = fleet_scan_seg_ref(rows, *params, threads=nt,
+                                  hours=fleet_scan_seg(rows.shape[1], nt,
+                                                       segs))
+        if not torch.equal(out, torch.stack(list(want))):
+            raise AssertionError(f"probe: {name} differs from the "
+                                 f"segmented mirror at {label}")
+    exact = "" if parent or "empty" in name or "timing only" in name else \
+        ", equal to its segmented mirror bit for bit"
+    print(f"[probe] {name}: " + "; ".join(parts) + exact, flush=True)
+
+
+def _fleet_inputs(dev) -> dict:
+    """label -> ([N, T] or [B, T] prices, the four [B] parameters, the
+    index or None): the benchmark grid's markets at 1024 and 8192 rows,
+    through the index and gathered; the tuner's 256 x 2190 and
+    `chip_smoke.py`'s odd shapes, gathered."""
+    import chip_smoke as cs
+    out = {}
+    for n, s in ((16, 8), (64, 16)):
+        g = cs._bench_grid(n, s, dev)[1]
+        params = [x.contiguous() for x in (g.p_on, g.p_off, g.off_level,
+                                           g.idle_frac)]
+        out[f"{g.n_rows}x{g.n_hours} indexed"] = (g.prices.contiguous(),
+                                                  params, g.market_idx)
+        out[f"{g.n_rows}x{g.n_hours} gathered"] = (
+            g.prices[g.market_idx].contiguous(), params, None)
+    for i, (b, t) in enumerate(((256, 2190),) + FLEET_ODD):
+        p, *params = cs._scan_inputs(b, t, 500 + i, dev)
+        out[f"{b}x{t}"] = (p, params, None)
+    return out
 
 
 def _soft_calls(lib: ctypes.CDLL, parent: bool, p, p_on, p_off, itau, g):
@@ -263,7 +438,13 @@ def main() -> int:
         return 1
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None)
+    ap.add_argument("--only", default=",".join(FAMILIES),
+                    help="comma-separated kernels to probe: "
+                    + ", ".join(FAMILIES))
     opts = ap.parse_args()
+    only = set(opts.only.split(","))
+    if not only <= set(FAMILIES):
+        ap.error(f"--only takes {', '.join(FAMILIES)}")
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
@@ -273,13 +454,16 @@ def main() -> int:
 
     out = ROOT / "build" / "scan_probe"
     out.mkdir(parents=True, exist_ok=True)
-    todo = variants((build.CSRC / "ssd_scan.cu").read_text(),
-                    (build.CSRC / "dispatch_scan.cu").read_text(),
-                    (build.CSRC / "soft_scan.cu").read_text())
+    libs = {"ssd": "ssd_scan", "dispatch": "dispatch_scan",
+            "soft": "soft_scan", "fleet": "fleet_scan"}
+    keep = {libs[f] for f in only}
+    todo = {k: v for k, v in variants(
+        *((build.CSRC / f"{libs[f]}.cu").read_text() for f in FAMILIES)
+    ).items() if v[0] in keep}
     if opts.parent is not None:
         csrc = opts.parent / "src" / "repro_torch" / "kernels" / "csrc"
         old = {f"{lib} parent": (lib, (csrc / f"{lib}.cu").read_text())
-               for lib in ("ssd_scan", "dispatch_scan", "soft_scan")}
+               for lib in libs.values() if lib in keep}
         again = {f"{k} (again)": v for k, v in old.items()}
         todo = {**old, **todo, **again}
 
@@ -287,9 +471,9 @@ def main() -> int:
         i, (name, (lib, text)) = item
         cu, so = out / f"v{i}.cu", out / f"libv{i}.so"
         cu.write_text(text)
-        # the parent's soft scan was built without -fmad=false
-        parent_soft = lib == "soft_scan" and "parent" in name
-        flags = build.flags("" if parent_soft else lib)
+        # the parent's soft and fleet scans were built without -fmad=false
+        parent_plain = lib in ("soft_scan", "fleet_scan") and "parent" in name
+        flags = build.flags("" if parent_plain else lib)
         proc = subprocess.run([build.nvcc_path(), *flags, "-o",
                                str(so), str(cu)],
                               capture_output=True, text=True, check=False)
@@ -306,17 +490,19 @@ def main() -> int:
     torch.cuda.set_device(dev)
     cs.phase_device()
     flush = torch.empty(128 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
-    x, dt, a, bb, cc = cs._ssd_inputs(1, 1024, 64, 64, 1, 128, cs.BF16, dev,
-                                      2224)
+    if "ssd" in only:
+        x, dt, a, bb, cc = cs._ssd_inputs(1, 1024, 64, 64, 1, 128, cs.BF16,
+                                          dev, 2224)
     problems = {}
-    for s in (1, 8, 64, 512):
+    for s in (1, 8, 64, 512) if "dispatch" in only else ():
         prob = (cs._dispatch_fleet(64, dev)[1] if s == 64
                 else cs._random_dispatch(s, 8760, 5.0, 4, 600 + s))
         problems[s] = ([torch.as_tensor(np.ascontiguousarray(v), device=dev)
                         for v in (prob.avail_mw, prob.rank, prob.demand_mw)],
                        prob.min_dwell_h)
+    fleet_in = _fleet_inputs(dev) if "fleet" in only else {}
     soft_in = {}
-    for b, t in SOFT_SHAPES:
+    for b, t in SOFT_SHAPES if "soft" in only else ():
         p, p_on, p_off = cs._scan_inputs(b, t, 300, dev)[:3]
         g = torch.as_tensor(np.random.default_rng(307).uniform(
             0.5, 1.5, (b, t)).astype(np.float32), device=dev)
@@ -329,6 +515,10 @@ def main() -> int:
             if lib == "soft_scan":
                 _probe_soft(f"{name} ({'/'.join(regs)} registers)", so, text,
                             soft_in, flush)
+                continue
+            if lib == "fleet_scan":
+                _probe_fleet(f"{name} ({'/'.join(regs)} registers)", so,
+                             text, fleet_in, flush)
                 continue
             build._loaded[lib] = ctypes.CDLL(str(so))
             if lib == "ssd_scan":
@@ -364,16 +554,20 @@ def main() -> int:
         build._loaded.pop("ssd_scan", None)
         build._loaded.pop("dispatch_scan", None)
     if opts.parent is not None:
-        for root, label in ((opts.parent, "parent"), (ROOT, "this tree"),
-                            (ROOT, "this tree (again)"),
-                            (opts.parent, "parent (again)")):
-            proc = subprocess.run(
-                [sys.executable, "-c", TUNE_STEP, str(root.resolve()),
-                 label], capture_output=True, text=True, check=False)
-            print(proc.stdout, end="", flush=True)
-            if proc.returncode:
-                raise RuntimeError(f"tune step ({label}) failed:\n"
-                                   f"{proc.stderr[-3000:]}")
+        steps = [(k, script) for k, script in (("soft", TUNE_STEP),
+                                               ("fleet", BACKTEST))
+                 if k in only]
+        for kind, script in steps:
+            for root, label in ((opts.parent, "parent"), (ROOT, "this tree"),
+                                (ROOT, "this tree (again)"),
+                                (opts.parent, "parent (again)")):
+                proc = subprocess.run(
+                    [sys.executable, "-c", script, str(root.resolve()),
+                     label], capture_output=True, text=True, check=False)
+                print(proc.stdout, end="", flush=True)
+                if proc.returncode:
+                    raise RuntimeError(f"{kind} run ({label}) failed:\n"
+                                       f"{proc.stderr[-3000:]}")
     return 0
 
 

@@ -97,7 +97,7 @@ def _no_workload(cfg):
     if getattr(cfg, "workload", None) is not None:
         raise NotImplementedError(
             "DispatchConfig(workload=) comes to the port with the "
-            "workload slice (ROADMAP queue 1 item 12)")
+            "workload slice (ROADMAP queue 1)")
     return cfg
 
 

@@ -117,7 +117,7 @@ def main(argv=None) -> int:
     if args.trace:
         raise NotImplementedError(
             "--trace: telemetry comes to the port with the telemetry slice "
-            "(ROADMAP queue 1 item 9)")
+            "(ROADMAP queue 1)")
     run(args.device)
     return 0
 

@@ -167,7 +167,7 @@ def main(argv=None) -> int:
     if args.trace:
         raise NotImplementedError(
             "--trace: telemetry comes to the port with the telemetry slice "
-            "(ROADMAP queue 1 item 9)")
+            "(ROADMAP queue 1)")
     dev = resolve_device(args.device)
     if args.dispatch_soft:
         return dispatch_soft_demo(args, dev)

@@ -1,8 +1,9 @@
 """Fleet backtest: every scenario row, every hour, one pass.
 
-Per-row prices are gathered from the [N, T] market block, the stateful
-hysteresis/partial-capacity scan runs batched over all B rows (the CUDA
-`fleet_scan` kernel on the card, the plain `fleet_scan_ref` on the CPU),
+The stateful hysteresis/partial-capacity scan runs batched over all B
+rows, each reading its market's row of the [N, T] price block through
+the grid's ``market_idx`` (the CUDA `fleet_scan` kernel on the card; the
+plain `fleet_scan_ref` on the gathered rows on the CPU),
 and cost accounting — restart overheads, idle draw, lost restart time
 included — is a handful of [B] vector ops.
 
@@ -60,9 +61,11 @@ def fleet_costs(scan: FleetScanOut, *, price_sum, fixed, power, period,
 def _backtest_rows(grid: ScenarioGrid,
                    use_kernel: Optional[bool]) -> FleetReport:
     t = grid.n_hours
-    p_rows = grid.prices[grid.market_idx]             # [B, T] gather
-    scan = fleet_scan(p_rows, grid.p_on, grid.p_off, grid.off_level,
-                      grid.idle_frac, use_kernel=use_kernel)
+    # each row reads its market's prices through the index: no [B, T]
+    # block is gathered on the card
+    scan = fleet_scan(grid.prices.contiguous(), grid.p_on, grid.p_off,
+                      grid.off_level, grid.idle_frac,
+                      market_idx=grid.market_idx, use_kernel=use_kernel)
     price_sum = grid.prices.sum(1)[grid.market_idx]   # [B] sum_t p_t
     costs = fleet_costs(scan, price_sum=price_sum, fixed=grid.fixed,
                         power=grid.power, period=grid.period,
@@ -91,7 +94,8 @@ def backtest(grid: ScenarioGrid, *, use_kernel: Optional[bool] = None,
 
     ``plan`` (`repro_torch.execution.ExecutionPlan`) chooses the layout.
     A chunked plan evaluates fixed-size row slices (via
-    `ScenarioGrid.take_rows`), bounding the [chunk, T] price gather;
+    `ScenarioGrid.take_rows`), bounding the [chunk, T] rows the plain
+    version gathers;
     per-row results are identical. ``mode='sharded'`` raises: the
     backtest is an uncoupled per-row map, so chunking covers its memory
     story.

@@ -1,43 +1,72 @@
 // Batched two-threshold hysteresis scan for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/fleet_scan.py::_fleet_kernel
-// (the hot loop of repro.fleet.engine.backtest). Per row b of a [B, T]
-// float32 price block and its four parameters, starting on:
+// (the hot loop of repro.fleet.engine.backtest). Per row b of a float32
+// price block and its four parameters, starting on:
 //
 //   on_t = 0 if p_t > p_off, 1 if p_t <= p_on, else on_{t-1}
 //
-// (off tested first, the rule of repro_torch.kernels.ref.hard_hour_step),
+// (off tested first, the rule of repro_torch.kernels.ref.hard_hour_step, so
+// an inverted band p_on > p_off gives what the plain version gives),
 // reduced to four sums: sum draw_t p_t, sum cap_t, #starts, sum start_t p_t.
+// Row b reads its prices from row market_idx[b] of an [N, T] market block,
+// or from row b of a [B, T] block where no index is given; an index
+// outside [0, N) traps (the error surfaces at the next synchronisation).
 //
-// Design. The TPU grid walks time blocks in order with the carry in VMEM;
-// here blocks run in no order, so nothing can carry between them. The
-// carry is one bit, so time is cut into chunks of `chunk` hours:
-//   pass 1 (fleet_scan_chunks): one thread per (row, chunk) scans its chunk
-//     twice in registers, once from each entering state, and writes for
-//     each the chunk's four partial sums and its exit state (5 floats);
-//   pass 2 (fleet_scan_stitch): one thread per row walks its chunks in
-//     order from state 1, picks each chunk's record for the current state
-//     and adds up the sums.
-// At B = 1024, T = 8760 and 256-hour chunks pass 1 runs 8 x 35 blocks of
-// 128 threads, where one program per row block would fill 8 blocks.
+// Design: one launch a call, one block of kThreads (NT) threads a row, no
+// scratch. The TPU kernel removes the time recurrence with a running max:
+// each decisive hour is coded 2t + on (-1 for an hour that decides
+// nothing), so the largest code at or before an hour is its last decisive
+// event, whose low bit is the state. Here that max-scan runs across the
+// threads of the block. Each thread owns L consecutive hours of a window of
+// W = NT x L hours; L is a compile-time constant, one kernel for each of
+// kSegs, the fewest that cover T in one window (the tuner's 2190 hours:
+// 256 x 9; the backtest's 8760: 256 x 36, the last 12 threads idle), or
+// the most, in windows. Per window:
+//   1. each thread finds its run's last decisive event, reading its hours
+//      from the last one back (the last hour decides in most runs);
+//   2. an exclusive max-scan of those codes across the block (warp
+//      shuffles, then a fold of the warp totals) gives each run its
+//      entering state: the code's low bit, or the window's entering state
+//      (1 before the row's first hour) where no event came earlier; the
+//      largest code of all gives the next window's entering state;
+//   3. each thread replays its hours from its entering state, 16 bytes a
+//      load where the rows are 16-byte aligned and L % 4 == 0 (4 bytes
+//      otherwise), and adds the four terms of hard_hour_step into float32
+//      sums of its own.
+// At the end a fixed-order tree adds the threads' sums in float64 (within
+// each warp by shuffles, lanes l and l + st for st = 16, ..., 1; then the
+// warps' sums the same way) and writes out[4, B] rounded once. No
+// atomics: every launch gives the same bits. ref.fleet_scan_seg_ref does
+// exactly what this kernel does; the file is compiled with -fmad=false
+// (build.SOURCE_FLAGS) so that every float32 operation rounds once, as the
+// mirror's do, and the two agree bit for bit on the card.
 //
-// Coalescing: the [B, T] block stays row-major (no transposed copy). Each
-// block stages a [128 rows x 32 hours] tile through shared memory: a warp
-// reads 32 consecutive hours of one row per load (128 B), and the tile's
-// row pitch of 33 floats keeps the per-thread row reads free of bank
-// conflicts. The cost is one __syncthreads pair per 32 hours and 16.5 KB
-// of shared memory per block.
+// Measured on the card (scan_probe.py, PERF.md): staging each window in
+// shared memory with coalesced loads was slower than each thread loading
+// its own run, and so were holding a run's hours in registers for the
+// replay, finding the last event from a run's front, 128 or 512 threads a
+// row and other register caps. Without its replay the kernel keeps about
+// 2/3 of its time at 8192 x 8760, where every row reads its market's 35 KB
+// from L2.
 //
-// Bound on an H100 SXM: the kernel must read the price block once,
-// B*T*4 bytes (35.9 MB at 1024 x 8760, 10.7 us at 3.35 TB/s); the pass-1
-// records (B * ceil(T/chunk) * 10 floats, 1.4 MB) are small beside it.
-// No single PyTorch call computes this function (a sequential state
-// machine), so there is no library yardstick.
+// Bound on an H100 SXM. Indexed (the backtest): the kernel must read the
+// [N, T] market block once (16 x 8760 x 4 B = 0.56 MB, which stays in the
+// 50 MB L2 for every row that reads it), the index and the parameters, and
+// write [4, B]; ~10 float32 operations a row-hour (compares, selects,
+// adds) at 67 TFLOP/s set the bound: 1.34 us at 1024 x 8760. Gathered (the
+// tuner's hard re-scoring, [B, T]): the B x T x 4 bytes of prices at 3.35
+// TB/s set it. No single PyTorch call computes this function (a sequential
+// state machine), so there is no library yardstick. The design this
+// replaces ran two launches (a pass per (row, 256-hour chunk) that scanned
+// its chunk from both entering states, then a stitch) with one serial
+// thread per (row, chunk) and a scratch buffer between them.
 
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -46,56 +75,106 @@ namespace {
 // wrappers count a call's launches on the card as its difference.
 std::atomic<unsigned long long> g_launched{0};
 
-constexpr int kRows = 128;  // rows per block = threads per block
-constexpr int kTile = 32;   // hours staged through shared memory at a time
-constexpr int kRec = 5;     // floats per chunk record: 4 sums + exit state
+constexpr int kThreads = 256;   // NT: threads a block, one block a row
+// the hours a thread may own in a window (L), each a kernel of its own
+#define FLEET_SEGS 1, 2, 4, 9, 18, 36
+constexpr int kSegs[] = {FLEET_SEGS};
+constexpr int kMinBlocks = 4;    // blocks an SM: caps the registers
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kAll = 0xffffffffu;
 
-struct Acc {
-  float on, draw_price, cap, starts, start_price;
-};
-
-struct RowParams {
+struct Row {
   float p_on, p_off, cap_on, cap_off, draw_on, draw_off;
 };
 
-__device__ __forceinline__ void hour_step(Acc& a, float p,
-                                          const RowParams& q) {
-  const float on = p > q.p_off ? 0.0f : (p <= q.p_on ? 1.0f : a.on);
-  const float start = fmaxf(on - a.on, 0.0f);
-  const bool up = on != 0.0f;
-  a.draw_price += (up ? q.draw_on : q.draw_off) * p;
+// The exclusive max-scan of the threads' codes across the block. Returns
+// the largest code of the threads before this one (-1 if none); all
+// becomes the largest code of the block. Holds one __syncthreads; the
+// caller synchronises again before tot is written anew.
+__device__ __forceinline__ int block_exclusive_max(int code, int& all,
+                                                   int* tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(kAll, code, d);
+    if (lane >= d) code = max(code, v);
+  }
+  int before = __shfl_up_sync(kAll, code, 1);
+  if (lane == 0) before = -1;
+  if (lane == 31) tot[warp] = code;
+  __syncthreads();
+  all = -1;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) {
+    if (k < warp) before = max(before, tot[k]);
+    all = max(all, tot[k]);
+  }
+  return before;
+}
+
+// x over lanes l and l + st for st = 16, ..., 1 (st < width): lane 0 ends
+// with the sum of the first `width` lanes' values in that fixed order
+__device__ __forceinline__ double warp_tree(double x, int width) {
+#pragma unroll
+  for (int st = 16; st > 0; st >>= 1)
+    if (st < width) x += __shfl_down_sync(kAll, x, st);
+  return x;
+}
+
+// The code of the last decisive hour among the m hours at src, a run
+// starting at window hour k0 (2k for off, 2k + 1 for on, -1 if none), read
+// from the run's end.
+__device__ __forceinline__ int last_event(const float* __restrict__ src,
+                                          int k0, int m, const Row& q) {
+  for (int j = m - 1; j >= 0; --j) {
+    const float x = __ldg(src + j);
+    if (x > q.p_off) return 2 * (k0 + j);
+    if (x <= q.p_on) return 2 * (k0 + j) + 1;
+  }
+  return -1;
+}
+
+struct Sums {
+  float dp = 0.0f, cap = 0.0f, st = 0.0f, sp = 0.0f;
+};
+
+// One hour of hard_hour_step from state on, its four terms added to a
+// (cap and draw picked from their values at on = 1 and on = 0: the bits
+// hard_hour_step gives them).
+__device__ __forceinline__ void replay_hour(float x, float& on, Sums& a,
+                                            const Row& q) {
+  const float now = x > q.p_off ? 0.0f : (x <= q.p_on ? 1.0f : on);
+  const float start = fmaxf(now - on, 0.0f);
+  const bool up = now != 0.0f;
+  a.dp += (up ? q.draw_on : q.draw_off) * x;
   a.cap += up ? q.cap_on : q.cap_off;
-  a.starts += start;
-  a.start_price += start * p;
-  a.on = on;
+  a.st += start;
+  a.sp += start * x;
+  on = now;
 }
 
-__device__ __forceinline__ void put_record(float* rec, const Acc& a,
-                                           size_t base, int B) {
-  rec[base] = a.draw_price;
-  rec[base + B] = a.cap;
-  rec[base + 2 * (size_t)B] = a.starts;
-  rec[base + 3 * (size_t)B] = a.start_price;
-  rec[base + 4 * (size_t)B] = a.on;
-}
-
-// rec: [n_chunks][2 entering states][kRec][B]
-__global__ void __launch_bounds__(kRows) fleet_scan_chunks(
-    const float* __restrict__ prices, const float* __restrict__ p_on,
-    const float* __restrict__ p_off, const float* __restrict__ off_level,
-    const float* __restrict__ idle_frac, float* __restrict__ rec, int B,
-    int T, int chunk) {
-  __shared__ float tile[kRows][kTile + 1];
-  const int r0 = blockIdx.x * kRows;
-  const int row = r0 + threadIdx.x;
-  const int t0 = blockIdx.y * chunk;
-  const int t1 = min(t0 + chunk, T);
-  const bool live = row < B;
-
-  RowParams q = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (live) {
-    const float lvl = off_level[row];
-    const float idle = idle_frac[row];
+// V: the rows are 16-byte aligned and L a multiple of 4, so a run loads
+// its hours four at a time. The replay is one loop with a test an hour
+// (j < m): with a second copy of it for full runs, without the tests,
+// nvcc's optimised build replayed hours past m (a build with -G did not).
+template <int L, bool V>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) fleet_scan_kernel(
+    const float* __restrict__ prices, const long long* __restrict__ market_idx,
+    const float* __restrict__ p_on, const float* __restrict__ p_off,
+    const float* __restrict__ off_level, const float* __restrict__ idle_frac,
+    float* __restrict__ out, int B, int N, int T) {
+  __shared__ int tot[kWarps];
+  __shared__ double wsum[4][kWarps];
+  const int row = blockIdx.x;
+  long long src = row;
+  if (market_idx != nullptr) {
+    src = market_idx[row];
+    if (src < 0 || src >= N) __trap();
+  }
+  const float* p_row = prices + (size_t)src * T;
+  Row q;
+  {
+    const float lvl = off_level[row], idle = idle_frac[row];
     q.p_on = p_on[row];
     q.p_off = p_off[row];
     // cap and draw of hard_hour_step at on = 1 and on = 0
@@ -104,57 +183,98 @@ __global__ void __launch_bounds__(kRows) fleet_scan_chunks(
     q.draw_on = q.cap_on + idle * (1.0f - q.cap_on);
     q.draw_off = q.cap_off + idle * (1.0f - q.cap_off);
   }
-  Acc from_off = {0.f, 0.f, 0.f, 0.f, 0.f};
-  Acc from_on = {1.f, 0.f, 0.f, 0.f, 0.f};
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int h0 = t0; h0 < t1; h0 += kTile) {
-    const int t = h0 + lane;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int r = warp * 32 + j;
-      const int g = r0 + r;
-      tile[r][lane] =
-          (g < B && t < t1) ? prices[(size_t)g * T + t] : 0.0f;
+  constexpr int W = kThreads * L;
+  const int k0 = threadIdx.x * L;
+  float carry = 1.0f;  // the state entering the window: on at hour 0
+  Sums acc;
+  for (int t0 = 0; t0 < T; t0 += W) {
+    const int n = min(W, T - t0);
+    const int m = max(0, min(L, n - k0));  // this run's hours
+    const float* r = p_row + t0 + k0;
+    int all;
+    const int before = block_exclusive_max(last_event(r, k0, m, q), all, tot);
+    float on = before >= 0 ? (float)(before & 1) : carry;
+    carry = all >= 0 ? (float)(all & 1) : carry;
+    if constexpr (V) {
+#pragma unroll
+      for (int j = 0; j < L; j += 4) {
+        float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (j + 4 <= m) {
+          c = __ldg(reinterpret_cast<const float4*>(r + j));
+        } else if (j < m) {
+          c.x = __ldg(r + j);
+          if (j + 1 < m) c.y = __ldg(r + j + 1);
+          if (j + 2 < m) c.z = __ldg(r + j + 2);
+        }
+        if (j < m) replay_hour(c.x, on, acc, q);
+        if (j + 1 < m) replay_hour(c.y, on, acc, q);
+        if (j + 2 < m) replay_hour(c.z, on, acc, q);
+        if (j + 3 < m) replay_hour(c.w, on, acc, q);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < L; ++j)
+        if (j < m) replay_hour(__ldg(r + j), on, acc, q);
     }
-    __syncthreads();
-    const int n = min(kTile, t1 - h0);
-    for (int k = 0; k < n; ++k) {
-      const float p = tile[threadIdx.x][k];
-      hour_step(from_off, p, q);
-      hour_step(from_on, p, q);
-    }
-    __syncthreads();
+    if (t0 + W < T) __syncthreads();  // tot is written anew
   }
-  if (live) {
-    const size_t base0 = ((size_t)blockIdx.y * 2 + 0) * kRec * B + row;
-    const size_t base1 = ((size_t)blockIdx.y * 2 + 1) * kRec * B + row;
-    put_record(rec, from_off, base0, B);
-    put_record(rec, from_on, base1, B);
+  // the block's sums in a fixed order, in float64: within each warp
+  // (lanes l and l + st, st = 16, ..., 1), then over the warps' sums
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  double x[4] = {(double)acc.dp, (double)acc.cap, (double)acc.st,
+                 (double)acc.sp};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    x[c] = warp_tree(x[c], 32);
+    if (lane == 0) wsum[c][warp] = x[c];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const double y = warp_tree(lane < kWarps ? wsum[c][lane] : 0.0, kWarps);
+      if (lane == 0) out[(size_t)c * B + row] = (float)y;
+    }
   }
 }
 
-// out: [4][B]
-__global__ void fleet_scan_stitch(const float* __restrict__ rec,
-                                  float* __restrict__ out, int B,
-                                  int n_chunks) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  int state = 1;  // every row starts on
-  float draw_price = 0.f, cap = 0.f, starts = 0.f, start_price = 0.f;
-  for (int c = 0; c < n_chunks; ++c) {
-    const size_t base = ((size_t)c * 2 + state) * kRec * B + row;
-    draw_price += rec[base];
-    cap += rec[base + B];
-    starts += rec[base + 2 * (size_t)B];
-    start_price += rec[base + 3 * (size_t)B];
-    state = rec[base + 4 * (size_t)B] != 0.0f ? 1 : 0;
-  }
-  out[row] = draw_price;
-  out[B + row] = cap;
-  out[2 * (size_t)B + row] = starts;
-  out[3 * (size_t)B + row] = start_price;
+// L: the fewest hours of kSegs a thread that cover T in one window, or
+// the most, in as many windows as it takes
+int seg_len(int T) {
+  for (int L : kSegs)
+    if ((long long)kThreads * L >= T) return L;
+  return kSegs[sizeof(kSegs) / sizeof(int) - 1];
+}
+
+template <int L, bool V>
+int launch(const float* prices, const long long* market_idx,
+           const float* p_on, const float* p_off, const float* off_level,
+           const float* idle_frac, float* out, int B, int N, int T,
+           cudaStream_t s) {
+  fleet_scan_kernel<L, V><<<B, kThreads, 0, s>>>(
+      prices, market_idx, p_on, p_off, off_level, idle_frac, out, B, N, T);
+  ++g_launched;
+  return (int)cudaGetLastError();
+}
+
+// the kernel of L hours a thread, with 16-byte loads where vec and L % 4 == 0
+template <int... Ls>
+int launch_seg(int L, bool vec, const float* prices,
+               const long long* market_idx, const float* p_on,
+               const float* p_off, const float* off_level,
+               const float* idle_frac, float* out, int B, int N, int T,
+               cudaStream_t s) {
+  int rc = (int)cudaErrorInvalidValue;
+  ((L == Ls ? (rc = vec ? launch<Ls, Ls % 4 == 0>(prices, market_idx, p_on,
+                                                  p_off, off_level, idle_frac,
+                                                  out, B, N, T, s)
+                        : launch<Ls, false>(prices, market_idx, p_on, p_off,
+                                            off_level, idle_frac, out, B, N,
+                                            T, s),
+                0)
+              : 0),
+   ...);
+  return rc;
 }
 
 }  // namespace
@@ -165,35 +285,27 @@ extern "C" unsigned long long kernels_launched() {
 
 extern "C" {
 
-// Floats of pass-1 scratch that fleet_scan_f32 needs for B rows and
-// n_chunks = ceil(T / chunk) chunks.
-long long fleet_scan_scratch_floats(int B, int n_chunks) {
-  return (long long)n_chunks * 2 * kRec * B;
-}
+// The kernel's layout: threads a row, and the hours a thread owns in a
+// window of a row of T hours (ref.fleet_scan_seg_ref takes the same two
+// numbers).
+int fleet_scan_threads() { return kThreads; }
+int fleet_scan_seg(int T) { return seg_len(T); }
 
-// prices: [B, T] row-major float32; p_on, p_off, off_level, idle_frac: [B];
-// scratch: fleet_scan_scratch_floats(B, ceil(T/chunk)) floats; out: [4, B];
-// chunk: a positive multiple of the 32-hour tile. Launches both passes on
-// `stream` and returns cudaGetLastError().
-int fleet_scan_f32(const float* prices, const float* p_on, const float* p_off,
-                   const float* off_level, const float* idle_frac,
-                   float* scratch, float* out, int B, int T, int chunk,
-                   void* stream) {
-  if (B <= 0 || T <= 0 || chunk <= 0 || chunk % kTile != 0)
+// prices: [N, T] row-major float32; market_idx: [B] int64 with values in
+// [0, N), or null (then N == B and row b reads prices row b); p_on, p_off,
+// off_level, idle_frac: [B]; out: [4, B]. Launches one kernel on `stream`
+// and returns cudaGetLastError().
+int fleet_scan_f32(const float* prices, const long long* market_idx,
+                   const float* p_on, const float* p_off,
+                   const float* off_level, const float* idle_frac, float* out,
+                   int B, int N, int T, void* stream) {
+  if (B <= 0 || N <= 0 || T <= 0 || (market_idx == nullptr && N != B))
     return (int)cudaErrorInvalidValue;
-  const int n_chunks = (T + chunk - 1) / chunk;
-  if (n_chunks > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid1((B + kRows - 1) / kRows, n_chunks);
-  fleet_scan_chunks<<<grid1, kRows, 0, s>>>(prices, p_on, p_off, off_level,
-                                            idle_frac, scratch, B, T, chunk);
-  ++g_launched;
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fleet_scan_stitch<<<(B + 255) / 256, 256, 0, s>>>(scratch, out, B,
-                                                    n_chunks);
-  ++g_launched;
-  return (int)cudaGetLastError();
+  const bool vec =
+      T % 4 == 0 && reinterpret_cast<std::uintptr_t>(prices) % 16 == 0;
+  return launch_seg<FLEET_SEGS>(seg_len(T), vec, prices, market_idx, p_on,
+                                p_off, off_level, idle_frac, out, B, N, T,
+                                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -68,6 +68,87 @@ def fleet_scan_ref(prices: torch.Tensor, p_on, p_off, off_level,
     return FleetScanOut(*acc)
 
 
+FLEET_SCAN_THREADS = 256   # the fleet-scan kernel's threads a row (NT)
+# the hours a thread may own in a window of the fleet-scan kernel, each a
+# kernel of its own
+FLEET_SCAN_SEGS = (1, 2, 4, 9, 18, 36)
+
+
+def fleet_scan_seg(t: int, nt: int = FLEET_SCAN_THREADS,
+                   segs: tuple = FLEET_SCAN_SEGS) -> int:
+    """Hours a thread owns in a window of the fleet-scan kernel (L): the
+    fewest of ``segs`` that cover ``t`` in one window of ``nt * L`` hours,
+    or the most, in as many windows as it takes."""
+    return next((s for s in segs if nt * s >= t), segs[-1])
+
+
+def fleet_scan_seg_ref(prices: torch.Tensor, p_on, p_off, off_level,
+                       idle_frac, *, threads: int = FLEET_SCAN_THREADS,
+                       hours: int | None = None) -> FleetScanOut:
+    """`fleet_scan_ref` as the CUDA kernel computes it (used by the tests
+    and the chip check, never by the wrappers): windows of ``threads *
+    hours`` hours (``hours`` defaults to `fleet_scan_seg`), each thread
+    owning ``hours`` consecutive hours of a window. Per window: each
+    thread's last decisive event, coded ``2k + on`` at window hour k (-1
+    where its hours decide nothing); the exclusive max-scan of those codes
+    across the threads, whose low bit is each thread's entering state (the
+    window's entering state where no event came earlier: 1 before the
+    first hour, then the state the largest code of the last window left);
+    each thread's replay of its hours through `hard_hour_step` from that
+    state, adding the four terms into sums of its own in the prices'
+    dtype. Then a tree adds the sums in float64: within each warp of 32
+    threads (pairs ``l`` and ``l + st`` for ``st`` = 16, ..., 1), then over
+    the warps' sums the same way; rounded once to the prices' dtype
+    (float64 stays float64, anything else float32). ``threads`` is a power
+    of two of at least 32."""
+    if threads < 32 or threads & (threads - 1):
+        raise ValueError(f"threads must be a power of two of at least 32, "
+                         f"got {threads}")
+    dtype = torch.float64 if prices.dtype == torch.float64 \
+        else torch.float32
+    p = prices.to(dtype)
+    b, t = p.shape
+    p_on, p_off, off_level, idle_frac = (
+        torch.as_tensor(v, device=p.device).to(dtype)
+        .expand(b).contiguous()[:, None]
+        for v in (p_on, p_off, off_level, idle_frac))
+    seg = hours or fleet_scan_seg(t, threads)
+    w = threads * seg
+    k = torch.arange(w, device=p.device).reshape(threads, seg)
+    carry = torch.ones((b, 1), dtype=dtype, device=p.device)
+    acc = [torch.zeros((b, threads), dtype=dtype, device=p.device)
+           for _ in range(4)]
+    for t0 in range(0, t, w):
+        n = min(w, t - t0)
+        pw = torch.nn.functional.pad(p[:, t0:t0 + n], (0, w - n)) \
+            .reshape(b, threads, seg)
+        valid = k < n
+        off = (pw > p_off[..., None]) & valid
+        on = (pw <= p_on[..., None]) & valid & ~off
+        last = torch.where(off | on, 2 * k + on.long(), -1).amax(-1)
+        incl = torch.cummax(last, dim=1).values
+        before = torch.cat([torch.full_like(incl[:, :1], -1),
+                            incl[:, :-1]], 1)
+        state = torch.where(before >= 0, (before & 1).to(dtype), carry)
+        every = incl[:, -1:]
+        carry = torch.where(every >= 0, (every & 1).to(dtype), carry)
+        for j in range(seg):
+            v, x = valid[:, j], pw[..., j]
+            now, start, cap, draw = hard_hour_step(state, x, p_on, p_off,
+                                                   off_level, idle_frac)
+            acc = [torch.where(v, a + d, a)
+                   for a, d in zip(acc, (draw * x, cap, start, start * x))]
+            state = torch.where(v, now, state)
+    acc = [a.double().reshape(b, threads // 32, 32) for a in acc]
+    for width in (32, threads // 32):
+        st = width // 2
+        while st > 0:
+            acc = [a[..., :st] + a[..., st:2 * st] for a in acc]
+            st //= 2
+        acc = [a[..., 0] for a in acc]
+    return FleetScanOut(*(a.to(dtype) for a in acc))
+
+
 def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     """1 / (1 + exp(-x)): exact 0 and 1 at the ends, the form the CUDA
     kernels use. Built from `torch.exp` and IEEE arithmetic, which give

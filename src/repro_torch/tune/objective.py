@@ -343,8 +343,8 @@ def soft_dispatch_ratio(cap: torch.Tensor, row_ratio: torch.Tensor,
     if axis_name is not None:
         raise NotImplementedError(
             "soft_dispatch_ratio(axis_name=): sharded coupled objectives "
-            "come to the port with torch.distributed (ROADMAP queue 1 item "
-            "13)")
+            "come to the port with torch.distributed in the mesh slice "
+            "(ROADMAP queue 1)")
     dtype, dev = cap.dtype, cap.device
     c = coupling.prices.shape[0]
     onehot = (coupling.cell_id[None, :]
@@ -450,12 +450,12 @@ def soft_objective(raw: PolicyParams, problem: TuneProblem, tau, *,
     if workload is not None:
         raise NotImplementedError(
             "soft_objective(workload=) comes to the port with the workload "
-            "slice (ROADMAP queue 1 item 12)")
+            "slice (ROADMAP queue 1)")
     if axis_name is not None or scale_rows is not None:
         raise NotImplementedError(
             "soft_objective(axis_name=, scale_rows=): sharded coupled "
-            "objectives come to the port with torch.distributed (ROADMAP "
-            "queue 1 item 13)")
+            "objectives come to the port with torch.distributed in the mesh "
+            "slice (ROADMAP queue 1)")
     costs, draw, cap = soft_costs(raw, problem, tau, fused=fused,
                                   block_t=block_t, row_prices=row_prices)
     ratio = costs.cpc / costs.cpc_ao

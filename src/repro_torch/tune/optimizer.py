@@ -38,8 +38,9 @@ differentiates through the relaxed water-fill dispatcher
 the fused soft-dispatch forward and backward kernels on the card, and
 the result is re-scored on feasible dispatch under the same config.
 
-Later slices: sharded plans (ROADMAP queue 1 item 13), workloads (item
-12), the telemetry side-outputs and events (item 9), and the reference's
+Later slices: sharded plans (the mesh slice in ROADMAP queue 1), workloads
+(the workload slice), the telemetry side-outputs and events (the
+telemetry slice), and the reference's
 deprecated `TuneConfig` spellings (``chunk_rows=``, ``power_cap_mw=``,
 ...).
 """
@@ -115,7 +116,7 @@ class TuneConfig:
         if self.workload is not None:
             raise NotImplementedError(
                 "TuneConfig(workload=) comes to the port with the workload "
-                "slice (ROADMAP queue 1 item 12)")
+                "slice (ROADMAP queue 1)")
         validate_plan_coupling(self.resolved_plan, rc, context="TuneConfig")
 
     @property
@@ -435,8 +436,8 @@ def _run_loop(raw0: PolicyParams, problem: TuneProblem, cfg: TuneConfig,
     if plan.mode == "sharded":
         raise NotImplementedError(
             "ExecutionPlan(mode='sharded'): the tuner shards over devices "
-            "with torch.distributed in a later slice (ROADMAP queue 1 item "
-            "13); use mode='single' or 'chunked' on one card")
+            "with torch.distributed in the mesh slice (ROADMAP queue 1); use "
+            "mode='single' or 'chunked' on one card")
     validate_plan_coupling(plan, cfg.resolved_coupling,
                            context="TuneConfig")
     chunk = plan.chunk_rows

@@ -13,7 +13,9 @@ reference, so it runs on a machine that has only PyTorch:
 
 Tolerances: start counts equal; fleet-scan sums within rtol 2e-5 / atol
 1e-3 of the plain version run in float64 on the same inputs (the float32
-plain run's own running-sum drift over 8760 hours exceeds 2e-5); soft
+plain run's own running-sum drift over 8760 hours exceeds 2e-5), and
+equal bit for bit to its segmented mirror run on the card, to a second
+launch and, read through ``market_idx``, to the gathered form; soft
 states within atol 1e-5 and soft gradients within rtol 2e-5 (d_p: atol
 1e-5 max|d_p|) of the plain blocked versions in float64, with a positive
 cotangent so the threshold sums carry no cancellation, at any positive
@@ -51,6 +53,11 @@ scale (the two share every cast and differ in the order of float32 sums,
 the cumsum's included).
 """
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -71,7 +78,8 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fleet_scan import fleet_scan  # noqa: E402
 from repro_torch.kernels.ref import (decode_attention_plain,  # noqa: E402
                                      dispatch_ref,
-                                     flash_attention_plain, fleet_scan_ref, soft_dispatch_bwd_ref,
+                                     flash_attention_plain, fleet_scan_ref,
+                                     fleet_scan_seg_ref, soft_dispatch_bwd_ref,
                                      soft_scan_bwd_seg_ref,
                                      soft_scan_fwd_seg_ref,
                                      soft_dispatch_fwd_ref,
@@ -107,18 +115,71 @@ def _inputs(b, t, seed, dev):
             for a in arrays]
 
 
-@pytest.mark.parametrize("case", [(1, 64), (5, 333), (130, 1000),
-                                  (64, 4097), (1024, 8760)])
+FLEET_SHAPES = [(1, 64), (5, 333), (130, 1000), (64, 4097), (1024, 8760),
+                (3, 9300)]
+
+
+@pytest.mark.parametrize("case", FLEET_SHAPES)
 def test_kernel_matches_plain_version(cuda, case):
+    """Start counts equal to the plain float32 version, sums within rtol
+    2e-5 of the plain version in float64, every output equal bit for bit
+    to the segmented mirror run on the card and to a second launch; one
+    kernel on the card a call."""
     args = _inputs(*case, seed=sum(case), dev=cuda)
-    before = fleet_scan.launches
+    before = (fleet_scan.launches, fleet_scan.device_launches)
     got = fleet_scan(*args)
-    assert fleet_scan.launches == before + 1
+    assert (fleet_scan.launches, fleet_scan.device_launches) == \
+        (before[0] + 1, before[1] + 1)
     plain = fleet_scan(*args, use_kernel=False)
     exact = fleet_scan_ref(args[0].double(), *args[1:])
     assert torch.equal(got.n_starts, plain.n_starts)
     for g, e in zip(got, exact):
         torch.testing.assert_close(g.double(), e, rtol=2e-5, atol=1e-3)
+    mirror = fleet_scan_seg_ref(*args)
+    again = fleet_scan(*args)
+    for g, m, a in zip(got, mirror, again):
+        assert torch.equal(g, m) and torch.equal(g, a)
+
+
+@pytest.mark.parametrize("case", FLEET_SHAPES)
+def test_indexed_kernel_equals_the_gathered_kernel(cuda, case):
+    """Rows read through ``market_idx`` from an [N, T] block give the bits
+    of the same kernel on the gathered [B, T] block."""
+    b, t = case
+    n = max(1, b // 8)
+    markets = _inputs(n, t, seed=b + t, dev=cuda)[0]
+    params = _inputs(b, 1, seed=b, dev=cuda)[1:]
+    mi = torch.as_tensor(np.random.default_rng(t).integers(0, n, b),
+                         device=cuda)
+    got = fleet_scan(markets, *params, market_idx=mi)
+    want = fleet_scan(markets[mi].contiguous(), *params)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("bad", [3, -1])
+def test_kernel_stops_on_an_index_out_of_range(cuda, bad):
+    """An index outside [0, N) traps on the card and raises at the next
+    synchronisation (in a process of its own: the trap ends its CUDA
+    context)."""
+    script = (
+        "import sys, torch\n"
+        "from repro_torch.kernels.fleet_scan import fleet_scan\n"
+        "p = torch.zeros((3, 100), device='cuda')\n"
+        f"mi = torch.tensor([0, {bad}, 1], device='cuda')\n"
+        "try:\n"
+        "    fleet_scan(p, 1.0, 2.0, 0.0, 0.0, market_idx=mi)\n"
+        "    torch.cuda.synchronize()\n"
+        "except Exception as e:\n"
+        "    print('raised:', e)\n"
+        "    sys.exit(0)\n"
+        "sys.exit(1)\n")
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    proc = subprocess.run([sys.executable, "-c", script], text=True,
+                          capture_output=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=src))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "raised:" in proc.stdout
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
@@ -131,6 +192,13 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         fleet_scan(p, p_on.cpu(), p_off, lvl, idle)
     with pytest.raises(ValueError, match="parameters"):
         fleet_scan(p, p_on[:3], p_off, lvl, idle)
+    mi = torch.tensor([0, 1, 2, 3], device=cuda)
+    with pytest.raises(ValueError, match="market_idx"):
+        fleet_scan(p, p_on, p_off, lvl, idle, market_idx=mi.int())
+    with pytest.raises(ValueError, match="market_idx"):
+        fleet_scan(p, p_on, p_off, lvl, idle, market_idx=mi.cpu())
+    with pytest.raises(ValueError, match="parameters"):
+        fleet_scan(p, p_on, p_off, lvl, idle, market_idx=mi[:3])
 
 
 def test_backtest_on_the_card_matches_the_cpu(cuda):

@@ -56,3 +56,59 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
                  "repro_torch.configs.mamba2_1_3b",
                  "repro_torch.examples.price_aware_serving"):
         assert name in names
+
+
+REF = SRC / "repro"
+
+
+def _reference_exports():
+    """(reference package, module, name) for each ``from <module> import
+    <name>`` in a reference package ``__init__``, read with `ast` so the
+    reference need not import."""
+    import ast
+    out = []
+    for init in sorted(REF.rglob("__init__.py")):
+        pkg = ".".join(init.parent.relative_to(SRC).parts)
+        for node in ast.walk(ast.parse(init.read_text())):
+            if not isinstance(node, ast.ImportFrom):
+                continue
+            if node.level:
+                base = pkg.rsplit(".", node.level - 1)[0]
+                module = f"{base}.{node.module}" if node.module else base
+            else:
+                module = node.module
+            if module.split(".")[0] != "repro":
+                continue
+            out += [(pkg, module, a.name) for a in node.names]
+    return out
+
+
+def test_port_packages_export_what_the_reference_exports():
+    """Wherever the port has the module a reference package re-exports a
+    name from, and that module defines the name, the port's package
+    exports it too. Names whose module is not ported yet, or does not
+    define them yet, arrive with their slices."""
+    import importlib
+    import importlib.util
+
+    def port(name):
+        return "repro_torch" + name[len("repro"):]
+
+    exports = _reference_exports()
+    assert ("repro.runtime", "repro.runtime.accounting", "CostMeter") \
+        in exports
+    checked, missing = 0, []
+    for pkg, module, name in exports:
+        try:
+            spec = importlib.util.find_spec(port(module))
+        except ModuleNotFoundError:
+            spec = None
+        if spec is None:
+            continue
+        if not hasattr(importlib.import_module(port(module)), name):
+            continue
+        checked += 1
+        if not hasattr(importlib.import_module(port(pkg)), name):
+            missing.append(f"{port(pkg)}.{name}")
+    assert missing == []
+    assert checked >= 100

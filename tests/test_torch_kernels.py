@@ -162,27 +162,36 @@ def test_build_key_follows_the_included_headers(monkeypatch, tmp_path):
 
 def test_scan_probe_variants_match_the_sources():
     """Every text substitution of `scan_probe.py` (each a variant of the
-    SSD, dispatch or soft-scan kernel it times on the card) matches the
-    sources, and the soft-scan variants' layouts read back."""
+    SSD, dispatch, soft-scan or fleet-scan kernel it times on the card)
+    matches the sources, and the soft- and fleet-scan variants' layouts
+    read back."""
     import importlib.util
     root = build.CSRC.parents[3]
     spec = importlib.util.spec_from_file_location("scan_probe",
                                                   root / "scan_probe.py")
     probe = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(probe)
-    src = {lib: (build.CSRC / f"{lib}.cu").read_text()
-           for lib in ("ssd_scan", "dispatch_scan", "soft_scan")}
-    todo = probe.variants(src["ssd_scan"], src["dispatch_scan"],
-                          src["soft_scan"])
+    libs = ("ssd_scan", "dispatch_scan", "soft_scan", "fleet_scan")
+    src = {lib: (build.CSRC / f"{lib}.cu").read_text() for lib in libs}
+    todo = probe.variants(*(src[lib] for lib in libs))
     assert todo["ssd as built"] == ("ssd_scan", src["ssd_scan"])
     assert todo["dispatch as built"] == ("dispatch_scan",
                                          src["dispatch_scan"])
     assert todo["soft as built"] == ("soft_scan", src["soft_scan"])
+    assert todo["fleet as built"] == ("fleet_scan", src["fleet_scan"])
     changed = [name for name, (lib, text) in todo.items()
                if text != src[lib]]
-    assert len(changed) == len(todo) - 3
+    assert len(changed) == len(todo) - 4
     empty = todo["soft, empty kernels"][1]
     assert empty.count("if (T > 0) return;") == 2
+    assert todo["fleet, empty kernel"][1].count("if (T > 0) return;") == 1
+    assert "block_exclusive_max(-1, all, tot)" in \
+        todo["fleet, no last-event search (timing only)"][1]
     layouts = {probe._soft_layout(text) for name, (lib, text) in todo.items()
                if lib == "soft_scan"}
     assert layouts == {(256, 12), (128, 12), (512, 12), (256, 8), (256, 16)}
+    layouts = {probe._fleet_layout(text) for name, (lib, text) in todo.items()
+               if lib == "fleet_scan"}
+    segs = (1, 2, 4, 9, 18, 36)
+    assert layouts == {(256, segs), (128, segs), (512, segs),
+                       (256, segs[:-1]), (256, (1, 2, 4, 9, 12))}

@@ -458,7 +458,7 @@ def test_block_bootstrap_is_bit_equal_to_reference(kw):
 
 def test_later_slice_options_raise(grid):
     prob, raw = problem_from_grid(grid), init_from_grid(grid)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="the mesh slice"):
         optimize(grid, TuneConfig(steps=2, plan=ExecutionPlan(
             mode="sharded")), device=CPU)
     # the soft dispatch coupling (Coupling(dispatch=)) and the hard
@@ -468,9 +468,9 @@ def test_later_slice_options_raise(grid):
         TuneConfig(workload=object())
     with pytest.raises(NotImplementedError, match="workload"):
         soft_objective(raw, prob, 1.0, workload=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="the mesh slice"):
         soft_objective(raw, prob, 1.0, axis_name="rows")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="the mesh slice"):
         soft_dispatch_ratio(None, None, None, 1.0, axis_name="rows")
     # the legality rule of the pair stays a ValueError
     with pytest.raises(ValueError, match="chunk_rows"):
