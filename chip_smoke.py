@@ -49,8 +49,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      --dispatch-soft`;
  11. the attention kernels (flash, decode) against their plain versions
      on the card and against SDPA, at the reference's cases, the serving
-     shapes and the tensor-core (bf16) kernels' head dims and heads per
-     group (run with phase 8's kernel checks); the decode kernel's
+     shapes (qwen2.5-3b's and zamba2-1.2b's: 32 heads each its own KV
+     group, Dh 64) and the tensor-core (bf16) kernels' head dims and heads
+     per group (run with phase 8's kernel checks); the decode kernel's
      ticket counters back at 0;
  12. the serving path at full width: `ServingEngine` on qwen2.5-3b (bf16,
      random parameters drawn from a seed on the CPU, copied to the card),
@@ -62,14 +63,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      reference's cases, mamba2-1.3b's serving shapes at 1024 and 1000
      positions in bf16 and float32, with h0 and without, several heads a
      group with ragged head sets, one head a group, rows that take no
-     16-byte copies, a scan in two parts chained through h0); the Mamba2
-     serving path at full width:
+     16-byte copies, zamba2-1.2b's N 64, a scan in two parts chained
+     through h0); the Mamba2 serving path at full width:
      the same engine, gate and requests on mamba2-1.3b (48 layers, bf16),
      prompts of 2 to 1024 tokens, 48 SSD launches per prefill, no plain
      SSD and no attention; a 1000-token request teacher-forced through
      the kernel and through the plain scan; prefill of 2 and of 300 tokens
+     then decode against the longer prefills; the hybrid serving path at
+     full width: the same engine, gate and requests on zamba2-1.2b (38
+     Mamba2 layers and 6 applications of one shared attention + MLP block,
+     bf16), prompts of 1, 2, 3 and 1024 tokens and 12 of 128-1024, 38 SSD
+     and 6 flash launches per prefill and 6 decode launches per step, no
+     plain attention or SSD; a 1024-token request teacher-forced through
+     the kernels and the plain versions; prefill of 2 and of 300 tokens
      then decode against the longer prefills; the `repro_torch.launch.
-     serve` launcher at the reference's defaults and on reduced mamba2;
+     serve` launcher at the reference's defaults and on reduced mamba2 and
+     zamba2;
  14. times (median of CUDA-event runs after warm-up): each kernel, its
      plain version and its bound (the fleet scan through ``market_idx``
      and on the gathered block, and at the tuner's 256 x 2190), the
@@ -84,13 +93,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      and of the one-step design before it (the plain forward's run at
      64 x 8760 also holds phase 9's allocation), a dispatch-aware tuner
      step (dwell 4, as `optimize` runs it) against an uncoupled one, the
-     attention kernels at the serving shapes in turns with SDPA, and the
-     SSD kernel at 1024 and 2048 positions, each pass's device time, the
-     work it issues, beside its plain version and bound;
+     attention kernels at the serving shapes (qwen2.5-3b's and
+     zamba2-1.2b's) in turns with SDPA, and the SSD kernel at 1024 and
+     2048 positions and at zamba2's N 64, each pass's device time (the
+     tensor-core kernels must be among them), the work it issues, beside
+     its plain version and bound;
 each path's kernel launch counts are set to 0 just before it and read
 just after. Then one JSON line describing every ported kernel (a counted
 launch is one wrapper call; ``device_launches`` counts, in the same run,
-the kernels those calls put on the card) and, last, one JSON line naming
+the kernels those calls put on the card; flash, decode and the SSD scan
+add the zamba2 run's launches and zamba2-shape times under ``hybrid_``
+keys) and, last, one JSON line naming
 the device. Without CUDA it exits non-zero and
 prints no result.
 """
@@ -2167,7 +2180,9 @@ BF16 = torch.bfloat16
 # the longest serving shape and the chunked prefill also at float32, where
 # the tolerance (2e-5) is far below the outputs' size (~0.04 at 2048 keys),
 # then the tensor-core (bf16) kernel at Dh 16 and 32, a window with an
-# offset, a non-causal case and a window edge inside a tile
+# offset, a non-causal case and a window edge inside a tile, and last
+# zamba2-1.2b's serving shapes (32 heads, each its own KV group, Dh 64) at
+# bf16 and float32, whole tiles and ragged
 FLASH_SMOKE_CASES = [
     (2, 128, 128, 4, 2, 64, True, 0, 0, torch.float32),
     (1, 100, 100, 8, 2, 64, True, 0, 0, torch.float32),
@@ -2187,12 +2202,17 @@ FLASH_SMOKE_CASES = [
     (1, 70, 200, 16, 2, 32, True, 40, 130, BF16),
     (2, 64, 256, 4, 4, 32, False, 0, 0, BF16),
     (1, 128, 128, 4, 2, 64, True, 100, 0, BF16),
+    (1, 1024, 1024, 32, 32, 64, True, 0, 0, BF16),
+    (1, 1000, 1000, 32, 32, 64, True, 0, 0, BF16),
+    (1, 1024, 1024, 32, 32, 64, True, 0, 0, torch.float32),
 ]
 # B, H, G, Dh, W, dtype, mask: the reference's DECODE_CASES, then the
 # serving pool (8 slots of 2048, 16 heads in 2 groups) with a linear
 # cache's mask and a rolling one's, at bf16 and at float32 (eight 256-slot
 # splits folded, and whole tiles and splits with no valid slot skipped),
-# then the tensor-core (bf16) kernel at 1, 16 and 32 heads a group
+# then the tensor-core (bf16) kernel at 1, 16 and 32 heads a group, and
+# zamba2-1.2b's pool (8 slots of 2048, 32 heads each its own group, Dh 64:
+# one real query row of the 16 an mma tile holds) at bf16 and float32
 DECODE_SMOKE_CASES = [
     (2, 8, 2, 64, 100, torch.float32, "random"),
     (1, 4, 4, 32, 256, torch.float32, "random"),
@@ -2205,6 +2225,9 @@ DECODE_SMOKE_CASES = [
     (2, 2, 2, 64, 300, BF16, "random"),
     (3, 32, 2, 128, 700, BF16, "random"),
     (2, 32, 1, 64, 1000, BF16, "random"),
+    (8, 32, 32, 64, 2048, BF16, "linear"),
+    (8, 32, 32, 64, 2048, BF16, "random"),
+    (8, 32, 32, 64, 2048, torch.float32, "linear"),
 ]
 SERVE_ARCH = "qwen2.5-3b"
 SSM_ARCH = "mamba2-1.3b"
@@ -2212,6 +2235,10 @@ SSM_ARCH = "mamba2-1.3b"
 # two whole, ragged ones, four chunks less 24 and four whole, and a prompt
 # shorter than the conv (its conv tail is left-padded)
 SSM_PROMPTS = (128, 256, 300, 512, 700, 1000, 1024, 2)
+HYBRID_ARCH = "zamba2-1.2b"
+# the zamba2 run's fixed prompt lengths: three shorter than the conv's K - 1
+# = 3 inputs and K - 1 itself (the conv-tail path), and four whole chunks
+HYBRID_PROMPTS = (1, 2, 3, 1024)
 SERVE_REQUESTS, SERVE_MAX_NEW, SERVE_SEED = 16, 32, 0
 # teacher-forced kernel vs plain logits at bf16, full width (PERF.md)
 TF_STEPS, TF_MAX_ABS = 16, 0.25
@@ -2433,22 +2460,34 @@ def _serve_requests(cfg, fixed=()):
 def _serve_expect(cfg) -> dict:
     """Each serving kernel's launches per (prefill, decode step): the dense
     family's flash and decode attention, the ssm family's SSD scan (its
-    decode step is the plain recurrence)."""
+    decode step is the plain recurrence), the hybrid family's SSD scan per
+    Mamba2 layer and both attention kernels per application of its shared
+    block."""
     if cfg.family == "ssm":
         return {"ssd_scan": (cfg.n_layers, 0)}
+    if cfg.family == "hybrid":
+        n_apps = cfg.n_layers // cfg.hybrid_attn_every
+        return {"flash_attention": (n_apps, 0),
+                "decode_attention": (0, n_apps),
+                "ssd_scan": (cfg.n_layers, 0)}
     return {"flash_attention": (cfg.n_layers, 0),
             "decode_attention": (0, cfg.n_layers)}
 
 
 def _describe(cfg) -> str:
-    if cfg.family == "ssm":
-        return (f"{cfg.n_layers} Mamba2 layers, d_model {cfg.d_model}, "
-                f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads of P "
-                f"{cfg.ssm_head_dim}, N {cfg.ssm_state}, chunk "
-                f"{cfg.ssm_chunk}, conv {cfg.ssm_conv}")
-    return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
-            f"heads / {cfg.n_kv_heads} KV groups, Dh "
+    ssm = (f"{cfg.n_layers} Mamba2 layers, d_model {cfg.d_model}, "
+           f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads of P "
+           f"{cfg.ssm_head_dim}, N {cfg.ssm_state}, chunk "
+           f"{cfg.ssm_chunk}, conv {cfg.ssm_conv}")
+    attn = (f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV groups, Dh "
             f"{cfg.resolved_head_dim}")
+    if cfg.family == "ssm":
+        return ssm
+    if cfg.family == "hybrid":
+        return (f"{ssm}; one shared attention + MLP block ({attn}, d_ff "
+                f"{cfg.d_ff}) after every {cfg.hybrid_attn_every} of them, "
+                f"{cfg.n_layers // cfg.hybrid_attn_every} applications")
+    return f"{cfg.n_layers} layers, d_model {cfg.d_model}, {attn}"
 
 
 def phase_serving(dev, arch: str, fixed=(), profile_len: int = 576
@@ -2628,15 +2667,15 @@ def _plain_stand_ins(cfg) -> dict:
     this script, not of the package)."""
     from repro_torch.kernels import ref
 
-    if cfg.family == "ssm":
-        return {"ssd_scan": lambda x, dt, a, b, c, chunk, h0=None:
-                ref.ssd_scan_plain(x, dt, a, b, c, chunk, h0)}
-    return {"flash_attention": lambda q, k, v, **kw:
-            ref.flash_attention_plain(q, k, v, causal=kw["causal"],
-                                      window=kw["window"],
-                                      q_offset=kw["q_offset"]),
-            "decode_attention": lambda q, k, v, valid, **kw:
-            ref.decode_attention_plain(q, k, v, valid)}
+    plain = {"ssd_scan": lambda x, dt, a, b, c, chunk, h0=None:
+             ref.ssd_scan_plain(x, dt, a, b, c, chunk, h0),
+             "flash_attention": lambda q, k, v, **kw:
+             ref.flash_attention_plain(q, k, v, causal=kw["causal"],
+                                       window=kw["window"],
+                                       q_offset=kw["q_offset"]),
+             "decode_attention": lambda q, k, v, valid, **kw:
+             ref.decode_attention_plain(q, k, v, valid)}
+    return {k: plain[k] for k in _serve_expect(cfg)}
 
 
 def phase_teacher_forced(dev, serve, prompt_len: int | None = None) -> None:
@@ -2704,17 +2743,19 @@ def phase_teacher_forced(dev, serve, prompt_len: int | None = None) -> None:
 def phase_prefill_vs_decode(dev, serve, steps: int = 8) -> None:
     """On the card, for S = 2 (a prompt shorter than the conv's K - 1 = 3
     inputs, whose conv tail is left-padded) and S = 300: prefill S tokens
-    of a request, decode its next ``steps`` tokens one at a time, and hold
-    each step's logits against the prefill of the longer prompt; within
-    TF_MAX_ABS (the decode recurrence and the chunked scan round in bf16
-    at other places)."""
+    of a request (its K/V, where the model has attention, into a cache of
+    2048 positions), decode its next ``steps`` tokens one at a time, and
+    hold each step's logits against the prefill of the longer prompt;
+    within TF_MAX_ABS (the decode recurrence and the chunked scan round in
+    bf16 at other places)."""
     from repro_torch.models.model import decode_step, prefill
 
     cfg, params = serve["cfg"], serve["params"]
     prompt = max(serve["reqs"], key=lambda r: len(r.prompt)).prompt
     toks = torch.as_tensor(prompt.astype(np.int64), device=dev)[None]
     for s in (2, 300):
-        _, caches = prefill(params, {"tokens": toks[:, :s]}, cfg)
+        _, caches = prefill(params, {"tokens": toks[:, :s]}, cfg,
+                            max_seq=2048)
         worst = 0.0
         for j in range(steps):
             got, caches = decode_step(params, toks[:, s + j:s + j + 1],
@@ -2735,12 +2776,13 @@ def phase_prefill_vs_decode(dev, serve, steps: int = 8) -> None:
 def phase_serve_launcher(dev) -> None:
     """`python -m repro_torch.launch.serve --device cuda:0`: the
     reference's defaults (reduced qwen1.5-0.5b, 24 requests, 200 ticks,
-    price gate on) on the card, then ``--arch mamba2-1.3b`` (reduced), each
-    run in this process through its `main`."""
+    price gate on) on the card, then ``--arch mamba2-1.3b`` and ``--arch
+    zamba2-1.2b`` (reduced), each run in this process through its `main`;
+    each must launch every kernel of its family's serving path."""
+    from repro_torch.configs.base import get_config
     from repro_torch.launch import serve
 
-    for arch, kernel in (("qwen1.5-0.5b", "decode_attention"),
-                         ("mamba2-1.3b", "ssd_scan")):
+    for arch in ("qwen1.5-0.5b", "mamba2-1.3b", "zamba2-1.2b"):
         t0 = time.perf_counter()
         counters = _zero_counters()
         rc = serve.main(["--device", str(dev), "--arch", arch])
@@ -2748,7 +2790,7 @@ def phase_serve_launcher(dev) -> None:
         ran = {k: c.launches for k, c in counters.items() if c.launches}
         print(f"[serve] launcher --arch {arch}: exit {rc}, "
               f"{time.perf_counter() - t0:.2f} s; launches {ran}")
-        if rc != 0 or counters[kernel].launches == 0:
+        if rc != 0 or set(ran) != set(_serve_expect(get_config(arch))):
             raise AssertionError(f"repro_torch.launch.serve --arch {arch} "
                                  "failed")
 
@@ -2769,43 +2811,44 @@ def _in_turns(kernel, library, flush) -> tuple[float, float]:
     return statistics.median(k1 + k2), statistics.median(l1 + l2)
 
 
-def phase_attention_times(dev, flush) -> dict:
-    """Device-only times (CUDA events, L2 flushed) of kernels 8 and 9 at
-    the serving shapes, in turns with SDPA on the same inputs, beside
-    their plain versions on the card and their bounds (the larger of the
-    bytes at 3.35 TB/s and the matrix products at the 989 TFLOP/s bf16
-    peak)."""
-    from repro_torch.kernels.decode_attention import decode_attention
+def _flash_times(dev, flush, sq, h, g, dh, seed) -> dict:
+    """Flash at one prefill shape (causal, Sq = Skv, bf16): the kernel in
+    turns with SDPA, its plain version on the card, its bound."""
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ref import (decode_attention_plain,
-                                         flash_attention_plain)
+    from repro_torch.kernels.ref import flash_attention_plain
 
-    recs = {}
-    for sq in (128, 1024, 2048):
-        h, g, dh = 16, 2, 128
-        q, k, v = _attn_inputs([(1, sq, h, dh), (1, sq, g, dh),
-                                (1, sq, g, dh)], BF16, dev, 900 + sq)
-        ms, lib = _in_turns(lambda: flash_attention(q, k, v, causal=True),
-                            lambda: _sdpa(q, k, v, causal=True), flush)
-        plain = _cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True),
-                         runs=3)
-        pairs = sq * (sq + 1) // 2
-        bytes_moved = 2 * (2 * sq * h * dh + 2 * sq * g * dh)
-        ops = 4 * pairs * h * dh
-        bound, by = _attn_bound(bytes_moved, ops)
-        print(f"[time] flash_attention Sq=Skv={sq} causal, 16 heads / 2 "
-              f"groups, Dh 128, bf16: kernel {ms:.4f} ms, SDPA {lib:.4f} "
-              f"ms ({ms / lib:.2f}x), plain {plain:.2f} ms, bound "
-              f"{bound:.5f} ms ({by}; {ops / 1e9:.2f} GFLOP, "
-              f"{bytes_moved / 1e6:.2f} MB), {bound / ms:.1%} of bound; "
-              f"kernel {ops / ms / 1e9:.1f} TFLOP/s, "
-              f"{bytes_moved / ms / 1e9:.3f} TB/s; SDPA "
-              f"{ops / lib / 1e9:.1f} TFLOP/s")
-        recs[("flash", sq)] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
-                               "bound_by": by, "library_ms": lib}
-    b, h, g, dh, w = 8, 16, 2, 128, 2048
+    q, k, v = _attn_inputs([(1, sq, h, dh), (1, sq, g, dh),
+                            (1, sq, g, dh)], BF16, dev, seed)
+    ms, lib = _in_turns(lambda: flash_attention(q, k, v, causal=True),
+                        lambda: _sdpa(q, k, v, causal=True), flush)
+    plain = _cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True),
+                     runs=3)
+    pairs = sq * (sq + 1) // 2
+    bytes_moved = 2 * (2 * sq * h * dh + 2 * sq * g * dh)
+    ops = 4 * pairs * h * dh
+    bound, by = _attn_bound(bytes_moved, ops)
+    print(f"[time] flash_attention Sq=Skv={sq} causal, {h} heads / {g} "
+          f"groups, Dh {dh}, bf16: kernel {ms:.4f} ms, SDPA {lib:.4f} "
+          f"ms ({ms / lib:.2f}x), plain {plain:.2f} ms, bound "
+          f"{bound:.5f} ms ({by}; {ops / 1e9:.2f} GFLOP, "
+          f"{bytes_moved / 1e6:.2f} MB), {bound / ms:.1%} of bound; "
+          f"kernel {ops / ms / 1e9:.1f} TFLOP/s, "
+          f"{bytes_moved / ms / 1e9:.3f} TB/s; SDPA "
+          f"{ops / lib / 1e9:.1f} TFLOP/s")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib}
+
+
+def _decode_times(dev, flush, b, h, g, dh, w, seed) -> dict:
+    """Decode over a pool of ``b`` slots x ``w`` positions (bf16) under a
+    linear cache's mask (per-row lengths of 129 to ``w``, drawn from seed
+    951 at every shape): the kernel in turns with SDPA, its plain version
+    on the card, its bound over the valid slots."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ref import decode_attention_plain
+
     q, k, v = _attn_inputs([(b, 1, h, dh), (b, w, g, dh), (b, w, g, dh)],
-                           BF16, dev, 950)
+                           BF16, dev, seed)
     valid = _decode_valid(b, w, "linear", dev, 951)
     mask = valid.bool()[:, None, None, :]
     ms, lib = _in_turns(lambda: decode_attention(q, k, v, valid),
@@ -2817,30 +2860,61 @@ def phase_attention_times(dev, flush) -> dict:
     bytes_moved = 2 * (2 * n_valid * g * dh + 2 * b * h * dh) + b * w
     ops = 4 * n_valid * h * dh
     bound, by = _attn_bound(bytes_moved, ops)
-    print(f"[time] decode_attention B={b} W={w}, 16 heads / 2 groups, Dh "
-          f"128, bf16, linear mask ({n_valid} valid slots): kernel "
+    pool = 2 * (2 * b * w * g * dh + 2 * b * h * dh) + b * w
+    print(f"[time] decode_attention B={b} W={w}, {h} heads / {g} groups, "
+          f"Dh {dh}, bf16, linear mask ({n_valid} valid slots): kernel "
           f"{ms:.4f} ms, SDPA {lib:.4f} ms ({ms / lib:.2f}x), plain "
           f"{plain:.2f} ms, bound {bound:.5f} ms ({by}; "
-          f"{bytes_moved / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP), "
-          f"{bound / ms:.1%} of bound; kernel "
+          f"{bytes_moved / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP; the whole "
+          f"pool's {pool / 1e6:.1f} MB {pool / HBM_BYTES_PER_S * 1e3:.5f} "
+          f"ms), {bound / ms:.1%} of bound; kernel "
           f"{bytes_moved / ms / 1e9:.3f} TB/s, {ops / ms / 1e9:.2f} "
           f"TFLOP/s; SDPA {bytes_moved / lib / 1e9:.3f} TB/s")
-    recs[("decode", w)] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
-                           "bound_by": by, "library_ms": lib}
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib}
+
+
+def phase_attention_times(dev, flush) -> dict:
+    """Device-only times (CUDA events, L2 flushed) of kernels 8 and 9 at
+    the serving shapes, in turns with SDPA on the same inputs, beside
+    their plain versions on the card and their bounds (the larger of the
+    bytes at 3.35 TB/s and the matrix products at the 989 TFLOP/s bf16
+    peak): qwen2.5-3b's (16 heads / 2 groups, Dh 128) and zamba2-1.2b's
+    (32 heads, each its own group, Dh 64)."""
+    recs = {}
+    for sq in (128, 1024, 2048):
+        recs[("flash", sq)] = _flash_times(dev, flush, sq, 16, 2, 128,
+                                           900 + sq)
+    recs[("decode", 2048)] = _decode_times(dev, flush, 8, 16, 2, 128, 2048,
+                                           950)
+    recs[("hybrid flash", 1024)] = _flash_times(dev, flush, 1024, 32, 32,
+                                                64, 960)
+    recs[("hybrid decode", 2048)] = _decode_times(dev, flush, 8, 32, 32, 64,
+                                                  2048, 961)
     return recs
 
 
-def _attention_records(errs: dict, times: dict, launches: dict
-                       ) -> list[dict]:
+def _hybrid_keys(t: dict, launches: int) -> dict:
+    """A kernel's zamba2-1.2b numbers under ``hybrid_`` keys: its launches
+    on the hybrid serving run and its times at zamba2's shape."""
+    return {"hybrid_launches": launches,
+            **{f"hybrid_{k}": v for k, v in t.items()}}
+
+
+def _attention_records(errs: dict, times: dict, launches: dict,
+                       hybrid: dict) -> list[dict]:
     """Kernels 8 and 9 in the ``kernels`` line: flash at the serving
     shape Sq = Skv = 1024 (causal, 16 heads / 2 groups, Dh 128, bf16),
     decode at the serving pool (8 slots x 2048); launches from the
-    full-width serving run; errors the largest over
-    `phase_attention_vs_plain`'s cases."""
+    full-width qwen2.5-3b serving run; the ``hybrid_`` keys the same at
+    zamba2-1.2b's shapes (32 heads / 32 groups, Dh 64) and from its
+    serving run; errors the largest over `phase_attention_vs_plain`'s
+    cases."""
     recs = []
-    for name, line, key in (("flash_attention", 42, ("flash", 1024)),
-                            ("decode_attention", 32, ("decode", 2048))):
-        t = times[key]
+    for name, line, kind, key in (
+            ("flash_attention", 42, "flash", 1024),
+            ("decode_attention", 32, "decode", 2048)):
+        t = times[(kind, key)]
         recs.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/attention.cu",
@@ -2848,7 +2922,8 @@ def _attention_records(errs: dict, times: dict, launches: dict
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            **_hybrid_keys(times[(f"hybrid {kind}", key)], hybrid[name])})
     return recs
 
 
@@ -2863,7 +2938,9 @@ SSD_TOL = 1e-4        # of the output's scale (max |y|, max |h|)
 # with x, B and C in bf16 (as the model gives them) and in float32; then
 # the output kernel's head sets: several heads a group with a ragged last
 # set (H 12 / G 2, H 6 / G 1), one head a group (G = H), and B and C rows
-# that take no 16-byte copies (N 20, P 24)
+# that take no 16-byte copies (N 20, P 24); last zamba2-1.2b's serving
+# shape (one group of N 64: one of the two 64-column slabs) at 1024 and
+# 1000 positions, bf16 and float32
 SSD_SMOKE_CASES = [
     (2, 64, 4, 16, 1, 32, 16, torch.float32, False),
     (1, 128, 8, 32, 2, 16, 32, torch.float32, True),
@@ -2878,6 +2955,9 @@ SSD_SMOKE_CASES = [
     (1, 160, 4, 16, 4, 32, 32, BF16, True),
     (1, 160, 4, 16, 4, 32, 32, torch.float32, False),
     (1, 96, 4, 24, 1, 20, 32, BF16, True),
+    (1, 1024, 64, 64, 1, 64, 256, BF16, False),
+    (1, 1000, 64, 64, 1, 64, 256, BF16, True),
+    (1, 1024, 64, 64, 1, 64, 256, torch.float32, True),
 ]
 
 
@@ -3035,30 +3115,39 @@ SSD_HEADS = 2     # heads a block of the output kernel (kHeads)
 
 
 def phase_ssd_times(dev, flush) -> dict:
-    """Device-only times (CUDA events, L2 flushed) of kernel 10 at the
-    serving shape (one layer's 1024-token prefill: 64 heads of P 64, N 128,
-    chunk 256, bf16 x/B/C as the model gives them) and at 2048 positions,
+    """Device-only times (CUDA events, L2 flushed) of kernel 10 at
+    mamba2-1.3b's serving shape (one layer's 1024-token prefill: 64 heads
+    of P 64, N 128, chunk 256, bf16 x/B/C as the model gives them), at
+    2048 positions, and at zamba2-1.2b's (N 64, key ``("hybrid", 1024)``),
     beside its plain version on the card, its bound and the work it
-    issues; each pass's device time under the profiler. No single PyTorch
-    call computes this scan, so there is no library time."""
+    issues; each pass's device time under the profiler, which must show
+    the tensor-core kernels (a bf16 scan that fell back to the CUDA-core
+    ones would be right, and slow). No single PyTorch call computes this
+    scan, so there is no library time."""
     from repro_torch.kernels.ref import ssd_scan_plain
     from repro_torch.kernels.ssd_scan import ssd_scan
 
     recs = {}
-    for s in (1024, 2048):
-        x, dt, a, bb, cc = _ssd_inputs(1, s, 64, 64, 1, 128, BF16, dev,
-                                       1200 + s)
+    for key, s, n, seed in ((1024, 1024, 128, 2224),
+                            (2048, 2048, 128, 3248),
+                            (("hybrid", 1024), 1024, 64, 2290)):
+        x, dt, a, bb, cc = _ssd_inputs(1, s, 64, 64, 1, n, BF16, dev, seed)
         ms = _cuda_ms(lambda: ssd_scan(x, dt, a, bb, cc, 256), flush=flush,
                       device_only=True)
         passes = _pass_times_us(lambda: ssd_scan(x, dt, a, bb, cc, 256),
                                 flush)
         by_pass = {name: sum(us for k, us in passes.items() if name in k)
                    for name in SSD_PASSES}
+        mma = sorted(k for k in passes if "_mma" in k)
+        if len(mma) != 2:
+            raise AssertionError(f"ssd_scan S={s} N={n} bf16: the profiler "
+                                 f"saw {sorted(passes)}, not the two "
+                                 "tensor-core kernels")
         plain = _cuda_ms(lambda: ssd_scan_plain(x, dt, a, bb, cc, 256),
                          runs=3)
-        bound, gflop, by = _ssd_bound(1, s, 64, 64, 1, 128, 256, 2)
-        issued = _ssd_issued(1, s, 64, 64, 1, 128, 256, SSD_HEADS, False)
-        print(f"[time] ssd_scan S={s}, 64 heads of P 64, N 128, chunk 256, "
+        bound, gflop, by = _ssd_bound(1, s, 64, 64, 1, n, 256, 2)
+        issued = _ssd_issued(1, s, 64, 64, 1, n, 256, SSD_HEADS, False)
+        print(f"[time] ssd_scan S={s}, 64 heads of P 64, N {n}, chunk 256, "
               f"bf16: kernel {ms:.4f} ms, passes under the profiler (L2 "
               "flushed) "
               + ", ".join(f"{k} {v:.1f} us" for k, v in by_pass.items())
@@ -3067,9 +3156,10 @@ def phase_ssd_times(dev, flush) -> dict:
               f"peak but C B^T), {bound / ms:.1%} of bound, "
               f"{gflop / ms:.2f} TFLOP/s of needed work; issued "
               f"{issued:.2f} GFLOP on the tensor cores "
-              f"({issued / ms:.1f} TFLOP/s)")
-        recs[s] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
-                   "bound_by": by, "library_ms": None}
+              f"({issued / ms:.1f} TFLOP/s); tensor-core kernels "
+              + ", ".join(k[:40] for k in mma))
+        recs[key] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                     "bound_by": by, "library_ms": None}
     return recs
 
 
@@ -3113,6 +3203,17 @@ def main() -> int:
     phase_teacher_forced(dev, mamba, prompt_len=1000)
     phase_prefill_vs_decode(dev, mamba)
     del mamba
+    gc.collect()                  # free mamba2's weights before zamba2's
+    torch.cuda.empty_cache()
+    zamba = phase_serving(dev, HYBRID_ARCH, HYBRID_PROMPTS,
+                          profile_len=1024)
+    hybrid_launches = zamba["launches"]
+    hybrid_device = zamba["device_launches"]
+    phase_teacher_forced(dev, zamba, prompt_len=1024)
+    phase_prefill_vs_decode(dev, zamba)
+    del zamba
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_serve_launcher(dev)
     torch.cuda.synchronize()
     fleet_rec, flush = phase_times(dev, main_run)
@@ -3137,12 +3238,15 @@ def main() -> int:
         "bound_by": disp_times["bound_by"], "library_ms": None}] \
         + _soft_dispatch_records(sd_errs, sd_times, aware["launches"],
                                  to_hard["launches"]) \
-        + _attention_records(attn_errs, attn_times, serve_launches) + [{
+        + _attention_records(attn_errs, attn_times, serve_launches,
+                             hybrid_launches) + [{
             "name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:41",
             "launches": ssm_launches["ssd_scan"], "max_abs_err": ssd_err,
-            **ssd_times[1024]}]
+            **ssd_times[1024],
+            **_hybrid_keys(ssd_times[("hybrid", 1024)],
+                           hybrid_launches["ssd_scan"])}]
     # the kernels on the card in the run whose calls ``launches`` counts
     device = {"fleet_scan": main_run["device_launches"],
               "soft_scan_fwd": tune["device_launches"],
@@ -3154,11 +3258,16 @@ def main() -> int:
               "flash_attention": serve_device,
               "decode_attention": serve_device, "ssd_scan": ssm_device}
     for rec in kernels:
-        n = device[rec["name"]][rec["name"]]
-        if n < rec["launches"] or (n > 0) != (rec["launches"] > 0):
-            raise AssertionError(f"{rec['name']}: {rec['launches']} counted "
-                                 f"calls but {n} kernels on the card")
-        rec["device_launches"] = n
+        runs = [("", device[rec["name"]])]
+        if "hybrid_launches" in rec:
+            runs.append(("hybrid_", hybrid_device))
+        for pre, dl in runs:
+            n, counted = dl[rec["name"]], rec[f"{pre}launches"]
+            if n < counted or (n > 0) != (counted > 0):
+                raise AssertionError(f"{rec['name']}: {counted} counted "
+                                     f"calls but {n} kernels on the card "
+                                     f"({pre or 'main '}run)")
+            rec[f"{pre}device_launches"] = n
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

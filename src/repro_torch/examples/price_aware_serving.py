@@ -8,7 +8,10 @@ cost-per-token / queue-latency trade-off the paper's model predicts. The
 reference's example (`examples/price_aware_serving.py`) on the port.
 
   PYTHONPATH=src python -m repro_torch.examples.price_aware_serving \
-      [--device cpu]
+      [--device cpu] [--arch zamba2-1.2b]
+
+``--arch`` picks the reduced configuration served (default the
+reference's qwen1.5-0.5b).
 """
 
 from __future__ import annotations
@@ -75,8 +78,11 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
-    dev = resolve_device(ap.parse_args(argv).device)
-    cfg = reduced_config(get_config("qwen1.5-0.5b"))
+    ap.add_argument("--arch", default="qwen1.5-0.5b",
+                    help="the model whose reduced configuration is served")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    cfg = reduced_config(get_config(args.arch))
     params = init_params(0, cfg, device=dev)
     prices = generate_market(region_params("south_australia"),
                              device=dev).prices.cpu().numpy()

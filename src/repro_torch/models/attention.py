@@ -199,9 +199,13 @@ def _decode_attention(q, k, v, valid, cfg: ModelConfig):
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_seq: int,
-                    device: torch.device) -> AttnCache:
+                    device: torch.device, *,
+                    window: Optional[int] = None) -> AttnCache:
+    """An empty cache of W = min(window, max_seq) slots; ``window``
+    defaults to ``cfg.swa_window`` (or ``max_seq`` without one)."""
     check_cache_layout(cfg)
-    w = min(cfg.swa_window or max_seq, max_seq)
+    w = window if window is not None else (cfg.swa_window or max_seq)
+    w = min(w, max_seq)
     g, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     kv_dt = _dtype(cfg.kv_cache_dtype)
     shp = (batch, w, g, dh)

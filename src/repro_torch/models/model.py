@@ -10,8 +10,8 @@
 Parameters and caches carry a leading stacked layer axis, as in the
 reference. Unlike the reference, `decode_step` updates the caches in
 place (the [L, B, W, G, Dh] pool, or the SSM conv and state pool, is
-written, not copied) and returns the same object. The dense, vlm and
-ssm families are ported. ``loss_fn``, ``cache_specs`` and
+written, not copied) and returns the same object. The dense, vlm, ssm
+and hybrid families are ported. ``loss_fn``, ``cache_specs`` and
 ``param_specs`` wait for the training and mesh slices.
 """
 
@@ -27,7 +27,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (AttnCache, check_cache_layout,
                                           init_attn_cache)
 from repro_torch.models.layers import _dtype, embed, rms_norm, unembed
-from repro_torch.models.ssm import SSMCache, init_ssm_cache
+from repro_torch.models.ssm import init_ssm_cache
 from repro_torch.models.transformer import (check_family, decoder_forward,
                                             init_model_params)
 
@@ -57,8 +57,8 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *,
                       device: DeviceLike = None) -> dict:
     """The reference's parameter pytree (`repro.models.model.init_params`
     output, leaves converted to numpy) as the port's parameters on
-    ``device``: the same nesting and names, [L, ...] stacked blocks, each
-    leaf in its own dtype."""
+    ``device``: the same nesting and names, [L, ...] stacked blocks (and
+    the hybrid family's ``shared`` block), each leaf in its own dtype."""
     check_family(cfg)
     dev = resolve_device(device)
 
@@ -66,7 +66,8 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *,
         if isinstance(t, dict):
             return {k: conv(v) for k, v in t.items()}
         return _tensor(t, dev)
-    return conv({k: tree[k] for k in ("embed", "blocks", "final_norm")})
+    return conv({k: tree[k] for k in ("embed", "blocks", "final_norm",
+                                      "shared") if k in tree})
 
 
 def _cache_from_kv(k: torch.Tensor, v: torch.Tensor, w: int,
@@ -117,12 +118,16 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, *,
         vt = cfg.vis_tokens
         h = torch.cat([batch["patches"].to(h.dtype), h[:, vt:]], dim=1)
     h, _, col = decoder_forward(params, h, cfg, collect=True)
-    if cfg.family == "ssm":
-        caches = col
-    else:
-        w = min(cfg.swa_window or max_seq, max_seq)
+    caches = {}
+    if "ssm" in col:
+        caches["ssm"] = col["ssm"]
+    if "attn" in col:
+        # the hybrid family's shared-attention caches are linear over
+        # max_seq whatever cfg.swa_window says, as in the reference
+        w = max_seq if cfg.family == "hybrid" \
+            else min(cfg.swa_window or max_seq, max_seq)
         k, v = col["attn"]
-        caches = {"attn": _cache_from_kv(k, v, w, cfg)}
+        caches["attn"] = _cache_from_kv(k, v, w, cfg)
     h_last = rms_norm(h[:, -1:], params["final_norm"]["scale"], cfg.norm_eps)
     logits = unembed(h_last, params["embed"], cfg)[:, 0]
     return logits, caches
@@ -148,14 +153,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     k/v (zeros) and [L, B, W] pos_buf (-1); for the ssm family
     {"ssm": SSMCache} with [L, B, K-1, conv_dim] conv inputs and
     [L, B, H, P, N] float32 states (zeros; ``max_seq`` does not size
-    them)."""
+    them); for the hybrid family both, the SSM cache over the L layers and
+    the K/V cache over the n_layers // hybrid_attn_every applications of
+    the shared block, linear over ``max_seq``."""
     check_family(cfg)
     dev = resolve_device(device)
-    n = cfg.n_layers
+
+    def stack(layer, n):
+        return type(layer)(
+            *(x.unsqueeze(0).repeat((n,) + (1,) * x.ndim) for x in layer))
     if cfg.family == "ssm":
-        layer = init_ssm_cache(cfg, batch, dev)
-        return {"ssm": SSMCache(
-            *(x.unsqueeze(0).repeat((n,) + (1,) * x.ndim) for x in layer))}
-    layer = init_attn_cache(cfg, batch, max_seq, dev)
-    return {"attn": AttnCache(
-        *(x.unsqueeze(0).repeat((n,) + (1,) * x.ndim) for x in layer))}
+        return {"ssm": stack(init_ssm_cache(cfg, batch, dev), cfg.n_layers)}
+    if cfg.family == "hybrid":
+        return {"ssm": stack(init_ssm_cache(cfg, batch, dev), cfg.n_layers),
+                "attn": stack(init_attn_cache(cfg, batch, max_seq, dev,
+                                              window=max_seq),
+                              cfg.n_layers // cfg.hybrid_attn_every)}
+    return {"attn": stack(init_attn_cache(cfg, batch, max_seq, dev),
+                          cfg.n_layers)}

@@ -1,16 +1,19 @@
-"""Model assembly for the dense family (and the dense backbone of vlm)
-and the ssm family (Mamba2).
+"""Model assembly for the dense family (and the dense backbone of vlm),
+the ssm family (Mamba2) and the hybrid family (zamba2: Mamba2 blocks with
+one weight-shared attention + MLP block after every
+``hybrid_attn_every`` of them).
 
 Mirrors `repro.models.transformer`: parameters are nested dicts whose
 per-layer leaves are stacked on a leading layer axis ([L, ...]), as the
 reference stacks them for its scan over layers; the port loops over the
 layers in Python and indexes the stacked tensors (views, no copies). The
 decode caches are stacked the same way ([L, B, W, G, Dh] K/V, [L, B, ...]
-SSM conv and state).
+SSM conv and state); the hybrid family's K/V cache is stacked over the
+shared block's applications instead ([n_apps, B, W, G, Dh]), one cache
+each.
 
 The other families raise `NotImplementedError` naming the slice that
-ports them: ``hybrid`` (zamba2's weight-shared attention over Mamba2
-blocks), ``moe`` and ``audio`` with later slices.
+ports them: ``moe`` and ``audio`` come with later slices.
 """
 
 from __future__ import annotations
@@ -30,8 +33,6 @@ from repro_torch.models.ssm import (SSMCache, init_ssm, ssm_block,
                                     ssm_prefill_with_cache)
 
 FAMILY_SLICES = {
-    "hybrid": "a later slice (zamba2's weight-shared attention block over "
-              "the Mamba2 blocks, with one KV cache per application)",
     "moe": "a later slice (the expert-parallel MoE FFN)",
     "audio": "a later slice (whisper's encoder-decoder)",
 }
@@ -43,7 +44,7 @@ def check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: it comes "
             f"with {FAMILY_SLICES[cfg.family]}")
-    if cfg.family not in ("dense", "vlm", "ssm"):
+    if cfg.family not in ("dense", "vlm", "ssm", "hybrid"):
         raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -70,7 +71,7 @@ def _init_ssm_block(gen: torch.Generator, cfg: ModelConfig,
 
 
 _BLOCK_INIT = {"dense": _init_dense_block, "vlm": _init_dense_block,
-               "ssm": _init_ssm_block}
+               "ssm": _init_ssm_block, "hybrid": _init_ssm_block}
 
 
 def init_model_params(gen: torch.Generator, cfg: ModelConfig,
@@ -80,10 +81,14 @@ def init_model_params(gen: torch.Generator, cfg: ModelConfig,
     check_family(cfg)
     dev = device or gen.device
     block_init = _BLOCK_INIT[cfg.family]
-    return {"embed": init_embeddings(gen, cfg, dev),
-            "blocks": _stack([block_init(gen, cfg, dev)
-                              for _ in range(cfg.n_layers)]),
-            "final_norm": init_rms_norm(cfg.d_model, dev)}
+    params = {"embed": init_embeddings(gen, cfg, dev),
+              "blocks": _stack([block_init(gen, cfg, dev)
+                                for _ in range(cfg.n_layers)]),
+              "final_norm": init_rms_norm(cfg.d_model, dev)}
+    if cfg.family == "hybrid":
+        # the one attention + MLP block that every application shares
+        params["shared"] = _init_dense_block(gen, cfg, dev)
+    return params
 
 
 def layer_params(blocks: dict, i: int) -> dict:
@@ -115,60 +120,96 @@ def decoder_forward(params: dict, h: torch.Tensor, cfg: ModelConfig, *,
                     collect: bool = False):
     """Run the decoder blocks. h: [B, S, D] embedded input.
 
-    ``caches`` ({"attn": AttnCache} or {"ssm": SSMCache} of [L, ...]
-    leaves) selects decode: each layer writes its new k/v (or conv and
-    state) into its slice of the cache in place. Returns (h, aux,
+    ``caches`` ({"attn": AttnCache}, {"ssm": SSMCache} or, for the hybrid
+    family, both) selects decode: each layer writes its new k/v (or conv
+    and state) into its slice of the cache in place. Returns (h, aux,
     new_caches); ``collect=True`` (prefill) returns the per-layer K/V after
-    rope, stacked to [L, B, S, G, Dh], as ``{"attn": (k, v)}``, or the SSM
-    decode cache as ``{"ssm": SSMCache}`` of [L, B, ...] leaves.
+    rope, stacked to [L, B, S, G, Dh], as ``{"attn": (k, v)}``, the SSM
+    decode cache as ``{"ssm": SSMCache}`` of [L, B, ...] leaves, or both
+    (the hybrid family's K/V stacked over its applications).
     """
     check_family(cfg)
     decode = caches is not None
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    convs, states, ks, vs = [], [], [], []
     if cfg.family == "ssm":
-        h, new_caches = _ssm_forward(params, h, cfg, caches, collect)
-        return h, aux, new_caches
-    # the rotary angles of these positions, shared by every layer
-    pos = positions[:, None] if decode else _prefill_positions(h, positions)
-    rope = rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
-    valid = None
-    if decode:
-        # every layer's cache holds the same positions: write the new ones
-        # into all layers' pos_buf at once and derive the slot validity
-        # once, rather than in each layer as the reference does
-        pb = caches["attn"].pos_buf                       # [L, B, W]
-        rows = torch.arange(pb.shape[1], device=pb.device)
-        pb[:, rows, positions.long() % pb.shape[-1]] = \
-            positions.to(pb.dtype)
-        valid = decode_valid(pb[0], positions, cfg.swa_window)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        bp = layer_params(params["blocks"], i)
-        cache = None
-        if decode:
-            c = caches["attn"]
-            cache = AttnCache(c.k[i], c.v[i], c.pos_buf[i])
-        h, kv = _attn_ffn_block(h, bp, cfg, cache=cache,
-                                positions=positions, return_kv=collect,
-                                rope=rope, valid=valid)
-        if collect:
-            ks.append(kv[0])
-            vs.append(kv[1])
+        h = _ssm_layers(params, h, cfg, range(cfg.n_layers), caches,
+                        collect, convs, states)
+    else:
+        # the rotary angles of these positions, shared by every layer
+        pos = positions[:, None] if decode \
+            else _prefill_positions(h, positions)
+        rope = rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
+        valid = _write_positions(caches["attn"], positions, cfg) \
+            if decode else None
+        if cfg.family == "hybrid":
+            # groups of `every` Mamba2 layers, each followed by the shared
+            # attention + MLP block against its own application's K/V
+            # cache; the layers past the last whole group run with no
+            # attention after them, as in the reference
+            every = cfg.hybrid_attn_every
+            n_apps = cfg.n_layers // every
+            for g in range(n_apps + 1):
+                layers = range(g * every, min((g + 1) * every, cfg.n_layers))
+                h = _ssm_layers(params, h, cfg, layers, caches, collect,
+                                convs, states)
+                if g < n_apps:
+                    h = _attn_app(h, params["shared"], cfg, caches, g,
+                                  positions, collect, rope, valid, ks, vs)
+        else:
+            for i in range(cfg.n_layers):
+                h = _attn_app(h, layer_params(params["blocks"], i), cfg,
+                              caches, i, positions, collect, rope, valid,
+                              ks, vs)
     if decode:
         return h, aux, caches
+    if not collect:
+        return h, aux, None
+    out = {}
+    if convs:
+        out["ssm"] = SSMCache(torch.stack(convs), torch.stack(states))
+    if ks:
+        out["attn"] = (torch.stack(ks), torch.stack(vs))
+    return h, aux, out
+
+
+def _write_positions(cache: AttnCache, positions: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """Write each row's new position into every stacked cache's pos_buf
+    ([L, B, W]: every layer's, or every application's, cache holds the
+    same positions) at once and derive the slot validity once, rather than
+    in each attention layer as the reference does; returns the [B, W]
+    int8 validity."""
+    pb = cache.pos_buf
+    rows = torch.arange(pb.shape[1], device=pb.device)
+    pb[:, rows, positions.long() % pb.shape[-1]] = positions.to(pb.dtype)
+    return decode_valid(pb[0], positions, cfg.swa_window)
+
+
+def _attn_app(h, bp, cfg: ModelConfig, caches, i: int, positions,
+              collect: bool, rope, valid, ks: list, vs: list):
+    """One attention + MLP block against slice ``i`` of the stacked K/V
+    cache (decode) or collecting its K/V (prefill)."""
+    cache = None
+    if caches is not None:
+        c = caches["attn"]
+        cache = AttnCache(c.k[i], c.v[i], c.pos_buf[i])
+    h, kv = _attn_ffn_block(h, bp, cfg, cache=cache, positions=positions,
+                            return_kv=collect, rope=rope, valid=valid)
     if collect:
-        return h, aux, {"attn": (torch.stack(ks), torch.stack(vs))}
-    return h, aux, None
+        ks.append(kv[0])
+        vs.append(kv[1])
+    return h
 
 
-def _ssm_forward(params: dict, h: torch.Tensor, cfg: ModelConfig,
-                 caches: Optional[dict], collect: bool):
-    """The ssm family's blocks (pre-norm Mamba2 with a residual); returns
-    (h, caches): decode writes each layer's new conv and state into the
-    pool in place; prefill (``collect``) stacks each layer's
-    `ssm_prefill_with_cache` cache."""
-    convs, states = [], []
-    for i in range(cfg.n_layers):
+def _ssm_layers(params: dict, h: torch.Tensor, cfg: ModelConfig,
+                layers, caches: Optional[dict], collect: bool,
+                convs: list, states: list) -> torch.Tensor:
+    """Mamba2 blocks ``layers`` (pre-norm, with a residual): decode writes
+    each layer's new conv and state into the pool in place; prefill
+    (``collect``) appends each layer's `ssm_prefill_with_cache` cache to
+    ``convs`` and ``states``."""
+    for i in layers:
         bp = layer_params(params["blocks"], i)
         x = rms_norm(h, bp["ln"]["scale"], cfg.norm_eps)
         if caches is not None:
@@ -184,8 +225,5 @@ def _ssm_forward(params: dict, h: torch.Tensor, cfg: ModelConfig,
         else:
             out, _ = ssm_block(x, bp["ssm"], cfg)
         h = h + out
-    if caches is not None:
-        return h, caches
-    if collect:
-        return h, {"ssm": SSMCache(torch.stack(convs), torch.stack(states))}
-    return h, None
+    return h
+

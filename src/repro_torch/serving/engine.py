@@ -21,7 +21,11 @@ it; the engine runs eagerly where the reference jits the decode step.
 On the card a dense model's prefill launches the flash kernel once per
 layer and every tick the decode kernel once per layer; an SSM model's
 prefill launches the SSD scan kernel once per layer, and its decode step
-is the plain one-token recurrence.
+is the plain one-token recurrence; a hybrid model's (zamba2's) prefill
+launches the SSD scan once per Mamba2 layer and the flash kernel once per
+application of its shared attention block (n_layers // hybrid_attn_every),
+and every tick the decode kernel once per application. A hybrid pool holds
+both caches, and a prefilled request is copied into each.
 """
 
 from __future__ import annotations
@@ -179,7 +183,8 @@ class ServingEngine:
 
 def _slot_set(pool: NamedTuple, one: NamedTuple, slot: int) -> None:
     """Write a batch-1 cache (`AttnCache` or `SSMCache`) into slot ``slot``
-    of the pooled cache, leaf by leaf, in place: every leaf is [L, B, ...],
+    of the pooled cache, leaf by leaf, in place: every leaf is [L, B, ...]
+    (L the layers, or the hybrid family's applications for its K/V),
     ``one``'s with B = 1 and otherwise the pool's shape (an SSM prefill's
     conv tail always holds K-1 rows, left-padded with zeros)."""
     for p, o in zip(pool, one):

@@ -2,8 +2,8 @@
 backward, `dispatch_scan`, the three soft-dispatch kernels, flash and
 decode attention, the SSD chunk scan), held against their plain PyTorch
 versions, and the backtest, the tuner (plain and dispatch-aware), the
-dispatch summary and the serving engine (dense and mamba2) on the card
-against the CPU; one seed's market and parameters drawn for the card
+dispatch summary and the serving engine (dense, mamba2 and zamba2) on
+the card against the CPU; one seed's market and parameters drawn for the card
 equal the CPU's; the three serving kernels refuse inputs that need grad.
 Marked ``gpu``:
 without a CUDA device every test skips. Imports neither JAX nor the
@@ -643,7 +643,8 @@ def _attn_inputs(shapes, dtype, dev, seed):
     (1, 256, 256, 8, 2, 64, True, 100, 0, torch.bfloat16),
     (2, 64, 256, 4, 4, 32, False, 0, 0, torch.bfloat16),
     (1, 100, 170, 8, 2, 16, False, 0, 0, torch.bfloat16),
-    (1, 130, 130, 16, 2, 128, False, 0, 0, torch.bfloat16)])
+    (1, 130, 130, 16, 2, 128, False, 0, 0, torch.bfloat16),
+    (1, 1024, 1024, 32, 32, 64, True, 0, 0, torch.bfloat16)])
 def test_flash_kernel_matches_plain_version(cuda, case):
     b, sq, skv, h, g, dh, causal, win, qo, dt = case
     q, k, v = _attn_inputs([(b, sq, h, dh), (b, skv, g, dh),
@@ -662,7 +663,8 @@ def test_flash_kernel_matches_plain_version(cuda, case):
 
 # B, H, G, Dh, W, dtype: float32 (the CUDA-core kernel), then bf16 (the
 # tensor-core kernel) at R = H / G of 1, 8, 16 and 32 heads a group (one
-# and two row tiles), with one split and with several
+# and two row tiles), with one split and with several; last zamba2-1.2b's
+# pool (32 heads, each its own group, Dh 64, 8 slots of 2048)
 @pytest.mark.parametrize("case", [(2, 8, 2, 64, 100, torch.float32),
                                   (8, 16, 2, 128, 2048, torch.bfloat16),
                                   (1, 4, 1, 16, 513, torch.float32),
@@ -670,7 +672,8 @@ def test_flash_kernel_matches_plain_version(cuda, case):
                                   (1, 8, 1, 32, 64, torch.bfloat16),
                                   (3, 32, 2, 128, 700, torch.bfloat16),
                                   (2, 32, 1, 64, 1000, torch.bfloat16),
-                                  (2, 64, 2, 16, 513, torch.bfloat16)])
+                                  (2, 64, 2, 16, 513, torch.bfloat16),
+                                  (8, 32, 32, 64, 2048, torch.bfloat16)])
 def test_decode_kernel_matches_plain_version(cuda, case):
     b, h, g, dh, w, dt = case
     q, k, v = _attn_inputs([(b, 1, h, dh), (b, w, g, dh), (b, w, g, dh)],
@@ -856,8 +859,8 @@ def _scale_close(got, want, what):
 # (H 6 / G 2), one head a group (G = H, the set's second group idle), B and
 # C rows that take no 16-byte copies (N 20, P 24), a partial second slab
 # of N (N 96, P 24) and N past the tensor-core passes' 128 (N 136), a chunk
-# that is not a multiple of the 64-row tile, and the serving shape in bf16
-# and float32 with and without h0
+# that is not a multiple of the 64-row tile, the serving shape in bf16
+# and float32 with and without h0, and zamba2-1.2b's (N 64: one slab)
 SSD_GPU_CASES = [
     (2, 64, 4, 16, 1, 32, 16, torch.float32, False),
     (1, 128, 8, 32, 2, 16, 32, torch.float32, True),
@@ -876,7 +879,9 @@ SSD_GPU_CASES = [
     (2, 96, 4, 64, 1, 128, 48, torch.bfloat16, False),
     (1, 1024, 64, 64, 1, 128, 256, torch.bfloat16, False),
     (1, 1024, 64, 64, 1, 128, 256, torch.float32, True),
-    (1, 1024, 64, 64, 1, 128, 256, torch.float32, False)]
+    (1, 1024, 64, 64, 1, 128, 256, torch.float32, False),
+    (1, 1024, 64, 64, 1, 64, 256, torch.bfloat16, False),
+    (1, 1000, 64, 64, 1, 64, 256, torch.bfloat16, True)]
 
 
 def _hold_ssd(cuda, case):
@@ -937,7 +942,7 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
 def test_draws_on_the_card_equal_the_cpus(cuda):
     """One seed, the same draws on every device: a market's draws equal,
     its prices within float32 rounding; a reduced config's parameters
-    equal, leaf by leaf (dense and ssm)."""
+    equal, leaf by leaf (dense, ssm and hybrid)."""
     from repro_torch.energy.markets import generate_market, market_draws
     from repro_torch.energy.presets import region_params
     mp = region_params("germany", seed=3)
@@ -947,7 +952,7 @@ def test_draws_on_the_card_equal_the_cpus(cuda):
     got = generate_market(mp, device=cuda).prices.cpu()
     want = generate_market(mp, device="cpu").prices
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
-    for arch in ("qwen2.5-3b", "mamba2-1.3b"):
+    for arch in ("qwen2.5-3b", "mamba2-1.3b", "zamba2-1.2b"):
         cfg = reduced_config(get_config(arch))
         gp = init_params(7, cfg, device=cuda)
         cp = init_params(7, cfg, device="cpu")
@@ -1010,3 +1015,38 @@ def test_mamba2_engine_on_the_card_matches_the_cpu(cuda):
     assert outputs[str(cuda)] == outputs["cpu"]
     assert outputs["cpu"][2] == 6
     assert launches == {"cpu": 0, str(cuda): 6 * cfg.n_layers}
+
+
+def test_hybrid_engine_on_the_card_matches_the_cpu(cuda):
+    """Reduced zamba2 at float32 (4 Mamba2 layers, the shared block after
+    every 2): the engine on the card returns the CPU's tokens, with one
+    SSD launch per layer and one flash launch per application a prefill
+    (prompts of 2 to 19 tokens against chunk 8), one decode launch per
+    application a step, and none on the CPU."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    cfg = reduced_config(get_config("zamba2-1.2b"))
+    n_apps = cfg.n_layers // cfg.hybrid_attn_every
+    cpu_params = init_params(5, cfg, device="cpu")
+    outputs, launches = {}, {}
+    for dev in ("cpu", cuda):
+        eng = ServingEngine(_tree_to(cpu_params, dev), cfg,
+                            ServeConfig(slots=4, max_seq=48), device=dev)
+        rng = np.random.default_rng(2)
+        for i in range(6):
+            eng.submit(Request(rid=i, prompt=rng.integers(
+                2, cfg.vocab - 1, size=int(rng.integers(2, 20))).astype(
+                    np.int32), max_new=8))
+        before = (ssd_scan.launches, flash_attention.launches,
+                  decode_attention.launches)
+        out = eng.run(ticks=30)
+        launches[str(dev)] = tuple(
+            a - b for a, b in zip((ssd_scan.launches, flash_attention.launches,
+                                   decode_attention.launches), before))
+        outputs[str(dev)] = ({r.rid: r.output for r in eng.completed},
+                             out["tokens_served"], out["completed"])
+    assert outputs[str(cuda)] == outputs["cpu"]
+    assert outputs["cpu"][2] == 6
+    assert launches["cpu"] == (0, 0, 0)
+    ssd, flash, dec = launches[str(cuda)]
+    assert (ssd, flash) == (6 * cfg.n_layers, 6 * n_apps)
+    assert dec > 0 and dec % n_apps == 0

@@ -246,24 +246,13 @@ def test_init_cache_matches_reference():
             np.testing.assert_array_equal(_np(g), _np(w))
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "mixtral-8x22b",
-                                  "whisper-large-v3"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "whisper-large-v3"])
 def test_unported_families_raise(arch):
     cfg = inputs.reduced_config(base.get_config(arch))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         model.init_params(0, cfg, device=CPU)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         model.init_cache(cfg, 1, 8, device=CPU)
-
-
-def test_hybrid_decoder_forward_raises():
-    """zamba2's blocks are Mamba2 blocks, ported now, but its weight-shared
-    attention block is not: the decoder refuses the family rather than
-    run the SSM layers alone."""
-    from repro_torch.models.transformer import decoder_forward
-    cfg = inputs.reduced_config(base.get_config("zamba2-1.2b"))
-    with pytest.raises(NotImplementedError, match="weight-shared"):
-        decoder_forward({}, torch.zeros((1, 4, cfg.d_model)), cfg)
 
 
 @pytest.mark.parametrize("change", [dict(kv_cache_dtype="int8"),

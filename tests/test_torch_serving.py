@@ -61,6 +61,11 @@ def _configs():
         # padded chunk, a whole one and a whole and a padded one
         "mamba2-1.3b-smoke": jinputs.reduced_config(
             jbase.get_config("mamba2-1.3b")),
+        # the hybrid family: 4 Mamba2 layers, the shared attention block
+        # after every 2 (two applications, each with its own K/V cache in
+        # the pool beside the SSM cache)
+        "zamba2-1.2b-smoke": jinputs.reduced_config(
+            jbase.get_config("zamba2-1.2b")),
     }
 
 
@@ -272,14 +277,6 @@ def test_eur_per_1k_tokens_matches_tick_accounting(small_model):
     assert eng.meter.tco == pytest.approx(tco)
 
 
-def test_hybrid_engine_raises_until_its_slice():
-    """The reference serves zamba2 too; the port's hybrid family comes
-    with a later slice and says so."""
-    cfg = reduced_config(base.get_config("zamba2-1.2b"))
-    with pytest.raises(NotImplementedError, match="zamba2"):
-        ServingEngine({}, cfg, ServeConfig(slots=2, max_seq=32), device=CPU)
-
-
 def _reference_example():
     spec = importlib.util.spec_from_file_location(
         "_reference_price_aware_serving",
@@ -399,3 +396,29 @@ def test_launcher_runs_on_the_cpu(capsys):
                        "40", "--seed", "1"]) == 0
     out = capsys.readouterr().out
     assert '"completed": 4' in out and '"eur_per_1k_tokens"' in out
+
+
+def test_launcher_and_example_serve_zamba2_on_the_cpu(capsys):
+    """``--arch zamba2-1.2b`` (reduced) through the launcher, and the
+    price-aware serving example's engines on it against the reference's
+    example on the same prices and parameters (6 requests over 40 ticks;
+    the same table as `test_price_aware_serving_example_matches_reference`
+    holds)."""
+    assert serve.main(["--device", "cpu", "--arch", "zamba2-1.2b",
+                       "--requests", "4", "--ticks", "40"]) == 0
+    out = capsys.readouterr().out
+    assert '"completed": 4' in out and '"tokens_served": 64' in out
+    ref_ex = _reference_example()
+    jp, cfg, params = _carry(CONFIGS["zamba2-1.2b-smoke"], seed=2)
+    prices = _prices(24 * 60, seed=6)
+    for gated in (False, True):
+        want = ref_ex.run(gated, prices, jp, CONFIGS["zamba2-1.2b-smoke"],
+                          n_requests=6, ticks=40)
+        got = price_aware_serving.run(gated, prices, params, cfg,
+                                      n_requests=6, ticks=40, device=CPU)
+        for key in ("tokens_served", "completed", "queued", "mean_queue_h",
+                    "x_realized", "energy_mwh"):
+            assert got[key] == want[key], (gated, key)
+        assert got["eur_per_1k_tokens"] == pytest.approx(
+            want["eur_per_1k_tokens"], rel=1e-9)
+        assert got["completed"] > 0

@@ -36,7 +36,6 @@ from repro.models import model as jmodel  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
 from repro.serving import engine as jengine  # noqa: E402
 from repro_torch.configs import base  # noqa: E402
-from repro_torch.configs import inputs  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.models import model, ssm  # noqa: E402
@@ -370,16 +369,3 @@ def test_short_prompt_conv_tail(carried, s):
     tdec, _ = model.decode_step(params, torch.as_tensor(toks[:, s:]), pool,
                                 torch.as_tensor(pos), cfg)
     np.testing.assert_allclose(_np(tdec), _np(tfull), atol=1e-5, rtol=0)
-
-
-def test_hybrid_family_still_raises():
-    """zamba2 (Mamba2 blocks with a weight-shared attention block) comes
-    with a later slice and says so at every entry point."""
-    cfg = inputs.reduced_config(base.get_config("zamba2-1.2b"))
-    with pytest.raises(NotImplementedError, match="zamba2"):
-        model.init_params(0, cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        model.prefill({}, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
-                      cfg)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        model.params_from_numpy({}, cfg, device=CPU)
