@@ -98,12 +98,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      2048 positions and at zamba2's N 64, each pass's device time (the
      tensor-core kernels must be among them), the work it issues, beside
      its plain version and bound;
+ 15. the training slice (after the serving phases): the flash and SSD
+     kernels under autograd (`FlashAttention`, `SSDScan`: the kernel
+     forward, the port's backward) against plain autograd through their
+     plain versions on the card, at training shapes (one token to 1024,
+     causal and windowed, an offset, GQA and MHA, Dh 64 and 128, float32
+     and bf16; the SSD at 256-1024 positions, N 64 and 128, one head a
+     group and a shared one, with h0 and without); one training step on a
+     2-layer cut of qwen1.5-0.5b, mamba2-1.3b and zamba2-1.2b at full
+     width, the kernel route against the plain route; qwen1.5-0.5b at full
+     width trained by `Trainer` (batch 8 x 1024, 24 steps) under the
+     energy-aware scheduler from a market hour chosen on the host so that
+     a SHUTDOWN and a RESUME fall inside the run (the restored parameters
+     held bit for bit against the saved ones; 48 flash launches and 24
+     backward calls a step; step time, tokens/s, peak memory, the share of
+     the bf16 peak, the busy share under the profiler, the checkpoint's
+     times and the meter's summary); pause and resume bit for bit on a
+     2-layer cut; `repro_torch.launch.train --full-config`;
 each path's kernel launch counts are set to 0 just before it and read
 just after. Then one JSON line describing every ported kernel (a counted
 launch is one wrapper call; ``device_launches`` counts, in the same run,
 the kernels those calls put on the card; flash, decode and the SSD scan
 add the zamba2 run's launches and zamba2-shape times under ``hybrid_``
-keys) and, last, one JSON line naming
+keys; flash adds the full-width training run's launches under
+``train_``, flash and the SSD scan their Functions' worst gradient error
+as ``train_max_grad_err``) and, last, one JSON line naming
 the device. Without CUDA it exits non-zero and
 prints no result.
 """
@@ -3163,6 +3182,548 @@ def phase_ssd_times(dev, flush) -> dict:
     return recs
 
 
+# ---------------------------------------------------------------------------
+# the training slice: the kernels under autograd, training steps, the
+# energy-aware trainer at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_SEED = 8, 1024, 24, 0
+# gradients on the card, Function against plain autograd: max |diff| over
+# max(max |plain|, 1); bf16 rounds activations and gradients to 8 bits
+GRAD_TOL = {torch.float32: 1e-4, BF16: 3e-2}
+# a 2-layer cut's loss and gradient leaves (each leaf's worst error over
+# its largest entry) at bf16, kernel route against the plain route: the
+# flash and plain forwards sum in other orders, so bf16 activations round
+# apart at some elements and the difference runs through two layers and
+# the backward
+CUT_LOSS_TOL, CUT_GRAD_TOL = 1e-2, 5e-2
+# B, S, H, G, Dh, causal, window, q_offset, dtype (Sq = S, Skv = S +
+# q_offset): one token, a tile, ragged 100 and the full-width run's 1024;
+# causal and windowed, a chunked prefill's offset, GQA 16/2 and MHA 16/16,
+# Dh 64 and 128, float32 and bf16
+TRAIN_ATTN_CASES = [
+    (2, 1, 16, 16, 64, True, 0, 0, torch.float32),
+    (2, 64, 16, 2, 128, True, 0, 0, BF16),
+    (2, 100, 16, 16, 64, True, 0, 0, torch.float32),
+    (2, 100, 16, 2, 128, True, 24, 0, BF16),
+    (1, 100, 16, 2, 64, True, 0, 156, torch.float32),
+    (1, 100, 16, 16, 128, True, 40, 156, BF16),
+    (8, 1024, 16, 16, 64, True, 0, 0, BF16),
+    (1, 1024, 16, 2, 128, True, 256, 0, torch.float32),
+    (1, 1024, 16, 16, 64, False, 0, 0, BF16),
+]
+# B, S, H, P, G, N, chunk, dtype, h0: 256 / 300 / 1024 positions, N 64
+# and 128, one head a group and a shared group, with h0 and without
+TRAIN_SSD_CASES = [
+    (2, 256, 8, 64, 1, 128, 256, BF16, False),
+    (1, 300, 8, 64, 8, 64, 256, torch.float32, True),
+    (1, 1024, 16, 64, 1, 128, 256, BF16, True),
+    (2, 300, 4, 64, 1, 64, 128, BF16, False),
+    (1, 1024, 8, 64, 8, 128, 256, torch.float32, False),
+]
+
+
+def _grad_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) \
+        / max(float(want.float().abs().max()), 1.0)
+
+
+def phase_train_functions(dev) -> dict:
+    """The two autograd Functions on the card against plain autograd:
+    `models.attention.blockwise_attention` with inputs that require grad
+    (the flash kernel forward, `FlashAttention`'s backward) against
+    autograd through `flash_attention_plain`, and the model's `ssd_scan`
+    (the SSD kernel forward, `SSDScan`'s backward) against autograd
+    through `ssd_scan_plain`; dq, dk, dv (dx, ddt, da, db, dc, dh0)
+    within GRAD_TOL. Returns the worst errors."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.inputs import reduced_config
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention, ssm
+
+    cfg = reduced_config(get_config(TRAIN_ARCH))
+    worst = {"flash_attention": 0.0, "ssd_scan": 0.0}
+    counters = _zero_counters()
+    for i, case in enumerate(TRAIN_ATTN_CASES):
+        b, s, h, g, dh, causal, win, qo, dtype = case
+        q, k, v, w = _attn_inputs([(b, s, h, dh), (b, s + qo, g, dh),
+                                   (b, s + qo, g, dh), (b, s, h, dh)],
+                                  dtype, dev, 2000 + i)
+        grads, n0 = [], counters["flash_attention"].launches
+        for route in ("kernel", "plain"):
+            ins = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = (attention.blockwise_attention(
+                *ins, cfg, causal=causal, window=win, q_offset=qo)
+                if route == "kernel" else ref.flash_attention_plain(
+                    *ins, causal=causal, window=win, q_offset=qo))
+            (out.float() * w.float()).sum().backward()
+            grads.append([t.grad for t in ins])
+        torch.cuda.synchronize()
+        errs = [_grad_err(a, bb) for a, bb in zip(*grads)]
+        ok = max(errs) <= GRAD_TOL[dtype] \
+            and counters["flash_attention"].launches == n0 + 1
+        print(f"[train] flash Function B{b} S{s} H{h}/G{g} Dh{dh} "
+              f"{'causal' if causal else 'full'} w{win} off{qo} {dtype}: "
+              f"dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} "
+              f"(tol {GRAD_TOL[dtype]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("flash Function's gradients disagree with "
+                                 "plain autograd")
+        worst["flash_attention"] = max(worst["flash_attention"], *errs)
+    for i, case in enumerate(TRAIN_SSD_CASES):
+        b, s, h, p, g, n, l, dtype, with_h0 = case
+        x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, g, n, dtype, dev,
+                                       2100 + i)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2200 + i)
+        h0 = torch.randn((b, h, p, n), generator=gen, device=dev) * 0.5 \
+            if with_h0 else None
+        wy = torch.randn((b, s, h, p), generator=gen, device=dev)
+        wh = torch.randn((b, h, p, n), generator=gen, device=dev)
+        grads, n0 = [], counters["ssd_scan"].launches
+        for route in ("kernel", "plain"):
+            ins = [t.clone().requires_grad_() for t in (x, dt, a, bb, cc)]
+            hh = None if h0 is None else h0.clone().requires_grad_()
+            fn = ssm.ssd_scan if route == "kernel" else ref.ssd_scan_plain
+            y, hl = fn(*ins, l, hh)
+            ((y * wy).sum() + (hl * wh).sum()).backward()
+            grads.append([t.grad for t in ins]
+                         + ([hh.grad] if with_h0 else []))
+        torch.cuda.synchronize()
+        errs = [_grad_err(ga, gb) for ga, gb in zip(*grads)]
+        ok = max(errs) <= GRAD_TOL[dtype] \
+            and counters["ssd_scan"].launches == n0 + 1
+        names = ("dx", "ddt", "da", "db", "dc", "dh0")
+        print(f"[train] SSD Function B{b} S{s} H{h} P{p} G{g} N{n} L{l} "
+              f"{dtype}{' h0' if with_h0 else ''}: "
+              + " ".join(f"{nm} {e:.3g}" for nm, e in zip(names, errs))
+              + f" (tol {GRAD_TOL[dtype]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("SSD Function's gradients disagree with "
+                                 "plain autograd")
+        worst["ssd_scan"] = max(worst["ssd_scan"], *errs)
+    return worst
+
+
+def _cut(arch: str):
+    """A 2-layer cut of ``arch`` at full width (zamba2: one application of
+    its shared block, after the second layer)."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(arch)
+    kw = dict(name=f"{arch}-2l", n_layers=2)
+    if cfg.hybrid_attn_every:
+        kw["hybrid_attn_every"] = 2
+    return cfg.replace(**kw)
+
+
+def _with_grad(params):
+    """``params`` as leaves that require grad; returns (tree, leaves,
+    their paths)."""
+    leaves, paths = [], []
+
+    def req(t, path):
+        if isinstance(t, dict):
+            return {k: req(v, f"{path}/{k}") for k, v in t.items()}
+        leaves.append(t.detach().requires_grad_())
+        paths.append(path[1:])
+        return leaves[-1]
+    return req(params, ""), leaves, paths
+
+
+def _leaf_err(got, want) -> float:
+    """max |got - want| over max |want|: a gradient leaf's worst error
+    relative to the leaf."""
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    return err / scale if scale else err
+
+
+def _plain_route():
+    """Switch the model's attention and SSD call sites to the plain
+    versions under plain autograd (a switch of this script, not of the
+    package); returns the function that switches them back."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention, ssm
+
+    saved = attention.blockwise_attention, ssm.ssd_scan
+    attention.blockwise_attention = \
+        lambda q, k, v, cfg, **kw: ref.flash_attention_plain(q, k, v, **kw)
+    ssm.ssd_scan = ref.ssd_scan_plain
+
+    def restore():
+        attention.blockwise_attention, ssm.ssd_scan = saved
+    return restore
+
+
+def phase_train_cuts(dev) -> None:
+    """One training step's loss and every gradient leaf on a 2-layer cut
+    of each served family at full width (qwen1.5-0.5b, mamba2-1.3b,
+    zamba2-1.2b with one shared-block application; bf16, random
+    parameters from a seed, batch 2 x 1024 from the pipeline, remat full):
+    the kernel route against the plain route on the card. Each leaf's
+    worst error relative to the leaf's largest entry within
+    CUT_GRAD_TOL."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.model import init_params, loss_fn
+
+    for arch in (TRAIN_ARCH, SSM_ARCH, HYBRID_ARCH):
+        cfg = _cut(arch)
+        params = init_params(TRAIN_SEED, cfg, device=dev)
+        batch = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                            global_batch=2, seed=TRAIN_SEED).batch_at(
+                                0, device=dev)
+        runs = {}
+        for route in ("kernel", "plain"):
+            restore = _plain_route() if route == "plain" else (lambda: None)
+            try:
+                counters = _zero_counters()
+                p, leaves, paths = _with_grad(params)
+                loss, _ = loss_fn(p, batch, cfg)
+                grads = torch.autograd.grad(loss, leaves)
+                torch.cuda.synchronize()
+            finally:
+                restore()
+            runs[route] = (float(loss.detach()), grads,
+                           {k: c.launches for k, c in counters.items()
+                            if c.launches})
+        (kl, kg, kn), (pl, pg, pn) = runs["kernel"], runs["plain"]
+        errs = [_leaf_err(a, b) for a, b in zip(kg, pg)]
+        print(f"[train] {cfg.name} ({_describe(cfg)}"
+              f"): loss kernel {kl:.6f} plain {pl:.6f}; launches {kn} / "
+              f"plain {pn}; each gradient leaf's worst error over its "
+              f"largest entry (tol {CUT_GRAD_TOL}): "
+              + ", ".join(f"{n} {e:.3g}" for n, e in zip(paths, errs)))
+        if not (np.isfinite(kl) and abs(kl - pl) <= CUT_LOSS_TOL * abs(pl)
+                and max(errs) <= CUT_GRAD_TOL and kn and not pn):
+            raise AssertionError(f"{cfg.name}: the kernel route's step "
+                                 "disagrees with the plain route")
+        del params, batch, runs, kg, pg
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _train_start_hour(prices: np.ndarray, p_thresh: float, steps: int,
+                      hysteresis: float = 0.9) -> int:
+    """The first hour from which an oracle scheduler (shut down above
+    ``p_thresh``, resume at or below ``hysteresis`` x it) run for
+    ``steps`` training steps shuts down after at least 4 steps, resumes,
+    and stays down at most 6 ticks."""
+    for h in range(len(prices) - 4 * steps):
+        pos, done, running, downs, saw = h, 0, True, 0, set()
+        while done < steps:
+            price = prices[pos]
+            pos += 1
+            if running and price > p_thresh:
+                running = False
+                saw.add("shutdown" if done >= 4 else "early")
+            elif not running and price <= hysteresis * p_thresh:
+                running = True
+                saw.add("resume")
+                done += 1
+            elif running:
+                done += 1
+            else:
+                downs += 1
+        if saw == {"shutdown", "resume"} and downs <= 6:
+            return h
+    raise AssertionError("no start hour gives a shutdown and a resume")
+
+
+class _Watch:
+    """The scheduler, recording each action it returns."""
+
+    def __init__(self, sched):
+        self.sched, self.stream, self.actions = sched, sched.stream, []
+
+    def step(self, hours=1.0):
+        self.actions.append(self.sched.step(hours))
+        return self.actions[-1]
+
+
+def phase_train_full(dev) -> dict:
+    """qwen1.5-0.5b at full width (24 layers, bf16 parameters, float32
+    AdamW moments, remat full, loss in 512-token chunks) trained by
+    `Trainer` at batch 8 x 1024 for TRAIN_STEPS steps under the
+    energy-aware scheduler (germany, Psi 2, oracle), its stream started at
+    an hour chosen on the host so that a SHUTDOWN and a RESUME fall inside
+    the run; checkpoints in a temporary directory removed afterwards.
+    Checks finite losses falling, the parameters restored at RESUME
+    against those saved at SHUTDOWN bit for bit, 24 x 2 flash launches a
+    step (the forward and remat's re-forward), 24 Function backward calls
+    a step and no plain attention; prints the step time, tokens/s, peak
+    memory, the share of the bf16 peak, the checkpoint's times, the
+    meter's summary, and the busy share under the profiler over 3 more
+    steps."""
+    import tempfile
+
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.energy.markets import generate_market
+    from repro_torch.energy.presets import region_params
+    from repro_torch.energy.stream import PriceStream
+    from repro_torch.launch.roofline import (H100_SXM_BF16_FLOPS,
+                                             model_flops)
+    from repro_torch.models.attention import FlashAttention
+    from repro_torch.runtime.scheduler import (Action, EnergyAwareScheduler,
+                                               SchedulerConfig)
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    prices = generate_market(region_params("germany", seed=0),
+                             device="cpu").prices.numpy()
+    scfg = SchedulerConfig(psi=2.0, mode="oracle")
+    p_thresh = EnergyAwareScheduler(PriceStream(prices), scfg,
+                                    device=dev).p_thresh
+    start = _train_start_hour(prices, p_thresh, TRAIN_STEPS)
+    print(f"[train] market, threshold and start hour on the host in "
+          f"{time.perf_counter() - t0:.2f} s")
+    sched = _Watch(EnergyAwareScheduler(PriceStream(prices, start=start),
+                                        scfg, device=dev))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    trainer = None
+    try:
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, TrainerConfig(steps=TRAIN_STEPS,
+                                             ckpt_dir=tmp, ckpt_every=1000,
+                                             seed=TRAIN_SEED),
+                          scheduler=sched, batch_size=TRAIN_BATCH,
+                          seq_len=TRAIN_SEQ, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        step_s, saved, restored = [], {}, []
+        train_step, checkpoint, restore = (trainer.train_step,
+                                           trainer._checkpoint,
+                                           trainer._restore)
+
+        def timed_step(*a):
+            t1 = time.perf_counter()
+            out = train_step(*a)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            return out
+
+        def watched_checkpoint(blocking=False):
+            if sched.actions and sched.actions[-1] is Action.SHUTDOWN:
+                saved[trainer.step] = {k: v.detach().clone() for k, v in
+                                       _flat(trainer.params).items()}
+            checkpoint(blocking)
+
+        def watched_restore():
+            restore()
+            if sched.actions and sched.actions[-1] is Action.RESUME:
+                want = saved[trainer.step]
+                got = _flat(trainer.params)
+                restored.append(all(torch.equal(got[k], want[k])
+                                    for k in want))
+
+        trainer.train_step, trainer._checkpoint, trainer._restore = \
+            timed_step, watched_checkpoint, watched_restore
+        counters = _zero_counters()
+        FlashAttention.calls = FlashAttention.backward_calls = 0
+        plain, restore_plain = _count_serving_plain_calls()
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            t0 = time.perf_counter()
+            out = trainer.run(log_every=0)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        finally:
+            restore_plain()
+        launches = counters["flash_attention"].launches
+        device_launches = counters["flash_attention"].device_launches
+        fwd, bwd = FlashAttention.calls, FlashAttention.backward_calls
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = [r["loss"] for r in trainer.history]
+        n_steps = len(step_s)
+        acts = [a.value for a in sched.actions]
+        print(f"[train] {cfg.name}: {_describe(cfg)}, d_ff {cfg.d_ff}, "
+              f"vocab {cfg.vocab}; batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+              f"{TRAIN_STEPS} steps; market hour {start} on (p_thresh "
+              f"{p_thresh:.2f}); built in {init_s:.2f} s, run "
+              f"{run_s:.2f} s")
+        print(f"[train] actions: {acts}")
+        print(f"[train] losses: {[round(x, 4) for x in losses]}")
+        med = statistics.median(step_s[2:])
+        flops = model_flops(cfg, ShapeSpec("train", seq_len=TRAIN_SEQ,
+                                           global_batch=TRAIN_BATCH,
+                                           kind="train"))
+        print(f"[train] step: median {med * 1e3:.2f} ms (host clock, "
+              f"synchronised; steps 3-{n_steps}: min "
+              f"{min(step_s[2:]) * 1e3:.2f}, max {max(step_s[2:]) * 1e3:.2f}"
+              f"; first {step_s[0] * 1e3:.1f}), "
+              f"{TRAIN_BATCH * TRAIN_SEQ / med:.0f} tokens/s, peak "
+              f"{peak / 1e9:.2f} GB; model FLOPs {flops / 1e12:.3f} TFLOP "
+              f"a step = {flops / med / 1e12:.1f} TFLOP/s, "
+              f"{flops / med / H100_SXM_BF16_FLOPS:.1%} of the H100 SXM's "
+              f"989 TFLOP/s dense bf16")
+        print(f"[train] checkpoint: save {out['ckpt_save_s']:.3f} s, "
+              f"restore {out['ckpt_restore_s']:.3f} s, "
+              f"measured_restart_overhead_frac "
+              f"{trainer.measured_restart_overhead_frac():.6f}; meter: CPC "
+              f"{out['cpc']:.4f} (always-on {out['cpc_always_on']:.4f}), "
+              f"x realised {out['x_realized']:.4f}, restarts "
+              f"{out['restarts']}, lost steps {out['lost_steps']}")
+        print(f"[train] flash launches {launches} ({device_launches} on "
+              f"the card), Function forwards {fwd}, backwards {bwd}; "
+              f"plain calls {plain}")
+        want = cfg.n_layers * 2 * n_steps
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+                and n_steps == TRAIN_STEPS
+                and "shutdown" in acts and "resume" in acts
+                and restored and all(restored)
+                and launches == want == fwd
+                and bwd == cfg.n_layers * n_steps
+                and not any(plain.values())):
+            raise AssertionError(
+                f"full-width training: losses finite and falling, a "
+                f"shutdown and a resume restoring bit for bit "
+                f"({restored}), {want} flash launches, "
+                f"{cfg.n_layers * n_steps} backward calls and no plain "
+                "call expected")
+        print(f"[train] restored at RESUME == saved at SHUTDOWN, bit for "
+              f"bit ({len(saved)} shutdown(s))")
+        # the busy share over 3 more steps (not counted above)
+        trainer.train_step = train_step
+        batch = trainer.data.batch_at(0, device=dev)
+        keep = np.ones(1, np.float32)
+        t0 = time.perf_counter()
+        _profile(lambda: trainer.train_step(batch, 1e-5, keep),
+                 f"{cfg.name} train step (B {TRAIN_BATCH} x {TRAIN_SEQ})",
+                 runs=3)
+        print(f"[train] profiled in {time.perf_counter() - t0:.1f} s")
+        _train_breakdown(trainer, batch, med, dev)
+        return {"launches": launches, "device_launches": device_launches,
+                "step_ms": med * 1e3}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _train_breakdown(trainer, batch, step_s: float, dev) -> None:
+    """Where a full-width step's time goes, part by part (CUDA events,
+    median of TIMED_RUNS after a warm-up, each part at the run's shapes):
+    the flash kernel forward (x 48 a step: forward and remat's re-forward),
+    the attention backward in PyTorch operations (x 24), the chunked loss
+    (final norm, unembedding, cross-entropy, forward and backward) and the
+    AdamW update over the whole tree; the rest (the layers' GEMMs and
+    elementwise work, their recompute, the embedding) is the step less
+    these."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.models.attention import attention_backward
+    from repro_torch.optim.adamw import adamw_update
+
+    cfg = trainer.cfg
+    b, s, h, dh = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.resolved_head_dim
+    q, k, v, do = _attn_inputs([(b, s, h, dh), (b, s, cfg.n_kv_heads, dh),
+                                (b, s, cfg.n_kv_heads, dh), (b, s, h, dh)],
+                               BF16, dev, 2300)
+    o = ops.flash_attention(q, k, v, causal=True)
+    parts = {
+        f"flash forward x {2 * cfg.n_layers}": 2 * cfg.n_layers * _cuda_ms(
+            lambda: ops.flash_attention(q, k, v, causal=True)),
+        f"attention backward x {cfg.n_layers}": cfg.n_layers * _cuda_ms(
+            lambda: attention_backward(q, k, v, o, do, True)),
+    }
+    hid = torch.randn((b, s, cfg.d_model), device=dev).to(BF16)
+    params = trainer.params
+
+    def loss_part():
+        x = hid.detach().requires_grad_()
+        nll = model._token_nll(x, batch["labels"], params, cfg)
+        torch.autograd.grad(nll.mean(), [x, params["embed"]["tok"]])
+    parts["loss (chunked CE, fwd + bwd)"] = _cuda_ms(loss_part)
+    def update():          # the parameters stand in for their gradients
+        with torch.no_grad():
+            adamw_update(params, trainer.opt_state, params, trainer.opt,
+                         lr=1e-5)
+    parts["AdamW update"] = _cuda_ms(update)
+    rest = step_s * 1e3 - sum(parts.values())
+    print(f"[train] step {step_s * 1e3:.2f} ms: "
+          + "; ".join(f"{k_} {v_:.2f} ms" for k_, v_ in parts.items())
+          + f"; the rest {rest:.2f} ms")
+
+
+def _flat(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def phase_train_resume(dev) -> None:
+    """`tests/test_runtime.py`'s pause / resume check on the card: a
+    2-layer cut of qwen1.5-0.5b at full width (batch 2 x 256) trained for
+    6 steps uninterrupted and again under a scheduler that forces SHUTDOWN,
+    STAY_DOWN and RESUME; the two land on the same parameters bit for
+    bit."""
+    import tempfile
+
+    from repro_torch.energy.stream import PriceStream
+    from repro_torch.runtime.scheduler import Action
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    class Forcing:
+        def __init__(self):
+            self.i = 0
+            self.stream = PriceStream(np.full(100, 50.0))
+
+        def step(self, hours=1.0):
+            self.i += 1
+            self.stream.advance(hours)
+            return {4: Action.SHUTDOWN, 5: Action.STAY_DOWN,
+                    6: Action.RESUME}.get(self.i % 7, Action.RUN)
+
+    cfg = _cut(TRAIN_ARCH)
+    finals = []
+    for sched in (None, Forcing()):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+        try:
+            t = Trainer(cfg, TrainerConfig(steps=6, ckpt_dir=tmp,
+                                           ckpt_every=1000),
+                        scheduler=sched, batch_size=2, seq_len=256,
+                        device=dev)
+            out = t.run(log_every=0)
+            finals.append((_flat(t.params), out["restarts"]))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    (a, _), (b, restarts) = finals
+    diff = [k for k in a if not torch.equal(a[k], b[k])]
+    print(f"[train] pause / resume on the card ({cfg.name}, 6 steps, "
+          f"{restarts} restart): {len(a) - len(diff)} of {len(a)} "
+          f"parameter leaves equal bit for bit; differing {diff}")
+    if diff or restarts != 1:
+        raise AssertionError("an interrupted run on the card does not land "
+                             "on the uninterrupted run's parameters")
+
+
+def phase_train_launcher(dev) -> None:
+    """`python -m repro_torch.launch.train --arch qwen1.5-0.5b
+    --full-config --steps 8 --batch 8 --seq 1024` on the card, through its
+    `main` in this process: exit 0, the summary JSON printed, the flash
+    kernel launched."""
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    counters = _zero_counters()
+    rc = train.main(["--arch", TRAIN_ARCH, "--full-config", "--steps", "8",
+                     "--batch", "8", "--seq", "1024", "--device", str(dev)])
+    torch.cuda.synchronize()
+    n = counters["flash_attention"].launches
+    print(f"[train] launcher --arch {TRAIN_ARCH} --full-config --steps 8: "
+          f"exit {rc}, {time.perf_counter() - t0:.2f} s; flash launches {n}")
+    if rc != 0 or n == 0:
+        raise AssertionError("repro_torch.launch.train --full-config failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs only on "
@@ -3216,6 +3777,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_serve_launcher(dev)
     torch.cuda.synchronize()
+    train_errs = phase_train_functions(dev)
+    phase_train_cuts(dev)
+    train = phase_train_full(dev)
+    phase_train_resume(dev)
+    phase_train_launcher(dev)
+    torch.cuda.synchronize()
     fleet_rec, flush = phase_times(dev, main_run)
     soft_times = phase_soft_times(dev, flush)
     phase_tune_times(dev, tune["grid"])
@@ -3257,10 +3824,17 @@ def main() -> int:
               "soft_dispatch_fused_bwd": aware["device_launches"],
               "flash_attention": serve_device,
               "decode_attention": serve_device, "ssd_scan": ssm_device}
+    flash = next(r for r in kernels if r["name"] == "flash_attention")
+    flash["train_launches"] = train["launches"]
+    flash["train_max_grad_err"] = train_errs["flash_attention"]
+    kernels[-1]["train_max_grad_err"] = train_errs["ssd_scan"]
     for rec in kernels:
         runs = [("", device[rec["name"]])]
         if "hybrid_launches" in rec:
             runs.append(("hybrid_", hybrid_device))
+        if "train_launches" in rec:
+            runs.append(("train_", {"flash_attention":
+                                    train["device_launches"]}))
         for pre, dl in runs:
             n, counted = dl[rec["name"]], rec[f"{pre}launches"]
             if n < counted or (n > 0) != (counted > 0):

@@ -1425,16 +1425,24 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = torch.full((b, g, r, sq), NEG_INF, device=dev)
     l_ = torch.zeros((b, g, r, sq), device=dev)
     acc = torch.zeros((b, g, r, sq, dh), device=dev)
+    def tile_relevant(k0, qs):
+        """Whether KV tile ``k0`` has a key the query tile starting at
+        position ``qs`` may see (the kernel's skip test)."""
+        return ((not causal or k0 <= min(qs + t - 1, skv - 1))
+                and (not window or k0 + t - 1 > qs - window))
+
     for k0 in range(0, skv, t):
         k1 = min(k0 + t, skv)
+        # decided from Python integers, so the loop never waits on the card
+        if not any(tile_relevant(k0, qs)
+                   for qs in range(q_offset, q_offset + sq, t)):
+            continue
         # relevance of this tile to each row's query tile (uniform per tile)
         relevant = torch.ones(sq, dtype=torch.bool, device=dev)
         if causal:
             relevant &= k0 <= torch.clamp(q_start + t - 1, max=skv - 1)
         if window:
             relevant &= (k0 + t - 1) > q_start - window
-        if not bool(relevant.any()):
-            continue
         kpos = torch.arange(k0, k1, device=dev)
         s = torch.einsum("bgrqd,bgkd->bgrqk", qf, kf[:, :, k0:k1]) \
             * dh ** -0.5

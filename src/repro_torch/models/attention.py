@@ -108,10 +108,107 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The flash kernel on the card, its plain blocked version on the CPU
     (both online-softmax over 64 x 64 tiles with an f32 carry); the
     reference's chunk sizes ``cfg.attn_q_chunk``/``attn_kv_chunk`` are
-    passed for parity and do not change the result."""
+    passed for parity and do not change the result. With grad mode on and
+    an input that requires grad, the call goes through `FlashAttention`,
+    which launches the same kernel and gives it a backward."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, int(window),
+                                    int(q_offset))
     return kops.flash_attention(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset, bq=cfg.attn_q_chunk,
                                 bkv=cfg.attn_kv_chunk)
+
+
+BWD_TILE = 128   # query rows a step of the backward: [B, H, 128, Skv] f32
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash kernel under autograd (training).
+
+    Forward: `kops.flash_attention` on the detached inputs, exactly as
+    serving calls it (the kernel on CUDA tensors, its plain version on CPU
+    tensors); q, k, v and the output are saved. Backward: the analytic
+    softmax-attention gradient in PyTorch operations (`attention_backward`),
+    the gradient the reference takes with XLA through its blockwise
+    attention; the reference has no backward kernel either. ``calls`` and
+    ``backward_calls`` count the two directions."""
+
+    calls = 0
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int):
+        out = kops.flash_attention(q.detach(), k.detach(), v.detach(),
+                                   causal=causal, window=window,
+                                   q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.masks = (causal, window, q_offset)
+        FlashAttention.calls += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out = ctx.saved_tensors
+        FlashAttention.backward_calls += 1
+        dq, dk, dv = attention_backward(q, k, v, out, d_out, *ctx.masks)
+        return dq, dk, dv, None, None, None
+
+
+def attention_backward(q, k, v, out, d_out, causal: bool, window: int = 0,
+                       q_offset: int = 0, tile: int = BWD_TILE):
+    """dq, dk, dv of softmax attention from the saved q, k, v and the
+    forward's output ``out``, one tile of ``tile`` query rows at a time
+    (so [B, H, tile, Skv] float32 bounds the memory), in float32:
+
+        S = q k^T Dh^-1/2 under the causal / window / ``q_offset`` masks
+        P = exp(S - logsumexp S);  D = rowsum(dO o)
+        dV = P^T dO;  dS = P (dO V^T - D)
+        dQ = dS K Dh^-1/2;  dK = dS^T Q Dh^-1/2
+
+    with each KV group summing its heads' dK and dV (GQA). A tile reads
+    only the keys its masks leave it. A row that sees no key gets no
+    gradient. Shapes as `blockwise_attention`'s; each gradient comes back
+    in its input's dtype."""
+    b, sq, h, dh = q.shape
+    skv, g = k.shape[1], k.shape[2]
+    r = h // g
+    scale = dh ** -0.5
+    kf, vf = k.float(), v.float()
+    dq = torch.empty((b, sq, g, r, dh), dtype=torch.float32,
+                     device=q.device)
+    dk = torch.zeros((b, skv, g, dh), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for i0 in range(0, sq, tile):
+        i1 = min(i0 + tile, sq)
+        lo = max(0, q_offset + i0 - window + 1) if window else 0
+        hi = min(skv, q_offset + i1) if causal else skv
+        if lo >= hi:
+            dq[:, i0:i1] = 0.0
+            continue
+        qt = q[:, i0:i1].float().reshape(b, i1 - i0, g, r, dh)
+        dot = d_out[:, i0:i1].float().reshape(b, i1 - i0, g, r, dh)
+        ot = out[:, i0:i1].float().reshape(b, i1 - i0, g, r, dh)
+        kt, vt = kf[:, lo:hi], vf[:, lo:hi]
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qt, kt) * scale
+        qpos = q_offset + torch.arange(i0, i1, device=q.device)
+        kpos = torch.arange(lo, hi, device=q.device)
+        mask = torch.ones((i1 - i0, hi - lo), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        s = s.masked_fill(~mask, float("-inf"))
+        lse = torch.logsumexp(s, dim=-1, keepdim=True)
+        p = torch.exp(s - lse.clamp(min=-3e38)).masked_fill(~mask, 0.0)
+        dd = (dot * ot).sum(dim=-1).permute(0, 2, 3, 1)[..., None]
+        ds = p * (torch.einsum("bqgrd,bkgd->bgrqk", dot, vt) - dd)
+        dq[:, i0:i1] = torch.einsum("bgrqk,bkgd->bqgrd", ds, kt) * scale
+        dk[:, lo:hi] += torch.einsum("bgrqk,bqgrd->bkgd", ds, qt) * scale
+        dv[:, lo:hi] += torch.einsum("bgrqk,bqgrd->bkgd", p, dot)
+    return (dq.reshape(b, sq, h, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def attention_layer(x: torch.Tensor, p: dict, cfg: ModelConfig, *,

@@ -6,13 +6,14 @@
   prefill            full-sequence forward -> (last-position logits, caches)
   decode_step        one token per row against the caches
   init_cache         the empty decode cache
+  loss_fn            the training loss (next-token cross-entropy)
 
 Parameters and caches carry a leading stacked layer axis, as in the
 reference. Unlike the reference, `decode_step` updates the caches in
 place (the [L, B, W, G, Dh] pool, or the SSM conv and state pool, is
 written, not copied) and returns the same object. The dense, vlm, ssm
-and hybrid families are ported. ``loss_fn``, ``cache_specs`` and
-``param_specs`` wait for the training and mesh slices.
+and hybrid families are ported. ``cache_specs`` and ``param_specs`` wait
+for the mesh slice.
 """
 
 from __future__ import annotations
@@ -68,6 +69,73 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *,
         return _tensor(t, dev)
     return conv({k: tree[k] for k in ("embed", "blocks", "final_norm",
                                       "shared") if k in tree})
+
+
+def _token_nll(h: torch.Tensor, labels: torch.Tensor, params: dict,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Per-token negative log-likelihood [B, S] in float32; h: [B,S,D]
+    (final-normed).
+
+    With ``cfg.loss_chunk`` (and S a multiple of it larger than it), the
+    cross-entropy runs one sequence chunk at a time, each chunk under
+    checkpoint while autograd records: only one chunk's [B, chunk, V]
+    float32 logits is alive, in the forward and in the backward."""
+    def ce(hc, lc):
+        logits = unembed(hc, params["embed"], cfg).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        return lse - gold                                   # [B, s]
+
+    s = h.shape[1]
+    chunk = cfg.loss_chunk
+    if chunk and s > chunk and s % chunk == 0:
+        if torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            def run(hc, lc):
+                return checkpoint(ce, hc, lc, use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            run = ce
+        return torch.cat([run(h[:, i:i + chunk], labels[:, i:i + chunk])
+                          for i in range(0, s, chunk)], dim=1)
+    return ce(h, labels)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
+            seq_sharded: bool = True) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy (+ ``cfg.moe_aux_coef`` x the MoE
+    load-balance aux, 0 for the ported families), as the reference's.
+
+    batch: tokens [B,S] and labels [B,S] integer tensors, an optional
+    loss_mask [B,S] float32, and for the vision frontend patches
+    [B, vis_tokens, D] (their positions are masked out of the loss).
+    Returns (loss, {"loss", "ce", "moe_aux", "tokens"}), float32 scalar
+    tensors. ``seq_sharded`` is the reference's sequence sharding, which
+    has no effect on one device."""
+    del seq_sharded
+    check_family(cfg)
+    tokens, labels = batch["tokens"], batch["labels"]
+    mask = batch.get("loss_mask")
+    h = embed(tokens, params["embed"], cfg)
+    if cfg.frontend == "vision":
+        vt = cfg.vis_tokens
+        h = torch.cat([batch["patches"].to(h.dtype), h[:, vt:]], dim=1)
+        pmask = (torch.arange(h.shape[1], device=h.device) >= vt) \
+            .float()[None]
+        mask = pmask if mask is None else mask * pmask
+    h, aux, _ = decoder_forward(params, h, cfg)
+    h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
+    nll = _token_nll(h, labels, params, cfg)
+    if mask is None:
+        ce_loss = nll.mean()
+        denom = torch.tensor(float(nll.numel()), device=nll.device)
+    else:
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ce_loss = (nll * mask).sum() / denom
+    loss = ce_loss + cfg.moe_aux_coef * aux
+    return loss, {"loss": loss, "ce": ce_loss, "moe_aux": aux,
+                  "tokens": denom}
 
 
 def _cache_from_kv(k: torch.Tensor, v: torch.Tensor, w: int,

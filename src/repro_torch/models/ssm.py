@@ -167,6 +167,54 @@ def ssd_chunked(x, dt, a_coef, b, c, chunk: int,
     return y, h
 
 
+def ssd_scan(x, dt, a_coef, b, c, chunk: int,
+             h0: Optional[torch.Tensor] = None):
+    """The model's SSD scan: `kops.ssd_scan` (the kernel on CUDA tensors,
+    its plain version on CPU tensors); with grad mode on and an input that
+    requires grad, through `SSDScan`, which launches the same kernel and
+    gives it a backward. Arguments and results as `ssd_chunked`'s."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, a_coef, b, c, h0)):
+        return SSDScan.apply(x, dt, a_coef, b, c, h0, int(chunk))
+    return kops.ssd_scan(x, dt, a_coef, b, c, chunk, h0)
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD kernel under autograd (training).
+
+    Forward: `kops.ssd_scan` on the detached inputs, exactly as serving
+    calls it. Backward: `ssd_chunked`, the reference's XLA form, recomputed
+    under ``torch.enable_grad()`` from the saved inputs, with dY and
+    d h_last pulled back through it: the gradient the reference takes (it
+    has no backward kernel). ``calls`` and ``backward_calls`` count the
+    two directions."""
+
+    calls = 0
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, x, dt, a_coef, b, c, h0, chunk: int):
+        y, h_last = kops.ssd_scan(
+            x.detach(), dt.detach(), a_coef.detach(), b.detach(),
+            c.detach(), chunk, None if h0 is None else h0.detach())
+        ctx.save_for_backward(x, dt, a_coef, b, c, h0)
+        ctx.chunk = chunk
+        SSDScan.calls += 1
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        SSDScan.backward_calls += 1
+        ins = [t if t is None else t.detach().requires_grad_()
+               for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, h_last = ssd_chunked(*ins[:5], ctx.chunk, ins[5])
+        grads = iter(torch.autograd.grad(
+            (y, h_last), [t for t in ins if t is not None], (dy, dh_last)))
+        return (*(None if t is None else next(grads) for t in ins), None)
+
+
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
                  bias: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv1d. xbc: [B,S,C]; w: [K,C]. The K products are
@@ -215,7 +263,7 @@ def _full_sequence(x, p, cfg, z, xin, b, c, dt, a_coef):
     xh = xs.reshape(bsz, s, nh, hp)
     bg = bs.reshape(bsz, s, N_GROUPS, n)
     cg = cs.reshape(bsz, s, N_GROUPS, n)
-    y, h_last = kops.ssd_scan(xh, dt, a_coef, bg, cg, cfg.ssm_chunk)
+    y, h_last = ssd_scan(xh, dt, a_coef, bg, cg, cfg.ssm_chunk)
     y = y + xh.float() * p["D"][None, None, :, None]
     y = y.reshape(bsz, s, d_in).to(cdt)
     y = rms_norm(y * F.silu(z), p["gated_norm"], cfg.norm_eps)

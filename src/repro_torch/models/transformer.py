@@ -6,7 +6,7 @@ one weight-shared attention + MLP block after every
 Mirrors `repro.models.transformer`: parameters are nested dicts whose
 per-layer leaves are stacked on a leading layer axis ([L, ...]), as the
 reference stacks them for its scan over layers; the port loops over the
-layers in Python and indexes the stacked tensors (views, no copies). The
+layers in Python over views of the stacked tensors (`unstack`). The
 decode caches are stacked the same way ([L, B, W, G, Dh] K/V, [L, B, ...]
 SSM conv and state); the hybrid family's K/V cache is stacked over the
 shared block's applications instead ([n_apps, B, W, G, Dh]), one cache
@@ -91,10 +91,47 @@ def init_model_params(gen: torch.Generator, cfg: ModelConfig,
     return params
 
 
-def layer_params(blocks: dict, i: int) -> dict:
-    """Layer ``i``'s parameters: views into the stacked tensors."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+def unstack(blocks: dict, n: int) -> list:
+    """Every layer's parameters at once: views from one `torch.unbind` of
+    each stacked leaf. Its backward stacks the layers' gradients in one
+    operation, where indexing layer by layer would add a zero-padded
+    [L, ...] gradient per layer."""
+    flat = {k: unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
             for k, v in blocks.items()}
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of matrix products, recompute
+    the rest (the reference's ``checkpoint_dots``)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if func in (aten.mm.default, aten.bmm.default, aten.addmm.default,
+                aten.baddbmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat`` (the reference's ``_remat``): "full"
+    saves only its inputs and recomputes it in the backward, "dots" saves
+    the outputs of its matrix products as well, "none" saves everything.
+    Remat changes memory, never a value. It applies only where autograd
+    records (grad mode on), so serving and ``no_grad`` never enter it."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    from torch.utils.checkpoint import checkpoint
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat == "dots":
+        kw["context_fn"] = _dots_context
+    elif cfg.remat != "full":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return lambda *args: checkpoint(fn, *args, **kw)
 
 
 def _attn_ffn_block(h, bp, cfg: ModelConfig, *, cache, positions,
@@ -132,8 +169,9 @@ def decoder_forward(params: dict, h: torch.Tensor, cfg: ModelConfig, *,
     decode = caches is not None
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     convs, states, ks, vs = [], [], [], []
+    layers = unstack(params["blocks"], cfg.n_layers)
     if cfg.family == "ssm":
-        h = _ssm_layers(params, h, cfg, range(cfg.n_layers), caches,
+        h = _ssm_layers(layers, h, cfg, range(cfg.n_layers), caches,
                         collect, convs, states)
     else:
         # the rotary angles of these positions, shared by every layer
@@ -150,17 +188,17 @@ def decoder_forward(params: dict, h: torch.Tensor, cfg: ModelConfig, *,
             every = cfg.hybrid_attn_every
             n_apps = cfg.n_layers // every
             for g in range(n_apps + 1):
-                layers = range(g * every, min((g + 1) * every, cfg.n_layers))
-                h = _ssm_layers(params, h, cfg, layers, caches, collect,
-                                convs, states)
+                h = _ssm_layers(layers, h, cfg,
+                                range(g * every,
+                                      min((g + 1) * every, cfg.n_layers)),
+                                caches, collect, convs, states)
                 if g < n_apps:
                     h = _attn_app(h, params["shared"], cfg, caches, g,
                                   positions, collect, rope, valid, ks, vs)
         else:
             for i in range(cfg.n_layers):
-                h = _attn_app(h, layer_params(params["blocks"], i), cfg,
-                              caches, i, positions, collect, rope, valid,
-                              ks, vs)
+                h = _attn_app(h, layers[i], cfg, caches, i, positions,
+                              collect, rope, valid, ks, vs)
     if decode:
         return h, aux, caches
     if not collect:
@@ -189,7 +227,12 @@ def _write_positions(cache: AttnCache, positions: torch.Tensor,
 def _attn_app(h, bp, cfg: ModelConfig, caches, i: int, positions,
               collect: bool, rope, valid, ks: list, vs: list):
     """One attention + MLP block against slice ``i`` of the stacked K/V
-    cache (decode) or collecting its K/V (prefill)."""
+    cache (decode), collecting its K/V (prefill), or under ``cfg.remat``
+    (a training forward: neither)."""
+    if caches is None and not collect:
+        return _remat(lambda h, bp: _attn_ffn_block(
+            h, bp, cfg, cache=None, positions=positions, rope=rope)[0],
+            cfg)(h, bp)
     cache = None
     if caches is not None:
         c = caches["attn"]
@@ -202,15 +245,25 @@ def _attn_app(h, bp, cfg: ModelConfig, caches, i: int, positions,
     return h
 
 
-def _ssm_layers(params: dict, h: torch.Tensor, cfg: ModelConfig,
-                layers, caches: Optional[dict], collect: bool,
+def _ssm_block_residual(h, bp, cfg: ModelConfig):
+    x = rms_norm(h, bp["ln"]["scale"], cfg.norm_eps)
+    return h + ssm_block(x, bp["ssm"], cfg)[0]
+
+
+def _ssm_layers(layers: list, h: torch.Tensor, cfg: ModelConfig,
+                which, caches: Optional[dict], collect: bool,
                 convs: list, states: list) -> torch.Tensor:
-    """Mamba2 blocks ``layers`` (pre-norm, with a residual): decode writes
-    each layer's new conv and state into the pool in place; prefill
-    (``collect``) appends each layer's `ssm_prefill_with_cache` cache to
-    ``convs`` and ``states``."""
-    for i in layers:
-        bp = layer_params(params["blocks"], i)
+    """Mamba2 blocks ``which`` of ``layers`` (each layer's parameters;
+    pre-norm, with a residual): decode writes each layer's new conv and
+    state into the pool in place; prefill (``collect``) appends each
+    layer's `ssm_prefill_with_cache` cache to ``convs`` and ``states``; a
+    training forward (neither) runs each block under ``cfg.remat``."""
+    for i in which:
+        bp = layers[i]
+        if caches is None and not collect:
+            h = _remat(lambda h, bp: _ssm_block_residual(h, bp, cfg),
+                       cfg)(h, bp)
+            continue
         x = rms_norm(h, bp["ln"]["scale"], cfg.norm_eps)
         if caches is not None:
             pool = caches["ssm"]
@@ -222,8 +275,6 @@ def _ssm_layers(params: dict, h: torch.Tensor, cfg: ModelConfig,
             out, new = ssm_prefill_with_cache(x, bp["ssm"], cfg)
             convs.append(new.conv)
             states.append(new.state)
-        else:
-            out, _ = ssm_block(x, bp["ssm"], cfg)
         h = h + out
     return h
 

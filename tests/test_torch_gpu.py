@@ -4,7 +4,8 @@ decode attention, the SSD chunk scan), held against their plain PyTorch
 versions, and the backtest, the tuner (plain and dispatch-aware), the
 dispatch summary and the serving engine (dense, mamba2 and zamba2) on
 the card against the CPU; one seed's market and parameters drawn for the card
-equal the CPU's; the three serving kernels refuse inputs that need grad.
+equal the CPU's; the three serving kernels refuse inputs that need grad;
+the training slice's Functions, batch, compression and step.
 Marked ``gpu``:
 without a CUDA device every test skips. Imports neither JAX nor the
 reference, so it runs on a machine that has only PyTorch:
@@ -50,7 +51,16 @@ in the order of float32 sums); the reduced serving engine on the card at
 float32 returns the CPU's tokens. The SSD kernel against its plain
 version on the card: y and the final state within 1e-4 of the output's
 scale (the two share every cast and differ in the order of float32 sums,
-the cumsum's included).
+the cumsum's included). The training slice: the flash and SSD kernels
+under autograd (the model's `FlashAttention` and `SSDScan`) against
+autograd through the plain versions, every gradient within 1e-4
+(float32) or 3e-2 (bf16) of max(max |plain gradient|, 1) (the
+Functions' backward is the analytic gradient in float32, the plain
+route's the derivative of the computed forward; bf16 rounds to 8 bits);
+the pipeline's batch on the card equal to the CPU's; int8 quantisation on
+the card equal to the CPU's bit for bit; a 2-layer float32 training step
+through the kernels within 1e-5 (loss) and 1e-4 (each gradient leaf's
+largest entry) of the plain route.
 """
 
 import os
@@ -84,7 +94,8 @@ from repro_torch.kernels.ref import (decode_attention_plain,  # noqa: E402
                                      soft_scan_fwd_seg_ref,
                                      soft_dispatch_fwd_ref,
                                      soft_dispatch_hour_fixed,
-                                     soft_dispatch_ref, soft_level_in_gap)
+                                     soft_dispatch_ref, soft_level_in_gap,
+                                     ssd_scan_plain)
 from repro_torch.kernels.soft_dispatch import (  # noqa: E402
     soft_dispatch, soft_dispatch_fused_bwd, soft_dispatch_fused_fwd,
     soft_dispatch_scan)
@@ -1050,3 +1061,159 @@ def test_hybrid_engine_on_the_card_matches_the_cpu(cuda):
     ssd, flash, dec = launches[str(cuda)]
     assert (ssd, flash) == (6 * cfg.n_layers, 6 * n_apps)
     assert dec > 0 and dec % n_apps == 0
+
+
+# ---------------------------------------------------------------------------
+# the training slice: the kernels under autograd, the batch, compression,
+# a training step
+# ---------------------------------------------------------------------------
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max(max |want|, 1): relative where the
+    gradient is of order 1 or more, absolute below (one key gives q and k
+    no gradient at all, which rounding leaves at ~1e-7)."""
+    return float((got.float() - want.float()).abs().max()) \
+        / max(float(want.float().abs().max()), 1.0)
+
+
+GRAD_TOL_CARD = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+# B, S, H, G, Dh, causal, window, q_offset (Sq = S; Skv = S + q_offset)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    (2, 100, 16, 2, 64, True, 0, 0),
+    (1, 64, 16, 16, 128, True, 24, 0),
+    (1, 70, 8, 2, 64, True, 0, 130),
+    (2, 1, 4, 4, 64, True, 0, 0)])
+def test_attention_function_gradients_match_plain_autograd(cuda, case,
+                                                           dtype):
+    """On the card, `blockwise_attention` with inputs that require grad
+    launches the flash kernel once and takes the Function's backward;
+    dq, dk, dv agree with autograd through `flash_attention_plain`."""
+    from repro_torch.models import attention
+    b, s, h, g, dh, causal, win, qo = case
+    q, k, v, w = _attn_inputs([(b, s, h, dh), (b, s + qo, g, dh),
+                               (b, s + qo, g, dh), (b, s, h, dh)], dtype,
+                              cuda, sum(case[:5]))
+    cfg = reduced_config(get_config("qwen2.5-3b"))
+    grads = []
+    for route in ("kernel", "plain"):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = flash_attention.launches
+        if route == "kernel":
+            out = attention.blockwise_attention(*ins, cfg, causal=causal,
+                                                window=win, q_offset=qo)
+            assert flash_attention.launches == before + 1
+        else:
+            out = flash_attention_plain(*ins, causal=causal, window=win,
+                                        q_offset=qo)
+        (out.float() * w.float()).sum().backward()
+        grads.append([t.grad for t in ins])
+    torch.cuda.synchronize()
+    for name, a, bb in zip("qkv", *grads):
+        assert a.dtype == dtype
+        assert _rel_err(a, bb) <= GRAD_TOL_CARD[dtype], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 300, 8, 64, 1, 128, 256, True),
+                                  (1, 256, 4, 64, 4, 64, 128, False)])
+def test_ssd_function_gradients_match_plain_autograd(cuda, case, dtype):
+    """On the card, the model's `ssd_scan` with inputs that require grad
+    launches the SSD kernel once and takes `SSDScan`'s backward; every
+    input's gradient agrees with autograd through `ssd_scan_plain`."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_kernel
+    from repro_torch.models import ssm
+    b, s, h, p, g, n, chunk, with_h0 = case
+    x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, g, n, dtype, cuda, sum(case))
+    rng = np.random.default_rng(1)
+    h0 = torch.as_tensor(rng.normal(size=(b, h, p, n)).astype(np.float32),
+                         device=cuda) if with_h0 else None
+    wy = torch.randn((b, s, h, p), device=cuda)
+    wh = torch.randn((b, h, p, n), device=cuda)
+    grads = []
+    for route in ("kernel", "plain"):
+        ins = [t.clone().requires_grad_() for t in (x, dt, a, bb, cc)]
+        hh = None if h0 is None else h0.clone().requires_grad_()
+        before = ssd_kernel.launches
+        fn = ssm.ssd_scan if route == "kernel" else ssd_scan_plain
+        y, hl = fn(*ins, chunk, hh)
+        if route == "kernel":
+            assert ssd_kernel.launches == before + 1
+        ((y * wy).sum() + (hl * wh).sum()).backward()
+        grads.append([t.grad for t in ins] + ([hh.grad] if with_h0 else []))
+    torch.cuda.synchronize()
+    for name, ga, gb in zip(("x", "dt", "a", "b", "c", "h0"), *grads):
+        assert _rel_err(ga, gb) <= GRAD_TOL_CARD[dtype], name
+
+
+def test_batch_on_the_card_is_the_cpu_batch(cuda):
+    from repro_torch.data import SyntheticLM
+    ds = SyntheticLM(vocab=151936, seq_len=1024, global_batch=8, seed=0)
+    for step in (0, 5):
+        got, want = ds.batch_at(step, device=cuda), ds.batch_at(step,
+                                                                  device="cpu")
+        for k in want:
+            assert got[k].is_cuda and torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_quantize_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.optim import dequantize, quantize_int8
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(size=(1000, 37)).astype(np.float32))
+    e = torch.as_tensor(rng.normal(size=(1000, 37)).astype(np.float32)) \
+        * 1e-3
+    for xx in (x, x.to(torch.bfloat16)):
+        want = quantize_int8(xx, e)
+        got = quantize_int8(xx.to(cuda), e.to(cuda))
+        for a, bb in zip(got, want):
+            assert torch.equal(a.cpu(), bb)
+        assert torch.equal(dequantize(got[0], got[1]).cpu(),
+                           dequantize(want[0], want[1]))
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-1.3b",
+                                  "zamba2-1.2b"])
+def test_training_step_on_the_kernels_matches_the_plain_route(cuda, arch):
+    """2-layer reduced configs at float32 (remat full; zamba2 with one
+    application of its shared block): one loss and every gradient leaf,
+    each within 1e-4 of the leaf's largest entry, on the card through the
+    kernels (the Functions) against
+    the same with the model's attention and SSD call sites switched to
+    their plain versions under plain autograd."""
+    from repro_torch.models import attention, ssm
+    from repro_torch.models.model import loss_fn
+    from repro_torch.data import SyntheticLM
+    cfg = reduced_config(get_config(arch)).replace(remat="full",
+                                                   loss_chunk=16, n_layers=2)
+    params = init_params(3, cfg, device=cuda)
+    batch = SyntheticLM(vocab=cfg.vocab, seq_len=64, global_batch=2,
+                        seed=1, mean_doc_len=16).batch_at(0, device=cuda)
+
+    def run():
+        leaves = []
+
+        def req(t):
+            if isinstance(t, dict):
+                return {k: req(v) for k, v in t.items()}
+            leaves.append(t.detach().requires_grad_())
+            return leaves[-1]
+        loss, _ = loss_fn(req(params), batch, cfg)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    kern_loss, kern = run()
+    saved = attention.blockwise_attention, ssm.ssd_scan
+    attention.blockwise_attention = \
+        lambda q, k, v, cfg, **kw: flash_attention_plain(q, k, v, **kw)
+    ssm.ssd_scan = ssd_scan_plain
+    try:
+        plain_loss, plain = run()
+    finally:
+        attention.blockwise_attention, ssm.ssd_scan = saved
+    torch.cuda.synchronize()
+    assert float(abs(kern_loss - plain_loss)) <= 1e-5 * float(plain_loss)
+    for i, (a, bb) in enumerate(zip(kern, plain)):
+        # each leaf's worst error over its largest entry
+        scale = float(bb.abs().max())
+        assert float((a - bb).abs().max()) <= 1e-4 * scale, i

@@ -31,13 +31,14 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
                          capture_output=True, text=True).stdout.split()
     n_modules, names, bad = int(out[0]), out[1].split(","), out[2:]
     assert bad == []
-    # the 72 modules of the slices so far: package inits, core, energy,
+    # the modules of the slices so far: package inits, core, energy,
     # runtime, kernels, fleet, optim, checkpoint, tune, dispatch, examples,
     # the device helper, the serving slice's configs, models, serving
     # engine and launcher, and the Mamba2 slice's ssm model, SSD kernel
     # and serving example, the hybrid slice's config and the two examples
-    # of the paper model it brought
-    assert n_modules == len(names) >= 75
+    # of the paper model it brought, the training slice's data package,
+    # schedules, compression, trainer, launcher, roofline and example
+    assert n_modules == len(names) >= 83
     for name in ("repro_torch.configs.base", "repro_torch.configs.inputs",
                  "repro_torch.configs.qwen2_5_3b",
                  "repro_torch.models.layers", "repro_torch.models.attention",
@@ -58,7 +59,12 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
                  "repro_torch.examples.price_aware_serving",
                  "repro_torch.configs.zamba2_1_2b",
                  "repro_torch.examples.combined_scenario",
-                 "repro_torch.examples.regional_study"):
+                 "repro_torch.examples.regional_study",
+                 "repro_torch.data", "repro_torch.data.pipeline",
+                 "repro_torch.optim.schedule", "repro_torch.optim.compress",
+                 "repro_torch.runtime.trainer", "repro_torch.launch.train",
+                 "repro_torch.launch.roofline",
+                 "repro_torch.examples.energy_aware_training"):
         assert name in names
 
 
@@ -115,4 +121,15 @@ def test_port_packages_export_what_the_reference_exports():
         if not hasattr(importlib.import_module(port(pkg)), name):
             missing.append(f"{port(pkg)}.{name}")
     assert missing == []
-    assert checked >= 100
+    assert checked >= 117
+    # the training slice's names, each exported as the reference does
+    for pkg, name in (("models", "loss_fn"), ("optim", "warmup_cosine"),
+                      ("optim", "constant"), ("optim", "quantize_int8"),
+                      ("optim", "dequantize"),
+                      ("optim", "init_error_feedback"),
+                      ("optim", "compressed_pmean"), ("data", "SyntheticLM"),
+                      ("data", "batch_at"), ("data", "host_shard"),
+                      ("data", "global_batch_sharding"),
+                      ("runtime", "Trainer"), ("runtime", "TrainerConfig")):
+        assert (f"repro.{pkg}", name) in {(p, n) for p, _, n in exports}
+        assert hasattr(importlib.import_module(f"repro_torch.{pkg}"), name)
