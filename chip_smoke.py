@@ -46,7 +46,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      with `Coupling(dispatch=)` (the fused soft-dispatch kernels every
      step), twice at 25 steps for determinism, the reference's acceptance
      grid (dispatch-aware <= re-score-only), and `tune_policies
-     --dispatch-soft`;
+     --dispatch-soft`; then telemetry (`repro_torch.obs.capture`): the
+     bench grid's backtest and summary (one `fleet_scan` launch a call),
+     a 64 x 8760 `dispatch` and a 200-step `optimize` on the tuner grid,
+     each bit for bit against a run with telemetry off, the drained
+     ``fleet.hourly`` against a per-hour loop of `hard_hour_step` on the
+     card, the dispatch totals rebuilt from the trace exactly, the
+     report's ``--validate``, wall times on and off; then the live
+     operator: `live_operator --smoke`'s sweep (24 controllers x 336 h)
+     on the card against the CPU (the near-threshold row-hours printed),
+     the full sweep (384 controllers x 2190 h) twice and under telemetry
+     bit for bit, the hindsight sandwich on every row, its wall time,
+     controller-hours/s, device kernels an hour and busy share under the
+     profiler, the perfect forecast at the full horizon against
+     `offline_cpc` on the kernel (rtol 1e-5, the repo's CPC gate; start
+     counts exact), `live_fleet_dispatch` never re-solving over 8 sites x
+     2190 h against `dispatch` bit for bit, and `live_operator --smoke`
+     and ``--retune --smoke``;
  11. the attention kernels (flash, decode) against their plain versions
      on the card and against SDPA, at the reference's cases, the serving
      shapes (qwen2.5-3b's and zamba2-1.2b's: 32 heads each its own KV
@@ -122,8 +138,9 @@ the kernels those calls put on the card; flash, decode and the SSD scan
 add the zamba2 run's launches and zamba2-shape times under ``hybrid_``
 keys; flash adds the full-width training run's launches under
 ``train_``, flash and the SSD scan their Functions' worst gradient error
-as ``train_max_grad_err``) and, last, one JSON line naming
-the device. Without CUDA it exits non-zero and
+as ``train_max_grad_err``; the fleet scan adds the live sweep's launches
+and `dispatch_scan` the live-fleet check's under ``live_``), the
+script's total time, and, last, one JSON line naming the device. Without CUDA it exits non-zero and
 prints no result.
 """
 
@@ -149,6 +166,7 @@ FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 # the dispatch benchmark's constraints (`benchmarks/bench_dispatch.py`)
 BENCH_DISPATCH = dict(demand_frac=0.4, migrate_cost=5.0, min_dwell_h=4)
 TIMED_RUNS = 10
+T_START = time.perf_counter()
 
 
 def _import_port():
@@ -1572,6 +1590,355 @@ def phase_acceptance(dev) -> None:
                              "fleet CPC above re-score-only")
 
 
+def _same(label: str, a, b) -> None:
+    """Every field of two results (NamedTuples of tensors / arrays /
+    numbers, or tensors) equal bit for bit, or raise."""
+    for name, x, y in zip(getattr(a, "_fields", range(len(a))), a, b):
+        if isinstance(x, torch.Tensor):
+            ok = x.shape == y.shape and torch.equal(x, y)
+        elif isinstance(x, np.ndarray):
+            ok = np.array_equal(x, y, equal_nan=True)
+        elif isinstance(x, tuple):
+            _same(f"{label}.{name}", x, y)
+            ok = True
+        elif isinstance(x, dict) or x is None:
+            ok = True                 # compared field by field elsewhere
+        else:
+            ok = x == y or (x != x and y != y)
+        if not ok:
+            raise AssertionError(f"{label}.{name}: telemetry on != off")
+
+
+def _validate_run(run: Path) -> None:
+    """``python -m repro_torch.obs.report <run> --validate`` exits 0."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.report", str(run),
+         "--validate", "-o", str(run / "digest.md")],
+        env={**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"repro_torch.obs.report --validate exit "
+                             f"{proc.returncode}: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+
+
+def phase_telemetry(dev) -> None:
+    """Everything under `repro_torch.obs.capture`, each run against a run
+    with telemetry off: the benchmark grid's 1024 x 8760 backtest and
+    summary (every field bit for bit, one `fleet_scan` launch a call on
+    or off; the drained ``fleet.hourly`` against a per-hour loop of
+    `hard_hour_step` on the card over the first 64 rows), a 64 x 8760
+    `dispatch` (allocations bit for bit; the trace's `reconstruct_dispatch`
+    gives its ``cpc`` and ``n_migrations`` exactly), a 200-step
+    `optimize` on the tuner grid (parameters and CPC bit for bit, the
+    same kernels as many times, 200 ``tune.step`` events with
+    ``grad_norm``); the report's ``--validate`` exits 0. Prints the wall
+    times with telemetry on and off."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.dispatch import dispatch
+    from repro_torch.fleet import backtest, summarize
+    from repro_torch.kernels.ref import fleet_hourly_ref, hard_hour_step
+    from repro_torch.obs import report
+    from repro_torch.tune import TuneConfig, optimize
+
+    run = Path(tempfile.mkdtemp(prefix="chip_smoke_obs_")) / "run"
+    _, grid = _bench_grid(16, 8, dev)
+    counters = _zero_counters()
+    walls = {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t0
+        return out
+
+    def bt():
+        rep = backtest(grid, device=dev)
+        return rep, summarize(grid, rep)
+
+    bt()                                   # warm: both timed runs hot
+    before_off = counters["fleet_scan"].launches
+    rep_off, summ_off = timed("backtest off", bt)
+    n_off = counters["fleet_scan"].launches - before_off
+    dgrid, problem = _dispatch_fleet(64, dev)
+    d_off = dispatch(problem, device=dev)
+    tgrid = _tune_grid(dev)
+    tcfg = TuneConfig(steps=200)
+    optimize(tgrid, tcfg._replace(steps=20), device=dev)          # warm
+    before = {k: fn.launches for k, fn in counters.items()}
+    tune_off = timed("optimize off", lambda: optimize(tgrid, tcfg,
+                                                      device=dev))
+    tune_n_off = {k: fn.launches - before[k] for k, fn in counters.items()}
+    with obs.capture(run, run_id="chip_smoke"):
+        before_on = counters["fleet_scan"].launches
+        rep_on, summ_on = timed("backtest on", bt)
+        n_on = counters["fleet_scan"].launches - before_on
+        d_on = dispatch(problem, device=dev)
+        before = {k: fn.launches for k, fn in counters.items()}
+        tune_on = timed("optimize on", lambda: optimize(tgrid, tcfg,
+                                                        device=dev))
+        tune_n_on = {k: fn.launches - before[k]
+                     for k, fn in counters.items()}
+    if n_off != 1 or n_on != 1:
+        raise AssertionError(f"backtest: {n_off} / {n_on} fleet_scan "
+                             "launches off / on, not one a call")
+    _same("FleetReport", rep_off, rep_on)
+    _same("FleetSummary", summ_off, summ_on)
+    _same("DispatchResult", d_off, d_on)
+    _same("TuneResult", tune_off, tune_on)
+    for k, v in tune_off.history.items():
+        if not np.array_equal(v, tune_on.history[k]):
+            raise AssertionError(f"optimize history[{k!r}]: on != off")
+    if tune_n_off != tune_n_on:
+        raise AssertionError(f"optimize launches off {tune_n_off} != on "
+                             f"{tune_n_on}")
+    events = report.load_events(run)
+
+    def kind(k):
+        return [e for e in events if e["kind"] == k]
+
+    hourly = kind("fleet.hourly")[0]
+    full = fleet_hourly_ref(grid.prices[grid.market_idx], grid.p_on,
+                            grid.p_off, grid.off_level, grid.idle_frac,
+                            grid.power)
+    for name, v in full._asdict().items():
+        if not np.array_equal(np.asarray(hourly[name], np.float32),
+                              v.cpu().numpy()):
+            raise AssertionError(f"fleet.hourly.{name}: not the companion")
+    # the companion against the per-hour loop over the first 64 rows
+    rows = torch.arange(min(64, grid.n_rows), device=dev)
+    p = grid.prices[grid.market_idx[rows]]
+    args = [v[rows] for v in (grid.p_on, grid.p_off, grid.off_level,
+                              grid.idle_frac, grid.power)]
+    got = fleet_hourly_ref(p, *args)
+    on = torch.ones(rows.shape[0], device=dev)
+    cols = []
+    for t in range(p.shape[1]):
+        new, st, cap, draw = hard_hour_step(on, p[:, t], *args[:4])
+        cols.append(torch.stack([
+            (args[4] * cap).sum(), (args[4] * draw * p[:, t]).sum(),
+            st.sum(), torch.clamp(on - new, min=0.0).sum()]))
+        on = new
+    loop = torch.stack(cols, 1)
+    if not (torch.equal(got.starts, loop[2])
+            and torch.equal(got.stops, loop[3])):
+        raise AssertionError("fleet_hourly_ref: starts / stops differ from "
+                             "the per-hour loop")
+    torch.testing.assert_close(got.on_mw, loop[0], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got.draw_price, loop[1], rtol=1e-5,
+                               atol=1e-2)
+    rec = report.reconstruct_dispatch(events)
+    if rec["cpc"] != d_on.cpc or rec["n_migrations"] != d_on.n_migrations:
+        raise AssertionError("reconstruct_dispatch: not the emitted result")
+    steps = kind("tune.step")
+    if len(steps) != 200 or not all("grad_norm" in e for e in steps):
+        raise AssertionError(f"{len(steps)} tune.step events, not 200 "
+                             "with grad_norm")
+    _validate_run(run)
+    print(f"[obs] backtest {grid.n_rows} x {grid.n_hours}: FleetReport and "
+          f"FleetSummary on == off bit for bit, fleet_scan launches "
+          f"{n_off} / {n_on} a call; fleet.hourly == fleet_hourly_ref; "
+          f"vs the per-hour loop ({rows.shape[0]} rows): starts, stops "
+          f"equal, on_mw max "
+          f"rel {float(((got.on_mw - loop[0]) / loop[0]).abs().max()):.3g}")
+    print(f"[obs] dispatch {problem.avail_mw.shape[0]} x "
+          f"{problem.avail_mw.shape[1]}: allocations on == off bit for bit; "
+          f"trace reconstructs cpc {rec['cpc']:.6f} and "
+          f"{rec['n_migrations']} moves exactly")
+    print(f"[obs] optimize {tgrid.n_rows} x {tgrid.n_hours} x {tcfg.steps}: "
+          f"params, raw, cpc on == off bit for bit; launches {tune_n_on}; "
+          f"{len(steps)} tune.step events, grad_norm "
+          f"{steps[0]['grad_norm']:.4g} -> {steps[-1]['grad_norm']:.4g}; "
+          f"report --validate exit 0 ({len(events)} events)")
+    print("[obs] wall: " + ", ".join(f"{k} {v:.3f} s"
+                                      for k, v in walls.items()))
+
+
+def phase_live(dev) -> dict:
+    """The live operator on the card: the ``--smoke`` sweep (24 controllers
+    x 336 h) against the same sweep on the CPU, the example's full sweep
+    (384 controllers x 2190 h: 4 markets x 3 policies x 4 forecasters x
+    horizons {24, 168} x cadences {1, 24} x 2 families) twice and once
+    under telemetry (all bit for bit), the hindsight sandwich on every
+    row, the perfect forecast at the full horizon against `offline_cpc`
+    on the kernel; `live_fleet_dispatch` never re-solving over 8 sites x
+    2190 h against `dispatch` (bit for bit; that call launches
+    `dispatch_scan`); ``live_operator --retune --smoke`` and ``--smoke``
+    exit 0. Prints the sweep's wall time, controller-hours/s, device
+    kernels an hour and busy share under the profiler."""
+    import argparse
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.dispatch import dispatch
+    from repro_torch.examples import live_operator
+    from repro_torch.fleet import backtest
+    from repro_torch.live import (build_live_grid,
+                                  live_backtest, live_fleet_dispatch,
+                                  offline_cpc, summarize_live)
+    from repro_torch.live.controller import near_threshold_hours
+
+    near_rtol = 1e-5
+    # ---- the smoke sweep, card against CPU
+    _, lg, cfg, _ = live_operator.build(argparse.Namespace(smoke=True), dev)
+    t0 = time.perf_counter()
+    got = live_backtest(lg, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_smoke = time.perf_counter() - t0
+    want = live_backtest(lg, cfg, device="cpu")
+    fid, fam = lg.forecaster_id.cpu(), lg.family_id.cpu()
+    exact = (fam == 0) & (fid != 1)           # quantile, exact forecasters
+    near = near_threshold_hours(lg, cfg, near_rtol, device=dev).cpu() \
+        + near_threshold_hours(lg, cfg, near_rtol, device="cpu")
+    calm = near == 0
+    # decisions exactly: the quantile family under exact forecasts (a
+    # sort and a gather), every row without a near-threshold hour; the
+    # ratios within rtol (the card divides a tensor by a host number
+    # through its reciprocal, the CPU exactly)
+    for name in ("n_starts", "n_stops", "p_off_final", "threshold_updates"):
+        g, w = getattr(got, name).cpu(), getattr(want, name)
+        if not torch.equal(g[exact], w[exact]):
+            raise AssertionError(f"live smoke {name}: the quantile family "
+                                 "under exact forecasts differs card vs CPU")
+    for name in ("n_starts", "n_stops"):
+        g, w = getattr(got, name).cpu(), getattr(want, name)
+        if not torch.equal(g[calm], w[calm]):
+            raise AssertionError(f"live smoke {name}: differs card vs CPU "
+                                 "on a row with no near-threshold hour")
+    for name in ("cpc", "p_off_final", "tco", "x_realized", "cpc_ao",
+                 "mae1", "mae_h"):
+        torch.testing.assert_close(getattr(got, name).cpu(),
+                                   getattr(want, name), rtol=near_rtol,
+                                   atol=0.0)
+    n_diff = int((got.n_starts.cpu() != want.n_starts).sum())
+    print(f"[live] smoke sweep {lg.n_rows} x {cfg.hours} h on the card "
+          f"({t_smoke:.2f} s) vs the CPU: quantile rows under exact "
+          f"forecasts equal; cpc / thresholds within rtol {near_rtol}; "
+          f"near-threshold row-hours {int(near.sum())} on "
+          f"{int((near > 0).sum())} rows; rows whose starts differ "
+          f"{n_diff} (all near-threshold)")
+
+    # ---- the full sweep
+    grid, lg, cfg, _ = live_operator.build(argparse.Namespace(smoke=False),
+                                           dev)
+    counters = _zero_counters()
+    t0 = time.perf_counter()
+    res = live_backtest(lg, cfg, device=dev)
+    summ = summarize_live(lg, res, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    device = _device_launches(counters)
+    if launches["fleet_scan"] < 1:
+        raise AssertionError("the live sweep's offline_cpc never launched "
+                             "fleet_scan")
+    t0 = time.perf_counter()
+    again = live_backtest(lg, cfg, device=dev)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    _same("LiveResult (rerun)", res, again)
+    run = Path(tempfile.mkdtemp(prefix="chip_smoke_live_")) / "run"
+    with obs.capture(run, run_id="chip_smoke_live"):
+        hot = live_backtest(lg, cfg, device=dev)
+        summarize_live(lg, hot, cfg)
+    _same("LiveResult", res, hot)
+    _validate_run(run)
+    keeps = lg.x <= 0.0       # rows that never re-solve keep +inf as is
+    for name, v in res._asdict().items():
+        ok = torch.isfinite(v.double())
+        if name == "p_off_final":
+            ok |= keeps & (v == float("inf"))
+        if tuple(v.shape) != (lg.n_rows,) or not bool(ok.all()):
+            raise AssertionError(f"LiveResult.{name}: not finite [B]")
+    bad = ~(summ.cpc_oracle <= summ.cpc_live * (1 + 1e-5) + 1e-6)
+    if bad.any():
+        raise AssertionError(f"hindsight sandwich broken on {bad.sum()} "
+                             "rows")
+    ch_s = lg.n_rows * cfg.hours / wall2
+    print(f"[live] full sweep {lg.n_rows} controllers x {cfg.hours} h: "
+          f"{wall:.2f} s with summarize_live (first call), {wall2:.2f} s "
+          f"again ({ch_s:.0f} controller-hours/s); rerun and telemetry "
+          f"run bit for bit; sandwich on all rows; launches {launches}; "
+          f"best {summ.table[0]['forecaster']} H={summ.table[0]['horizon']}"
+          f" cadence={summ.table[0]['cadence']} {summ.table[0]['family']} "
+          f"cpc {summ.table[0]['cpc']:.3f}")
+    # two days of the same sweep: every hour runs the same operations
+    window = cfg._replace(hours=48)
+    prof = _profile(lambda: live_backtest(lg, window, device=dev),
+                    f"live_backtest {lg.n_rows} x {window.hours} h", runs=1)
+    if prof:
+        print(f"[live] the hour loop: "
+              f"{prof['kernels'] / window.hours:.1f} device kernels an "
+              f"hour, {prof['busy']:.1%} busy under the profiler, "
+              f"{prof['wall_us'] / window.hours / 1e3:.3f} ms an hour")
+
+    # ---- perfect forecast at the full horizon against the offline kernel
+    policies = list(live_operator.POLICIES)
+    lp = build_live_grid(grid, policies, forecasters=("perfect",),
+                         horizons=(cfg.hours,), cadences=(1,),
+                         families=("quantile",))
+    counters = _zero_counters()
+    perf = live_backtest(lp, cfg, device=dev)
+    off = offline_cpc(lp, cfg)
+    off_rep = backtest(lp.grid, device=dev)      # the window is the trace
+    torch.cuda.synchronize()
+    if counters["fleet_scan"].launches != 2:
+        raise AssertionError("offline_cpc / backtest did not launch "
+                             "fleet_scan once each")
+    live_cpc = perf.cpc.double().cpu().numpy()
+    np.testing.assert_allclose(live_cpc, off, rtol=1e-5)
+    if not torch.equal(perf.n_starts, off_rep.n_starts):
+        raise AssertionError("perfect forecast, full horizon: n_starts "
+                             "differ from the offline backtest")
+    print(f"[live] perfect forecast at H = {cfg.hours} ({lp.n_rows} rows): "
+          f"cpc vs offline_cpc on the kernel max rel "
+          f"{float(np.max(np.abs(live_cpc - off) / off)):.3g} (gate rtol "
+          f"1e-5), n_starts equal")
+
+    # ---- live fleet dispatch, never re-solving, against dispatch()
+    fgrid, problem = _dispatch_fleet(8, dev, hours=2190)
+    t0 = time.perf_counter()
+    lf = live_fleet_dispatch(
+        fgrid.prices, fgrid.power, fgrid.p_on, fgrid.p_off, fgrid.off_level,
+        fgrid.idle_frac, 0.0, problem.demand_mw, hours=fgrid.n_hours,
+        horizon=24, cadence=10 ** 6, season=168,
+        migrate_cost=problem.migrate_cost, min_dwell=problem.min_dwell_h,
+        device=dev)
+    torch.cuda.synchronize()
+    t_fleet = time.perf_counter() - t0
+    counters = _zero_counters()
+    d = dispatch(problem, device=dev)
+    torch.cuda.synchronize()
+    fleet_launches = counters["dispatch_scan"].launches
+    fleet_device = _device_launches(counters)
+    if fleet_launches != 1:
+        raise AssertionError("dispatch did not launch dispatch_scan once")
+    if not np.array_equal(lf.alloc_mw.cpu().numpy(), d.alloc_mw):
+        raise AssertionError("live_fleet_dispatch (never re-solving) != "
+                             "dispatch bit for bit")
+    print(f"[live] live_fleet_dispatch {fgrid.n_markets} sites x "
+          f"{fgrid.n_hours} h "
+          f"({t_fleet:.2f} s): allocations == dispatch() (dispatch_scan "
+          f"launches {fleet_launches}) bit for bit; replan "
+          f"{float(lf.replan_mw):.3f} MW, shed {float(lf.shed_mwh):.3g} MWh")
+
+    for flags in (["--smoke"], ["--retune", "--smoke"]):
+        t0 = time.perf_counter()
+        rc = live_operator.main(flags + ["--device", str(dev)])
+        print(f"[live] live_operator {' '.join(flags)} exit {rc}, "
+              f"{time.perf_counter() - t0:.2f} s")
+        if rc != 0:
+            raise AssertionError(f"live_operator {flags}: exit {rc}")
+    return {"launches": launches["fleet_scan"],
+            "device_launches": device,
+            "fleet_launches": fleet_launches,
+            "fleet_device_launches": fleet_device}
+
+
 def _soft_bound(b: int, t: int, block_t: int, backward: bool,
                 with_dp: bool) -> tuple[float, str]:
     """Least time for the function on an H100 SXM: each input read once,
@@ -2101,10 +2468,12 @@ def phase_aware_step_times(dev, grid, steps: int = 50) -> None:
              "dispatch-aware tune_loop 10 steps (dwell 4)", runs=1)
 
 
-def _profile(fn, label: str, runs: int = 10) -> None:
+def _profile(fn, label: str, runs: int = 10) -> dict | None:
     """Device time by kernel and the card's busy share over ``runs``
     back-to-back calls of ``fn``, from `torch.profiler` (CUPTI). The
-    profiler slows the host, so the busy share is a lower bound."""
+    profiler slows the host, so the busy share is a lower bound. Returns
+    the busy share, the wall time and the device operations a run (None
+    when the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2125,13 +2494,15 @@ def _profile(fn, label: str, runs: int = 10) -> None:
     busy_us = sum(r[2] for r in rows)
     if busy_us == 0:
         print("[profile] the profiler recorded no device time: not measured")
-        return
+        return None
     print(f"[profile] {label} x {runs}: wall {wall_us / runs:.1f} us/run "
           f"under the profiler, device busy {busy_us / runs:.1f} us/run "
           f"({busy_us / wall_us:.1%})")
     for key, count, dev_us in sorted(rows, key=lambda r: -r[2])[:8]:
         print(f"[profile]   {dev_us / runs:9.2f} us/run  "
               f"{count / runs:6.1f}x  {key[:70]}")
+    return {"busy": busy_us / wall_us, "wall_us": wall_us / runs,
+            "kernels": sum(r[1] for r in rows) / runs}
 
 
 def _soft_records(errs: dict, times: dict, launches: dict) -> list[dict]:
@@ -3109,22 +3480,30 @@ def _pass_times_us(fn, flush: torch.Tensor, runs: int = 10) -> dict:
     """Device time per call (us) of each kernel ``fn`` puts on the card, by
     kernel name, from `torch.profiler` (CUPTI) over ``runs`` calls, each
     after ``flush`` is overwritten (L2 flushed, as `_cuda_ms` times it;
-    the flush's own kernel is among the names)."""
+    the flush's own kernel is among the names). A session in which the
+    profiler recorded no device event at all (not even the flush's) is
+    the tool's failure, not the kernels': it is said and run once more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / runs
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0}
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        times = {e.key: e.self_device_time_total / runs
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and e.self_device_time_total > 0}
+        if times:
+            return times
+        print(f"[profile] session {attempt + 1}: the profiler recorded no "
+              "device event")
+    return times
 
 
 SSD_PASSES = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")
@@ -3751,6 +4130,12 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_acceptance(dev)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    phase_telemetry(dev)
+    live = phase_live(dev)
+    torch.cuda.synchronize()
+    print(f"[live] telemetry and live phases: "
+          f"{time.perf_counter() - t0:.1f} s")
     serve = phase_serving(dev, SERVE_ARCH)
     serve_launches = serve["launches"]
     serve_device = serve["device_launches"]
@@ -3824,6 +4209,9 @@ def main() -> int:
               "soft_dispatch_fused_bwd": aware["device_launches"],
               "flash_attention": serve_device,
               "decode_attention": serve_device, "ssd_scan": ssm_device}
+    kernels[0]["live_launches"] = live["launches"]
+    disp_rec = next(r for r in kernels if r["name"] == "dispatch_scan")
+    disp_rec["live_launches"] = live["fleet_launches"]
     flash = next(r for r in kernels if r["name"] == "flash_attention")
     flash["train_launches"] = train["launches"]
     flash["train_max_grad_err"] = train_errs["flash_attention"]
@@ -3835,6 +4223,11 @@ def main() -> int:
         if "train_launches" in rec:
             runs.append(("train_", {"flash_attention":
                                     train["device_launches"]}))
+        if "live_launches" in rec:
+            runs.append(("live_", {
+                "fleet_scan": live["device_launches"]["fleet_scan"],
+                "dispatch_scan":
+                    live["fleet_device_launches"]["dispatch_scan"]}))
         for pre, dl in runs:
             n, counted = dl[rec["name"]], rec[f"{pre}launches"]
             if n < counted or (n > 0) != (counted > 0):
@@ -3843,6 +4236,7 @@ def main() -> int:
                                      f"({pre or 'main '}run)")
             rec[f"{pre}device_launches"] = n
     print(json.dumps({"kernels": kernels}))
+    print(f"[done] chip_smoke.py: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -29,12 +29,15 @@ from typing import NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dispatch.schedule import capacity_series
 from repro_torch.execution import ExecutionPlan
 from repro_torch.kernels.dispatch_scan import dispatch_scan
 
 _MOVE_TOL = 1e-6     # MW below which an hour's net move is not an event
+_NEAR_FRAC = 0.05    # capacity slack below this fraction of demand is
+                     # "near-infeasible" in the telemetry margin count
 
 
 class DispatchInfeasible(ValueError):
@@ -256,30 +259,39 @@ def build_problem(prices, p_on, p_off, off_level, power,
         order=order, rank=rank, relief=cfg.relief)
 
 
+def _infeasible(reason: str, **detail) -> DispatchInfeasible:
+    obs.trace_event("dispatch.infeasible", {"reason": reason, **detail})
+    obs.counter("dispatch.infeasible").inc()
+    return DispatchInfeasible(reason)
+
+
 def _check_feasible(problem: DispatchProblem) -> None:
     d = np.asarray(problem.demand_mw, np.float64)
     cap = problem.power_cap_mw
     if float(d.max()) > cap:
         worst = int(d.argmax())
-        raise DispatchInfeasible(
+        raise _infeasible(
             f"fleet power cap {cap:.3f} MW is below the demand "
             f"{d.max():.3f} MW (first binding hour {worst}) — the cap "
-            "can never be met by reallocating; raise it or shed demand")
+            "can never be met by reallocating; raise it or shed demand",
+            constraint="power_cap", hour=worst)
     avail = np.asarray(problem.avail_mw, np.float64).sum(axis=0)   # [T]
     short = d - avail
     if float(short.max()) > 1e-6:
         worst = int(short.argmax())
         n_bad = int((short > 1e-6).sum())
-        raise DispatchInfeasible(
+        raise _infeasible(
             f"fleet availability covers demand in only {len(d) - n_bad}/"
             f"{len(d)} hours: worst hour {worst} offers {avail[worst]:.3f} "
             f"MW against {d[worst]:.3f} MW demanded — site schedules shut "
-            "down too much capacity for this demand")
+            "down too much capacity for this demand",
+            constraint="capacity", hour=worst, n_short_hours=n_bad)
     if float(d.sum()) < problem.compute_floor_mwh:
-        raise DispatchInfeasible(
+        raise _infeasible(
             f"aggregate compute floor {problem.compute_floor_mwh:.3f} MWh "
             f"exceeds the total demanded {d.sum():.3f} MWh — the floor "
-            "cannot be reached even at full delivery")
+            "cannot be reached even at full delivery",
+            constraint="compute_floor")
 
 
 def dispatch(problem: DispatchProblem, *,
@@ -336,7 +348,10 @@ def summarize_alloc(problem: DispatchProblem,
     Hour 0 places the fleet's load from empty; migration counts only the
     matched in/out flow (load that left one site and arrived at another),
     so demand ramps are not billed as moves. All totals are sums of
-    float64 per-hour [T] aggregates.
+    float64 per-hour [T] aggregates — the same aggregates a telemetry run
+    receives as ``dispatch.hourly``, from which
+    `repro_torch.obs.report.reconstruct_dispatch` reproduces ``cpc`` and
+    ``n_migrations`` bit for bit.
     """
     alloc = np.asarray(alloc, np.float64)
     prices = np.asarray(problem.prices, np.float64)
@@ -379,7 +394,7 @@ def summarize_alloc(problem: DispatchProblem,
         n_shed_hours = 0
         cpc = (problem.fixed_cost + energy_cost + migration_cost) \
             / max(delivered, 1e-9)
-    return DispatchResult(
+    result = DispatchResult(
         alloc_mw=alloc,
         cpc=cpc,
         energy_cost=energy_cost,
@@ -395,3 +410,52 @@ def summarize_alloc(problem: DispatchProblem,
         shed_cost=shed_cost,
         n_shed_hours=n_shed_hours,
     )
+    if obs.enabled():
+        _emit_dispatch_events(problem, result, demand, delivered_t,
+                              energy_t, moved, slack_cap_t)
+    return result
+
+
+def _emit_dispatch_events(problem: DispatchProblem, result: DispatchResult,
+                          demand, delivered_t, energy_t, moved,
+                          slack_cap_t) -> None:
+    """``dispatch.hourly`` (the float64 [T] aggregates the totals came
+    from), ``dispatch.result``, ``dispatch.shed`` under relief, and the
+    dispatch counters and gauges."""
+    near = int((slack_cap_t < _NEAR_FRAC * demand).sum())
+    obs.trace_event("dispatch.hourly", {
+        "delivered_mwh": delivered_t, "energy_cost": energy_t,
+        "moved_mw": moved, "slack_capacity_mw": slack_cap_t,
+        "demand_mw": demand, "move_tol": _MOVE_TOL,
+        "fixed_cost": problem.fixed_cost,
+        "migrate_cost": problem.migrate_cost,
+    })
+    obs.trace_event("dispatch.result", {
+        "cpc": result.cpc, "energy_cost": result.energy_cost,
+        "migration_cost": result.migration_cost,
+        "migration_mw": result.migration_mw,
+        "n_migrations": result.n_migrations,
+        "delivered_mwh": result.delivered_mwh,
+        "slack_power_mw": result.slack_power_mw,
+        "slack_capacity_mw": result.slack_capacity_mw,
+        "slack_floor_mwh": result.slack_floor_mwh,
+        "near_infeasible_hours": near, "near_frac": _NEAR_FRAC,
+        "n_sites": int(result.alloc_mw.shape[0]),
+        "hours": int(result.alloc_mw.shape[1]),
+        "site_names": list(problem.site_names),
+    })
+    if problem.relief is not None:
+        obs.trace_event("dispatch.shed", {
+            "shed_mwh": result.shed_mwh, "shed_cost": result.shed_cost,
+            "n_shed_hours": result.n_shed_hours,
+            "voll_eur_mwh": float(problem.relief.voll_eur_mwh),
+            "demand_mwh": float(demand.sum()),
+            "delivered_mwh": result.delivered_mwh,
+        })
+        obs.counter("dispatch.shed_mwh").inc(result.shed_mwh)
+        obs.counter("dispatch.shed_hours").inc(result.n_shed_hours)
+    obs.counter("dispatch.calls").inc()
+    obs.counter("dispatch.moves").inc(result.n_migrations)
+    obs.gauge("dispatch.slack_capacity_mw").set(result.slack_capacity_mw)
+    obs.gauge("dispatch.slack_power_mw").set(result.slack_power_mw)
+    obs.gauge("dispatch.cpc").set(result.cpc)

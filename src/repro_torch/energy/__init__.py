@@ -1,10 +1,15 @@
 """Energy-market substrate: the structural synthetic spot-market
 generator, its per-region calibrated presets, the moving-block
-bootstrap of price traces (`ensemble`), and the replayed price stream
-the runtime scheduler reads (`stream`). Forecasting and real-data
-loaders come with the live-operation slice."""
+bootstrap of price traces (`ensemble`), the replayed price stream the
+runtime scheduler reads (`stream`), the forecasting baselines the live
+operator runs (`forecast`), and the loader for real SMARD CSV exports
+(`smard`)."""
 
 from repro_torch.energy.ensemble import block_bootstrap
+from repro_torch.energy.forecast import (mae, mase, seasonal_naive,
+                                         seasonal_naive_batch,
+                                         similar_day_ar,
+                                         similar_day_ar_batch)
 from repro_torch.energy.markets import (MarketData, MarketDraws,
                                         MarketParams, generate_market,
                                         generate_markets, market_draws)
@@ -22,4 +27,10 @@ __all__ = [
     "PriceStream",
     "region_params",
     "REGION_PRESETS",
+    "seasonal_naive",
+    "seasonal_naive_batch",
+    "similar_day_ar",
+    "similar_day_ar_batch",
+    "mae",
+    "mase",
 ]

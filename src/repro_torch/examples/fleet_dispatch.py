@@ -17,6 +17,12 @@ dispatcher follows hour by hour (ramps are demand changes, not billed
 migrations).
 
   PYTHONPATH=src python -m repro_torch.examples.fleet_dispatch [--device cpu]
+  PYTHONPATH=src python -m repro_torch.examples.fleet_dispatch --trace out/d
+
+``--trace DIR`` records a telemetry run (`repro_torch.obs`: one
+``fleet.backtest`` / ``fleet.hourly`` pair, a ``fleet.summary`` and the
+``dispatch.*`` events of every summary) and renders its ``digest.md``;
+the printed numbers are the same with or without it.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from repro_torch.core.tco import make_system
 from repro_torch.device import resolve_device
 from repro_torch.dispatch import DispatchConfig, diurnal_demand
 from repro_torch.energy.presets import region_params
+from repro_torch.examples import traced
 from repro_torch.fleet import (PolicySpec, backtest, build_grid,
                                elastic_policy, summarize)
 
@@ -111,14 +118,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     ap.add_argument("--trace", metavar="DIR", default=None,
-                    help="record a telemetry run into DIR (comes with the "
-                    "telemetry slice)")
+                    help="record a repro_torch.obs telemetry run into DIR "
+                    "(trace.jsonl + metrics.json + digest.md)")
     args = ap.parse_args(argv)
-    if args.trace:
-        raise NotImplementedError(
-            "--trace: telemetry comes to the port with the telemetry slice "
-            "(ROADMAP queue 1)")
-    run(args.device)
+    with traced(args.trace, "fleet_dispatch"):
+        run(args.device)
     return 0
 
 

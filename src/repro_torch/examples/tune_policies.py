@@ -22,6 +22,8 @@ swing-site effect.
   PYTHONPATH=src python -m repro_torch.examples.tune_policies \
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.examples.tune_policies --dispatch-soft
+  PYTHONPATH=src python -m repro_torch.examples.tune_policies \
+      --smoke --device cpu --trace out/tune
 
 The exit code is the guarantee: 0 when the tuned CPC is no worse than the
 best swept policy of its cell on every row (with ``--dispatch-soft``: when
@@ -39,6 +41,7 @@ from repro_torch.core.tco import make_system
 from repro_torch.device import resolve_device
 from repro_torch.dispatch import DispatchConfig
 from repro_torch.energy import block_bootstrap, region_params
+from repro_torch.examples import traced
 from repro_torch.fleet import PolicySpec, build_grid
 from repro_torch.tune import (Coupling, TuneConfig, cell_best_rows, hard_cpc,
                               optimize, problem_from_grid)
@@ -161,13 +164,15 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     ap.add_argument("--trace", metavar="DIR", default=None,
-                    help="record a telemetry run into DIR (comes with the "
-                    "telemetry slice)")
+                    help="record a repro_torch.obs telemetry run into DIR "
+                    "(trace.jsonl + metrics.json + digest.md) — numeric "
+                    "results are bit-identical with or without it")
     args = ap.parse_args(argv)
-    if args.trace:
-        raise NotImplementedError(
-            "--trace: telemetry comes to the port with the telemetry slice "
-            "(ROADMAP queue 1)")
+    with traced(args.trace, "tune_policies"):
+        return _main(args)
+
+
+def _main(args) -> int:
     dev = resolve_device(args.device)
     if args.dispatch_soft:
         return dispatch_soft_demo(args, dev)

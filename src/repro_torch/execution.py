@@ -203,5 +203,6 @@ def take_rows(record, order, *, shared=(), n_rows: Optional[int] = None):
                 f"{type(record).__name__}.take_rows: field {name!r} is "
                 "neither a shared field nor a [B]-leading per-row array "
                 "— add it to SHARED_FIELDS or make it per-row")
-        rep[name] = v[torch.as_tensor(order, device=v.device)]
+        rep[name] = v[order] if isinstance(v, np.ndarray) \
+            else v[torch.as_tensor(order, device=v.device)]
     return rebuild(rep)

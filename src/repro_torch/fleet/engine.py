@@ -20,12 +20,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.execution import ExecutionPlan
 from repro_torch.fleet.grid import ScenarioGrid, concat_rows, row_chunks
 from repro_torch.fleet.report import FleetReport
 from repro_torch.kernels.fleet_scan import fleet_scan
-from repro_torch.kernels.ref import FleetScanOut
+from repro_torch.kernels.ref import FleetScanOut, fleet_hourly_ref
 
 
 class FleetCosts(NamedTuple):
@@ -66,6 +67,18 @@ def _backtest_rows(grid: ScenarioGrid,
     scan = fleet_scan(grid.prices.contiguous(), grid.p_on, grid.p_off,
                       grid.off_level, grid.idle_frac,
                       market_idx=grid.market_idx, use_kernel=use_kernel)
+    if obs.enabled():
+        # per-hour decision records: a companion of the same state machine
+        # (`fleet_hourly_ref`, no hour loop), reduced to [T] on the device
+        # and drained once a call — it reads the report's inputs and feeds
+        # nothing back, so the FleetReport bits and the scan's route cannot
+        # change
+        hourly = fleet_hourly_ref(grid.prices[grid.market_idx], grid.p_on,
+                                  grid.p_off, grid.off_level,
+                                  grid.idle_frac, grid.power)
+        obs.drain("fleet.hourly", on_mw=hourly.on_mw,
+                  draw_price=hourly.draw_price, starts=hourly.starts,
+                  stops=hourly.stops)
     price_sum = grid.prices.sum(1)[grid.market_idx]   # [B] sum_t p_t
     costs = fleet_costs(scan, price_sum=price_sum, fixed=grid.fixed,
                         power=grid.power, period=grid.period,
@@ -99,6 +112,10 @@ def backtest(grid: ScenarioGrid, *, use_kernel: Optional[bool] = None,
     per-row results are identical. ``mode='sharded'`` raises: the
     backtest is an uncoupled per-row map, so chunking covers its memory
     story.
+
+    With a telemetry run active (`repro_torch.obs`) each call drains a
+    ``fleet.hourly`` event (per-hour fleet aggregates) and emits one
+    ``fleet.backtest`` event; the report is the same bit for bit.
     """
     if plan is not None and plan.mode == "sharded":
         raise ValueError(
@@ -110,5 +127,17 @@ def backtest(grid: ScenarioGrid, *, use_kernel: Optional[bool] = None,
     if chunk and grid.n_rows > chunk:
         parts = [_backtest_rows(grid.take_rows(sl), use_kernel)
                  for sl in row_chunks(grid.n_rows, chunk)]
-        return concat_rows(parts, grid.n_rows)
-    return _backtest_rows(grid, use_kernel)
+        report = concat_rows(parts, grid.n_rows)
+    else:
+        report = _backtest_rows(grid, use_kernel)
+    if obs.enabled():
+        obs.counter("fleet.backtests").inc()
+        # the reference's field name: whether the hand-written kernel ran
+        kernel = grid.prices.is_cuda and use_kernel is not False
+        stats = torch.stack([report.n_starts.sum(), report.cpc.mean(),
+                             report.cpc_reduction.mean()]).tolist()
+        obs.trace_event("fleet.backtest", {
+            "rows": int(grid.n_rows), "hours": int(grid.n_hours),
+            "use_pallas": bool(kernel), "n_starts_total": stats[0],
+            "cpc_mean": stats[1], "reduction_mean": stats[2]})
+    return report

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.tco import cpc_reduction
 from repro_torch.dispatch import DispatchConfig, build_problem, dispatch
 
@@ -166,7 +167,7 @@ def summarize(grid, report: FleetReport, *,
             grid.off_level[r], grid.power[r], dispatch_cfg,
             fixed=grid.fixed[r], site_names=names, device=dev), device=dev)
 
-    return FleetSummary(
+    summary = FleetSummary(
         reduction=red,
         best_policy=best_policy,
         best_reduction=best_reduction,
@@ -179,3 +180,35 @@ def summarize(grid, report: FleetReport, *,
         dispatch=disp,
         dispatch_rows=rows,
     )
+    if obs.enabled():
+        obs.trace_event("fleet.summary", {
+            "total_cost": summary.total_cost,
+            "total_up_hours": summary.total_up_hours,
+            "best_reduction": np.where(np.isfinite(best_reduction),
+                                       best_reduction, None).tolist(),
+            "top_regret": _top_regret(grid, summary, k=10)})
+        obs.gauge("fleet.total_cost").set(summary.total_cost)
+    return summary
+
+
+def _top_regret(grid, summary: FleetSummary, k: int) -> list:
+    """Worst-regret covered cube cells, largest first — the "where is
+    this fleet leaving money on the table" rows of the operator digest
+    (``fleet.summary`` event / `repro_torch.obs.report`)."""
+    regret = summary.regret
+    flat = regret.ravel()
+    idx = np.flatnonzero(np.isfinite(flat))
+    idx = idx[np.argsort(-flat[idx], kind="stable")][:k]
+    rows = []
+    for i in idx:
+        n, m, p = np.unravel_index(i, regret.shape)
+        rows.append({
+            "market": (grid.market_names[n] if grid.market_names
+                       else int(n)),
+            "system": (grid.system_names[m] if grid.system_names
+                       else int(m)),
+            "policy": (grid.policy_names[p] if grid.policy_names
+                       else int(p)),
+            "regret": float(regret[n, m, p]),
+            "reduction": float(summary.reduction[n, m, p])})
+    return rows

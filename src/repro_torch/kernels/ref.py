@@ -37,6 +37,57 @@ def hard_hour_step(on_prev, p_t, p_on, p_off, off_level, idle_frac):
     return on, start, cap, draw
 
 
+class FleetHourly(NamedTuple):
+    """Per-hour fleet aggregates ([T] each) of a batched backtest — the
+    payload of the ``fleet.hourly`` telemetry drain. The reductions over
+    rows run on the device, so only 4T floats cross to the host."""
+
+    on_mw: torch.Tensor       # sum_b weight_b * cap_bt (weighted capacity)
+    draw_price: torch.Tensor  # sum_b weight_b * draw_bt * p_bt (EUR-rate)
+    starts: torch.Tensor      # off->on transitions across rows
+    stops: torch.Tensor       # on->off transitions across rows
+
+
+def fleet_hourly_ref(prices: torch.Tensor, p_on, p_off, off_level,
+                     idle_frac, weight) -> FleetHourly:
+    """Hour-indexed companion of `fleet_scan_ref`: the same state machine,
+    emitting [T] fleet aggregates instead of per-row sums. ``weight``
+    ([B], e.g. each row's MW rating) scales capacity and draw into
+    fleet-level MW; transition counts are unweighted.
+
+    The reference steps `hard_hour_step` through a `lax.scan` over hours;
+    here the trajectory comes without an hour loop. A row's state at hour
+    t is fixed by its last decisive hour at or before t (``p > p_off``
+    turns it off, else ``p <= p_on`` turns it on; otherwise it carries,
+    starting on): the decisive hours are coded ``2t + on``, a cummax over
+    [B, T] finds the last one, and its low bit is the state — the rule
+    the fleet-scan kernel and `fleet_scan_seg_ref` use. Capacity, draw,
+    starts and stops are then elementwise (as `hard_hour_step` computes
+    them), and the [T] sums over rows are reductions: the states,
+    starts and stops equal the reference's exactly; ``on_mw`` and
+    ``draw_price`` are float32 sums over rows in another order."""
+    p = prices.to(torch.float32)
+    b, t = p.shape
+    p_on, p_off, off_level, idle_frac, weight = (
+        torch.as_tensor(v, device=p.device).to(torch.float32)
+        .expand(b)[:, None]
+        for v in (p_on, p_off, off_level, idle_frac, weight))
+    off = p > p_off
+    turn_on = (p <= p_on) & ~off
+    hour = torch.arange(t, device=p.device)
+    code = torch.where(off | turn_on, 2 * hour + turn_on.long(), -1)
+    last = torch.cummax(code, dim=1).values
+    on = torch.where(last >= 0, (last & 1).to(torch.float32), 1.0)
+    on_prev = torch.cat([torch.ones_like(on[:, :1]), on[:, :-1]], 1)
+    start = torch.clamp(on - on_prev, min=0.0)
+    stop = torch.clamp(on_prev - on, min=0.0)
+    cap = off_level + (1.0 - off_level) * on
+    draw = cap + idle_frac * (1.0 - cap)
+    return FleetHourly(on_mw=torch.sum(weight * cap, 0),
+                       draw_price=torch.sum(weight * draw * p, 0),
+                       starts=torch.sum(start, 0), stops=torch.sum(stop, 0))
+
+
 def fleet_scan_ref(prices: torch.Tensor, p_on, p_off, off_level,
                    idle_frac) -> FleetScanOut:
     """Sequential batched hysteresis/threshold scan, one step per hour.

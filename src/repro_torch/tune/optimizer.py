@@ -38,9 +38,14 @@ differentiates through the relaxed water-fill dispatcher
 the fused soft-dispatch forward and backward kernels on the card, and
 the result is re-scored on feasible dispatch under the same config.
 
+With a telemetry run active (`repro_torch.obs`) the steps also return
+each step's mean per-row gradient norm and clip fraction, gathered with
+the rest of the history, and `optimize` emits ``tune.step``,
+``tune.stage`` and ``tune.result`` events; the tuned parameters are the
+same bit for bit.
+
 Later slices: sharded plans (the mesh slice in ROADMAP queue 1), workloads
-(the workload slice), the telemetry side-outputs and events (the
-telemetry slice), and the reference's
+(the workload slice), and the reference's
 deprecated `TuneConfig` spellings (``chunk_rows=``, ``power_cap_mw=``,
 ...).
 """
@@ -53,6 +58,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dispatch import (DispatchConfig, DispatchInfeasible,
@@ -225,7 +231,7 @@ def _init_carry(raw0: PolicyParams):
 
 def _make_step(problem: TuneProblem, cfg: TuneConfig,
                coupling: Optional[DispatchCoupling], b: int,
-               p_rows: torch.Tensor):
+               p_rows: torch.Tensor, telemetry: bool = False):
     """The per-step function of the Adam loop, shared by `tune_loop` and
     the stage segments of `tune_loop_checkpointed`. ``coupling`` switches
     on the dispatch-aware term; on the card it needs ``cfg.fused`` (the
@@ -239,6 +245,11 @@ def _make_step(problem: TuneProblem, cfg: TuneConfig,
     exact identity (``where(True, x, _)``, ``where(lr == 1.0, new, _)``),
     so healthy trajectories equal the unguarded loop bit for bit. The
     per-step reject count streams out as ``history["guard_rejects"]``.
+
+    ``telemetry`` adds the step's mean per-row gradient norm and the
+    fraction of rows whose norm exceeds ``cfg.clip_norm`` to its outputs
+    (``grad_norm``, ``clip_frac``): observers of the gradients the update
+    consumes, never inputs to it, so the parameters stay bit-identical.
     """
     rc = cfg.resolved_coupling
     if coupling is not None and not cfg.fused and p_rows.is_cuda:
@@ -274,6 +285,14 @@ def _make_step(problem: TuneProblem, cfg: TuneConfig,
                "penalty": aux["penalty"].detach(),
                "dispatch_ratio": aux["dispatch_ratio"].detach(),
                "guard_rejects": torch.sum((~ok).to(torch.float32))}
+        if telemetry:
+            norm = torch.sqrt(grads.raw_off ** 2 + grads.raw_gap ** 2
+                              + grads.raw_lvl ** 2)              # [B]
+            out["grad_norm"] = torch.mean(norm)
+            out["clip_frac"] = (
+                torch.mean((norm > cfg.clip_norm).to(norm.dtype))
+                if cfg.clip_norm else torch.zeros((), dtype=norm.dtype,
+                                                  device=norm.device))
         g_safe = tree_map(lambda g: torch.where(ok, g, 0.0), grads)
         new_p, new_st, _ = adamw_update(g_safe, st, raw, opt, per_row=True,
                                         stats=False)
@@ -299,12 +318,13 @@ def _make_step(problem: TuneProblem, cfg: TuneConfig,
 
 
 def _run_steps(carry, problem: TuneProblem, coupling, cfg: TuneConfig,
-               lo: int, hi: int, p_rows: torch.Tensor):
+               lo: int, hi: int, p_rows: torch.Tensor,
+               telemetry: bool = False):
     """Steps ``lo``..``hi`` of the anneal, then the boundary's hard
     re-evaluation. Returns ``(carry, outs, cpc_rows)``, all on the
     device."""
     b = carry[0].raw_off.shape[0]
-    step = _make_step(problem, cfg, coupling, b, p_rows)
+    step = _make_step(problem, cfg, coupling, b, p_rows, telemetry)
     taus = _tau_schedule(cfg, p_rows.device)
     outs = []
     for i in range(lo, hi):
@@ -322,7 +342,7 @@ def _stack(outs: list) -> dict:
 
 
 def tune_loop(raw0: PolicyParams, problem: TuneProblem, coupling=None, *,
-              cfg: TuneConfig):
+              cfg: TuneConfig, telemetry: bool = False):
     """The tuner hot loop: tau-annealed Adam over all rows in
     ``cfg.eval_stages`` stages, with the hard CPC re-evaluated at each
     stage boundary. The row prices are gathered once; nothing is read
@@ -331,14 +351,15 @@ def tune_loop(raw0: PolicyParams, problem: TuneProblem, coupling=None, *,
     [stages] (its last entry is the mean of ``cpc_tuned``, the final hard
     re-evaluation). ``coupling`` (a `DispatchCoupling`, from
     `dispatch_coupling_from_grid`) switches on the dispatch-aware fleet
-    term."""
+    term. ``telemetry`` adds ``grad_norm`` / ``clip_frac`` to the history
+    (see `_make_step`), with the parameters unchanged bit for bit."""
     p_rows = problem.row_prices()
     bounds = _stage_bounds(cfg)
     carry = _init_carry(raw0)
     outs, stage_cpc = [], []
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         carry, o, cpc_rows = _run_steps(carry, problem, coupling, cfg, lo,
-                                        hi, p_rows)
+                                        hi, p_rows, telemetry)
         outs += o
         stage_cpc.append(torch.mean(cpc_rows))
     hist = _stack(outs)
@@ -346,10 +367,13 @@ def tune_loop(raw0: PolicyParams, problem: TuneProblem, coupling=None, *,
     return carry[0], hist, cpc_rows
 
 
-def _ckpt_template(carry, n_steps_done: int, n_stages_done: int) -> dict:
+def _ckpt_template(carry, n_steps_done: int, n_stages_done: int,
+                   telemetry: bool = False) -> dict:
     """Zero-filled tree matching a `tune_loop_checkpointed` save after
     ``n_stages_done`` stages — what `load_checkpoint` restores into."""
     keys = ["dispatch_ratio", "guard_rejects", "loss", "penalty", "tau"]
+    if telemetry:
+        keys += ["clip_frac", "grad_norm"]
     return {
         "carry": carry,
         "hist": {k: np.zeros((n_steps_done,), np.float32) for k in keys},
@@ -360,7 +384,7 @@ def _ckpt_template(carry, n_steps_done: int, n_stages_done: int) -> dict:
 
 def tune_loop_checkpointed(raw0: PolicyParams, problem: TuneProblem,
                            coupling=None, *, cfg: TuneConfig, directory,
-                           keep: int = 2):
+                           telemetry: bool = False, keep: int = 2):
     """`tune_loop` as resumable anneal stages with the full optimizer
     carry checkpointed at every stage boundary (`repro_torch.checkpoint`,
     the reference's layout and leaf keys).
@@ -373,8 +397,9 @@ def tune_loop_checkpointed(raw0: PolicyParams, problem: TuneProblem,
     exact bytes the uninterrupted run carried and every remaining stage
     runs the same per-step code (every kernel of the step is
     deterministic). ``coupling`` switches on the dispatch-aware term as
-    in `tune_loop`. Returns ``(raw_f, history, cpc_tuned)`` with numpy
-    histories."""
+    in `tune_loop`, ``telemetry`` the per-step ``grad_norm`` /
+    ``clip_frac`` (a run resumes with the flag it was saved with).
+    Returns ``(raw_f, history, cpc_tuned)`` with numpy histories."""
     dev = problem.market_idx.device
     raw0 = PolicyParams(*(_f32(a, dev) for a in raw0))
     p_rows = problem.row_prices()
@@ -389,8 +414,8 @@ def tune_loop_checkpointed(raw0: PolicyParams, problem: TuneProblem,
     latest = mgr.latest_step()
     if latest is not None:
         k = min(int(latest), n_stages)
-        tree, _ = mgr.restore(_ckpt_template(carry, bounds[k], k),
-                              step=latest)
+        tree, _ = mgr.restore(_ckpt_template(carry, bounds[k], k,
+                                             telemetry), step=latest)
         carry = tree["carry"]
         hists = [tree["hist"]]
         stage_cpc = [np.float32(v) for v in tree["stage_cpc"]]
@@ -398,7 +423,8 @@ def tune_loop_checkpointed(raw0: PolicyParams, problem: TuneProblem,
         start = k
     for k in range(start, n_stages):
         carry, outs, cpc_rows = _run_steps(carry, problem, coupling, cfg,
-                                           bounds[k], bounds[k + 1], p_rows)
+                                           bounds[k], bounds[k + 1], p_rows,
+                                           telemetry)
         hists.append({kk: v.cpu().numpy() for kk, v in _stack(outs).items()})
         stage_cpc.append(np.float32(torch.mean(cpc_rows).item()))
         hist_acc = {kk: np.concatenate([hh[kk] for hh in hists])
@@ -426,7 +452,8 @@ def _take_problem(problem: TuneProblem, idx: np.ndarray) -> TuneProblem:
 
 
 def _run_loop(raw0: PolicyParams, problem: TuneProblem, cfg: TuneConfig,
-              n_rows: int, coupling: Optional[DispatchCoupling] = None):
+              n_rows: int, coupling: Optional[DispatchCoupling] = None,
+              telemetry: bool = False):
     """Run the hot loop under the `ExecutionPlan`: one program, or fixed
     row chunks padded to one shape by repeating row 0 (per-row math is
     batch-independent, so the real rows are unaffected; the loss
@@ -446,7 +473,8 @@ def _run_loop(raw0: PolicyParams, problem: TuneProblem, cfg: TuneConfig,
         for sl in row_chunks(n_rows, chunk):
             idx = torch.as_tensor(sl, device=raw0.raw_off.device)
             r, h, cp = tune_loop(tree_map(lambda x: x[idx], raw0),
-                                 _take_problem(problem, sl), cfg=cfg)
+                                 _take_problem(problem, sl), cfg=cfg,
+                                 telemetry=telemetry)
             raws.append(r)
             hists.append({k: v.cpu().numpy() for k, v in h.items()})
             cpcs.append(cp)
@@ -455,7 +483,8 @@ def _run_loop(raw0: PolicyParams, problem: TuneProblem, cfg: TuneConfig,
                 for k in hists[0]}
         return (concat_rows(raws, n_rows), hist,
                 concat_rows(cpcs, n_rows))
-    raw_f, hist, cpc = tune_loop(raw0, problem, coupling, cfg=cfg)
+    raw_f, hist, cpc = tune_loop(raw0, problem, coupling, cfg=cfg,
+                                 telemetry=telemetry)
     return raw_f, {k: v.cpu().numpy() for k, v in hist.items()}, cpc
 
 
@@ -578,8 +607,11 @@ def optimize(grid, cfg: TuneConfig = TuneConfig(), *, warm_start=None,
     best-swept policy sets are then re-scored on feasible dispatch
     (`_dispatch_reeval`, the CUDA `dispatch_scan` kernel on the card) into
     `TuneResult.dispatch`; a Coupling-level ``relief`` covers that
-    re-scoring too.
+    re-scoring too. With a telemetry run active the run's history carries
+    ``grad_norm`` / ``clip_frac`` and lands in the trace as ``tune.step``,
+    ``tune.stage`` and ``tune.result`` events (`_emit_tune_events`).
     """
+    telemetry = obs.enabled()
     dev = resolve_device(device)
     grid = grid.to(dev)
     problem = problem_from_grid(grid)
@@ -589,7 +621,7 @@ def optimize(grid, cfg: TuneConfig = TuneConfig(), *, warm_start=None,
     coupling = dispatch_coupling_from_grid(grid, rc.dispatch) \
         if rc.dispatch is not None else None
     raw_f, hist, cpc_tuned_dev = _run_loop(raw0, problem, cfg, grid.n_rows,
-                                           coupling)
+                                           coupling, telemetry)
     stage_cpc = np.asarray(hist.pop("stage_cpc"), np.float64)
     cpc_tuned = cpc_tuned_dev.cpu().numpy().astype(np.float64)
 
@@ -644,7 +676,7 @@ def optimize(grid, cfg: TuneConfig = TuneConfig(), *, warm_start=None,
             reeval_cfg = reeval_cfg._replace(relief=rc.relief_config)
         dispatch_out = _dispatch_reeval(grid, params, cpc, best_row,
                                         reeval_cfg)
-    return TuneResult(
+    result = TuneResult(
         params=params, raw=raw_f, cpc=cpc, cpc_tuned=cpc_tuned,
         cpc_swept=cpc_swept, cpc_swept_best=cpc_swept_best,
         improvement_vs_best=1.0 - cpc / cpc_swept_best,
@@ -652,3 +684,47 @@ def optimize(grid, cfg: TuneConfig = TuneConfig(), *, warm_start=None,
         source=source, history=hist, stage_cpc=stage_cpc,
         dispatch=dispatch_out,
         guard_count=int(np.sum(hist.get("guard_rejects", 0.0))))
+    if telemetry:
+        _emit_tune_events(cfg, result)
+    return result
+
+
+def _emit_tune_events(cfg: TuneConfig, res: TuneResult) -> None:
+    """Stream the finished run's history into the trace: one
+    ``tune.step`` per optimization step (loss / tau / penalty, plus
+    grad-norm and clip-fraction — present because the loop ran with its
+    telemetry side-outputs), one ``tune.stage`` per hard re-eval
+    boundary, one ``tune.result``."""
+    hist = res.history
+    step_keys = [k for k in ("loss", "tau", "penalty", "dispatch_ratio",
+                             "grad_norm", "clip_frac") if k in hist]
+    for i in range(len(hist["loss"])):
+        obs.trace_event("tune.step",
+                        {"step": i,
+                         **{k: float(hist[k][i]) for k in step_keys}})
+        if "grad_norm" in hist:
+            obs.histogram("tune.grad_norm").observe(hist["grad_norm"][i])
+    bounds = _stage_bounds(cfg)
+    for k, v in enumerate(res.stage_cpc):
+        obs.trace_event("tune.stage", {"stage": k,
+                                       "through_step": bounds[k + 1],
+                                       "cpc_hard_mean": float(v)})
+    src_names = ("tuned", "own_swept", "cell_best")
+    obs.trace_event("tune.result", {
+        "rows": int(res.cpc.shape[0]), "steps": cfg.steps,
+        "cpc_mean": float(np.mean(res.cpc)),
+        "cpc_tuned_mean": float(np.mean(res.cpc_tuned)),
+        "cpc_swept_best_mean": float(np.mean(res.cpc_swept_best)),
+        "improvement_vs_best_mean": float(np.mean(res.improvement_vs_best)),
+        "source_counts": {src_names[s]: int(n) for s, n in
+                          zip(*np.unique(res.source, return_counts=True))}})
+    if res.guard_count:
+        rej = np.asarray(res.history["guard_rejects"])
+        obs.trace_event("tune.guard", {
+            "rejects_total": int(res.guard_count),
+            "steps_affected": int((rej > 0).sum()),
+            "first_step": int(np.argmax(rej > 0)),
+            "rows": int(res.cpc.shape[0])})
+        obs.counter("tune.guard_rejects").inc(int(res.guard_count))
+    obs.gauge("tune.cpc_mean").set(float(np.mean(res.cpc)))
+    obs.counter("tune.runs").inc()

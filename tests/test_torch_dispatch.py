@@ -390,12 +390,22 @@ def test_summarize_dispatch_equals_reference(operator_fleet):
                                    avail.numpy(), str(kw))
 
 
-def test_example_runs_and_refuses_trace(capsys):
+def test_example_runs_and_records_a_trace(capsys, tmp_path, monkeypatch):
     fleet_dispatch.run(device=CPU, hours=HOURS)
     out = capsys.readouterr().out
     assert "fleet CPC" in out and "diurnal demand" in out
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        fleet_dispatch.main(["--device", CPU, "--trace", "out"])
+    run = tmp_path / "trace"
+    full = fleet_dispatch.run
+    monkeypatch.setattr(fleet_dispatch, "run",
+                        lambda device: full(device, hours=HOURS))
+    assert fleet_dispatch.main(["--device", CPU, "--trace", str(run)]) == 0
+    traced = capsys.readouterr().out
+    # the same printout with the run recorded, and a valid run
+    assert traced.startswith(out)
+    from repro_torch.obs import report
+    assert report.main([str(run), "--validate"]) == 0
+    assert "(matches emitted result exactly)" in (run / "digest.md") \
+        .read_text()
 
 
 # ---------------------------------------------------------------------------

@@ -1217,3 +1217,109 @@ def test_training_step_on_the_kernels_matches_the_plain_route(cuda, arch):
         # each leaf's worst error over its largest entry
         scale = float(bb.abs().max())
         assert float((a - bb).abs().max()) <= 1e-4 * scale, i
+
+
+# ---------------------------------------------------------------------------
+# the telemetry and live slices
+# ---------------------------------------------------------------------------
+
+def _telemetry_grid(dev, hours=2000):
+    rng = np.random.default_rng(12)
+    prices = np.abs(rng.normal(80.0, 40.0, (4, hours))).astype(np.float32)
+    systems = [make_system(f, 1.0, float(hours), device=dev)
+               for f in (5e4, 2e5)]
+    policies = [PolicySpec("ao"), PolicySpec("x5", x=0.05),
+                PolicySpec("h", x=0.1, hysteresis=0.9, off_level=0.3,
+                           restart_energy_mwh=0.3, restart_time_h=0.25)]
+    return build_grid(prices, systems, policies, device=dev)
+
+
+def test_telemetry_on_equals_off_on_the_card(cuda, tmp_path):
+    """The backtest (one fleet_scan launch a call, on or off) and a
+    dispatch on the card, bit for bit with a telemetry run and without;
+    the trace reproduces the dispatch totals exactly."""
+    from repro_torch import obs
+    from repro_torch.dispatch import build_problem, dispatch
+    from repro_torch.obs import report
+
+    grid = _telemetry_grid(cuda)
+    cold = backtest(grid, device=cuda)
+    before = fleet_scan.launches
+    with obs.capture(tmp_path / "run"):
+        hot = backtest(grid, device=cuda)
+        assert fleet_scan.launches == before + 1
+        rows = torch.arange(0, grid.n_rows, grid.n_policies, device=cuda)
+        problem = build_problem(
+            grid.prices[grid.market_idx[rows]], grid.p_on[rows],
+            grid.p_off[rows], grid.off_level[rows], grid.power[rows],
+            DispatchConfig(demand_frac=0.3, migrate_cost=3.0, min_dwell_h=2),
+            fixed=grid.fixed[rows], device=cuda)
+        d_hot = dispatch(problem, device=cuda)
+    d_cold = dispatch(problem, device=cuda)
+    for a, b in zip(cold, hot):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(d_cold.alloc_mw, d_hot.alloc_mw)
+    assert d_cold.cpc == d_hot.cpc
+    events = report.load_events(tmp_path / "run")
+    rec = report.reconstruct_dispatch(events)
+    assert rec["cpc"] == d_hot.cpc
+    assert rec["n_migrations"] == d_hot.n_migrations
+    back = next(e for e in events if e["kind"] == "fleet.backtest")
+    assert back["use_pallas"] is True
+
+
+def test_hourly_companion_matches_the_hour_loop_on_the_card(cuda):
+    """`fleet_hourly_ref` (no hour loop) against a per-hour loop of
+    `hard_hour_step` on the card: starts and stops exactly, the weighted
+    sums within rtol 1e-5."""
+    from repro_torch.kernels.ref import fleet_hourly_ref, hard_hour_step
+    p, p_on, p_off, lvl, idle = _inputs(64, 2190, seed=5, dev=cuda)
+    w = torch.rand(64, device=cuda) + 0.5
+    got = fleet_hourly_ref(p, p_on, p_off, lvl, idle, w)
+    on = torch.ones(64, device=cuda)
+    cols = []
+    for t in range(p.shape[1]):
+        new, st, cap, draw = hard_hour_step(on, p[:, t], p_on, p_off, lvl,
+                                            idle)
+        cols.append(torch.stack([(w * cap).sum(), (w * draw * p[:, t]).sum(),
+                                 st.sum(),
+                                 torch.clamp(on - new, min=0.0).sum()]))
+        on = new
+    want = torch.stack(cols, 1)
+    assert torch.equal(got.starts, want[2]) and torch.equal(got.stops,
+                                                            want[3])
+    torch.testing.assert_close(got.on_mw, want[0], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got.draw_price, want[1], rtol=1e-5,
+                               atol=1e-2)
+
+
+def test_live_smoke_sweep_on_the_card_matches_the_cpu(cuda):
+    """The live operator's smoke sweep (24 controllers x 336 h) on the card
+    against the CPU: the quantile family under the exact forecasters equal
+    in its decisions, every row's CPC, final threshold and realised
+    shutdown fraction within rtol 1e-5, and start and stop counts equal on
+    rows with no near-threshold hour."""
+    import argparse
+
+    from repro_torch.examples.live_operator import build
+    from repro_torch.live import live_backtest
+    from repro_torch.live.controller import near_threshold_hours
+
+    args = argparse.Namespace(smoke=True)
+    _, lg, cfg, _ = build(args, "cpu")
+    got = live_backtest(lg, cfg, device=cuda)
+    want = live_backtest(lg, cfg, device="cpu")
+    fid, fam = lg.forecaster_id.numpy(), lg.family_id.numpy()
+    exact = torch.as_tensor((fam == 0) & (fid != 1))
+    near = near_threshold_hours(lg, cfg, 1e-5, device="cpu") \
+        + near_threshold_hours(lg, cfg, 1e-5, device=cuda).cpu()
+    calm = near == 0
+    for name in ("n_starts", "n_stops"):
+        g, w_ = getattr(got, name).cpu(), getattr(want, name)
+        assert torch.equal(g[exact], w_[exact]), name
+        assert torch.equal(g[calm], w_[calm]), name
+    assert torch.equal(got.p_off_final.cpu()[exact], want.p_off_final[exact])
+    # ratios: the card divides by a host number through its reciprocal
+    for name in ("cpc", "p_off_final", "tco", "x_realized"):
+        torch.testing.assert_close(getattr(got, name).cpu(),
+                                   getattr(want, name), rtol=1e-5, atol=0.0)

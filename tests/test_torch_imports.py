@@ -37,8 +37,10 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
     # engine and launcher, and the Mamba2 slice's ssm model, SSD kernel
     # and serving example, the hybrid slice's config and the two examples
     # of the paper model it brought, the training slice's data package,
-    # schedules, compression, trainer, launcher, roofline and example
-    assert n_modules == len(names) >= 83
+    # schedules, compression, trainer, launcher, roofline and example, the
+    # telemetry slice's obs package, and the live slice's forecasts, SMARD
+    # loader, window steps, live package and example
+    assert n_modules == len(names) >= 97
     for name in ("repro_torch.configs.base", "repro_torch.configs.inputs",
                  "repro_torch.configs.qwen2_5_3b",
                  "repro_torch.models.layers", "repro_torch.models.attention",
@@ -64,7 +66,15 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
                  "repro_torch.optim.schedule", "repro_torch.optim.compress",
                  "repro_torch.runtime.trainer", "repro_torch.launch.train",
                  "repro_torch.launch.roofline",
-                 "repro_torch.examples.energy_aware_training"):
+                 "repro_torch.examples.energy_aware_training",
+                 "repro_torch.obs", "repro_torch.obs.registry",
+                 "repro_torch.obs.schema", "repro_torch.obs.report",
+                 "repro_torch.obs.profiling", "repro_torch.energy.forecast",
+                 "repro_torch.energy.smard", "repro_torch.live",
+                 "repro_torch.live.grid", "repro_torch.live.controller",
+                 "repro_torch.live.report", "repro_torch.live.fleet",
+                 "repro_torch.kernels.live_window",
+                 "repro_torch.examples.live_operator"):
         assert name in names
 
 
@@ -121,7 +131,7 @@ def test_port_packages_export_what_the_reference_exports():
         if not hasattr(importlib.import_module(port(pkg)), name):
             missing.append(f"{port(pkg)}.{name}")
     assert missing == []
-    assert checked >= 117
+    assert checked >= 152
     # the training slice's names, each exported as the reference does
     for pkg, name in (("models", "loss_fn"), ("optim", "warmup_cosine"),
                       ("optim", "constant"), ("optim", "quantize_int8"),
@@ -130,6 +140,14 @@ def test_port_packages_export_what_the_reference_exports():
                       ("optim", "compressed_pmean"), ("data", "SyntheticLM"),
                       ("data", "batch_at"), ("data", "host_shard"),
                       ("data", "global_batch_sharding"),
-                      ("runtime", "Trainer"), ("runtime", "TrainerConfig")):
+                      ("runtime", "Trainer"), ("runtime", "TrainerConfig"),
+                      # the telemetry and live slices' names
+                      ("obs", "capture"), ("obs", "drain"),
+                      ("obs", "run_metadata"), ("obs", "Histogram"),
+                      ("energy", "seasonal_naive"),
+                      ("energy", "similar_day_ar_batch"), ("energy", "mase"),
+                      ("live", "LiveConfig"), ("live", "live_backtest"),
+                      ("live", "live_fleet_dispatch"),
+                      ("live", "summarize_live"), ("live", "FORECASTERS")):
         assert (f"repro.{pkg}", name) in {(p, n) for p, _, n in exports}
         assert hasattr(importlib.import_module(f"repro_torch.{pkg}"), name)

@@ -269,7 +269,13 @@ def test_coupled_checkpoint_resume_is_bitwise(grids, tmp_path):
                                   _np(hist_c["dispatch_ratio"]))
 
 
-def test_example_trace_option_names_its_slice():
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        tune_policies.main(["--dispatch-soft", "--smoke", "--device", "cpu",
-                            "--trace", "out"])
+def test_example_trace_option_records_a_valid_run(tmp_path, capsys):
+    run = tmp_path / "trace"
+    assert tune_policies.main(["--smoke", "--device", "cpu", "--trace",
+                               str(run)]) == 0
+    from repro_torch.obs import report
+    capsys.readouterr()
+    assert report.main([str(run), "--validate"]) == 0
+    kinds = {e["kind"] for e in report.load_events(run)}
+    assert {"tune.step", "tune.stage", "tune.result",
+            "fleet.backtest"} <= kinds
