@@ -62,7 +62,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      `offline_cpc` on the kernel (rtol 1e-5, the repo's CPC gate; start
      counts exact), `live_fleet_dispatch` never re-solving over 8 sites x
      2190 h against `dispatch` bit for bit, and `live_operator --smoke`
-     and ``--retune --smoke``;
+     and ``--retune --smoke``; then the faults and workload slice: the
+     three ledger kernels (`csrc/queue_scan.cu`) against their plain
+     hour loops on the card (the hard one at `bench_workload`'s 256 x
+     4096 x 8 draws within rtol 1e-5 and bit for bit on integer work at
+     d 0-9 and B = 1, telemetry on == off; the soft pair at 256 x 2190
+     within 1e-10 of plain autograd in float64 and, the tuner's form,
+     float32 gradients within 1e-4 of scale; the hard float64 forward
+     of the live replay at 32 x 96 bit for bit on integer work), their
+     times, bounds and one-lane serial floors, ptxas' registers and
+     spills (build phase);
+     `faulted_backtest` and `workload_backtest` at 256 x 4096 (a
+     zero-fault run and the coupled report equal to `backtest` bit for
+     bit, a storm's starts card == CPU, telemetry on == off), and
+     `chaos_fleet` and `workload_fleet` at full size (exit 0; the latter
+     counts the ledger kernels' launches on the main path);
  11. the attention kernels (flash, decode) against their plain versions
      on the card and against SDPA, at the reference's cases, the serving
      shapes (qwen2.5-3b's and zamba2-1.2b's: 32 heads each its own KV
@@ -262,7 +276,7 @@ def phase_device() -> str:
 
 
 KERNEL_SOURCES = ("fleet_scan", "soft_scan", "dispatch_scan",
-                  "soft_dispatch", "attention", "ssd_scan")
+                  "soft_dispatch", "attention", "ssd_scan", "queue_scan")
 
 # Probes of the card, not kernels of the port. f64_add_chain: one thread
 # adds 1.0 to x n times, each addition waiting on the last, so a chain
@@ -349,6 +363,8 @@ def phase_build() -> None:
             _report_ssd_kernels(log, build.library_path(name))
         if name == "soft_dispatch":
             _report_soft_dispatch_kernels(log)
+        if name == "queue_scan":
+            _report_ledger_kernels(log)
 
 
 def _ptxas_records(log: str, pattern: re.Pattern) -> dict:
@@ -365,6 +381,8 @@ def _ptxas_records(log: str, pattern: re.Pattern) -> dict:
         if not k:
             continue
         rec = info.setdefault(k.groups(), {})
+        if m := re.search(r"(\d+) bytes stack frame", line):
+            rec["stack"] = int(m.group(1))
         if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line):
             rec["spill"] = (int(m.group(1)), int(m.group(2)))
@@ -909,6 +927,9 @@ def _counters():
     from repro_torch.kernels.dispatch_scan import dispatch_scan
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fleet_scan import fleet_scan
+    from repro_torch.kernels.queue_scan import (soft_ledger_bwd,
+                                                soft_ledger_fwd,
+                                                workload_ledger_fwd)
     from repro_torch.kernels.soft_dispatch import (soft_dispatch_fused_bwd,
                                                    soft_dispatch_fused_fwd,
                                                    soft_dispatch_scan)
@@ -921,7 +942,10 @@ def _counters():
             "soft_dispatch_fused_fwd": soft_dispatch_fused_fwd,
             "soft_dispatch_fused_bwd": soft_dispatch_fused_bwd,
             "flash_attention": flash_attention,
-            "decode_attention": decode_attention, "ssd_scan": ssd_scan}
+            "decode_attention": decode_attention, "ssd_scan": ssd_scan,
+            "workload_ledger_fwd": workload_ledger_fwd,
+            "soft_ledger_fwd": soft_ledger_fwd,
+            "soft_ledger_bwd": soft_ledger_bwd}
 
 
 def _zero_counters() -> dict:
@@ -1937,6 +1961,485 @@ def phase_live(dev) -> dict:
             "device_launches": device,
             "fleet_launches": fleet_launches,
             "fleet_device_launches": fleet_device}
+
+
+# ---------------------------------------------------------------------------
+# the faults and workload slice: the ledger kernels, the two backtests at
+# their benchmarks' shapes, and the two examples at full size
+# ---------------------------------------------------------------------------
+
+LEDGER_SOURCE = "src/repro_torch/kernels/csrc/queue_scan.cu"
+LEDGER_REPLACES = "src/repro/kernels/queue_scan.py:170"     # the lax.scan
+# `benchmarks/bench_workload.py:29` / `bench_faults.py`: 8 German draws x
+# 4 systems x 8 policies = 256 rows x 4096 h, 8 demand draws, seed 7, the
+# default Workload's deadline 4 h and bound 4 MWh
+LEDGER_BENCH = dict(n_markets=8, n_systems=4, hours=4096, n_draws=8,
+                    seed=7)
+SOFT_LEDGER_SHAPE = (256, 2190, 4)     # rows x hours x deadline (tuner)
+LIVE_REPLAY_SHAPE = (32, 96)           # draws x hours (the live replay)
+LEDGER_KERNEL = re.compile(r"(workload_ledger|soft_ledger_fwd|"
+                           r"soft_ledger_bwd)_kernelI(?:([fd]))?"
+                           r"Li(n?\d+)E")
+
+
+def _report_ledger_kernels(log: str) -> None:
+    """Registers, spills and stack (ptxas) of the ledger kernels at the
+    deadline the benchmarks and the tuner use (d = 4, the queue in
+    registers) and in the memory form (d > 8). Fails if one is missing."""
+    info = _ptxas_records(log, LEDGER_KERNEL)
+    for kind, dtype in (("workload_ledger", None), ("soft_ledger_fwd", "f"),
+                        ("soft_ledger_fwd", "d"), ("soft_ledger_bwd", "f"),
+                        ("soft_ledger_bwd", "d")):
+        for d in ("4", "n1"):
+            rec = info.get((kind, dtype, d), {})
+            if "registers" not in rec:
+                raise AssertionError(f"build: no ptxas record of {kind} "
+                                     f"({dtype}, d {d})")
+            st, ld = rec.get("spill", (0, 0))
+            print(f"[build] {kind}_kernel"
+                  + (f" {'float32' if dtype == 'f' else 'float64'}"
+                     if dtype else "")
+                  + f", {'d 4 in registers' if d == '4' else 'd > 8'}: "
+                  f"{rec['registers']} registers, stack "
+                  f"{rec.get('stack', 0)} B, spill stores {st} B, spill "
+                  f"loads {ld} B")
+
+
+LEDGER_KERNELS = ("workload_ledger_fwd", "soft_ledger_fwd",
+                  "soft_ledger_bwd")
+
+
+def _ledger_bound(kind: str, b: int, t: int, d: int, g: int = 1,
+                  n: int = 0, itemsize: int = 4) -> tuple[float, str, int]:
+    """Least time for one ledger kernel's work on an H100 SXM: each input
+    read once and each output written once at 3.35 TB/s, against its
+    float operations at 67 TFLOP/s (a softplus or sigmoid's exp and log1p
+    counted as one operation each). Returns (ms, what bounds it, bytes).
+
+      hard: the [N, T] prices, [G, T] demand, the int64 index and five [B]
+        parameters in, [4, B, G] out; a lane-hour ~14 + 7 (d + 1) + 8 d
+        operations (the state machine, the serve and re-queue passes, the
+        four sums);
+      soft forward: [B, T] demand and capacity in, [4, B] sums, the [T, d,
+        B] queue history and [B, d] final queue out; a row-hour ~10 + 11
+        (2 d + 1) + 4 (2 d + 1) operations (each smoothclip two softplus);
+      soft backward: demand, capacity and the history in, [B, T] d cap
+        and d demand out; a row-hour about three times the forward's
+        (the forward again, two sigmoids a clip, the adjoint)."""
+    if kind == "hard":
+        nbytes = 4 * (n * t + g * t) + b * (8 + 20) + 16 * b * g
+        ops = (14 + 7 * (d + 1) + 8 * d) * b * g * t
+    else:
+        fwd_ops = (10 + 15 * (2 * d + 1)) * b * t
+        if kind == "fwd":
+            nbytes = itemsize * (2 * b * t + t * d * b + 4 * b + b * d)
+            ops = fwd_ops
+        else:
+            nbytes = itemsize * (2 * b * t + t * d * b + 4 * b + 2 * b * t)
+            ops = 3 * fwd_ops
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations", nbytes
+
+
+def _max_err(got, want, scaled: bool = False) -> float:
+    """max |got - want| over the pairs; ``scaled`` divides each pair's by
+    max(1, max |want|)."""
+    return max(float((x.double() - y.double()).abs().max())
+               / (max(1.0, float(y.double().abs().max())) if scaled else 1.0)
+               for x, y in zip(got, want))
+
+
+def phase_ledger_vs_plain(dev) -> dict:
+    """The three ledger kernels against their plain versions on the card,
+    with times (CUDA events, L2 flushed, device only), bounds and the
+    design's serial floor (the kernel's time on one lane over the same
+    hours).
+
+    `workload_ledger_fwd` at the benchmark shape (256 rows x 4096 h x 8
+    draws through the index of 8 markets, deadline 4, bound 4 MWh) within
+    rtol 1e-5 (bucket sums in another order), bit for bit on
+    integer-valued work, at d = 0 and d = 9 (the memory form) and B = 1,
+    telemetry on == off bit for bit; the soft pair through a
+    differentiable soft `queue_scan` at the tuner's 256 x 2190 x d 4:
+    float64 within 1e-10 of max(1, each output's largest entry) of the
+    plain loop and of autograd through it, float32 (the tuner's form)
+    forward within rtol 1e-5 and d cap / d demand within 1e-4 of max(1,
+    their largest entry); the hard float64 forward (the live replay's
+    ledger) at 32 draws x 96 h bit for bit on integer-valued work and
+    within 1e-10 of max(1, each sum's largest entry) on sampled demand."""
+    from repro_torch.kernels import queue_scan as qs
+    from repro_torch.kernels.ref import queue_scan_ref
+    from repro_torch.workload import Workload
+
+    flush = torch.empty(128 * 2 ** 20 // 4, dtype=torch.float32,
+                        device=dev)          # 128 MB > the 50 MB L2
+    cfg = LEDGER_BENCH
+    _, grid = _bench_grid(cfg["n_markets"], cfg["n_systems"], dev,
+                          hours=cfg["hours"])
+    wl = Workload(n_draws=cfg["n_draws"], seed=cfg["seed"])
+    b, t, d, g = grid.n_rows, grid.n_hours, wl.deadline_h, wl.n_draws
+    dt = grid.period / t
+    dem = torch.as_tensor(wl.sample_demand_mw(t), dtype=torch.float32,
+                          device=dev)
+    args = (grid.prices, grid.p_on, grid.p_off, grid.off_level,
+            grid.power * dt, dem, dt)
+    kw = dict(deadline=d, bound=wl.queue_bound_mwh,
+              market_idx=grid.market_idx)
+    t0 = time.perf_counter()
+    got, _ = qs.workload_ledger_fwd(*args, **kw)
+    got_t, hr = qs.workload_ledger_fwd(*args, hourly=True, **kw)
+    torch.cuda.synchronize()
+    t_kernel = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want, hr_w = qs.workload_ledger_fwd(*args, hourly=True,
+                                        use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    for x, y, z in zip(got, got_t, want):
+        if not torch.equal(x, y):
+            raise AssertionError("workload_ledger_fwd: telemetry changed "
+                                 "the sums")
+        torch.testing.assert_close(x, z, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(hr, hr_w, rtol=1e-5, atol=1e-4)
+    hard_err = _max_err(got, want)
+    same = all(torch.equal(x, z) for x, z in zip(got, want))
+    print(f"[ledger] workload_ledger_fwd {b} x {t} h x {g} draws, d {d} "
+          f"(first calls {t_kernel:.2f} s, build included): max |kernel - "
+          f"plain| {hard_err:.3g} (rtol 1e-5), "
+          f"{'bit for bit' if same else 'not bit for bit'}; telemetry "
+          f"on == off bit for bit; plain hour loop {plain_s:.2f} s")
+    # integer-valued work: bit for bit, at d 0, 4, 9 and B = 1
+    rng = np.random.default_rng(7)
+    for bb, nn, gg, tt, dd in ((1, 1, 1, 300, 2), (64, 8, 8, 1000, 4),
+                               (33, 4, 40, 500, 0), (50, 5, 5, 700, 9)):
+        iargs = [torch.as_tensor(a, device=dev) for a in (
+            rng.integers(0, 100, (nn, tt)).astype(np.float32),
+            np.full(bb, 40.0, np.float32), np.full(bb, 60.0, np.float32),
+            np.zeros(bb, np.float32),
+            rng.integers(1, 6, bb).astype(np.float32),
+            rng.integers(0, 5, (gg, tt)).astype(np.float32),
+            np.ones(bb, np.float32))]
+        ik = dict(deadline=dd, bound=3.0, market_idx=torch.as_tensor(
+            rng.integers(0, nn, bb), device=dev))
+        x = qs.workload_ledger_fwd(*iargs, **ik)[0]
+        y = qs.workload_ledger_fwd(*iargs, use_kernel=False, **ik)[0]
+        if not all(torch.equal(u, v) for u, v in zip(x, y)):
+            raise AssertionError(f"workload_ledger_fwd not bit for bit on "
+                                 f"integer work at B {bb}, G {gg}, d {dd}")
+    print("[ledger] workload_ledger_fwd on integer-valued work (B 1, 64, "
+          "33, 50; G 1-40; d 0, 2, 4, 9): bit for bit")
+
+    # the soft pair at the tuner's shape, through a differentiable soft
+    # `queue_scan` (`SoftLedger`), against autograd through the plain loop
+    sb, st, sd = SOFT_LEDGER_SHAPE
+    rng = np.random.default_rng(11)
+    a64 = torch.as_tensor(rng.uniform(0.0, 1.5, (sb, st)), device=dev)
+    c64 = torch.as_tensor(rng.uniform(0.0, 2.0, (sb, st)), device=dev)
+    gg64 = torch.as_tensor(rng.normal(size=(4, sb)), device=dev)
+    p64 = torch.as_tensor(rng.normal(80, 20, (sb, st)), device=dev)
+    tau = 0.3
+    soft_err = {}
+    for dtype in (torch.float64, torch.float32):
+        a_, c_, g_, p_ = (x.to(dtype) for x in (a64, c64, gg64, p64))
+        at, ct = (x.clone().requires_grad_(True) for x in (a_, c_))
+        o = qs.queue_scan(at, ct, deadline=sd, bound=4.0, tau=tau,
+                          prices=p_)
+        sums = [x.detach() for x in (o.served, o.dropped, o.backlog,
+                                     o.served_cost)]
+        d_a, d_c = torch.autograd.grad(
+            sum((g_[k] * v).sum() for k, v in enumerate(
+                (o.served, o.dropped, o.backlog, o.served_cost))), [at, ct])
+        at2, ct2 = (x.clone().requires_grad_(True) for x in (a_, c_))
+        t0 = time.perf_counter()
+        out = queue_scan_ref(at2, ct2, deadline=sd, bound=4.0, tau=tau,
+                             prices=p_)
+        ref_sums = (out.served, out.dropped, out.backlog, out.served_cost)
+        w_a, w_c = torch.autograd.grad(
+            sum((g_[k] * v).sum() for k, v in enumerate(ref_sums)),
+            [at2, ct2])
+        torch.cuda.synchronize()
+        auto_s = time.perf_counter() - t0
+        ref_sums = [s.detach() for s in ref_sums]
+        err = {"fwd": _max_err(sums, ref_sums, scaled=True),
+               "bwd": _max_err([d_a, d_c], [w_a, w_c], scaled=True),
+               "fwd_abs": _max_err(sums, ref_sums),
+               "bwd_abs": _max_err([d_a, d_c], [w_a, w_c])}
+        if dtype == torch.float64:
+            if err["fwd"] > 1e-10 or err["bwd"] > 1e-10:
+                raise AssertionError(f"soft ledger float64: forward "
+                                     f"{err['fwd']:.3g}, backward "
+                                     f"{err['bwd']:.3g} from plain autograd "
+                                     "(gate 1e-10 of max(1, the output's "
+                                     "largest entry))")
+        else:
+            for x, y in zip(sums, ref_sums):
+                torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-3)
+            if err["bwd"] > 1e-4:
+                raise AssertionError(f"soft ledger float32: d cap / d "
+                                     f"demand {err['bwd']:.3g} from plain "
+                                     "autograd (gate 1e-4 of max(1, the "
+                                     "gradient's largest entry))")
+        soft_err[dtype] = err
+        print(f"[ledger] soft ledger {sb} x {st} h, d {sd}, {dtype}: max "
+              f"|kernel - plain| / max(1, max |plain|) forward "
+              f"{err['fwd']:.3g}, d cap and d demand against autograd "
+              f"{err['bwd']:.3g} (gate "
+              f"{'1e-10' if dtype == torch.float64 else '1e-4'}); max "
+              f"|kernel - plain| forward {err['fwd_abs']:.3g}, backward "
+              f"{err['bwd_abs']:.3g} (plain autograd {auto_s:.2f} s)")
+
+    # the hard float64 forward at the live replay's shape (32 draws x 96 h
+    # against one [T] capacity): bit for bit on integer-valued work,
+    # within 1e-10 of max(1, each sum's largest entry) on sampled demand
+    rg, rt = LIVE_REPLAY_SHAPE
+    lw = Workload(n_draws=rg, seed=cfg["seed"])
+    rk = dict(deadline=lw.deadline_h, bound=lw.queue_bound_mwh)
+    cases = {"integer": (
+        torch.as_tensor(rng.integers(0, 6, (rg, rt)).astype(np.float64),
+                        device=dev),
+        torch.as_tensor(rng.integers(0, 8, rt).astype(np.float64),
+                        device=dev)), "sampled": (
+        torch.as_tensor(lw.sample_demand_mw(rt), device=dev),
+        torch.as_tensor(rng.uniform(0.0, 2.0, rt), device=dev))}
+    hard64 = {}
+    for label, (dr, cap) in cases.items():
+        x = qs.queue_scan(dr, cap, **rk)
+        y = qs.queue_scan(dr, cap, use_kernel=False, **rk)
+        hard64[label] = _max_err(list(x), list(y))
+        if label == "integer" and not all(torch.equal(u, v)
+                                          for u, v in zip(x, y)):
+            raise AssertionError("hard float64 queue_scan not bit for bit "
+                                 "on integer work at the live replay's "
+                                 "shape")
+        if _max_err(list(x), list(y), scaled=True) > 1e-10:
+            raise AssertionError(f"hard float64 queue_scan ({label}): "
+                                 f"{hard64[label]:.3g} from the plain loop")
+    print(f"[ledger] hard float64 queue_scan (soft_ledger_fwd, hard) {rg} "
+          f"draws x {rt} h, d {lw.deadline_h}: integer work bit for bit; "
+          f"sampled demand max |kernel - plain| {hard64['sampled']:.3g} "
+          f"(gate 1e-10 of max(1, the largest sum))")
+
+    # times: the kernels (device only, L2 flushed), their plain versions
+    # once, the bounds and the one-lane serial floor
+    def hard_call(use_kernel=True, **extra):
+        return qs.workload_ledger_fwd(*args, use_kernel=use_kernel,
+                                      **{**kw, **extra})
+    one = [x[:1] for x in args[1:5]] + [dem[:1], args[6][:1]]
+    one_idx = grid.market_idx[:1].contiguous()
+    times = {}
+    hb = _ledger_bound("hard", b, t, d, g=g, n=grid.n_markets)
+    times["workload_ledger_fwd"] = {
+        "ms": _cuda_ms(hard_call, runs=5, flush=flush, device_only=True),
+        "plain_ms": _host_ms(lambda: hard_call(False), 1),
+        "floor_ms": _cuda_ms(lambda: qs.workload_ledger_fwd(
+            grid.prices, *one[:4], one[4], one[5], deadline=d,
+            bound=wl.queue_bound_mwh, market_idx=one_idx), runs=3,
+            device_only=True),
+        "telemetry_ms": _cuda_ms(lambda: hard_call(hourly=True), runs=3,
+                                 flush=flush, device_only=True),
+        "bound": hb}
+    a32, c32 = a64.float(), c64.float()
+    tau32 = torch.tensor([tau], dtype=torch.float32, device=dev)
+    fwd_out = qs.soft_ledger_fwd(a32, c32, tau32, deadline=sd, bound=4.0)
+    g32 = gg64.float().contiguous()
+
+    def fwd(a_=a32, c_=c32, use_kernel=True):
+        return qs.soft_ledger_fwd(a_, c_, tau32, deadline=sd, bound=4.0,
+                                  use_kernel=use_kernel)
+
+    def bwd(use_kernel=True, hist=fwd_out[1]):
+        return qs.soft_ledger_bwd(a32, c32, tau32, hist, g32, deadline=sd,
+                                  bound=4.0, want_demand=False,
+                                  use_kernel=use_kernel)
+    plain_hist = fwd(use_kernel=False)[1]
+    a1, c1 = a32[:1].contiguous(), c32[:1].contiguous()
+    times["soft_ledger_fwd"] = {
+        "ms": _cuda_ms(fwd, runs=5, flush=flush, device_only=True),
+        "plain_ms": _host_ms(lambda: fwd(use_kernel=False), 1),
+        "floor_ms": _cuda_ms(lambda: fwd(a1, c1), runs=3,
+                             device_only=True),
+        "bound": _ledger_bound("fwd", sb, st, sd)}
+    hist1 = fwd(a1, c1)[1]
+    times["soft_ledger_bwd"] = {
+        "ms": _cuda_ms(bwd, runs=5, flush=flush, device_only=True),
+        "plain_ms": _host_ms(lambda: bwd(False, plain_hist), 1),
+        "floor_ms": _cuda_ms(lambda: qs.soft_ledger_bwd(
+            a1, c1, tau32, hist1, g32[:, :1].contiguous(), deadline=sd,
+            bound=4.0, want_demand=False), runs=3, device_only=True),
+        "bound": _ledger_bound("bwd", sb, st, sd)}
+    for name, tm in times.items():
+        ms, by, nbytes = tm["bound"]
+        shape = (f"{b} x {t} h x {g} draws" if name == "workload_ledger_fwd"
+                 else f"{sb} x {st} h")
+        print(f"[time] {name} {shape}, d {d if name[0] == 'w' else sd}: "
+              f"kernel {tm['ms']:.4f} ms (L2 flushed), plain "
+              f"{tm['plain_ms']:.1f} ms, bound {ms:.5f} ms ({by}; "
+              f"{nbytes / 1e6:.2f} MB), {ms / tm['ms']:.2%} of bound; "
+              f"serial floor (one lane, the same hours) "
+              f"{tm['floor_ms']:.4f} ms"
+              + (f"; with telemetry {tm['telemetry_ms']:.4f} ms"
+                 if "telemetry_ms" in tm else ""))
+    # the kernels line's errors: those of the forms timed and counted (the
+    # hard ledger; the soft pair in float32), the float64 checks beside
+    f32, f64 = soft_err[torch.float32], soft_err[torch.float64]
+    return {"times": times, "errs": {
+        "workload_ledger_fwd": {"max_abs_err": hard_err},
+        "soft_ledger_fwd": {
+            "max_abs_err": f32["fwd_abs"], "max_scaled_err": f32["fwd"],
+            "float64_max_scaled_err": f64["fwd"],
+            "hard_float64_max_abs_err": hard64["sampled"]},
+        "soft_ledger_bwd": {
+            "max_abs_err": f32["bwd_abs"], "max_scaled_err": f32["bwd"],
+            "float64_max_scaled_err": f64["bwd"]}}}
+
+
+def phase_faults_workload(dev) -> None:
+    """`bench_faults` and `bench_workload` end to end at their shape (256
+    rows x 4096 h): the zero-fault `faulted_backtest` equal to `backtest`
+    bit for bit, the masked path on identity masks with the same start
+    counts and sums within rtol 1e-5, a `random_storm(7, ...)` run on the
+    card against the CPU (start counts exact, CPC within rtol 1e-5); the
+    workload-coupled backtest's report equal to `backtest` bit for bit,
+    one `fleet_scan` and one `workload_ledger_fwd` launch a call, its
+    results under telemetry equal bit for bit; wall times (synchronised)
+    of each, twice after a warm-up."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.faults import (faulted_backtest, identity_masks,
+                                    random_storm)
+    from repro_torch.fleet import backtest
+    from repro_torch.workload import Workload, workload_backtest
+
+    cfg = LEDGER_BENCH
+    _, grid = _bench_grid(cfg["n_markets"], cfg["n_systems"], dev,
+                          hours=cfg["hours"])
+    b, n, t = grid.n_rows, grid.n_markets, grid.n_hours
+    plain = backtest(grid, device=dev)
+
+    def same(label, got):
+        for f in plain._fields:
+            if not torch.equal(getattr(got, f), getattr(plain, f)):
+                raise AssertionError(f"{label}: {f} differs from backtest")
+
+    same("faulted_backtest (no faults)", faulted_backtest(grid, device=dev))
+    same("faulted_backtest (identity masks)",
+         faulted_backtest(grid, identity_masks(b, n, t), device=dev))
+    masked = faulted_backtest(grid, identity_masks(b, n, t),
+                              _force_masked=True, device=dev)
+    if not torch.equal(masked.n_starts, plain.n_starts):
+        raise AssertionError("masked path on identity masks: starts differ")
+    torch.testing.assert_close(masked.cpc, plain.cpc, rtol=1e-5, atol=0.0)
+    storm = random_storm(7, b, n, t)
+    hit = faulted_backtest(grid, storm, device=dev)
+    hit_cpu = faulted_backtest(grid.to("cpu"), storm, device="cpu")
+    if not torch.equal(hit.n_starts.cpu(), hit_cpu.n_starts):
+        raise AssertionError("faulted_backtest: card and CPU starts differ")
+    torch.testing.assert_close(hit.cpc.cpu(), hit_cpu.cpc, rtol=1e-5,
+                               atol=0.0)
+
+    def wall(fn, runs=2):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+    w_plain = wall(lambda: backtest(grid, device=dev))
+    w_storm = wall(lambda: faulted_backtest(grid, storm, device=dev))
+    w_masked = wall(lambda: faulted_backtest(
+        grid, identity_masks(b, n, t), _force_masked=True, device=dev))
+    print(f"[faults] {b} rows x {t} h: zero-fault faulted_backtest == "
+          f"backtest bit for bit; masked identity: starts equal, CPC "
+          f"within rtol 1e-5; storm ({len(storm)} faults) card == CPU "
+          f"starts, CPC rtol 1e-5, mean CPC "
+          f"{float(plain.cpc.mean()):.4f} -> {float(hit.cpc.mean()):.4f}; "
+          f"wall s: healthy {w_plain}, storm {w_storm}, masked identity "
+          f"{w_masked}")
+
+    wl = Workload(n_draws=cfg["n_draws"], seed=cfg["seed"])
+    counters = _zero_counters()
+    run = workload_backtest(grid, wl, device=dev)
+    torch.cuda.synchronize()
+    launched = {k: counters[k].launches
+                for k in ("fleet_scan", "workload_ledger_fwd")}
+    if launched != {"fleet_scan": 1, "workload_ledger_fwd": 1}:
+        raise AssertionError(f"workload_backtest launched {launched}")
+    same("workload_backtest's report", run.report)
+    with tempfile.TemporaryDirectory() as tmp:
+        with obs.capture(tmp):
+            on = workload_backtest(grid, wl, device=dev)
+    same("workload_backtest's report under telemetry", on.report)
+    for f in run.workload._fields:
+        if not torch.equal(getattr(on.workload, f),
+                           getattr(run.workload, f)):
+            raise AssertionError(f"workload_backtest: {f} differs with "
+                                 "telemetry on")
+    w_wl = wall(lambda: workload_backtest(grid, wl, device=dev))
+    res = run.workload
+    drop = float(res.dropped_mwh.sum() / res.arrivals_mwh.sum())
+    print(f"[workload] {b} rows x {t} h x {wl.n_draws} draws (d "
+          f"{wl.deadline_h}, bound {wl.queue_bound_mwh:g} MWh): report == "
+          f"backtest bit for bit, one fleet_scan and one "
+          f"workload_ledger_fwd launch a call, telemetry on == off bit for "
+          f"bit; CPC p50 mean {float(res.cpc_p50.mean()):.4f}, drop "
+          f"fraction {drop:.4f}; "
+          f"wall s: coupled {w_wl} against plain {w_plain}")
+
+
+def phase_slice_examples(dev) -> dict:
+    """`chaos_fleet` and `workload_fleet` at full size on the card (16 and
+    12 rows x 2190 h; 32 draws, 200 tuner steps, the live surge over 96 h
+    at 3 sites; the chaos storm and the live storm over 2022 h): wall
+    seconds and exit status (both must PASS, exit 0). Every kernel's
+    count is set to 0 just before `workload_fleet` and read just after:
+    the ledger kernels' launches on the main path."""
+    from repro_torch.examples import chaos_fleet, workload_fleet
+
+    t0 = time.perf_counter()
+    rc = chaos_fleet.main(["--device", str(dev)])
+    torch.cuda.synchronize()
+    print(f"[examples] chaos_fleet (full storm) exit {rc}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    if rc != 0:
+        raise AssertionError(f"chaos_fleet: exit {rc}")
+    counters = _zero_counters()
+    t0 = time.perf_counter()
+    rc = workload_fleet.main(["--device", str(dev)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    device = {k: fn.device_launches for k, fn in counters.items()}
+    print(f"[examples] workload_fleet (full size) exit {rc}, {secs:.2f} s; "
+          "kernel calls (kernels on the card): "
+          + ", ".join(f"{k} {launches[k]} ({device[k]})" for k in launches
+                      if launches[k] or device[k]))
+    if rc != 0:
+        raise AssertionError(f"workload_fleet: exit {rc}")
+    for k in LEDGER_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"workload_fleet launched no {k}")
+    return {"launches": launches, "device_launches": device}
+
+
+def _ledger_records(ledger: dict, examples: dict) -> list[dict]:
+    """The ledger kernels' entries of the ``kernels`` line: errors and
+    times from `phase_ledger_vs_plain`, launches from the full-size
+    `workload_fleet` run."""
+    recs = []
+    for name, tm in ledger["times"].items():
+        ms, by, _ = tm["bound"]
+        recs.append({
+            "name": name, "route": "cuda", "source": LEDGER_SOURCE,
+            "replaces": LEDGER_REPLACES,
+            "launches": examples["launches"][name],
+            **ledger["errs"][name], "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"], "bound_ms": ms, "bound_by": by,
+            "library_ms": None, "serial_floor_ms": tm["floor_ms"]})
+    return recs
 
 
 def _soft_bound(b: int, t: int, block_t: int, backward: bool,
@@ -4136,6 +4639,13 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[live] telemetry and live phases: "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ledger = phase_ledger_vs_plain(dev)
+    phase_faults_workload(dev)
+    slice_ex = phase_slice_examples(dev)
+    torch.cuda.synchronize()
+    print(f"[ledger] faults and workload phases: "
+          f"{time.perf_counter() - t0:.1f} s")
     serve = phase_serving(dev, SERVE_ARCH)
     serve_launches = serve["launches"]
     serve_device = serve["device_launches"]
@@ -4198,7 +4708,8 @@ def main() -> int:
             "launches": ssm_launches["ssd_scan"], "max_abs_err": ssd_err,
             **ssd_times[1024],
             **_hybrid_keys(ssd_times[("hybrid", 1024)],
-                           hybrid_launches["ssd_scan"])}]
+                           hybrid_launches["ssd_scan"])}] \
+        + _ledger_records(ledger, slice_ex)
     # the kernels on the card in the run whose calls ``launches`` counts
     device = {"fleet_scan": main_run["device_launches"],
               "soft_scan_fwd": tune["device_launches"],
@@ -4208,14 +4719,16 @@ def main() -> int:
               "soft_dispatch_fused_fwd": aware["device_launches"],
               "soft_dispatch_fused_bwd": aware["device_launches"],
               "flash_attention": serve_device,
-              "decode_attention": serve_device, "ssd_scan": ssm_device}
+              "decode_attention": serve_device, "ssd_scan": ssm_device,
+              **{k: slice_ex["device_launches"] for k in LEDGER_KERNELS}}
     kernels[0]["live_launches"] = live["launches"]
     disp_rec = next(r for r in kernels if r["name"] == "dispatch_scan")
     disp_rec["live_launches"] = live["fleet_launches"]
     flash = next(r for r in kernels if r["name"] == "flash_attention")
     flash["train_launches"] = train["launches"]
     flash["train_max_grad_err"] = train_errs["flash_attention"]
-    kernels[-1]["train_max_grad_err"] = train_errs["ssd_scan"]
+    ssd = next(r for r in kernels if r["name"] == "ssd_scan")
+    ssd["train_max_grad_err"] = train_errs["ssd_scan"]
     for rec in kernels:
         runs = [("", device[rec["name"]])]
         if "hybrid_launches" in rec:

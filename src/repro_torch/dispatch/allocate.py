@@ -85,23 +85,13 @@ class DispatchConfig(_DispatchConfigFields):
     for that many hours. ``compute_floor_mwh`` is the aggregate compute
     the fleet must deliver over the period. ``plan`` pins the execution
     layout `dispatch` solves under. ``relief`` (a `Relief`) converts
-    infeasible hours into priced shed instead of raising. ``workload``
-    (demand derived from a request-arrival model) comes to the port with
-    the workload slice and raises `NotImplementedError` until then.
+    infeasible hours into priced shed instead of raising. ``workload`` (a
+    `repro_torch.workload.Workload`, duck-typed to avoid the import
+    cycle) takes over the None default of ``demand_mw``: the profile is
+    the workload's expected demand (`resolve_demand`).
     """
 
     __slots__ = ()
-
-    def __new__(cls, *args, **kwargs):
-        return _no_workload(super().__new__(cls, *args, **kwargs))
-
-
-def _no_workload(cfg):
-    if getattr(cfg, "workload", None) is not None:
-        raise NotImplementedError(
-            "DispatchConfig(workload=) comes to the port with the "
-            "workload slice (ROADMAP queue 1)")
-    return cfg
 
 
 class DispatchProblem(NamedTuple):
@@ -202,9 +192,13 @@ def resolve_demand(cfg: DispatchConfig, power: np.ndarray,
     broadcasts, a sequence must have exactly ``t`` entries (anything else
     raises — a profile built for the wrong horizon is a bug, not a
     broadcast), and None defaults to ``demand_frac`` of the summed site
-    ratings."""
-    _no_workload(cfg)
-    if cfg.demand_mw is None:
+    ratings. A ``cfg.workload`` spec takes over the None default: the
+    profile is the workload's expected demand
+    (`Workload.mean_demand_mw`)."""
+    if cfg.demand_mw is None and getattr(cfg, "workload", None) \
+            is not None:
+        demand = np.asarray(cfg.workload.mean_demand_mw(t), np.float64)
+    elif cfg.demand_mw is None:
         demand = np.asarray(cfg.demand_frac
                             * float(np.asarray(power, np.float64).sum()))
     else:

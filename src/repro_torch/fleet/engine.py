@@ -59,9 +59,29 @@ def fleet_costs(scan: FleetScanOut, *, price_sum, fixed, power, period,
                       restart_cost=e_restart, up_hours=up_hours)
 
 
+def fleet_report(grid: ScenarioGrid, scan: FleetScanOut) -> FleetReport:
+    """The `FleetReport` of ``grid``'s rows from their four scan sums: the
+    cost assembly every backtest shares (plain, faulted, workload-coupled),
+    costs settling at the true prices."""
+    t = grid.n_hours
+    price_sum = grid.prices.sum(1)[grid.market_idx]   # [B] sum_t p_t
+    costs = fleet_costs(scan, price_sum=price_sum, fixed=grid.fixed,
+                        power=grid.power, period=grid.period,
+                        restart_energy_mwh=grid.restart_energy_mwh,
+                        restart_time_h=grid.restart_time_h, n_samples=t)
+    return FleetReport(
+        cpc=costs.cpc, cpc_ao=costs.cpc_ao,
+        cpc_reduction=1.0 - costs.cpc / costs.cpc_ao,
+        tco=costs.tco, energy_cost=costs.energy_cost,
+        restart_cost=costs.restart_cost,
+        up_hours=costs.up_hours, n_starts=scan.n_starts,
+        x_realized=1.0 - scan.up_units / t,
+        market_idx=grid.market_idx, system_idx=grid.system_idx,
+        policy_idx=grid.policy_idx)
+
+
 def _backtest_rows(grid: ScenarioGrid,
                    use_kernel: Optional[bool]) -> FleetReport:
-    t = grid.n_hours
     # each row reads its market's prices through the index: no [B, T]
     # block is gathered on the card
     scan = fleet_scan(grid.prices.contiguous(), grid.p_on, grid.p_off,
@@ -79,20 +99,7 @@ def _backtest_rows(grid: ScenarioGrid,
         obs.drain("fleet.hourly", on_mw=hourly.on_mw,
                   draw_price=hourly.draw_price, starts=hourly.starts,
                   stops=hourly.stops)
-    price_sum = grid.prices.sum(1)[grid.market_idx]   # [B] sum_t p_t
-    costs = fleet_costs(scan, price_sum=price_sum, fixed=grid.fixed,
-                        power=grid.power, period=grid.period,
-                        restart_energy_mwh=grid.restart_energy_mwh,
-                        restart_time_h=grid.restart_time_h, n_samples=t)
-    return FleetReport(
-        cpc=costs.cpc, cpc_ao=costs.cpc_ao,
-        cpc_reduction=1.0 - costs.cpc / costs.cpc_ao,
-        tco=costs.tco, energy_cost=costs.energy_cost,
-        restart_cost=costs.restart_cost,
-        up_hours=costs.up_hours, n_starts=scan.n_starts,
-        x_realized=1.0 - scan.up_units / t,
-        market_idx=grid.market_idx, system_idx=grid.system_idx,
-        policy_idx=grid.policy_idx)
+    return fleet_report(grid, scan)
 
 
 def backtest(grid: ScenarioGrid, *, use_kernel: Optional[bool] = None,

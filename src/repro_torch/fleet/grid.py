@@ -96,6 +96,11 @@ class ScenarioGrid:
     market_names: tuple = ()
     system_names: tuple = ()
     policy_names: tuple = ()
+    # optional `repro_torch.workload.Workload` spec (duck-typed): None
+    # keeps every engine on the exogenous-demand path; set,
+    # `workload_backtest` / `summarize` / `optimize` couple the rows to
+    # sampled request traces
+    workload: Optional[object] = None
 
     @property
     def n_rows(self) -> int:
@@ -120,7 +125,7 @@ class ScenarioGrid:
     # fields shared across rows, NOT permuted by take_rows; everything
     # else must be a [B]-leading tensor or take_rows refuses to guess
     SHARED_FIELDS = ("prices", "market_names", "system_names",
-                     "policy_names")
+                     "policy_names", "workload")
 
     def take_rows(self, order: np.ndarray) -> "ScenarioGrid":
         """Row-permuted view (shared fields stay); row order is an
@@ -193,14 +198,17 @@ def build_grid(markets: Union[Sequence[MarketParams], np.ndarray,
                systems: Sequence[SystemCosts],
                policies: Sequence[PolicySpec],
                market_names: Optional[Sequence[str]] = None,
-               system_names: Optional[Sequence[str]] = None, *,
+               system_names: Optional[Sequence[str]] = None,
+               workload=None, *,
                device: DeviceLike = None) -> ScenarioGrid:
     """Materialise the B = N*M*K scenario grid on ``device``.
 
     ``markets``: either MarketParams (generated together by
     `repro_torch.energy.markets.generate_markets`) or an [N, T] price
     matrix. All markets share T; all systems are backtested over the same
-    period.
+    period. ``workload`` (a `repro_torch.workload.Workload`) couples the
+    grid to sampled request traces wherever the grid flows; None keeps the
+    exogenous-demand paths untouched.
     """
     if len(systems) == 0 or len(policies) == 0:
         raise ValueError("need at least one system and one policy")
@@ -244,6 +252,7 @@ def build_grid(markets: Union[Sequence[MarketParams], np.ndarray,
         market_names=tuple(market_names),
         system_names=tuple(system_names),
         policy_names=tuple(p.name for p in policies),
+        workload=workload,
     )
 
 

@@ -9,8 +9,9 @@ reduction, Eqs. 21-29), and what the whole fleet spends in total.
 
 With ``dispatch_cfg=`` the feasible cross-site dispatcher
 (`repro_torch.dispatch`) runs over one site per covered (market, system)
-cell. Workload-coupled ledgers (``workload=``) come with their own slice;
-until then they raise.
+cell. With a workload (``workload=`` or the grid's own), the rows are
+re-run through the workload-coupled backtest (`repro_torch.workload`) and
+its ledger economics land in `FleetSummary.workload`.
 """
 
 from __future__ import annotations
@@ -59,7 +60,11 @@ class FleetSummary(NamedTuple):
     # dispatch_cfg) and the report rows it operated
     dispatch: Optional[object] = None
     dispatch_rows: Optional[np.ndarray] = None
-    workload: Optional[object] = None    # filled by the workload slice
+    # workload-coupled ledger economics (a
+    # `repro_torch.workload.WorkloadResult`: CPC p10/p50/p90 over the
+    # demand draws, served/deferred/dropped totals) — None unless the grid
+    # carries a Workload spec or summarize() was given one
+    workload: Optional[object] = None
 
 
 def oracle_reduction_grid(prices: torch.Tensor,
@@ -107,10 +112,13 @@ def summarize(grid, report: FleetReport, *,
     `FleetSummary.dispatch`, with the operated rows in
     `FleetSummary.dispatch_rows` (raises
     `repro_torch.dispatch.DispatchInfeasible` when the configured demand
-    cannot be met; hard constraints are never clipped)."""
-    if workload is not None:
-        raise NotImplementedError("summarize(workload=...) needs the "
-                                  "workload slice, which is not ported yet")
+    cannot be met; hard constraints are never clipped).
+
+    ``workload`` (a `repro_torch.workload.Workload`, defaulting to
+    ``grid.workload``) re-runs the rows through the workload-coupled
+    backtest (`repro_torch.workload.workload_backtest`, the ledger kernel
+    on the card) and keeps its ledger economics — CPC quantiles over the
+    demand draws, served/deferred/dropped — in `FleetSummary.workload`."""
     n, m, k = grid.n_markets, grid.n_systems, grid.n_policies
     mi = report.market_idx.cpu().numpy()
     si = report.system_idx.cpu().numpy()
@@ -167,6 +175,15 @@ def summarize(grid, report: FleetReport, *,
             grid.off_level[r], grid.power[r], dispatch_cfg,
             fixed=grid.fixed[r], site_names=names, device=dev), device=dev)
 
+    wl = workload if workload is not None \
+        else getattr(grid, "workload", None)
+    wl_result = None
+    if wl is not None:
+        # lazy import: repro_torch.workload imports the fleet engine
+        from repro_torch.workload import workload_backtest
+        wl_result = workload_backtest(grid, wl,
+                                      device=grid.prices.device).workload
+
     summary = FleetSummary(
         reduction=red,
         best_policy=best_policy,
@@ -179,6 +196,7 @@ def summarize(grid, report: FleetReport, *,
         total_up_hours=float(np.nansum(hours)),
         dispatch=disp,
         dispatch_rows=rows,
+        workload=wl_result,
     )
     if obs.enabled():
         obs.trace_event("fleet.summary", {

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -1661,3 +1662,350 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y = y + y_off * torch.exp(cum)[..., None]
     return (y.reshape(bsz, nc * ln, nh, p)[:, :s],
             h.reshape(bsz, nh, p, n))
+
+
+# ---------------------------------------------------------------------------
+# The work ledger: plain versions of `csrc/queue_scan.cu` (the reference
+# runs the ledger as a `lax.scan`, `repro/kernels/queue_scan.py`)
+# ---------------------------------------------------------------------------
+
+QUEUE_MWH_SCALE = 0.05   # MWh smoothing width per price-unit of tau: the
+                         # soft ledger's clip temperature co-anneals with
+                         # the tuner's sigmoid temperature, so tau -> 0
+                         # recovers the hard ledger
+
+
+def smoothclip(z, w, tau):
+    """Soft ``clip(z, 0, w)``: ``tau (softplus(z / tau) - softplus((z - w)
+    / tau))``. Exactly 0 at w == 0, strictly in (0, w) for w > 0,
+    monotone in z, its derivatives a sigmoid pair, and -> clip(z, 0, w)
+    as tau -> 0. The softplus is `jax.nn.softplus`'s value (`_Softplus`),
+    taken of both arguments in one stacked pass."""
+    z, w = torch.broadcast_tensors(torch.as_tensor(z), torch.as_tensor(w))
+    sp = _Softplus.apply(torch.stack([z, z - w]) / tau)
+    return tau * (sp[0] - sp[1])
+
+
+def _ledger_clip(z, w, tau):
+    """clip(z, 0, w) (``tau`` None) or its `smoothclip` relaxation."""
+    if tau is None:
+        return torch.minimum(torch.clamp(z, min=0.0), w)
+    return smoothclip(z, w, tau)
+
+
+def queue_hour_step(q, a_t, cap_t, *, bound, tau=None):
+    """One hour of the work ledger (hard, or soft when ``tau`` is set).
+
+    q: [..., D] backlog by age (index 0 youngest = arrived last hour, D-1
+    one hour from deadline expiry); a_t/cap_t: [...] arrivals and serving
+    capacity in MWh (broadcastable against q's batch shape). Returns
+    ``(q_new, served, dropped)``, served/dropped [...].
+
+    The greedy oldest-first fill in the reference's parallel-cumsum idiom:
+    line the work up oldest-first with the arrivals last, serve
+    ``clip(cap - older_mass, 0, width)`` of each bucket; the unserved
+    oldest bucket drops (deadline expiry), the survivors age one hour and
+    re-queue under ``bound`` (oldest kept, youngest dropped)."""
+    batch = q.shape[:-1]
+    a = torch.broadcast_to(a_t, batch)[..., None]
+    w = torch.cat([q.flip(-1), a], -1)             # oldest first
+    excl = torch.cumsum(w, -1) - w
+    room = torch.broadcast_to(cap_t, batch)[..., None] - excl
+    serve = _ledger_clip(room, w, tau)
+    served = torch.sum(serve, -1)
+    u = w - serve
+    aged = u[..., 1:]                     # survivors, still oldest-first
+    excl_a = torch.cumsum(aged, -1) - aged
+    keep = _ledger_clip(bound - excl_a, aged, tau)
+    dropped = u[..., 0] + torch.sum(aged - keep, -1)
+    return keep.flip(-1), served, dropped
+
+
+class QueueScanOut(NamedTuple):
+    """Ledger sufficient statistics over the horizon (batch-shaped)."""
+
+    served: torch.Tensor       # total MWh served
+    dropped: torch.Tensor      # total MWh dropped (expiry + overflow)
+    backlog: torch.Tensor      # MWh-hours deferred (sum of hourly backlog)
+    served_cost: torch.Tensor  # EUR: sum_t served_t p_t (0 without prices)
+    q_final: torch.Tensor      # [..., D] end-of-run queue, youngest first
+
+
+class QueueHourly(NamedTuple):
+    """Per-hour ledger series ([..., T] each)."""
+
+    served: torch.Tensor
+    dropped: torch.Tensor
+    backlog: torch.Tensor
+
+
+def _ledger_dtype(*xs) -> torch.dtype:
+    """The ledger's type: float64 if any input is float64, else float32
+    (the reference's ``result_type``, integers computing in float32)."""
+    return torch.float64 if any(
+        isinstance(x, torch.Tensor) and x.dtype == torch.float64
+        or isinstance(x, np.ndarray) and x.dtype == np.float64
+        for x in xs) else torch.float32
+
+
+def _ledger_loop(a, c, p, *, deadline: int, bound, tau, keep_hist: bool,
+                 hourly: bool):
+    """The hour loop of `queue_hour_step` over [..., T] inputs of one
+    dtype. Returns ``(QueueScanOut, hist, hourly)``: ``hist`` the queue
+    entering each hour [T, ..., D] (or None), ``hourly`` a `QueueHourly`
+    (or None)."""
+    batch, t_len = a.shape[:-1], a.shape[-1]
+    zeros = torch.zeros(batch, dtype=a.dtype, device=a.device)
+    q = torch.zeros(batch + (int(deadline),), dtype=a.dtype, device=a.device)
+    bound = torch.as_tensor(bound, dtype=a.dtype, device=a.device)
+    acc = [zeros] * 4
+    hist, ys = [], []
+    for t in range(t_len):
+        if keep_hist:
+            hist.append(q)
+        q, served, dropped = queue_hour_step(q, a[..., t], c[..., t],
+                                             bound=bound, tau=tau)
+        bl = torch.sum(q, -1)
+        acc = [acc[0] + served, acc[1] + dropped, acc[2] + bl,
+               acc[3] + served * p[..., t]]
+        if hourly:
+            ys.append((served, dropped, bl))
+    out = QueueScanOut(*acc, q)
+    return (out, torch.stack(hist) if keep_hist else None,
+            QueueHourly(*(torch.stack(y, -1) for y in zip(*ys)))
+            if hourly else None)
+
+
+def _ledger_inputs(arrivals, cap, prices=None):
+    """Arrivals, capacity and prices broadcast to one [..., T] shape in
+    the ledger's dtype, on the arrivals' device."""
+    dtype = _ledger_dtype(arrivals, cap)
+    dev = arrivals.device if isinstance(arrivals, torch.Tensor) else None
+    a = torch.as_tensor(arrivals, device=dev).to(dtype)
+    c = torch.as_tensor(cap, device=a.device).to(dtype)
+    shape = torch.broadcast_shapes(a.shape, c.shape)
+    a, c = torch.broadcast_to(a, shape), torch.broadcast_to(c, shape)
+    p = torch.zeros(shape, dtype=dtype, device=a.device) if prices is None \
+        else torch.broadcast_to(torch.as_tensor(prices, device=a.device)
+                                .to(dtype), shape)
+    return a, c, p
+
+
+def queue_scan_ref(arrivals, cap, *, deadline: int, bound, tau=None,
+                   prices=None, hourly: bool = False):
+    """The work ledger over the horizon, a Python loop of
+    `queue_hour_step` (the reference's `queue_scan` contract).
+
+    arrivals/cap: [..., T] MWh per hour, mutually broadcastable;
+    ``prices`` (optional, broadcastable) prices each served MWh at the
+    hour it is actually served. ``tau=None`` is the hard ledger; a number
+    or tensor runs the `smoothclip` relaxation (autograd flows through
+    it). ``deadline`` is any integer >= 0 (0: serve or drop the same
+    hour). Float64 inputs compute in float64, anything else in float32.
+    With ``hourly=True`` returns ``(QueueScanOut, QueueHourly)``."""
+    if int(deadline) < 0:
+        raise ValueError(f"queue_scan: deadline must be >= 0, got "
+                         f"{deadline}")
+    a, c, p = _ledger_inputs(arrivals, cap, prices)
+    out, _, ys = _ledger_loop(a, c, p, deadline=int(deadline), bound=bound,
+                              tau=tau, keep_hist=False, hourly=hourly)
+    return (out, ys) if hourly else out
+
+
+def soft_ledger_fwd_ref(demand: torch.Tensor, cap: torch.Tensor,
+                        tau: torch.Tensor, *, deadline: int, bound,
+                        prices=None, hard: bool = False,
+                        hourly: bool = False):
+    """Plain version of the ledger's forward kernel (``soft_ledger_fwd``):
+    demand/cap [B, T] MWh of one dtype, ``tau`` a [1] tensor (the MWh
+    temperature; unread when ``hard``), prices [B, T] or None.
+
+    Returns ``(sums [4, B], hist [T, B, D], q_final [B, D], hourly)``:
+    the served, dropped, backlog (MWh-hours) and served-cost sums, the
+    queue entering every hour (youngest first; the backward's residual;
+    None when ``hard``), the end-of-run queue and, with ``hourly``, the
+    [3, B, T] served / dropped / backlog series (else None)."""
+    p = torch.zeros_like(demand) if prices is None else prices
+    out, hist, ys = _ledger_loop(
+        demand, cap, p, deadline=int(deadline), bound=bound,
+        tau=None if hard else tau[0], keep_hist=not hard, hourly=hourly)
+    sums = torch.stack([out.served, out.dropped, out.backlog,
+                        out.served_cost])
+    return sums, hist, out.q_final, (torch.stack(ys) if hourly else None)
+
+
+def _rev_excl(x: torch.Tensor) -> torch.Tensor:
+    """sum_{k > j} x_k along the last axis."""
+    return torch.flip(torch.cumsum(torch.flip(x, (-1,)), -1), (-1,)) - x
+
+
+def soft_ledger_bwd_ref(demand: torch.Tensor, cap: torch.Tensor,
+                        tau: torch.Tensor, hist: torch.Tensor,
+                        g: torch.Tensor, *, deadline: int, bound,
+                        prices=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the ledger's backward kernel (``soft_ledger_bwd``):
+    the VJP of `soft_ledger_fwd_ref`'s four sums for the cotangents ``g``
+    [4, B] (served, dropped, backlog, served cost), from the queue
+    entering each hour ``hist``. Returns ``(d_cap, d_demand)``, [B, T]
+    each. Prices carry no gradient.
+
+    Reverse time. Each hour recomputes its forward from the entering
+    queue, then, with ``lam`` the adjoint of the queue it leaves (oldest
+    first), ``gk = lam + g_backlog - g_dropped`` on each kept bucket:
+
+        g_aged_j = g_dropped + gk_j dw2_j - sum_{k>j} gk_k dz2_k
+        g_u      = [g_dropped, g_aged]
+        g_room_i = (g_served' - g_u_i) dz1_i
+        g_w_i    = g_u_i + (g_served' - g_u_i) dw1_i - sum_{k>i} g_room_k
+
+    with g_served' = g_served + g_cost p_t, (dz, dw) the `smoothclip`
+    derivatives ``sigma(z/tau) - sigma((z-w)/tau)`` and
+    ``sigma((z-w)/tau)`` of the serve (1) and keep (2) clips; d cap_t is
+    the sum of g_room, d demand_t the arrivals' g_w, and the entering
+    queue's adjoint the rest of g_w."""
+    b, t_len = demand.shape
+    d = int(deadline)
+    tau_ = tau[0]
+    bound = torch.as_tensor(bound, dtype=demand.dtype, device=demand.device)
+    g_s, g_d, g_b, g_c = (x[:, None] for x in g)
+    lam = torch.zeros((b, d), dtype=demand.dtype, device=demand.device)
+    d_cap = torch.empty_like(demand)
+    d_dem = torch.empty_like(demand)
+    for t in range(t_len - 1, -1, -1):
+        w = torch.cat([hist[t].flip(-1), demand[:, t:t + 1]], -1)
+        excl = torch.cumsum(w, -1) - w
+        room = cap[:, t:t + 1] - excl
+        u = w - smoothclip(room, w, tau_)
+        aged = u[:, 1:]
+        za = bound - (torch.cumsum(aged, -1) - aged)
+        s1 = _sig_rn(torch.stack([room, room - w]) / tau_)
+        dz1, dw1 = s1[0] - s1[1], s1[1]
+        s2 = _sig_rn(torch.stack([za, za - aged]) / tau_)
+        dz2, dw2 = s2[0] - s2[1], s2[1]
+        g_serve_t = g_s if prices is None else g_s + g_c * prices[:, t:t + 1]
+        gk = lam.flip(-1) + g_b - g_d
+        g_aged = g_d + gk * dw2 - _rev_excl(gk * dz2)
+        g_u = torch.cat([g_d, g_aged], -1)
+        g_serve = g_serve_t - g_u
+        g_room = g_serve * dz1
+        g_w = g_u + g_serve * dw1 - _rev_excl(g_room)
+        d_cap[:, t] = torch.sum(g_room, -1)
+        d_dem[:, t] = g_w[:, d]
+        lam = g_w[:, :d].flip(-1)
+    return d_cap, d_dem
+
+
+class WorkloadLedgerOut(NamedTuple):
+    """Per-(row, draw) ledger sums of the fleet-coupled hard ledger
+    ([B, G] each)."""
+
+    served: torch.Tensor       # MWh
+    dropped: torch.Tensor      # MWh
+    backlog: torch.Tensor      # MWh-hours deferred
+    served_cost: torch.Tensor  # EUR at the hour each MWh is served
+
+
+def workload_ledger_ref(prices: torch.Tensor, p_on, p_off, off_level,
+                        cap_mwh, demand: torch.Tensor, dt, *,
+                        deadline: int, bound, market_idx=None,
+                        hourly: bool = False):
+    """Plain version of the hard ledger kernel (``workload_ledger_fwd``):
+    every row's shutdown state machine (`hard_hour_step`'s comparisons,
+    off tested first, starting on) inline, and its G demand draws served
+    hour by hour with the hour's realised capacity ``cap_mwh * cap``.
+    The reference's `workload_fleet_scan` without its fleet sums.
+
+    prices: [B, T], or [N, T] with ``market_idx`` [B]; p_on/p_off/
+    off_level/cap_mwh/dt: [B] or scalars; demand: [G, T] MW (row b's
+    arrivals are ``dt_b * demand``). Float32 throughout. Returns
+    ``(WorkloadLedgerOut, hourly)``; ``hourly`` is None, or with
+    ``hourly=True`` the [4, B, T] per-row sums over the draws of each
+    hour's arrivals, served, dropped and backlog MWh."""
+    f32 = torch.float32
+    p = prices.to(f32)
+    rows = p if market_idx is None else p[market_idx]
+    b, t_len = rows.shape
+    dev = rows.device
+    p_on, p_off, lvl, cmwh, dtb = (
+        torch.as_tensor(v, device=dev).to(f32).expand(b)
+        for v in (p_on, p_off, off_level, cap_mwh, dt))
+    dem = demand.to(f32)
+    g_n = dem.shape[0]
+    bound = torch.as_tensor(bound, dtype=f32, device=dev)
+    on = torch.ones(b, dtype=f32, device=dev)
+    q = torch.zeros((b, g_n, int(deadline)), dtype=f32, device=dev)
+    acc = [torch.zeros((b, g_n), dtype=f32, device=dev)] * 4
+    ys = []
+    for t in range(t_len):
+        p_t = rows[:, t]
+        on = torch.where(p_t > p_off, 0.0, torch.where(p_t <= p_on, 1.0, on))
+        cap = lvl + (1.0 - lvl) * on
+        a_bg = dtb[:, None] * dem[:, t][None, :]
+        q, served, dropped = queue_hour_step(q, a_bg, (cmwh * cap)[:, None],
+                                             bound=bound)
+        bl = torch.sum(q, -1)
+        acc = [acc[0] + served, acc[1] + dropped, acc[2] + bl,
+               acc[3] + served * p_t[:, None]]
+        if hourly:
+            ys.append(torch.stack([x.sum(1) for x in (a_bg, served, dropped,
+                                                      bl)]))
+    return (WorkloadLedgerOut(*acc),
+            torch.stack(ys, -1) if hourly else None)
+
+
+def observed_prices(prices: torch.Tensor, price_ok: torch.Tensor):
+    """The observed price series under feed gaps (rows x hours): the last
+    arrived sample carried forward (the row's first true price before any
+    arrives), and its staleness in hours — a cummax of the arrival hour,
+    no hour loop."""
+    hour = torch.arange(prices.shape[1], device=prices.device)
+    last = torch.cummax(torch.where(price_ok, hour, -1), dim=1).values
+    p_obs = torch.where(last >= 0,
+                        prices.gather(1, torch.clamp(last, min=0)),
+                        prices[:, :1])
+    return p_obs, hour - last
+
+
+def faulted_states_ref(prices: torch.Tensor, price_ok: torch.Tensor,
+                       cap_mult: torch.Tensor, p_on, p_off, off_level,
+                       idle_frac) -> FleetScanOut:
+    """The fleet backtest's four sums under fault masks, without an hour
+    loop. prices/price_ok/cap_mult: [B, T] (each row's market prices, its
+    feed's arrivals, its capacity multiplier); parameters [B] or scalars.
+
+    The reference steps `hard_hour_step` on the observed price through a
+    `lax.scan` (`repro/faults/inject.py::_faulted_scan`). Here:
+
+      * the observed price is the last arrived sample (`observed_prices`);
+      * a row's state at hour t is that of its last decisive hour (the
+        rule of `fleet_hourly_ref`): the observed price above p_off
+        (off), else at or below p_on (on), or an outage (cap_mult <= 0:
+        forced off, so recovery re-enters through a start);
+      * capacity and draw scale by cap_mult (a partial derate), and costs
+        settle at the true price.
+
+    The states and start counts equal the reference's exactly; the float32
+    sums over hours are reductions in another order."""
+    p = prices.to(torch.float32)
+    b, t_len = p.shape
+    p_on, p_off, off_level, idle_frac = (
+        torch.as_tensor(v, device=p.device).to(torch.float32)
+        .expand(b)[:, None] for v in (p_on, p_off, off_level, idle_frac))
+    m = cap_mult.to(torch.float32)
+    hour = torch.arange(t_len, device=p.device)
+    p_obs, _ = observed_prices(p, price_ok)
+    off = p_obs > p_off
+    turn_on = (p_obs <= p_on) & ~off
+    forced = ~(m > 0.0)
+    code = torch.where(off | turn_on | forced,
+                       2 * hour + (turn_on & ~forced).long(), -1)
+    last = torch.cummax(code, dim=1).values
+    on = torch.where(last >= 0, (last & 1).to(torch.float32), 1.0)
+    on_prev = torch.cat([torch.ones_like(on[:, :1]), on[:, :-1]], 1)
+    start = torch.clamp(on - on_prev, min=0.0)
+    cap = off_level + (1.0 - off_level) * on
+    draw = cap + idle_frac * (1.0 - cap)
+    return FleetScanOut(draw_price_sum=torch.sum(draw * m * p, 1),
+                        up_units=torch.sum(cap * m, 1),
+                        n_starts=torch.sum(start, 1),
+                        restart_price_sum=torch.sum(start * p, 1))

@@ -42,8 +42,27 @@ aggregates are computed *only* while a run is active, stacked on the
 device and drained once as one ``live.step`` event after the loop, and
 feed nothing back, so results are bit-identical on vs off.
 
-Faults (the reference's degradation ladder under ``faults=``) come to
-the port with the faults slice; until then ``faults=`` raises.
+Faults (`repro_torch.faults`) degrade the controller instead of crashing
+it. With non-trivial masks the same loop gains three channels (trivial
+masks run the healthy loop itself, so a zero-fault run is the unfaulted
+one bit for bit):
+
+  * price-feed gaps — decisions read the forward-filled *observed* price
+    series (a cummax of the last arrival, staleness tracked per market)
+    while costs settle at the true price, as
+    `repro_torch.faults.faulted_backtest` does;
+  * forecast blackouts — a fallback ladder replaces the fresh forecast:
+    (0) fresh, (1) the last-published window age-shifted with persistence
+    tail-padding while it still covers the horizon, (2) seasonal-naive
+    recomputed from the observed history once the published window has
+    fully aged out, (3) raw persistence when the price feed itself is
+    older than a season. Rung occupancy is accumulated on the device and
+    emitted as one ``live.fallback`` event;
+  * site outages — a zero capacity multiplier forces the row off (so
+    recovery re-enters through the normal start path and bills the
+    restart overhead); partial multipliers derate capacity and draw.
+    Demand surges have no live analog (the controller rows are
+    uncoupled) and are ignored here.
 """
 
 from __future__ import annotations
@@ -57,7 +76,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.energy.forecast import (seasonal_naive_batch,
                                          similar_day_ar_batch)
 from repro_torch.fleet.engine import fleet_costs
-from repro_torch.kernels.ref import FleetScanOut, hard_hour_step
+from repro_torch.kernels.ref import (FleetScanOut, hard_hour_step,
+                                     observed_prices)
 from repro_torch.live.grid import LiveGrid
 
 
@@ -139,13 +159,17 @@ def _live_scan(prices, market_idx, fixed, power, period, p_on0, p_off0,
                off_level, idle_frac, forecaster_id, horizon, cadence,
                family_id, x, hysteresis, *, cfg: LiveConfig, h_max: int,
                tuned: bool = True, telemetry: bool = False,
-               keep_thresholds: bool = False):
+               keep_thresholds: bool = False, masks=None):
     """The hour loop. ``tuned`` False (a sweep without the tuned family)
-    skips the Adam steps, whose result no row would apply. Returns
-    ``(scan_out, extras, p_off_final, committed)``: ``committed`` is
-    None, or with ``keep_thresholds`` the [hours, B] thresholds each hour
-    realized with and the true prices they met (``(p_on, p_off, p_t)``,
-    for `near_threshold_hours`)."""
+    skips the Adam steps, whose result no row would apply. ``masks``
+    (non-trivial `repro_torch.faults.FaultMasks` over B rows x N markets
+    x T hours) switches on the fault channels. Returns ``(scan_out,
+    extras, p_off_final, committed, fstats)``: ``committed`` is None, or
+    with ``keep_thresholds`` the [hours, B] thresholds each hour realized
+    with and the true prices they met (``(p_on, p_off, p_t)``, for
+    `near_threshold_hours`); ``fstats`` is None, or under faults the [6]
+    counts of row-hours on each fallback rung (fresh, stale-shift,
+    seasonal-naive, persistence), forced off, and on a stale price."""
     dev = prices.device
     f32 = torch.float32
     t_total = prices.shape[1]
@@ -172,6 +196,28 @@ def _live_scan(prices, market_idx, fixed, power, period, p_on0, p_off0,
     cols = torch.arange(cfg.start - w + 1, cfg.start + cfg.hours + h,
                         device=dev) % t_total
     block = prices[:, cols]                 # [N, hours + w + h - 1]
+    faulted = masks is not None
+    if faulted:
+        # decisions and forecasts read the observed (gap-filled) series,
+        # truth and settlement the true one; every hour's mask column is
+        # gathered once, like the prices
+        p_obs, stale = observed_prices(
+            prices, torch.as_tensor(masks.price_ok, device=dev))
+        obs_block = p_obs[:, cols]
+        hcols = cols[w - 1:w - 1 + cfg.hours]              # [hours]
+        stale_h = stale[:, hcols]                          # [N, hours]
+        ok_h = torch.as_tensor(masks.price_ok, device=dev)[:, hcols]
+        fok_h = torch.as_tensor(masks.forecast_ok, device=dev)[:, hcols]
+        mult_h = torch.as_tensor(masks.cap_mult, dtype=f32,
+                                 device=dev)[:, hcols]     # [B, hours]
+        # the last-published window starts fully aged, so a blackout in
+        # the first hour already lands on the seasonal-naive rung
+        fc_prev = torch.zeros((b, h), dtype=f32, device=dev)
+        fc_age = torch.full((b,), h, dtype=torch.long, device=dev)
+        fstats = torch.zeros(6, dtype=f32, device=dev)
+        shift0 = torch.arange(h, device=dev)[None, :]
+    else:
+        obs_block = block
 
     on = torch.ones(b, dtype=f32, device=dev)
     p_on_c, p_off_c = p_on0, p_off0
@@ -184,7 +230,7 @@ def _live_scan(prices, market_idx, fixed, power, period, p_on0, p_off0,
     ys, kept = [], []
     for i in range(cfg.hours):
         # --- 1. forecast: every forecaster, every market, batched -----
-        hist = block[:, i:i + w]                            # [N, W]
+        hist = obs_block[:, i:i + w]                        # [N, W]
         truth = block[:, i + w:i + w + h]                   # [N, H]
         f_sn = seasonal_naive_batch(hist, h, cfg.season)
         f_ar = similar_day_ar_batch(hist, h, cfg.season)
@@ -192,6 +238,25 @@ def _live_scan(prices, market_idx, fixed, power, period, p_on0, p_off0,
         f_all = torch.stack([f_sn, f_ar, f_p, truth])      # [4, N, H]
         fc = f_all[forecaster_id, market_idx]              # [B, H]
         truth_rows = truth[market_idx]                     # [B, H]
+        if faulted:
+            # the degradation ladder: fresh -> age-shifted last-published
+            # (persistence-padded tail) -> seasonal-naive on the observed
+            # history -> raw persistence once the feed itself is stale
+            f_ok = fok_h[:, i][market_idx]                     # [B]
+            age = torch.where(f_ok, 0, fc_age + 1)
+            shift = torch.clamp(shift0 + age[:, None], 0, h - 1)
+            fc_shift = fc_prev.gather(1, shift)
+            r1 = ~f_ok & (age < h)
+            r23 = ~f_ok & (age >= h)
+            r3 = r23 & (stale_h[:, i][market_idx] > cfg.season)
+            r2 = r23 & ~r3
+            fc = torch.where(f_ok[:, None], fc,
+                             torch.where(r1[:, None], fc_shift,
+                                         torch.where(r2[:, None],
+                                                     f_sn[market_idx],
+                                                     f_p[market_idx])))
+            fc_prev = torch.where(f_ok[:, None], fc, fc_prev)
+            fc_age = age
 
         # --- 2. re-solve on the cadence tick --------------------------
         do_commit = ((i % cadence) == 0) & resolvable
@@ -231,9 +296,29 @@ def _live_scan(prices, market_idx, fixed, power, period, p_on0, p_off0,
         churn = do_commit & (torch.abs(p_off_new - p_off_c) > cfg.churn_tol)
 
         # --- 3. realize on the true trace -----------------------------
-        p_t = hist[:, -1][market_idx]
-        on_new, st, cap, draw = hard_hour_step(on, p_t, p_on_new, p_off_new,
-                                               off_level, idle_frac)
+        p_t = block[:, i + w - 1][market_idx]
+        if faulted:
+            # decide on the observed (gap-filled) price, settle at the
+            # true price; a zero capacity multiplier forces the row off
+            # and recovery re-enters through the normal start account
+            m_row = mult_h[:, i]
+            on_new = hard_hour_step(on, hist[:, -1][market_idx], p_on_new,
+                                    p_off_new, off_level, idle_frac)[0]
+            on_new = torch.where(m_row > 0.0, on_new, zero)
+            st = torch.clamp(on_new - on, min=0.0)
+            cap = off_level + (1.0 - off_level) * on_new
+            draw = cap + idle_frac * (1.0 - cap)
+            cap = cap * m_row                                  # derate
+            draw = draw * m_row
+            fstats = fstats + torch.stack([
+                torch.sum(f_ok.to(f32)), torch.sum(r1.to(f32)),
+                torch.sum(r2.to(f32)), torch.sum(r3.to(f32)),
+                torch.sum((m_row <= 0.0).to(f32)),
+                torch.sum((~ok_h[:, i][market_idx]).to(f32))])
+        else:
+            on_new, st, cap, draw = hard_hour_step(on, p_t, p_on_new,
+                                                   p_off_new, off_level,
+                                                   idle_frac)
         stop = torch.clamp(on - on_new, min=0.0)
         err1 = torch.abs(fc[:, 0] - truth_rows[:, 0])
         err_h = torch.sum(torch.where(hmask, torch.abs(fc - truth_rows),
@@ -257,7 +342,8 @@ def _live_scan(prices, market_idx, fixed, power, period, p_on0, p_off0,
     scan_out = FleetScanOut(draw_price_sum=acc[0], up_units=acc[1],
                             n_starts=acc[2], restart_price_sum=acc[3])
     committed = tuple(torch.stack(kept, 1)) if keep_thresholds else None
-    return scan_out, acc[4:], p_off_c, committed
+    return scan_out, acc[4:], p_off_c, committed, \
+        (fstats if faulted else None)
 
 
 def _scan_args(lgrid: LiveGrid) -> tuple:
@@ -282,7 +368,7 @@ def near_threshold_hours(lgrid: LiveGrid, cfg: LiveConfig, rtol: float, *,
     ``device``; used to hold the port against the reference and the card
     against the CPU."""
     lgrid = lgrid.to(resolve_device(device))
-    *_, (p_on, p_off, p_t) = _live_scan(
+    _, _, _, (p_on, p_off, p_t), _ = _live_scan(
         *_scan_args(lgrid), **_scan_kw(lgrid, cfg), keep_thresholds=True)
     near = torch.zeros_like(p_t, dtype=torch.bool)
     for thr in (p_on, p_off):
@@ -305,20 +391,40 @@ def live_backtest(lgrid: LiveGrid, cfg: LiveConfig = LiveConfig(), *,
     window before hour ``season`` reads the end of the trace, the
     periodic-boundary convention of the synthetic markets.
 
-    ``faults`` (a fault schedule: price-feed gaps, forecast blackouts,
-    site outages) comes with the faults slice and raises until then.
+    ``faults`` is an optional `repro_torch.faults.FaultTrace` (compiled
+    here onto B rows x N markets x T trace hours — outage targets index
+    controller *rows*, fault hours are absolute trace hours) or
+    pre-compiled `repro_torch.faults.FaultMasks`. None or a trivial
+    schedule runs the healthy loop, bit for bit the run without it;
+    otherwise the degradation ladder engages (module docstring) and a
+    ``live.fallback`` event reports rung occupancy.
     """
-    if faults is not None:
-        raise NotImplementedError(
-            "live_backtest(faults=...): the degradation ladder comes to the "
-            "port with the faults slice (ROADMAP queue 1)")
     if cfg.hours < 1:
         raise ValueError("LiveConfig.hours must be >= 1")
     lgrid = lgrid.to(resolve_device(device))
     grid = lgrid.grid
-    scan_out, extras, p_off_f, _ = _live_scan(
-        *_scan_args(lgrid), **_scan_kw(lgrid, cfg), telemetry=obs.enabled())
+    telemetry = obs.enabled()
+    masks = None
+    if faults is not None and getattr(faults, "events", True):
+        from repro_torch.faults.inject import emit_fault_events, resolve_masks
+        masks = resolve_masks(faults, grid.n_rows, grid.n_markets,
+                              grid.n_hours)
+        if masks.is_trivial:
+            masks = None
+        else:
+            emit_fault_events(faults, masks, scope="live")
+    scan_out, extras, p_off_f, _, fstats = _live_scan(
+        *_scan_args(lgrid), **_scan_kw(lgrid, cfg), telemetry=telemetry,
+        masks=masks)
     n_stops, churn, err1, err_h, naive1 = extras
+    if fstats is not None and telemetry:
+        n = [int(v) for v in fstats.tolist()]
+        obs.trace_event("live.fallback", {
+            "fresh": n[0], "stale_shift": n[1], "seasonal_naive": n[2],
+            "persistence": n[3], "forced_off_row_hours": n[4],
+            "stale_price_row_hours": n[5], "rows": grid.n_rows,
+            "hours": cfg.hours})
+        obs.counter("live.fallback_hours").inc(n[1] + n[2] + n[3])
 
     t_total = grid.n_hours
     frac = cfg.hours / t_total

@@ -44,6 +44,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.energy.forecast import seasonal_naive_batch
 from repro_torch.kernels.live_window import (segment_keys_jnp,
                                              segment_rank_jnp)
+from repro_torch.kernels.queue_scan import queue_scan
 from repro_torch.kernels.ref import dispatch_alloc_hour, hard_hour_step
 
 
@@ -59,8 +60,10 @@ class LiveFleetResult(NamedTuple):
     shed_mwh: torch.Tensor        # demand the fleet could not place
     replan_mw: torch.Tensor       # sum_t |commit_t - plan_{t-1}(t)|
     p_off_final: torch.Tensor     # [S] last committed thresholds
-    # work-ledger economics over sampled demand draws — the workload
-    # slice; always None here
+    # work-ledger economics over sampled demand draws (None unless
+    # `live_fleet_dispatch`'s ``workload``): {"served_mwh",
+    # "dropped_mwh", "deferred_mwh_h", "cost"} ([G] numpy each) and
+    # "cpc_p10/p50/p90" floats
     workload: Optional[dict] = None
 
 
@@ -159,26 +162,35 @@ def live_fleet_dispatch(prices, power, p_on, p_off, off_level, idle_frac,
     accounting mirrors `repro_torch.dispatch.summarize_alloc` (matched
     in/out migration flow; hour 0 placement is not a move).
 
-    ``workload`` (demand drawn from a workload model, replayed through
-    the work ledger) and ``faults`` (demand surges) come with the
-    workload and faults slices and raise until then.
+    ``workload`` (a `repro_torch.workload.Workload`) makes ``demand``
+    optional: the loop then plans against the workload's *mean* demand
+    profile over the live window, and afterwards replays every sampled
+    demand draw through the hard work ledger against the hour-by-hour
+    *delivered* fleet allocation (`_replay_workload`) —
+    `LiveFleetResult.workload` reports served/deferred/dropped totals per
+    draw plus CPC p10/p50/p90 over the draws. ``faults`` (a demand-surge
+    schedule, see `repro_torch.faults`) perturbs the arrival intensity of
+    the live window, so live rows feel surges in the request process
+    itself; without a workload it is not read.
     """
-    if workload is not None:
-        raise NotImplementedError(
-            "live_fleet_dispatch(workload=...) comes to the port with the "
-            "workload slice (ROADMAP queue 1)")
-    if faults is not None:
-        raise NotImplementedError(
-            "live_fleet_dispatch(faults=...) comes to the port with the "
-            "faults slice (ROADMAP queue 1)")
     dev = resolve_device(device)
     prices = torch.as_tensor(prices, dtype=torch.float32, device=dev)
     s, t_total = prices.shape
     if horizon < 2:
         raise ValueError("horizon must be >= 2")
+    mult = None
+    if workload is not None and faults is not None:
+        from repro_torch.faults.inject import emit_fault_events, resolve_masks
+        masks = resolve_masks(faults, s, s, int(start) + int(hours))
+        emit_fault_events(faults, masks, scope="live.workload")
+        m = np.asarray(masks.demand_mult, np.float64)
+        mult = None if np.all(m == 1.0) else m
     if demand is None:
-        raise ValueError("live_fleet_dispatch: pass demand= (a workload= "
-                         "to derive it from comes with the workload slice)")
+        if workload is None:
+            raise ValueError("live_fleet_dispatch: pass demand= or a "
+                             "workload= to derive it from")
+        demand = workload.mean_demand_mw(int(start) + int(hours),
+                                         mult)[start:start + hours]
     demand = np.asarray(demand, np.float32)
     if demand.ndim == 0:
         demand_h = np.broadcast_to(demand, (hours,))
@@ -212,6 +224,11 @@ def live_fleet_dispatch(prices, power, p_on, p_off, off_level, idle_frac,
     energy = torch.sum(energy_t)
     delivered = torch.sum(a)
     migration_cost = migrate_cost * migration_mw
+    wl_stats = None
+    if workload is not None:
+        wl_stats = _replay_workload(
+            workload, alloc, mult, start=int(start), hours=int(hours),
+            fleet_cost=float(fixed + energy + migration_cost))
     return LiveFleetResult(
         alloc_mw=alloc,
         cpc=(fixed + energy + migration_cost)
@@ -219,4 +236,32 @@ def live_fleet_dispatch(prices, power, p_on, p_off, off_level, idle_frac,
         energy_cost=energy, migration_cost=migration_cost,
         migration_mw=migration_mw, delivered_mwh=delivered,
         shed_mwh=torch.sum(shed_t), replan_mw=replan_mw,
-        p_off_final=p_off_f)
+        p_off_final=p_off_f, workload=wl_stats)
+
+
+def _replay_workload(workload, alloc: torch.Tensor,
+                     mult: Optional[np.ndarray], *, start: int, hours: int,
+                     fleet_cost: float) -> dict:
+    """Hard-ledger replay of every sampled demand draw against the
+    committed hour-by-hour fleet allocation (after the loop, which it
+    leaves untouched): the G draws are the rows of one float64
+    `queue_scan` on the allocation's device (the ledger kernel on the
+    card). Costing mirrors `repro_torch.workload.WorkloadResult`: fleet
+    bill + SLO-priced backlog + VoLL-priced drops, per served MWh."""
+    draws = workload.sample_demand_mw(start + hours, mult)[:, start:
+                                                           start + hours]
+    cap = torch.sum(alloc, 0).double()                 # MWh per hour
+    out = queue_scan(torch.as_tensor(draws, device=alloc.device), cap,
+                     deadline=int(workload.deadline_h),
+                     bound=float(workload.queue_bound_mwh))
+    served, dropped, backlog = (x.cpu().numpy() for x in (
+        out.served, out.dropped, out.backlog))
+    cost = (fleet_cost
+            + float(workload.slo_penalty_eur_mwh) * backlog
+            + float(workload.relief.voll_eur_mwh) * dropped)
+    cpc = cost / np.maximum(served, 1e-9)
+    p10, p50, p90 = np.quantile(cpc, [0.1, 0.5, 0.9])
+    return {"served_mwh": served, "dropped_mwh": dropped,
+            "deferred_mwh_h": backlog, "cost": cost,
+            "cpc_p10": float(p10), "cpc_p50": float(p50),
+            "cpc_p90": float(p90)}

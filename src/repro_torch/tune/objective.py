@@ -34,9 +34,15 @@ hand-written CUDA kernels on the card) places the demand over it at the
 same annealed temperature, and the gradient of the dispatched cost flows
 back into every site's thresholds.
 
-Later slices: ``workload=`` comes with the workload slice, and
-``axis_name=`` / ``scale_rows=`` (sharded coupled objectives) with the
-multi-GPU slice; each raises `NotImplementedError` until then.
+With a workload (``workload=`` and its ``workload_demand=`` profile) each
+row also pays a soft work-ledger bill — SLO-priced backlog and VoLL-priced
+drops of the mean demand served with the row's relaxed capacity
+(`repro_torch.kernels.queue_scan.SoftLedger`, the ledger kernel pair on
+the card), so tuning learns SLO-aware thresholds.
+
+Later slices: ``axis_name=`` / ``scale_rows=`` (sharded coupled
+objectives) come with the multi-GPU slice and raise `NotImplementedError`
+until then.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ import torch
 from repro_torch.dispatch import (DispatchConfig, resolve_demand,
                                   segment_keys, segment_rank)
 from repro_torch.fleet.engine import fleet_costs
+from repro_torch.kernels.queue_scan import QUEUE_MWH_SCALE, queue_scan
 from repro_torch.kernels.soft_dispatch import soft_dispatch, soft_shed
 from repro_torch.kernels.soft_scan import soft_scan_parts
 
@@ -409,7 +416,7 @@ def soft_objective(raw: PolicyParams, problem: TuneProblem, tau, *,
                    dispatch_mw_scale: float = 0.05,
                    dispatch_fused: bool = False,
                    relief=None,
-                   workload=None,
+                   workload=None, workload_demand=None,
                    fused: bool = True, block_t: int = 256,
                    reduction: str = "mean",
                    axis_name: Optional[str] = None,
@@ -422,6 +429,17 @@ def soft_objective(raw: PolicyParams, problem: TuneProblem, tau, *,
     The CPC ratio is dimensionless (Eq. 28), so rows with very different
     absolute costs contribute comparably and one learning rate serves the
     whole grid. Returns ``(loss, aux)`` with per-row diagnostics.
+
+    With ``workload`` (a `repro_torch.workload.Workload`) and
+    ``workload_demand`` (its [T] mean demand profile, MW), each row also
+    pays a soft work-ledger bill — SLO-rate-priced backlog plus
+    VoLL-priced drops of the profile served with the row's relaxed
+    capacity (`SoftLedger`) at the co-annealed MWh temperature ``tau *
+    QUEUE_MWH_SCALE`` — normalised by its always-on bill so tuning learns
+    SLO-aware shutdown thresholds. The term is per-row separable (each
+    row serves the profile on its own), so the chunked tuner's per-row
+    contract holds; ``aux["workload"]`` carries the per-row term (zeros
+    when off).
 
     With ``dispatch`` (a `DispatchCoupling`) the isolated-site term is
     blended with the fleet-level dispatched-CPC ratio of the relaxed
@@ -443,14 +461,10 @@ def soft_objective(raw: PolicyParams, problem: TuneProblem, tau, *,
     per-row gradient is then independent of which other rows share the
     batch, which is what lets the chunked tuner reproduce the single
     program row for row. ``aux["base"]`` / ``aux["coupled"]`` split the
-    loss into its separable and fleet-coupled parts. ``workload``,
-    ``axis_name`` and ``scale_rows`` come with later slices and raise
+    loss into its separable and fleet-coupled parts. ``axis_name`` and
+    ``scale_rows`` come with the mesh slice and raise
     `NotImplementedError`.
     """
-    if workload is not None:
-        raise NotImplementedError(
-            "soft_objective(workload=) comes to the port with the workload "
-            "slice (ROADMAP queue 1)")
     if axis_name is not None or scale_rows is not None:
         raise NotImplementedError(
             "soft_objective(axis_name=, scale_rows=): sharded coupled "
@@ -460,6 +474,27 @@ def soft_objective(raw: PolicyParams, problem: TuneProblem, tau, *,
                                   block_t=block_t, row_prices=row_prices)
     ratio = costs.cpc / costs.cpc_ao
     loss = torch.sum(ratio) if reduction == "sum" else torch.mean(ratio)
+    wl_ratio = torch.zeros_like(ratio)
+    if workload is not None and workload_demand is not None:
+        # the profile through the soft ledger against each row's relaxed
+        # capacity, its backlog and drops priced and normalised by the
+        # row's always-on bill (cpc_ao * period = F + E_AO): dimensionless
+        # like ``ratio``, and per-row separable
+        dtp = ratio.dtype
+        dt = problem.period.to(dtp) / cap.shape[1]                  # [B]
+        cap_mwh = (problem.power.to(dtp) * dt)[:, None] * cap
+        dem = dt[:, None] * torch.as_tensor(workload_demand, dtype=dtp,
+                                            device=cap.device)[None, :]
+        tau_mwh = (tau.to(dtp) if isinstance(tau, torch.Tensor)
+                   else torch.tensor(float(tau), dtype=dtp,
+                                     device=cap.device)) * QUEUE_MWH_SCALE
+        led = queue_scan(dem, cap_mwh, deadline=int(workload.deadline_h),
+                         bound=float(workload.queue_bound_mwh), tau=tau_mwh)
+        wl_cost = (float(workload.slo_penalty_eur_mwh) * led.backlog
+                   + float(workload.relief.voll_eur_mwh) * led.dropped)  # [B]
+        wl_ratio = wl_cost / (costs.cpc_ao * problem.period.to(dtp))
+        loss = loss + (torch.sum(wl_ratio) if reduction == "sum"
+                       else torch.mean(wl_ratio))
     scale = ratio.shape[0] if reduction == "sum" else 1.0
 
     # coupling terms weight each row by 1/|cell| so a K-policy grid
@@ -492,5 +527,5 @@ def soft_objective(raw: PolicyParams, problem: TuneProblem, tau, *,
     loss = loss + scale * penalty_weight * penalty
     aux = {"ratio": ratio, "cpc": costs.cpc, "up_hours": costs.up_hours,
            "penalty": penalty, "dispatch_ratio": dratio, "base": base,
-           "coupled": coupled, "workload": torch.zeros_like(ratio)}
+           "coupled": coupled, "workload": wl_ratio}
     return loss, aux

@@ -44,10 +44,15 @@ the rest of the history, and `optimize` emits ``tune.step``,
 ``tune.stage`` and ``tune.result`` events; the tuned parameters are the
 same bit for bit.
 
-Later slices: sharded plans (the mesh slice in ROADMAP queue 1), workloads
-(the workload slice), and the reference's
-deprecated `TuneConfig` spellings (``chunk_rows=``, ``power_cap_mw=``,
-...).
+With a `repro_torch.workload.Workload` (``TuneConfig.workload``, or the
+grid's own) the annealed objective adds the soft work-ledger term (the
+ledger kernel pair of `repro_torch.kernels.queue_scan` every step on the
+card) and the final selection is judged by realized workload cost
+(`repro_torch.workload.realized_cost`, the hard ledger kernel).
+
+Later slices: sharded plans (the mesh slice in ROADMAP queue 1) and the
+reference's deprecated `TuneConfig` spellings (``chunk_rows=``,
+``power_cap_mw=``, ...).
 """
 
 from __future__ import annotations
@@ -89,8 +94,11 @@ class TuneConfig:
     (`Coupling`: power cap, aggregate-compute floor, the dispatch-aware
     term ``dispatch``, the hard-dispatch re-scoring ``reeval`` and its
     shed pricing ``relief``). The chunk-under-coupling legality rule is
-    checked here, at construction. ``workload`` (a later slice) raises
-    `NotImplementedError` here.
+    checked here, at construction. ``workload`` (a hashable
+    `repro_torch.workload.Workload`) adds the SLO-aware work-ledger term
+    to the objective and selects candidates by realized workload cost
+    (energy + deferral + drop) instead of bare CPC; None falls back to
+    the grid's own workload, and neither keeps the runs as they were.
     """
 
     steps: int = 300
@@ -118,12 +126,8 @@ class TuneConfig:
     coupling: Optional[Coupling] = None
 
     def __post_init__(self):
-        rc = self.resolved_coupling
-        if self.workload is not None:
-            raise NotImplementedError(
-                "TuneConfig(workload=) comes to the port with the workload "
-                "slice (ROADMAP queue 1)")
-        validate_plan_coupling(self.resolved_plan, rc, context="TuneConfig")
+        validate_plan_coupling(self.resolved_plan, self.resolved_coupling,
+                               context="TuneConfig")
 
     @property
     def resolved_plan(self) -> ExecutionPlan:
@@ -161,7 +165,11 @@ class TuneResult(NamedTuple):
     dispatch: Optional[dict] = None
     # total row-steps the finite-step guard rejected (0 on a healthy run)
     guard_count: int = 0
-    workload_cost: Optional[np.ndarray] = None   # the workload slice
+    # [B] realized workload cost (energy + deferral + drop, EUR, mean over
+    # the shared demand draws) of the selected policy — None unless a
+    # Workload was configured; when set, ``source`` was chosen by this
+    # yardstick instead of bare CPC
+    workload_cost: Optional[np.ndarray] = None
 
 
 def _tau_schedule(cfg: TuneConfig, device) -> torch.Tensor:
@@ -261,6 +269,12 @@ def _make_step(problem: TuneProblem, cfg: TuneConfig,
     opt = AdamWConfig(lr=cfg.lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
                       weight_decay=0.0, clip_norm=cfg.clip_norm)
     min_dwell = rc.dispatch.min_dwell_h if rc.dispatch is not None else 0
+    wl = cfg.workload
+    # the [T] mean demand profile, made once on the host; each row serves
+    # it on its own, so the workload term stays per-row separable
+    wl_demand = None if wl is None else torch.as_tensor(
+        wl.mean_demand_mw(int(p_rows.shape[1])), dtype=torch.float32,
+        device=p_rows.device)
 
     def step(carry, tau):
         raw, st, lr_scale = carry
@@ -274,6 +288,7 @@ def _make_step(problem: TuneProblem, cfg: TuneConfig,
                 dispatch_min_dwell=min_dwell,
                 dispatch_mw_scale=rc.dispatch_mw_scale,
                 dispatch_fused=cfg.fused, relief=rc.relief_config,
+                workload=wl, workload_demand=wl_demand,
                 fused=cfg.fused, block_t=cfg.block_t, reduction="sum",
                 row_prices=p_rows)
             grads = PolicyParams(*torch.autograd.grad(loss, leaves))
@@ -610,6 +625,14 @@ def optimize(grid, cfg: TuneConfig = TuneConfig(), *, warm_start=None,
     re-scoring too. With a telemetry run active the run's history carries
     ``grad_norm`` / ``clip_frac`` and lands in the trace as ``tune.step``,
     ``tune.stage`` and ``tune.result`` events (`_emit_tune_events`).
+
+    With a `repro_torch.workload.Workload` (``cfg.workload``, defaulting
+    to ``grid.workload``) the annealed objective adds the soft work-ledger
+    term and the final per-row selection is judged by *realized workload
+    cost* — energy + SLO deferral + VoLL drops on one shared demand sample
+    (`repro_torch.workload.realized_cost`) — instead of bare CPC, landing
+    in ``TuneResult.workload_cost``; the selected policy never costs more
+    than the best swept policy of its cell under the same workload.
     """
     telemetry = obs.enabled()
     dev = resolve_device(device)
@@ -618,6 +641,11 @@ def optimize(grid, cfg: TuneConfig = TuneConfig(), *, warm_start=None,
     raw0 = _raw_start(grid, warm_start, dev)
     rc = cfg.resolved_coupling
     chunk = cfg.resolved_plan.chunk_rows
+    wl = cfg.workload if cfg.workload is not None \
+        else getattr(grid, "workload", None)
+    if wl is not None and cfg.workload is None:
+        # a grid-carried Workload flows into the loop too
+        cfg = cfg._replace(workload=wl)
     coupling = dispatch_coupling_from_grid(grid, rc.dispatch) \
         if rc.dispatch is not None else None
     raw_f, hist, cpc_tuned_dev = _run_loop(raw0, problem, cfg, grid.n_rows,
@@ -635,7 +663,25 @@ def optimize(grid, cfg: TuneConfig = TuneConfig(), *, warm_start=None,
 
     with torch.no_grad():
         tuned = transform(raw_f)
-    best_row = cell_best_rows(grid, cpc_swept)
+    wc_tuned = wc_swept = None
+    if wl is not None:
+        # the hard selection yardstick becomes the *realized* workload
+        # cost — energy + SLO deferral + VoLL drops — on one shared demand
+        # sample, so the tuned/swept comparison is paired and the selected
+        # policy can never cost more than the best swept one under the
+        # same workload
+        from repro_torch.workload import realized_cost
+        wl_demand = wl.sample_demand_mw(grid.n_hours)
+        wc_tuned, wc_swept = (
+            realized_cost(grid, p_on, p_off, lvl, wl, demand_mw=wl_demand)
+            .cpu().numpy().astype(np.float64)
+            for p_on, p_off, lvl in ((tuned.p_on, tuned.p_off,
+                                      tuned.off_level),
+                                     (grid.p_on, grid.p_off,
+                                      grid.off_level)))
+        best_row = cell_best_rows(grid, wc_swept)
+    else:
+        best_row = cell_best_rows(grid, cpc_swept)
     cpc_swept_best = cpc_swept[best_row]
     bi = torch.as_tensor(best_row, device=dev)
     # cell-best swept params evaluated under *this* row's hardware
@@ -645,6 +691,10 @@ def optimize(grid, cfg: TuneConfig = TuneConfig(), *, warm_start=None,
                                chunk)
 
     cand = np.stack([cpc_tuned, cpc_swept, cpc_cb])        # [3, B]
+    # the selection yardstick: realized workload cost when a Workload is
+    # configured, bare hard CPC otherwise
+    yard = np.stack([wc_tuned, wc_swept, wc_swept[best_row]]) \
+        if wl is not None else cand
     if rc.binds:
         # the swept baselines ignore the coupling constraints: falling
         # back to one would silently violate them — keep the tuned params
@@ -654,8 +704,10 @@ def optimize(grid, cfg: TuneConfig = TuneConfig(), *, warm_start=None,
         # re-scoring below)
         source = np.zeros(cand.shape[1], np.int64)
     else:
-        source = np.argmin(cand, axis=0)
+        source = np.argmin(yard, axis=0)
     cpc = cand[source, np.arange(cand.shape[1])]
+    workload_cost = yard[source, np.arange(yard.shape[1])] \
+        if wl is not None else None
     src = torch.as_tensor(source, device=dev)
     cols = torch.arange(grid.n_rows, device=dev)
 
@@ -683,7 +735,8 @@ def optimize(grid, cfg: TuneConfig = TuneConfig(), *, warm_start=None,
         improvement_vs_own=1.0 - cpc / cpc_swept,
         source=source, history=hist, stage_cpc=stage_cpc,
         dispatch=dispatch_out,
-        guard_count=int(np.sum(hist.get("guard_rejects", 0.0))))
+        guard_count=int(np.sum(hist.get("guard_rejects", 0.0))),
+        workload_cost=workload_cost)
     if telemetry:
         _emit_tune_events(cfg, result)
     return result

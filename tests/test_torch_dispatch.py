@@ -655,11 +655,6 @@ def test_refusals():
     single = dispatch(prob, plan=ExecutionPlan(mode="single"), device=CPU)
     np.testing.assert_array_equal(single.alloc_mw,
                                   dispatch(prob, device=CPU).alloc_mw)
-    with pytest.raises(NotImplementedError, match="workload"):
-        DispatchConfig(workload=object())
-    with pytest.raises(NotImplementedError, match="workload"):
-        resolve_demand(DispatchConfig()._replace(workload=object()),
-                       np.ones(2), 5)
     # the soft coupling is ported (tests/test_torch_tune_dispatch.py) and
     # binds the rows; the hard re-scoring alone does not
     assert TuneConfig(coupling=Coupling(

@@ -60,7 +60,15 @@ route's the derivative of the computed forward; bf16 rounds to 8 bits);
 the pipeline's batch on the card equal to the CPU's; int8 quantisation on
 the card equal to the CPU's bit for bit; a 2-layer float32 training step
 through the kernels within 1e-5 (loss) and 1e-4 (each gradient leaf's
-largest entry) of the plain route.
+largest entry) of the plain route. The work ledger's kernels
+(`csrc/queue_scan.cu`) against their plain hour loops on the card: the
+hard ledger bit for bit on integer-valued work and within rtol 1e-5
+otherwise (bucket sums in another order), telemetry changing no other
+bit; the soft pair in float64 within 1e-10 of max(1, each output's
+largest entry) of the plain loop and of autograd through it, in float32
+within rtol 1e-5; the workload-coupled
+backtest's report equal to `backtest`'s bit for bit, a zero-fault
+`faulted_backtest` too, a storm's start counts equal to the CPU's.
 """
 
 import os
@@ -1323,3 +1331,141 @@ def test_live_smoke_sweep_on_the_card_matches_the_cpu(cuda):
     for name in ("cpc", "p_off_final", "tco", "x_realized"):
         torch.testing.assert_close(getattr(got, name).cpu(),
                                    getattr(want, name), rtol=1e-5, atol=0.0)
+
+
+# ---------------------------------------------------------------------------
+# the work ledger (csrc/queue_scan.cu) and the faults / workload slice
+# ---------------------------------------------------------------------------
+
+LEDGER_SHAPES = [  # (B, N, G, T, D, integer-valued)
+    (1, 1, 1, 50, 2, True), (5, 3, 8, 400, 4, True), (7, 7, 3, 333, 0, False),
+    (9, 4, 40, 250, 9, True), (6, 2, 5, 300, 9, False),
+    (256, 16, 8, 1000, 4, False)]
+
+
+def _ledger_inputs(b, n, g, t, integer, seed, dev):
+    rng = np.random.default_rng(seed)
+    if integer:
+        prices = rng.integers(0, 100, (n, t)).astype(np.float32)
+        dem = rng.integers(0, 5, (g, t)).astype(np.float32)
+        lvl, dt = np.zeros(b, np.float32), np.ones(b, np.float32)
+        cmwh = rng.integers(1, 6, b).astype(np.float32)
+    else:
+        prices = rng.normal(80, 30, (n, t)).astype(np.float32)
+        dem = rng.uniform(0, 3, (g, t)).astype(np.float32)
+        lvl = rng.uniform(0, 0.5, b).astype(np.float32)
+        dt = rng.uniform(0.5, 2, b).astype(np.float32)
+        cmwh = rng.uniform(1, 4, b).astype(np.float32)
+    p_off = rng.uniform(60, 110, b).astype(np.float32)
+    arrays = (prices, p_off * np.float32(0.9), p_off, lvl, cmwh, dem, dt)
+    return ([torch.as_tensor(a, device=dev) for a in arrays],
+            torch.as_tensor(rng.integers(0, n, b), device=dev))
+
+
+@pytest.mark.parametrize("case", LEDGER_SHAPES)
+def test_ledger_kernel_matches_plain_version(cuda, case):
+    """`workload_ledger_fwd` against its plain version on the card: bit for
+    bit on integer-valued work, within rtol 1e-5 otherwise; telemetry on
+    changes no other output bit; one kernel a call (D = 0, D = 9 the
+    memory form, B = 1 among the cases)."""
+    from repro_torch.kernels.queue_scan import workload_ledger_fwd
+    b, n, g, t, d, integer = case
+    args, midx = _ledger_inputs(b, n, g, t, integer, sum(case[:5]), cuda)
+    kw = dict(deadline=d, bound=3.0, market_idx=midx)
+    before = workload_ledger_fwd.device_launches
+    got, _ = workload_ledger_fwd(*args, **kw)
+    got_t, hr = workload_ledger_fwd(*args, hourly=True, **kw)
+    assert workload_ledger_fwd.device_launches - before == 2
+    want, hr_w = workload_ledger_fwd(*args, hourly=True, use_kernel=False,
+                                     **kw)
+    for x, y, z in zip(got, got_t, want):
+        assert torch.equal(x, y)
+        if integer:
+            assert torch.equal(x, z)
+        else:
+            torch.testing.assert_close(x, z, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(hr, hr_w, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,t,d", [(1, 60, 2), (5, 300, 0), (33, 200, 4),
+                                   (7, 150, 9), (70, 500, 3), (32, 96, 4)])
+def test_soft_ledger_kernels_match_plain_autograd(cuda, b, t, d):
+    """A differentiable soft `queue_scan` (`SoftLedger`, the kernel pair)
+    against the plain hour loop and autograd through it on the card (with
+    prices): float64 forward and backward within 1e-10 of max(1, each
+    output's largest entry); float32 (the tuner's form) forward within
+    rtol 1e-5, d cap and d demand within 1e-4 of max(1, their largest
+    entry). The hard float64 forward (the live replay's ledger; 32 draws
+    x 96 h among the shapes) equals the plain loop on integer-valued
+    work."""
+    from repro_torch.kernels import queue_scan as qs
+    from repro_torch.kernels.ref import queue_scan_ref
+    rng = np.random.default_rng(b * t + d)
+    a = torch.as_tensor(rng.integers(0, 6, (b, t)).astype(np.float64),
+                        device=cuda)
+    c = torch.as_tensor(rng.integers(0, 6, (b, t)) + 0.5, device=cuda)
+    p = torch.as_tensor(rng.normal(80, 20, (b, t)), device=cuda)
+    g = torch.as_tensor(rng.normal(size=(4, b)), device=cuda)
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        a_, c_, p_, g_ = (x.to(dtype) for x in (a, c, p, g))
+        at, ct = (x.clone().requires_grad_(True) for x in (a_, c_))
+        o = qs.queue_scan(at, ct, deadline=d, bound=3.0, tau=0.3, prices=p_)
+        sums = (o.served, o.dropped, o.backlog, o.served_cost)
+        loss = sum((g_[k] * sums[k]).sum() for k in range(4))
+        d_a, d_c = torch.autograd.grad(loss, [at, ct])
+        at2, ct2 = (x.clone().requires_grad_(True) for x in (a_, c_))
+        out = queue_scan_ref(at2, ct2, deadline=d, bound=3.0, tau=0.3,
+                             prices=p_)
+        ref_sums = (out.served, out.dropped, out.backlog, out.served_cost)
+        loss2 = sum((g_[k] * v).sum() for k, v in enumerate(ref_sums))
+        w_a, w_c = torch.autograd.grad(loss2, [at2, ct2])
+        pairs = list(zip([d_a, d_c], [w_a, w_c]))
+        if dtype == torch.float32:
+            for x, y in zip(sums, ref_sums):
+                torch.testing.assert_close(x.detach(), y.detach(),
+                                           rtol=1e-5, atol=1e-3)
+        else:
+            pairs += list(zip(sums, ref_sums))
+        for x, y in pairs:
+            scale = max(1.0, float(y.detach().abs().max()))
+            torch.testing.assert_close(x.detach(), y.detach(), rtol=0,
+                                       atol=tol * scale)
+    hard = qs.queue_scan(a, c - 0.5, deadline=d, bound=3.0)
+    want = queue_scan_ref(a, c - 0.5, deadline=d, bound=3.0)
+    for x, y in zip(hard, want):
+        assert torch.equal(x, y)
+
+
+def test_workload_and_faulted_backtests_on_the_card(cuda):
+    """The coupled backtest's report equals `backtest` on the card bit for
+    bit and its ledger the CPU's within rtol 1e-5; a zero-fault
+    `faulted_backtest` is `backtest` bit for bit; a storm's start counts
+    equal the CPU's and its sums within rtol 1e-5."""
+    from repro_torch.energy.markets import MarketParams
+    from repro_torch.faults import faulted_backtest, random_storm
+    from repro_torch.workload import Workload, workload_backtest
+    grid = build_grid([MarketParams(n_hours=2190, seed=s) for s in range(4)],
+                      [make_system(0.8 * 2190 * 80.0, 1.0, 2190.0,
+                                   device="cpu")],
+                      [PolicySpec("ao"), PolicySpec("x10", x=0.1,
+                                                    off_level=0.3),
+                       PolicySpec("x25", x=0.25, off_level=0.3)],
+                      workload=Workload(n_draws=16, seed=2), device="cpu")
+    got = workload_backtest(grid, device=cuda)
+    plain = backtest(grid, device=cuda)
+    for f in plain._fields:
+        assert torch.equal(getattr(got.report, f), getattr(plain, f)), f
+    want = workload_backtest(grid, device="cpu")
+    for f in want.workload._fields:
+        torch.testing.assert_close(getattr(got.workload, f).cpu(),
+                                   getattr(want.workload, f), rtol=1e-5,
+                                   atol=1e-3)
+    for f, x in zip(plain._fields, faulted_backtest(grid, device=cuda)):
+        assert torch.equal(x, getattr(plain, f)), f
+    storm = random_storm(7, grid.n_rows, grid.n_markets, 2190,
+                         max_duration=180)
+    hit, hit_cpu = (faulted_backtest(grid, storm, device=dev)
+                    for dev in (cuda, "cpu"))
+    assert torch.equal(hit.n_starts.cpu(), hit_cpu.n_starts)
+    torch.testing.assert_close(hit.cpc.cpu(), hit_cpu.cpc, rtol=1e-5,
+                               atol=0.0)

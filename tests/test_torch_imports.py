@@ -38,9 +38,10 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
     # and serving example, the hybrid slice's config and the two examples
     # of the paper model it brought, the training slice's data package,
     # schedules, compression, trainer, launcher, roofline and example, the
-    # telemetry slice's obs package, and the live slice's forecasts, SMARD
-    # loader, window steps, live package and example
-    assert n_modules == len(names) >= 97
+    # telemetry slice's obs package, the live slice's forecasts, SMARD
+    # loader, window steps, live package and example, and the faults and
+    # workload slice's two packages, ledger kernels and two examples
+    assert n_modules == len(names) >= 107
     for name in ("repro_torch.configs.base", "repro_torch.configs.inputs",
                  "repro_torch.configs.qwen2_5_3b",
                  "repro_torch.models.layers", "repro_torch.models.attention",
@@ -74,7 +75,14 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
                  "repro_torch.live.grid", "repro_torch.live.controller",
                  "repro_torch.live.report", "repro_torch.live.fleet",
                  "repro_torch.kernels.live_window",
-                 "repro_torch.examples.live_operator"):
+                 "repro_torch.examples.live_operator",
+                 "repro_torch.faults", "repro_torch.faults.trace",
+                 "repro_torch.faults.inject", "repro_torch.workload",
+                 "repro_torch.workload.queue", "repro_torch.workload.trace",
+                 "repro_torch.workload.backtest",
+                 "repro_torch.kernels.queue_scan",
+                 "repro_torch.examples.chaos_fleet",
+                 "repro_torch.examples.workload_fleet"):
         assert name in names
 
 
@@ -131,7 +139,7 @@ def test_port_packages_export_what_the_reference_exports():
         if not hasattr(importlib.import_module(port(pkg)), name):
             missing.append(f"{port(pkg)}.{name}")
     assert missing == []
-    assert checked >= 152
+    assert checked >= 170
     # the training slice's names, each exported as the reference does
     for pkg, name in (("models", "loss_fn"), ("optim", "warmup_cosine"),
                       ("optim", "constant"), ("optim", "quantize_int8"),
@@ -148,6 +156,16 @@ def test_port_packages_export_what_the_reference_exports():
                       ("energy", "similar_day_ar_batch"), ("energy", "mase"),
                       ("live", "LiveConfig"), ("live", "live_backtest"),
                       ("live", "live_fleet_dispatch"),
-                      ("live", "summarize_live"), ("live", "FORECASTERS")):
+                      ("live", "summarize_live"), ("live", "FORECASTERS"),
+                      # the faults and workload slice's names
+                      ("faults", "FaultTrace"), ("faults", "random_storm"),
+                      ("faults", "faulted_backtest"),
+                      ("faults", "faulted_problem"),
+                      ("faults", "resolve_masks"), ("faults", "FAULT_KINDS"),
+                      ("workload", "Workload"),
+                      ("workload", "workload_backtest"),
+                      ("workload", "realized_cost"),
+                      ("workload", "replay_ledger"),
+                      ("workload", "LedgerReplay")):
         assert (f"repro.{pkg}", name) in {(p, n) for p, _, n in exports}
         assert hasattr(importlib.import_module(f"repro_torch.{pkg}"), name)

@@ -302,18 +302,6 @@ def test_perfect_forecast_full_horizon_matches_offline():
                             np.float64)[pl.base_row[sel]], rtol=1e-5)
 
 
-def test_faults_and_workload_options_name_their_slices(sweep):
-    with pytest.raises(NotImplementedError, match="faults slice"):
-        live_backtest(sweep["pl"], sweep["cfg"], faults=object(),
-                      device=CPU)
-    prices, power, demand = _fleet_case()
-    for kw, slice_ in ((dict(faults=object()), "faults slice"),
-                       (dict(workload=object()), "workload slice")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            live_fleet_dispatch(prices, power, 1e9, 1e9, 0.0, 0.1, 0.0,
-                                demand, device=CPU, **kw)
-
-
 # ---------------------------------------------------------------------------
 # horizon windows and live dispatch
 # ---------------------------------------------------------------------------

@@ -464,10 +464,6 @@ def test_later_slice_options_raise(grid):
     # the soft dispatch coupling (Coupling(dispatch=)) and the hard
     # re-scoring are ported (tests/test_torch_tune_dispatch.py,
     # tests/test_torch_dispatch.py); its sharded form is not
-    with pytest.raises(NotImplementedError, match="workload"):
-        TuneConfig(workload=object())
-    with pytest.raises(NotImplementedError, match="workload"):
-        soft_objective(raw, prob, 1.0, workload=object())
     with pytest.raises(NotImplementedError, match="the mesh slice"):
         soft_objective(raw, prob, 1.0, axis_name="rows")
     with pytest.raises(NotImplementedError, match="the mesh slice"):
