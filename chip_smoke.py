@@ -63,15 +63,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      counts exact), `live_fleet_dispatch` never re-solving over 8 sites x
      2190 h against `dispatch` bit for bit, and `live_operator --smoke`
      and ``--retune --smoke``; then the faults and workload slice: the
-     three ledger kernels (`csrc/queue_scan.cu`) against their plain
-     hour loops on the card (the hard one at `bench_workload`'s 256 x
-     4096 x 8 draws within rtol 1e-5 and bit for bit on integer work at
-     d 0-9 and B = 1, telemetry on == off; the soft pair at 256 x 2190
-     within 1e-10 of plain autograd in float64 and, the tuner's form,
-     float32 gradients within 1e-4 of scale; the hard float64 forward
-     of the live replay at 32 x 96 bit for bit on integer work), their
-     times, bounds and one-lane serial floors, ptxas' registers and
-     spills (build phase);
+     ledger kernels (`csrc/queue_scan.cu`) against their plain hour
+     loops on the card (the hard one at `bench_workload`'s 256 x 4096 x
+     8 draws within rtol 1e-5 and bit for bit on integer work at d 0-9
+     and B = 1, telemetry on == off; the soft pair at 256 and 16 rows x
+     2190 h within 1e-10 of plain autograd in float64 and, the tuner's
+     form, float32 gradients within 1e-4 of scale; the hard float64
+     forward of the live replay at 32 x 96 bit for bit on integer work),
+     their times, bounds and serial floors (the hard kernel on one lane,
+     the soft pair on one row; the soft pair at 16 rows too), ptxas'
+     registers and spills at d 4, d 48 and in the memory forms (build
+     phase);
      `faulted_backtest` and `workload_backtest` at 256 x 4096 (a
      zero-fault run and the coupled report equal to `backtest` bit for
      bit, a storm's starts card == CPU, telemetry on == off), and
@@ -1975,31 +1977,44 @@ LEDGER_REPLACES = "src/repro/kernels/queue_scan.py:170"     # the lax.scan
 # default Workload's deadline 4 h and bound 4 MWh
 LEDGER_BENCH = dict(n_markets=8, n_systems=4, hours=4096, n_draws=8,
                     seed=7)
-SOFT_LEDGER_SHAPE = (256, 2190, 4)     # rows x hours x deadline (tuner)
+# rows x hours x deadline: the tuner's, then `workload_fleet`'s 16 rows
+SOFT_LEDGER_SHAPES = ((256, 2190, 4), (16, 2190, 4))
+SOFT_LEDGER_TAU = 0.3
 LIVE_REPLAY_SHAPE = (32, 96)           # draws x hours (the live replay)
 LEDGER_KERNEL = re.compile(r"(workload_ledger|soft_ledger_fwd|"
-                           r"soft_ledger_bwd)_kernelI(?:([fd]))?"
-                           r"Li(n?\d+)E")
+                           r"soft_ledger_coef|soft_ledger_chain)_kernelI"
+                           r"(?:([fd]))?Li(n?\d+)E(?:Lb0E|E)")  # no
+# telemetry, not hard
+# the hard kernel's template D (the deadline, -1 in memory) and the soft
+# kernels' K (slots a lane: 1 at d 4 on 8 lanes, 2 at d 48 on 32 lanes,
+# -1 above d 255 with the slots in memory)
+LEDGER_FORMS = {"workload_ledger": (("4", "d 4 in registers"),
+                                    ("n1", "d > 8")),
+                "soft": (("1", "d 4, 8 lanes, a slot a lane"),
+                         ("2", "d 48, 32 lanes, 2 slots a lane"),
+                         ("n1", "d > 255, the slots in memory"))}
 
 
 def _report_ledger_kernels(log: str) -> None:
     """Registers, spills and stack (ptxas) of the ledger kernels at the
-    deadline the benchmarks and the tuner use (d = 4, the queue in
-    registers) and in the memory form (d > 8). Fails if one is missing."""
+    deadline the benchmarks and the tuner use (d = 4), at a two-day
+    deadline (d 48, the soft kernels' slots two a lane) and in the memory
+    forms. Fails if one is missing."""
     info = _ptxas_records(log, LEDGER_KERNEL)
     for kind, dtype in (("workload_ledger", None), ("soft_ledger_fwd", "f"),
-                        ("soft_ledger_fwd", "d"), ("soft_ledger_bwd", "f"),
-                        ("soft_ledger_bwd", "d")):
-        for d in ("4", "n1"):
-            rec = info.get((kind, dtype, d), {})
+                        ("soft_ledger_fwd", "d"), ("soft_ledger_coef", "f"),
+                        ("soft_ledger_coef", "d"), ("soft_ledger_chain", "f"),
+                        ("soft_ledger_chain", "d")):
+        for form, label in LEDGER_FORMS.get(kind, LEDGER_FORMS["soft"]):
+            rec = info.get((kind, dtype, form), {})
             if "registers" not in rec:
                 raise AssertionError(f"build: no ptxas record of {kind} "
-                                     f"({dtype}, d {d})")
+                                     f"({dtype}, {label})")
             st, ld = rec.get("spill", (0, 0))
             print(f"[build] {kind}_kernel"
                   + (f" {'float32' if dtype == 'f' else 'float64'}"
                      if dtype else "")
-                  + f", {'d 4 in registers' if d == '4' else 'd > 8'}: "
+                  + f", {label}: "
                   f"{rec['registers']} registers, stack "
                   f"{rec.get('stack', 0)} B, spill stores {st} B, spill "
                   f"loads {ld} B")
@@ -2010,7 +2025,8 @@ LEDGER_KERNELS = ("workload_ledger_fwd", "soft_ledger_fwd",
 
 
 def _ledger_bound(kind: str, b: int, t: int, d: int, g: int = 1,
-                  n: int = 0, itemsize: int = 4) -> tuple[float, str, int]:
+                  n: int = 0, itemsize: int = 4,
+                  want_demand: bool = True) -> tuple[float, str, int]:
     """Least time for one ledger kernel's work on an H100 SXM: each input
     read once and each output written once at 3.35 TB/s, against its
     float operations at 67 TFLOP/s (a softplus or sigmoid's exp and log1p
@@ -2024,8 +2040,9 @@ def _ledger_bound(kind: str, b: int, t: int, d: int, g: int = 1,
         B] queue history and [B, d] final queue out; a row-hour ~10 + 11
         (2 d + 1) + 4 (2 d + 1) operations (each smoothclip two softplus);
       soft backward: demand, capacity and the history in, [B, T] d cap
-        and d demand out; a row-hour about three times the forward's
-        (the forward again, two sigmoids a clip, the adjoint)."""
+        out, and [B, T] d demand unless ``want_demand`` is False (the
+        tuner's form); a row-hour about three times the forward's (the
+        forward again, two sigmoids a clip, the adjoint)."""
     if kind == "hard":
         nbytes = 4 * (n * t + g * t) + b * (8 + 20) + 16 * b * g
         ops = (14 + 7 * (d + 1) + 8 * d) * b * g * t
@@ -2035,7 +2052,9 @@ def _ledger_bound(kind: str, b: int, t: int, d: int, g: int = 1,
             nbytes = itemsize * (2 * b * t + t * d * b + 4 * b + b * d)
             ops = fwd_ops
         else:
-            nbytes = itemsize * (2 * b * t + t * d * b + 4 * b + 2 * b * t)
+            n_out = 2 if want_demand else 1
+            nbytes = itemsize * (2 * b * t + t * d * b + 4 * b
+                                 + n_out * b * t)
             ops = 3 * fwd_ops
     tb, to = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(tb, to) * 1e3, "bytes" if tb >= to else "operations", nbytes
@@ -2049,18 +2068,71 @@ def _max_err(got, want, scaled: bool = False) -> float:
                for x, y in zip(got, want))
 
 
+def _soft_ledger_gate(dtype, a64, c64, gg64, p64, d: int) -> dict:
+    """A differentiable soft `queue_scan` (the kernel pair) against the
+    plain loop and autograd through it, in ``dtype``; raises past the
+    gates (float64: forward and backward within 1e-10 of max(1, each
+    output's largest entry); float32: forward within rtol 1e-5 / atol
+    1e-3, d cap and d demand within 1e-4 of max(1, their largest
+    entry)). Returns the errors, scaled and absolute, and the plain
+    route's seconds."""
+    from repro_torch.kernels.queue_scan import queue_scan
+    from repro_torch.kernels.ref import queue_scan_ref
+
+    a_, c_, g_, p_ = (x.to(dtype) for x in (a64, c64, gg64, p64))
+    at, ct = (x.clone().requires_grad_(True) for x in (a_, c_))
+    o = queue_scan(at, ct, deadline=d, bound=4.0, tau=SOFT_LEDGER_TAU,
+                   prices=p_)
+    sums = [x.detach() for x in (o.served, o.dropped, o.backlog,
+                                 o.served_cost)]
+    d_a, d_c = torch.autograd.grad(
+        sum((g_[k] * v).sum() for k, v in enumerate(
+            (o.served, o.dropped, o.backlog, o.served_cost))), [at, ct])
+    at2, ct2 = (x.clone().requires_grad_(True) for x in (a_, c_))
+    t0 = time.perf_counter()
+    out = queue_scan_ref(at2, ct2, deadline=d, bound=4.0,
+                         tau=SOFT_LEDGER_TAU, prices=p_)
+    ref_sums = (out.served, out.dropped, out.backlog, out.served_cost)
+    w_a, w_c = torch.autograd.grad(
+        sum((g_[k] * v).sum() for k, v in enumerate(ref_sums)), [at2, ct2])
+    torch.cuda.synchronize()
+    auto_s = time.perf_counter() - t0
+    ref_sums = [s.detach() for s in ref_sums]
+    err = {"fwd": _max_err(sums, ref_sums, scaled=True),
+           "bwd": _max_err([d_a, d_c], [w_a, w_c], scaled=True),
+           "fwd_abs": _max_err(sums, ref_sums),
+           "bwd_abs": _max_err([d_a, d_c], [w_a, w_c]), "auto_s": auto_s}
+    if dtype == torch.float64:
+        if err["fwd"] > 1e-10 or err["bwd"] > 1e-10:
+            raise AssertionError(f"soft ledger float64: forward "
+                                 f"{err['fwd']:.3g}, backward "
+                                 f"{err['bwd']:.3g} from plain autograd "
+                                 "(gate 1e-10 of max(1, the output's "
+                                 "largest entry))")
+    else:
+        for x, y in zip(sums, ref_sums):
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-3)
+        if err["bwd"] > 1e-4:
+            raise AssertionError(f"soft ledger float32: d cap / d demand "
+                                 f"{err['bwd']:.3g} from plain autograd "
+                                 "(gate 1e-4 of max(1, the gradient's "
+                                 "largest entry))")
+    return err
+
+
 def phase_ledger_vs_plain(dev) -> dict:
-    """The three ledger kernels against their plain versions on the card,
-    with times (CUDA events, L2 flushed, device only), bounds and the
-    design's serial floor (the kernel's time on one lane over the same
-    hours).
+    """The ledger kernels against their plain versions on the card, with
+    times (CUDA events, L2 flushed, device only), bounds and the design's
+    serial floor (the hard kernel on one lane, the soft pair on one row,
+    over the same hours).
 
     `workload_ledger_fwd` at the benchmark shape (256 rows x 4096 h x 8
     draws through the index of 8 markets, deadline 4, bound 4 MWh) within
     rtol 1e-5 (bucket sums in another order), bit for bit on
     integer-valued work, at d = 0 and d = 9 (the memory form) and B = 1,
     telemetry on == off bit for bit; the soft pair through a
-    differentiable soft `queue_scan` at the tuner's 256 x 2190 x d 4:
+    differentiable soft `queue_scan` at the tuner's 256 x 2190 x d 4 and
+    at `workload_fleet`'s 16 x 2190 x d 4:
     float64 within 1e-10 of max(1, each output's largest entry) of the
     plain loop and of autograd through it, float32 (the tuner's form)
     forward within rtol 1e-5 and d cap / d demand within 1e-4 of max(1,
@@ -2068,7 +2140,6 @@ def phase_ledger_vs_plain(dev) -> dict:
     ledger) at 32 draws x 96 h bit for bit on integer-valued work and
     within 1e-10 of max(1, each sum's largest entry) on sampled demand."""
     from repro_torch.kernels import queue_scan as qs
-    from repro_torch.kernels.ref import queue_scan_ref
     from repro_torch.workload import Workload
 
     flush = torch.empty(128 * 2 ** 20 // 4, dtype=torch.float32,
@@ -2129,64 +2200,33 @@ def phase_ledger_vs_plain(dev) -> dict:
     print("[ledger] workload_ledger_fwd on integer-valued work (B 1, 64, "
           "33, 50; G 1-40; d 0, 2, 4, 9): bit for bit")
 
-    # the soft pair at the tuner's shape, through a differentiable soft
-    # `queue_scan` (`SoftLedger`), against autograd through the plain loop
-    sb, st, sd = SOFT_LEDGER_SHAPE
-    rng = np.random.default_rng(11)
-    a64 = torch.as_tensor(rng.uniform(0.0, 1.5, (sb, st)), device=dev)
-    c64 = torch.as_tensor(rng.uniform(0.0, 2.0, (sb, st)), device=dev)
-    gg64 = torch.as_tensor(rng.normal(size=(4, sb)), device=dev)
-    p64 = torch.as_tensor(rng.normal(80, 20, (sb, st)), device=dev)
-    tau = 0.3
-    soft_err = {}
-    for dtype in (torch.float64, torch.float32):
-        a_, c_, g_, p_ = (x.to(dtype) for x in (a64, c64, gg64, p64))
-        at, ct = (x.clone().requires_grad_(True) for x in (a_, c_))
-        o = qs.queue_scan(at, ct, deadline=sd, bound=4.0, tau=tau,
-                          prices=p_)
-        sums = [x.detach() for x in (o.served, o.dropped, o.backlog,
-                                     o.served_cost)]
-        d_a, d_c = torch.autograd.grad(
-            sum((g_[k] * v).sum() for k, v in enumerate(
-                (o.served, o.dropped, o.backlog, o.served_cost))), [at, ct])
-        at2, ct2 = (x.clone().requires_grad_(True) for x in (a_, c_))
-        t0 = time.perf_counter()
-        out = queue_scan_ref(at2, ct2, deadline=sd, bound=4.0, tau=tau,
-                             prices=p_)
-        ref_sums = (out.served, out.dropped, out.backlog, out.served_cost)
-        w_a, w_c = torch.autograd.grad(
-            sum((g_[k] * v).sum() for k, v in enumerate(ref_sums)),
-            [at2, ct2])
-        torch.cuda.synchronize()
-        auto_s = time.perf_counter() - t0
-        ref_sums = [s.detach() for s in ref_sums]
-        err = {"fwd": _max_err(sums, ref_sums, scaled=True),
-               "bwd": _max_err([d_a, d_c], [w_a, w_c], scaled=True),
-               "fwd_abs": _max_err(sums, ref_sums),
-               "bwd_abs": _max_err([d_a, d_c], [w_a, w_c])}
-        if dtype == torch.float64:
-            if err["fwd"] > 1e-10 or err["bwd"] > 1e-10:
-                raise AssertionError(f"soft ledger float64: forward "
-                                     f"{err['fwd']:.3g}, backward "
-                                     f"{err['bwd']:.3g} from plain autograd "
-                                     "(gate 1e-10 of max(1, the output's "
-                                     "largest entry))")
-        else:
-            for x, y in zip(sums, ref_sums):
-                torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-3)
-            if err["bwd"] > 1e-4:
-                raise AssertionError(f"soft ledger float32: d cap / d "
-                                     f"demand {err['bwd']:.3g} from plain "
-                                     "autograd (gate 1e-4 of max(1, the "
-                                     "gradient's largest entry))")
-        soft_err[dtype] = err
-        print(f"[ledger] soft ledger {sb} x {st} h, d {sd}, {dtype}: max "
-              f"|kernel - plain| / max(1, max |plain|) forward "
-              f"{err['fwd']:.3g}, d cap and d demand against autograd "
-              f"{err['bwd']:.3g} (gate "
-              f"{'1e-10' if dtype == torch.float64 else '1e-4'}); max "
-              f"|kernel - plain| forward {err['fwd_abs']:.3g}, backward "
-              f"{err['bwd_abs']:.3g} (plain autograd {auto_s:.2f} s)")
+    # the soft pair at the tuner's shape and at `workload_fleet`'s 16 rows,
+    # through a differentiable soft `queue_scan` (`SoftLedger`), against
+    # autograd through the plain loop
+    soft_err, soft_in = {}, {}
+    for sb, st, sd in SOFT_LEDGER_SHAPES:
+        rng = np.random.default_rng(11)
+        a64 = torch.as_tensor(rng.uniform(0.0, 1.5, (sb, st)), device=dev)
+        c64 = torch.as_tensor(rng.uniform(0.0, 2.0, (sb, st)), device=dev)
+        gg64 = torch.as_tensor(rng.normal(size=(4, sb)), device=dev)
+        p64 = torch.as_tensor(rng.normal(80, 20, (sb, st)), device=dev)
+        soft_in[sb] = (a64, c64, gg64, rng)
+        for dtype in (torch.float64, torch.float32):
+            err = _soft_ledger_gate(dtype, a64, c64, gg64, p64, sd)
+            soft_err[(sb, dtype)] = err
+            print(f"[ledger] soft ledger {sb} x {st} h, d {sd}, {dtype}: "
+                  f"max |kernel - plain| / max(1, max |plain|) forward "
+                  f"{err['fwd']:.3g}, d cap and d demand against autograd "
+                  f"{err['bwd']:.3g} (gate "
+                  f"{'1e-10' if dtype == torch.float64 else '1e-4'}); max "
+                  f"|kernel - plain| forward {err['fwd_abs']:.3g}, backward "
+                  f"{err['bwd_abs']:.3g} (plain autograd "
+                  f"{err['auto_s']:.2f} s)")
+    # the tuner shape's inputs, timed below in float32; its draws go on
+    # to make the live replay's
+    sb, st, sd = SOFT_LEDGER_SHAPES[0]
+    a64, c64, gg64, rng = soft_in[sb]
+    a32, c32, g32 = (x.float() for x in (a64, c64, gg64))
 
     # the hard float64 forward at the live replay's shape (32 draws x 96 h
     # against one [T] capacity): bit for bit on integer-valued work,
@@ -2238,59 +2278,79 @@ def phase_ledger_vs_plain(dev) -> dict:
         "telemetry_ms": _cuda_ms(lambda: hard_call(hourly=True), runs=3,
                                  flush=flush, device_only=True),
         "bound": hb}
-    a32, c32 = a64.float(), c64.float()
-    tau32 = torch.tensor([tau], dtype=torch.float32, device=dev)
-    fwd_out = qs.soft_ledger_fwd(a32, c32, tau32, deadline=sd, bound=4.0)
-    g32 = gg64.float().contiguous()
+    tau32 = torch.tensor([SOFT_LEDGER_TAU], dtype=torch.float32,
+                         device=dev)
 
-    def fwd(a_=a32, c_=c32, use_kernel=True):
-        return qs.soft_ledger_fwd(a_, c_, tau32, deadline=sd, bound=4.0,
-                                  use_kernel=use_kernel)
+    rows = {r: (a32[:r].contiguous(), c32[:r].contiguous(),
+                g32[:, :r].contiguous()) for r in (sb, 16, 1)}
 
-    def bwd(use_kernel=True, hist=fwd_out[1]):
-        return qs.soft_ledger_bwd(a32, c32, tau32, hist, g32, deadline=sd,
+    def fwd(r, use_kernel=True):
+        return qs.soft_ledger_fwd(*rows[r][:2], tau32, deadline=sd,
+                                  bound=4.0, use_kernel=use_kernel)
+
+    def bwd(r, hist, use_kernel=True):
+        a_, c_, g_ = rows[r]
+        return qs.soft_ledger_bwd(a_, c_, tau32, hist, g_, deadline=sd,
                                   bound=4.0, want_demand=False,
                                   use_kernel=use_kernel)
-    plain_hist = fwd(use_kernel=False)[1]
-    a1, c1 = a32[:1].contiguous(), c32[:1].contiguous()
+    n0 = qs.soft_ledger_fwd.device_launches
+    hists = {sb: fwd(sb)[1]}
+    fwd_kernels = qs.soft_ledger_fwd.device_launches - n0
+    hists.update({r: fwd(r)[1] for r in rows if r != sb})
+    plain_hist = fwd(sb, use_kernel=False)[1]
+    n0 = qs.soft_ledger_bwd.device_launches
+    bwd(sb, hists[sb])
+    bwd_kernels = qs.soft_ledger_bwd.device_launches - n0
     times["soft_ledger_fwd"] = {
-        "ms": _cuda_ms(fwd, runs=5, flush=flush, device_only=True),
-        "plain_ms": _host_ms(lambda: fwd(use_kernel=False), 1),
-        "floor_ms": _cuda_ms(lambda: fwd(a1, c1), runs=3,
-                             device_only=True),
+        "ms": _cuda_ms(lambda: fwd(sb), runs=5, flush=flush,
+                       device_only=True),
+        "plain_ms": _host_ms(lambda: fwd(sb, use_kernel=False), 1),
+        "rows16_ms": _cuda_ms(lambda: fwd(16), runs=5, flush=flush,
+                              device_only=True),
+        "floor_ms": _cuda_ms(lambda: fwd(1), runs=3, device_only=True),
+        "kernels_per_call": fwd_kernels,
         "bound": _ledger_bound("fwd", sb, st, sd)}
-    hist1 = fwd(a1, c1)[1]
     times["soft_ledger_bwd"] = {
-        "ms": _cuda_ms(bwd, runs=5, flush=flush, device_only=True),
-        "plain_ms": _host_ms(lambda: bwd(False, plain_hist), 1),
-        "floor_ms": _cuda_ms(lambda: qs.soft_ledger_bwd(
-            a1, c1, tau32, hist1, g32[:, :1].contiguous(), deadline=sd,
-            bound=4.0, want_demand=False), runs=3, device_only=True),
-        "bound": _ledger_bound("bwd", sb, st, sd)}
+        "ms": _cuda_ms(lambda: bwd(sb, hists[sb]), runs=5, flush=flush,
+                       device_only=True),
+        "plain_ms": _host_ms(lambda: bwd(sb, plain_hist, False), 1),
+        "rows16_ms": _cuda_ms(lambda: bwd(16, hists[16]), runs=5,
+                              flush=flush, device_only=True),
+        "floor_ms": _cuda_ms(lambda: bwd(1, hists[1]), runs=3,
+                             device_only=True),
+        "kernels_per_call": bwd_kernels,
+        "bound": _ledger_bound("bwd", sb, st, sd, want_demand=False)}
     for name, tm in times.items():
         ms, by, nbytes = tm["bound"]
         shape = (f"{b} x {t} h x {g} draws" if name == "workload_ledger_fwd"
                  else f"{sb} x {st} h")
+        floor = ("serial floor (one lane, the same hours)"
+                 if name == "workload_ledger_fwd" else
+                 "one row (its serial chain alone, the same hours)")
         print(f"[time] {name} {shape}, d {d if name[0] == 'w' else sd}: "
               f"kernel {tm['ms']:.4f} ms (L2 flushed), plain "
               f"{tm['plain_ms']:.1f} ms, bound {ms:.5f} ms ({by}; "
               f"{nbytes / 1e6:.2f} MB), {ms / tm['ms']:.2%} of bound; "
-              f"serial floor (one lane, the same hours) "
-              f"{tm['floor_ms']:.4f} ms"
+              f"{floor} {tm['floor_ms']:.4f} ms"
+              + (f"; 16 rows {tm['rows16_ms']:.4f} ms; "
+                 f"{tm['kernels_per_call']} kernel(s) a call"
+                 if "rows16_ms" in tm else "")
               + (f"; with telemetry {tm['telemetry_ms']:.4f} ms"
                  if "telemetry_ms" in tm else ""))
     # the kernels line's errors: those of the forms timed and counted (the
     # hard ledger; the soft pair in float32), the float64 checks beside
-    f32, f64 = soft_err[torch.float32], soft_err[torch.float64]
+    f32, f64 = soft_err[(sb, torch.float32)], soft_err[(sb, torch.float64)]
     return {"times": times, "errs": {
         "workload_ledger_fwd": {"max_abs_err": hard_err},
         "soft_ledger_fwd": {
             "max_abs_err": f32["fwd_abs"], "max_scaled_err": f32["fwd"],
             "float64_max_scaled_err": f64["fwd"],
+            "rows16_max_scaled_err": soft_err[(16, torch.float32)]["fwd"],
             "hard_float64_max_abs_err": hard64["sampled"]},
         "soft_ledger_bwd": {
             "max_abs_err": f32["bwd_abs"], "max_scaled_err": f32["bwd"],
-            "float64_max_scaled_err": f64["bwd"]}}}
+            "float64_max_scaled_err": f64["bwd"],
+            "rows16_max_scaled_err": soft_err[(16, torch.float32)]["bwd"]}}}
 
 
 def phase_faults_workload(dev) -> None:
@@ -2438,7 +2498,12 @@ def _ledger_records(ledger: dict, examples: dict) -> list[dict]:
             "launches": examples["launches"][name],
             **ledger["errs"][name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": ms, "bound_by": by,
-            "library_ms": None, "serial_floor_ms": tm["floor_ms"]})
+            "library_ms": None,
+            ("serial_floor_ms" if name == "workload_ledger_fwd"
+             else "one_row_ms"): tm["floor_ms"],
+            **({"rows16_ms": tm["rows16_ms"],
+                "kernels_per_call": tm["kernels_per_call"]}
+               if "rows16_ms" in tm else {})})
     return recs
 
 
@@ -2996,7 +3061,8 @@ def _profile(fn, label: str, runs: int = 10) -> dict | None:
             and e.self_device_time_total > 0]
     busy_us = sum(r[2] for r in rows)
     if busy_us == 0:
-        print("[profile] the profiler recorded no device time: not measured")
+        print(f"[profile] {label}: the profiler recorded no device time "
+              f"({_recorded(prof)}): not measured")
         return None
     print(f"[profile] {label} x {runs}: wall {wall_us / runs:.1f} us/run "
           f"under the profiler, device busy {busy_us / runs:.1f} us/run "
@@ -3979,13 +4045,15 @@ def _ssd_issued(b, s, h, p, g, n, l, hs, has_h0) -> float:
     return flop / 1e9
 
 
-def _pass_times_us(fn, flush: torch.Tensor, runs: int = 10) -> dict:
+def _pass_times_us(fn, flush: torch.Tensor,
+                   runs: int = 10) -> tuple[dict, int]:
     """Device time per call (us) of each kernel ``fn`` puts on the card, by
     kernel name, from `torch.profiler` (CUPTI) over ``runs`` calls, each
     after ``flush`` is overwritten (L2 flushed, as `_cuda_ms` times it;
-    the flush's own kernel is among the names). A session in which the
-    profiler recorded no device event at all (not even the flush's) is
-    the tool's failure, not the kernels': it is said and run once more."""
+    the flush's own kernel is among the names), and the number of empty
+    sessions. A session in which the profiler recorded no device event at
+    all (not even the flush's) is the tool's failure, not the kernels':
+    it is said, with what the profiler did record, and run once more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4003,10 +4071,24 @@ def _pass_times_us(fn, flush: torch.Tensor, runs: int = 10) -> dict:
                  if e.device_type == DeviceType.CUDA
                  and e.self_device_time_total > 0}
         if times:
-            return times
+            return times, attempt
         print(f"[profile] session {attempt + 1}: the profiler recorded no "
-              "device event")
-    return times
+              f"device event ({_recorded(prof)})")
+    return times, 2
+
+
+def _recorded(prof) -> str:
+    """What an empty profiler session did record: its raw events by
+    device, and the runtime's kernel launches among them (launches with
+    no kernel: CUPTI's activity records were lost; no launches: the
+    session saw no launch at all)."""
+    from torch.autograd import DeviceType
+
+    raw = prof.profiler.kineto_results.events()
+    n_dev = sum(e.device_type() == DeviceType.CUDA for e in raw)
+    n_launch = sum("LaunchKernel" in e.name() for e in raw)
+    return (f"{len(raw) - n_dev} host events, {n_dev} device events, "
+            f"{n_launch} kernel launches")
 
 
 SSD_PASSES = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")
@@ -4035,8 +4117,8 @@ def phase_ssd_times(dev, flush) -> dict:
         x, dt, a, bb, cc = _ssd_inputs(1, s, 64, 64, 1, n, BF16, dev, seed)
         ms = _cuda_ms(lambda: ssd_scan(x, dt, a, bb, cc, 256), flush=flush,
                       device_only=True)
-        passes = _pass_times_us(lambda: ssd_scan(x, dt, a, bb, cc, 256),
-                                flush)
+        passes, empty = _pass_times_us(
+            lambda: ssd_scan(x, dt, a, bb, cc, 256), flush)
         by_pass = {name: sum(us for k, us in passes.items() if name in k)
                    for name in SSD_PASSES}
         mma = sorted(k for k in passes if "_mma" in k)
@@ -4060,7 +4142,8 @@ def phase_ssd_times(dev, flush) -> dict:
               f"({issued / ms:.1f} TFLOP/s); tensor-core kernels "
               + ", ".join(k[:40] for k in mma))
         recs[key] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
-                     "bound_by": by, "library_ms": None}
+                     "bound_by": by, "library_ms": None,
+                     "profiler_empty_sessions": empty}
     return recs
 
 
@@ -4729,6 +4812,9 @@ def main() -> int:
     flash["train_max_grad_err"] = train_errs["flash_attention"]
     ssd = next(r for r in kernels if r["name"] == "ssd_scan")
     ssd["train_max_grad_err"] = train_errs["ssd_scan"]
+    ssd.pop("hybrid_profiler_empty_sessions")    # all three shapes':
+    ssd["profiler_empty_sessions"] = sum(
+        r["profiler_empty_sessions"] for r in ssd_times.values())
     for rec in kernels:
         runs = [("", device[rec["name"]])]
         if "hybrid_launches" in rec:

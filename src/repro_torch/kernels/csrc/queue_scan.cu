@@ -1,5 +1,5 @@
 // The work ledger for Hopper (sm_90a): a bounded, deadline-aged deferral
-// queue served hour by hour. Three kernels.
+// queue served hour by hour. Four kernels.
 //
 // They replace no Pallas kernel. The reference runs the ledger as a
 // lax.scan (repro/kernels/queue_scan.py:94 queue_scan, :170
@@ -17,10 +17,7 @@
 // and re-queue while the bound has room, keep_j = clip(bound - (sum of
 // survivors before j), 0, u_{j+1}); the rest drops. The soft form
 // replaces each clip by smoothclip, tau (softplus(z / tau) - softplus((z -
-// w) / tau)). Each hour is one pass over the d + 1 buckets, serving
-// bucket i and re-queueing survivor i - 1 together, from running sums in
-// the kernel's type (an inclusive sum c and c - w, as the plain version's
-// cumsum - w), so a thread holds no temporaries but the queue.
+// w) / tau)).
 //
 //   workload_ledger_kernel (hard, "workload_ledger_fwd"): one thread a
 //     (row, draw) lane, whole rows in a block (G draws a row, 32 / G rows
@@ -33,36 +30,61 @@
 //     dropped, backlog and served * p into float32 sums hour by hour, the
 //     reference's order. With telemetry it also writes each row's hourly
 //     sums over its draws ([4, B, T], added in draw order through shared
-//     memory, two barriers an hour); nothing else changes.
-//   soft_ledger_fwd_kernel: one thread a row of [B, T] demand and
-//     capacity (MWh), hard or smoothclip at tau (a device scalar), float32
-//     or float64. Writes the four sums (served, dropped, backlog, served
-//     cost), the queue entering every hour ([T, d, B], the backward's
-//     residual), the final queue and, optionally, the [3, B, T] hourly
-//     series.
-//   soft_ledger_bwd_kernel: one thread a row, reverse time. Each hour
-//     recomputes its forward from the saved queue into d + 1 bucket
-//     arrays, then runs the adjoint of both exclusive sums and both
-//     smoothclips (ref.soft_ledger_bwd_ref has the formulas): d cap [B, T]
-//     and d demand [B, T].
+//     memory, two barriers an hour); nothing else changes. Each hour is
+//     one pass over the d + 1 buckets from running sums (an inclusive sum
+//     c and c - w, as the plain version's cumsum - w); the queue lives in
+//     registers for d <= 8 (a kernel for each d) and device memory above.
 //
-// The queue and the backward's bucket arrays are registers for d <= 8
-// (a kernel for each d, the loops unrolled) and device memory above (a
-// scratch the wrapper allocates, bucket i of lane l at i * lanes + l).
-// Float32 exp / log1p of the smoothclip and its sigmoids are taken in
-// float64 and rounded once, as the plain version's _exp_rn / _log1p_rn;
-// the file is compiled with -fmad=false (build.SOURCE_FLAGS), so every
-// float operation rounds once as the plain version's do. Sums over the
-// buckets of an hour are taken in bucket order here and by torch's cumsum
-// and sum there, so the two agree bit for bit where the work is
-// integer-valued and to rounding otherwise.
+// The soft pair runs [B, T] demand and capacity (MWh), hard or smoothclip
+// at tau (a device scalar), float32 or float64, with a row's d + 1 slots
+// (oldest first, the arrivals last) on a segment of S lanes of one warp,
+// K consecutive slots a lane (seg_plan: S the power of 2 >= d + 1 and
+// K = 1 up to d = 31, a whole warp and K = 2, 4 or 8 slots a lane in
+// registers up to d = 255, and above that K slots a lane in a device
+// scratch). Every slot's clip of an hour runs at once: the sum of the
+// work before a slot is a segmented inclusive scan (__shfl_up_sync,
+// log2 S steps, Hillis-Steele) over the lanes' running sums, minus the
+// slot's own value.
+//
+//   soft_ledger_fwd_kernel: a segment a row. Each hour: the arrivals
+//     enter slot d; the serve scan, every slot's serve clip; the survivors
+//     u = w - serve (slot 0's drops); their scan, every keep clip; the
+//     queue ages one slot down (__shfl_down_sync). Demand, capacity and
+//     prices are loaded a window of W hours ahead, off the chain. Each
+//     lane adds its slots' served, dropped, backlog and served cost into
+//     its own sums, reduced over the segment (__shfl_xor_sync, a fixed
+//     tree) once at the end, or every hour for the [3, B, T] hourly
+//     series when they are asked for. Writes the four sums, the queue
+//     entering every hour ([T, B, d], youngest first: the plain version's
+//     layout, the backward's residual) and the final queue.
+//   soft_ledger_coef_kernel + soft_ledger_chain_kernel (the backward):
+//     the coefficient kernel, a segment a (row, hour), recomputes each
+//     hour's forward from the saved queue and writes its smoothclip
+//     derivatives (dz1, dw1 of the serve clip at every slot, dz2, dw2 of
+//     the keep clip at slots 1..d) into a [hours, B, d + 1, 4] scratch,
+//     all hours in parallel; the chain kernel, a segment a row, runs
+//     reverse time through the linear adjoint only (ref.soft_ledger_bwd_ref
+//     has the formulas: the two reverse exclusive sums are segmented
+//     suffix scans, __shfl_down_sync), its coefficients loaded hours
+//     ahead, and writes d cap [B, T] and d demand [B, T]. The scratch
+//     holds at most kCoefBytes: longer runs take windows of hours, latest
+//     first, the queue's adjoint carried between them in [B, d].
+//
+// Float32 exp / log1p of the smoothclips and their sigmoids are CUDA's
+// float32 functions (expf / log1pf, not the fast intrinsics); float64's
+// are exp / log1p. The file is compiled with -fmad=false
+// (build.SOURCE_FLAGS), so every float operation rounds once, as the
+// plain versions' and the soft pair's mirrors (ref.soft_ledger_fwd_seg_ref
+// / soft_ledger_bwd_seg_ref: the scans, trees and sums in the kernels'
+// order) do. The hard ledger agrees with its plain version bit for bit on
+// integer-valued work, the soft pair to rounding.
 //
 // Bound on an H100 SXM: the serial chain of T hours (each hour waits on
-// the last one's queue), ~(d + 1) x 10 dependent float operations an hour;
-// bytes (the [N, T] prices, [G, T] demand and [B, T] inputs read once, the
-// outputs written once) at 3.35 TB/s are far below it at the shapes the
-// ledger runs. A first, simple design: one thread a lane, no overlap of
-// one lane's hours, and only B x G (hard) or B (soft) lanes in flight.
+// the last one's queue). The soft forward's hour is two smoothclips and
+// two scans of log2 S shuffles deep; the backward's reverse chain is
+// linear (no transcendental), four scans and a shuffle deep. Bytes (the
+// [B, T] inputs read once, the outputs written once) at 3.35 TB/s are
+// far below the chain at the shapes the ledger runs.
 
 #include <cuda_runtime.h>
 
@@ -78,8 +100,12 @@ namespace {
 std::atomic<unsigned long long> g_launched{0};
 
 constexpr int kMaxRegD = 8;       // d above this keeps the queue in memory
-constexpr int kSoftThreads = 64;  // threads a block of the soft kernels
 constexpr int kMaxDraws = 1024;   // one row's draws fit one block
+constexpr int kSegThreads = 32;   // a block of the row kernels: one warp
+constexpr int kCoefThreads = 128; // a block of the coefficient kernel
+constexpr int kLaneSlots = 8;     // slots a lane keeps in registers
+constexpr long long kCoefBytes = 128LL << 20;  // the backward's scratch
+constexpr unsigned kFull = 0xffffffffu;
 
 // A per-lane array of n values: registers when n is a compile-time
 // constant (N > 0), device memory otherwise (element i at base[i * stride]).
@@ -99,24 +125,24 @@ struct Mem {
 };
 
 template <typename T>
-__device__ __forceinline__ T exp_rn(T x);
+__device__ __forceinline__ T exp_t(T x);
 template <>
-__device__ __forceinline__ float exp_rn(float x) {
-  return (float)exp((double)x);
+__device__ __forceinline__ float exp_t(float x) {
+  return expf(x);
 }
 template <>
-__device__ __forceinline__ double exp_rn(double x) {
+__device__ __forceinline__ double exp_t(double x) {
   return exp(x);
 }
 
 template <typename T>
-__device__ __forceinline__ T log1p_rn(T x);
+__device__ __forceinline__ T log1p_t(T x);
 template <>
-__device__ __forceinline__ float log1p_rn(float x) {
-  return (float)log1p((double)x);
+__device__ __forceinline__ float log1p_t(float x) {
+  return log1pf(x);
 }
 template <>
-__device__ __forceinline__ double log1p_rn(double x) {
+__device__ __forceinline__ double log1p_t(double x) {
   return log1p(x);
 }
 
@@ -124,12 +150,12 @@ __device__ __forceinline__ double log1p_rn(double x) {
 template <typename T>
 __device__ __forceinline__ T softplus(T x) {
   const T z = T(0);
-  return (x > z ? x : z) + log1p_rn(exp_rn(-(x < z ? -x : x)));
+  return (x > z ? x : z) + log1p_t(exp_t(-(x < z ? -x : x)));
 }
 
 template <typename T>
 __device__ __forceinline__ T sigmoid(T x) {
-  return T(1) / (T(1) + exp_rn(-x));
+  return T(1) / (T(1) + exp_t(-x));
 }
 
 // clip(z, 0, w), or its smoothclip relaxation at tau
@@ -250,146 +276,472 @@ __global__ void workload_ledger_kernel(
   }
 }
 
-template <typename T, int D>
-using SoftQueue = typename std::conditional<(D >= 0), Arr<T, D>,
-                                            Mem<T>>::type;
+// ---------------------------------------------------------------------------
+// the soft pair: a row's slots on the lanes of a segment
+// ---------------------------------------------------------------------------
 
-template <typename T, int D, bool HARD>
-__global__ void soft_ledger_fwd_kernel(
+// The slots of deadline d on a segment: S lanes (a power of 2, <= 32), K
+// consecutive slots a lane (lane l holds slots l K .. l K + K - 1), Kt the
+// kernels' template K (-1: the slots in a device scratch).
+struct SegPlan {
+  int S, K, Kt;
+};
+
+SegPlan seg_plan(int d) {
+  const int n = d + 1;
+  SegPlan p{1, 1, 1};
+  if (n <= 32) {
+    while (p.S < n) p.S <<= 1;
+    return p;
+  }
+  p.S = 32;
+  p.K = (n + 31) / 32;
+  int k = 1;
+  while (k < p.K) k <<= 1;
+  if (k <= kLaneSlots) p.K = k;
+  p.Kt = k <= kLaneSlots ? k : -1;
+  return p;
+}
+
+// a lane's K slots: registers (K > 0) or the scratch (K = -1)
+template <typename T, int K>
+using Slots = typename std::conditional<(K > 0), Arr<T, K>, Mem<T>>::type;
+
+// Inclusive sum over the lanes at and below this one in the segment.
+template <typename T>
+__device__ __forceinline__ T seg_scan(T v, int lane, int S) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    if (off >= S) break;
+    const T o = __shfl_up_sync(kFull, v, off, S);
+    if (lane >= off) v = v + o;
+  }
+  return v;
+}
+
+// Inclusive sum over the lanes at and above this one in the segment.
+template <typename T>
+__device__ __forceinline__ T seg_rscan(T v, int lane, int S) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    if (off >= S) break;
+    const T o = __shfl_down_sync(kFull, v, off, S);
+    if (lane + off < S) v = v + o;
+  }
+  return v;
+}
+
+// The segment's sum on every lane: a butterfly, the halves' sums first.
+template <typename T>
+__device__ __forceinline__ T seg_sum(T v, int S) {
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1)
+    if (off < S) v = v + __shfl_xor_sync(kFull, v, off, S);
+  return v;
+}
+
+// The sum of the slots before each of this lane's: loc[k] holds the
+// lane's running sum up to slot k (its own included), x[k] the slot's
+// value. Returns through loc: the exclusive sum over the segment, as the
+// inclusive one minus x (the plain version's cumsum - w).
+template <typename T, int K, class A>
+__device__ __forceinline__ void seg_excl(A& loc, A& x, int kn, int lane,
+                                         int S) {
+  const T incl = seg_scan(loc[kn - 1], lane, S);
+  if (K == 1) {
+    loc[0] = incl - x[0];
+    return;
+  }
+  T pre = __shfl_up_sync(kFull, incl, 1, S);
+  if (lane == 0) pre = T(0);
+#pragma unroll
+  for (int k = 0; k < kn; ++k) loc[k] = (pre + loc[k]) - x[k];
+}
+
+// The same from above: loc[k] holds the lane's running sum from its last
+// slot down to slot k, incl the lane total's seg_rscan and post that of
+// the lane above (0 at the top); returns the sum over slot k and the
+// slots after it.
+template <typename T, int K, class A>
+__device__ __forceinline__ T seg_rincl(A& loc, int k, T incl, T post) {
+  return K == 1 ? incl : post + loc[k];
+}
+
+template <typename T, int K, bool HARD>
+__global__ void __launch_bounds__(kSegThreads) soft_ledger_fwd_kernel(
     const T* __restrict__ demand, const T* __restrict__ cap,
     const T* __restrict__ prices, const T* __restrict__ tau_p, T bound, int B,
-    int T_, int d, T* __restrict__ sums, T* __restrict__ hist,
+    int T_, int d, int S, int Kn, T* __restrict__ sums, T* __restrict__ hist,
     T* __restrict__ q_final, T* __restrict__ hourly, T* __restrict__ scratch) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  // hours of inputs loaded ahead: 8 float32 or 4 float64 slot-hours a
+  // lane (each hour's clips are unrolled over the window)
+  constexpr int kV = sizeof(T) == 4 ? 8 : 4;
+  constexpr int W = K < 2 ? kV : (kV / K > 0 ? kV / K : 1);
+  const int gt = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = gt / S, lane = gt % S;       // S divides 32
+  const bool active = row < B;
+  const long long base = (long long)(active ? row : B - 1) * T_;
+  const int kn = K > 0 ? K : Kn;
+  const int m0 = lane * kn;                    // this lane's first slot
   const T tau = HARD ? T(0) : tau_p[0];
-  const int dd = D >= 0 ? D : d;
-  SoftQueue<T, D> q;
-  if constexpr (D < 0) {
-    q.base = scratch + b;
-    q.stride = B;
+  Slots<T, K> w, c;
+  if constexpr (K < 0) {
+    const long long n = (long long)gridDim.x * blockDim.x;
+    w.base = scratch + gt;
+    w.stride = n;
+    c.base = scratch + (long long)kn * n + gt;
+    c.stride = n;
   }
 #pragma unroll
-  for (int i = 0; i < dd; ++i) q[i] = T(0);
-  const long long base = (long long)b * T_;
-  T s_acc = T(0), d_acc = T(0), b_acc = T(0), c_acc = T(0);
-  for (int t = 0; t < T_; ++t) {
-    if (hist != nullptr) {
+  for (int k = 0; k < kn; ++k) w[k] = T(0);
+  T acc_s = T(0), acc_d = T(0), acc_b = T(0), acc_c = T(0);
+  T na[W], nc[W], np[W];   // the next window's arrivals, capacity, prices
+  auto load = [&](int t0) {
 #pragma unroll
-      for (int i = 0; i < dd; ++i)
-        hist[((long long)t * dd + i) * B + b] = q[i];
+    for (int j = 0; j < W; ++j) {
+      const long long i = base + (t0 + j < T_ ? t0 + j : T_ - 1);
+      na[j] = demand[i];
+      nc[j] = cap[i];
+      np[j] = prices != nullptr ? prices[i] : T(0);
     }
-    T served, dropped, bl;
-    hour_fwd<HARD, D>(q, d, demand[base + t], cap[base + t], bound, tau,
-                      served, dropped, bl);
-    const T p = prices != nullptr ? prices[base + t] : T(0);
-    s_acc = s_acc + served;
-    d_acc = d_acc + dropped;
-    b_acc = b_acc + bl;
-    c_acc = c_acc + served * p;
-    if (hourly != nullptr) {
-      hourly[base + t] = served;
-      hourly[(long long)B * T_ + base + t] = dropped;
-      hourly[2LL * B * T_ + base + t] = bl;
+  };
+  load(0);
+  for (int t0 = 0; t0 < T_; t0 += W) {
+    T ia[W], ic[W], ip[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      ia[j] = na[j];
+      ic[j] = nc[j];
+      ip[j] = np[j];
+    }
+    load(t0 + W);
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const int t = t0 + j;
+      if (t >= T_) break;
+      if (hist != nullptr && active) {
+#pragma unroll
+        for (int k = 0; k < kn; ++k)
+          if (m0 + k < d)
+            hist[((long long)t * B + row) * d + (d - 1 - m0 - k)] = w[k];
+      }
+      // serve: every slot's clip of the room the older work leaves
+#pragma unroll
+      for (int k = 0; k < kn; ++k) {
+        if (m0 + k == d) w[k] = ia[j];
+        c[k] = k == 0 ? w[k] : c[k - 1] + w[k];
+      }
+      seg_excl<T, K>(c, w, kn, lane, S);
+      T srv = T(0), drp = T(0), bkl = T(0);
+#pragma unroll
+      for (int k = 0; k < kn; ++k) {
+        const T s = clip<HARD>(ic[j] - c[k], w[k], tau);
+        const T u = w[k] - s;
+        acc_s = acc_s + s;
+        acc_c = acc_c + s * ip[j];
+        srv = srv + s;
+        if (m0 + k == 0) {   // the oldest bucket's rest expires
+          acc_d = acc_d + u;
+          drp = drp + u;
+        }
+        w[k] = m0 + k == 0 ? T(0) : u;   // the survivors
+      }
+      // re-queue: every survivor's clip of the room the older ones leave
+#pragma unroll
+      for (int k = 0; k < kn; ++k) c[k] = k == 0 ? w[k] : c[k - 1] + w[k];
+      seg_excl<T, K>(c, w, kn, lane, S);
+#pragma unroll
+      for (int k = 0; k < kn; ++k) {
+        const T keep = clip<HARD>(bound - c[k], w[k], tau);
+        acc_d = acc_d + (w[k] - keep);
+        acc_b = acc_b + keep;
+        drp = drp + (w[k] - keep);
+        bkl = bkl + keep;
+        c[k] = keep;
+      }
+      // age: slot m takes slot m + 1's keep; slot d waits for the arrivals
+      const T up = __shfl_down_sync(kFull, c[0], 1, S);
+#pragma unroll
+      for (int k = 0; k < kn; ++k)
+        w[k] = m0 + k < d ? (k + 1 < kn ? c[k + 1] : up) : T(0);
+      if (hourly != nullptr) {
+        srv = seg_sum(srv, S);
+        drp = seg_sum(drp, S);
+        bkl = seg_sum(bkl, S);
+        if (active && lane == 0) {
+          hourly[base + t] = srv;
+          hourly[(long long)B * T_ + base + t] = drp;
+          hourly[2LL * B * T_ + base + t] = bkl;
+        }
+      }
     }
   }
-  sums[b] = s_acc;
-  sums[B + b] = d_acc;
-  sums[2 * B + b] = b_acc;
-  sums[3 * B + b] = c_acc;
+  acc_s = seg_sum(acc_s, S);
+  acc_d = seg_sum(acc_d, S);
+  acc_b = seg_sum(acc_b, S);
+  acc_c = seg_sum(acc_c, S);
+  if (!active) return;
+  if (lane == 0) {
+    sums[row] = acc_s;
+    sums[B + row] = acc_d;
+    sums[2 * B + row] = acc_b;
+    sums[3 * B + row] = acc_c;
+  }
 #pragma unroll
-  for (int k = 0; k < dd; ++k) q_final[(long long)b * dd + k] = q[dd - 1 - k];
+  for (int k = 0; k < kn; ++k)
+    if (m0 + k < d) q_final[(long long)row * d + (d - 1 - m0 - k)] = w[k];
 }
 
-template <typename T, int D>
-using BwdArr = typename std::conditional<(D >= 0), Arr<T, D + 1>,
-                                         Mem<T>>::type;
+// The smoothclip derivatives of one slot's hour: dz1, dw1 of its serve
+// clip; dz2, dw2 of its keep clip (0 at slot 0, whose rest drops).
+template <typename T>
+struct Coef {
+  T dz1, dw1, dz2, dw2;
+};
 
-// The adjoint of one hour (ref.soft_ledger_bwd_ref's formulas). o: the
-// queue entering the hour (oldest first); lam: on entry the adjoint of the
-// queue the hour leaves, on return that of the queue entering it (both
-// oldest first).
-template <typename T, int D, class A>
-__device__ __forceinline__ void hour_bwd(Mem<T>& o, A& w, A& room, A& aged,
-                                         A& za, A& gu, A& lam, int d, T a,
-                                         T capv, T bound, T tau, T g_s,
-                                         T g_d, T g_b, T& d_cap, T& d_dem) {
-  if (D >= 0) d = D;
-  T c = T(0), ca = T(0);
-#pragma unroll
-  for (int i = 0; i <= (D >= 0 ? D : d); ++i) {
-    const T wi = i < d ? o[i] : a;
-    c = c + wi;
-    const T rm = capv - (c - wi);
-    const T u = wi - clip<false>(rm, wi, tau);
-    w[i] = wi;
-    room[i] = rm;
-    if (i > 0) {
-      ca = ca + u;
-      aged[i - 1] = u;
-      za[i - 1] = bound - (ca - u);
-    }
-  }
-  T r = T(0);
-#pragma unroll
-  for (int j = (D >= 0 ? D : d) - 1; j >= 0; --j) {
-    const T gk = lam[j] + g_b - g_d;
-    const T s_w = sigmoid((za[j] - aged[j]) / tau);
-    const T dz = sigmoid(za[j] / tau) - s_w;
-    gu[j + 1] = g_d + gk * s_w - r;
-    r = r + gk * dz;
-  }
-  gu[0] = g_d;
-  T r2 = T(0), gc = T(0);
-#pragma unroll
-  for (int i = (D >= 0 ? D : d); i >= 0; --i) {
-    const T s_w = sigmoid((room[i] - w[i]) / tau);
-    const T dz = sigmoid(room[i] / tau) - s_w;
-    const T g_serve = g_s - gu[i];
-    const T g_room = g_serve * dz;
-    const T g_w = gu[i] + g_serve * s_w - r2;
-    r2 = r2 + g_room;
-    gc = gc + g_room;
-    if (i < d)
-      lam[i] = g_w;
-    else
-      d_dem = g_w;
-  }
-  d_cap = gc;
+template <typename T>
+__device__ __forceinline__ Coef<T> load_coef(const T* p);
+template <>
+__device__ __forceinline__ Coef<float> load_coef(const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  return {v.x, v.y, v.z, v.w};
+}
+template <>
+__device__ __forceinline__ Coef<double> load_coef(const double* p) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  return {a.x, a.y, b.x, b.y};
 }
 
-template <typename T, int D>
-__global__ void soft_ledger_bwd_kernel(
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, T x, T y);
+template <>
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+template <>
+__device__ __forceinline__ void store_pair(double* p, double x, double y) {
+  *reinterpret_cast<double2*>(p) = make_double2(x, y);
+}
+
+// The backward's coefficient pass: a segment a (row, hour) of the hours
+// [t0, t0 + tw), row fastest. Recomputes the hour's forward from the
+// queue entering it (hist [T, B, d], youngest first) and writes coef
+// [tw, B, d + 1, 4]: sigma(z / tau) - sigma((z - w) / tau) and sigma((z -
+// w) / tau) of the serve clip (z the room, w the slot's work) and of the
+// keep clip (z the bound's room, w the survivor).
+template <typename T, int K>
+__global__ void __launch_bounds__(kCoefThreads) soft_ledger_coef_kernel(
     const T* __restrict__ demand, const T* __restrict__ cap,
-    const T* __restrict__ prices, const T* __restrict__ tau_p, T bound, int B,
-    int T_, int d, const T* __restrict__ hist, const T* __restrict__ g,
-    T* __restrict__ d_cap, T* __restrict__ d_dem, T* __restrict__ scratch) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+    const T* __restrict__ tau_p, T bound, int B, int T_, int d, int S, int Kn,
+    int t0, int tw, const T* __restrict__ hist, T* __restrict__ coef,
+    T* __restrict__ scratch) {
+  const long long gt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long seg = gt / S;
+  const int lane = (int)(gt % S);
+  const bool active = seg < (long long)tw * B;
+  const long long sg = active ? seg : 0;
+  const int tt = (int)(sg / B), row = (int)(sg % B), t = t0 + tt;
+  const int kn = K > 0 ? K : Kn;
+  const int m0 = lane * kn;
   const T tau = tau_p[0];
-  const int dd = D >= 0 ? D : d;
-  const T g_s0 = g[b], g_d = g[B + b], g_b = g[2 * B + b], g_c = g[3 * B + b];
-  BwdArr<T, D> w, room, aged, za, gu, lam;
-  if constexpr (D < 0) {
-    const long long n = (long long)(d + 1) * B;
-    BwdArr<T, D>* arrs[6] = {&w, &room, &aged, &za, &gu, &lam};
-    for (int k = 0; k < 6; ++k) {
-      arrs[k]->base = scratch + k * n + b;
-      arrs[k]->stride = B;
-    }
+  Slots<T, K> w, c;
+  if constexpr (K < 0) {
+    const long long n = (long long)gridDim.x * blockDim.x;
+    w.base = scratch + gt;
+    w.stride = n;
+    c.base = scratch + (long long)kn * n + gt;
+    c.stride = n;
+  }
+  const long long hq = ((long long)t * B + row) * d;
+#pragma unroll
+  for (int k = 0; k < kn; ++k) {
+    const int m = m0 + k;
+    w[k] = m < d ? hist[hq + (d - 1 - m)]
+                 : (m == d ? demand[(long long)row * T_ + t] : T(0));
+    c[k] = k == 0 ? w[k] : c[k - 1] + w[k];
+  }
+  const T capv = cap[(long long)row * T_ + t];
+  seg_excl<T, K>(c, w, kn, lane, S);
+  T* out = coef + ((long long)tt * B + row) * (d + 1) * 4;
+#pragma unroll
+  for (int k = 0; k < kn; ++k) {
+    const int m = m0 + k;
+    const T z = capv - c[k];
+    const T u = w[k] - clip<false>(z, w[k], tau);
+    const T sw = sigmoid((z - w[k]) / tau);
+    if (active && m <= d) store_pair(out + 4 * m, sigmoid(z / tau) - sw, sw);
+    w[k] = m == 0 ? T(0) : u;
   }
 #pragma unroll
-  for (int i = 0; i < dd; ++i) lam[i] = T(0);
-  const long long base = (long long)b * T_;
-  for (int t = T_ - 1; t >= 0; --t) {
-    Mem<T> o{const_cast<T*>(hist) + (long long)t * dd * B + b, B};
-    const T g_s =
-        prices != nullptr ? g_s0 + g_c * prices[base + t] : g_s0;
-    T dc, dm;
-    hour_bwd<T, D>(o, w, room, aged, za, gu, lam, d, demand[base + t],
-                   cap[base + t], bound, tau, g_s, g_d, g_b, dc, dm);
-    d_cap[base + t] = dc;
-    if (d_dem != nullptr) d_dem[base + t] = dm;
+  for (int k = 0; k < kn; ++k) c[k] = k == 0 ? w[k] : c[k - 1] + w[k];
+  seg_excl<T, K>(c, w, kn, lane, S);
+#pragma unroll
+  for (int k = 0; k < kn; ++k) {
+    const int m = m0 + k;
+    const T z = bound - c[k];
+    const T sw = sigmoid((z - w[k]) / tau);
+    if (active && m <= d)
+      store_pair(out + 4 * m + 2, m == 0 ? T(0) : sigmoid(z / tau) - sw,
+                 m == 0 ? T(0) : sw);
+  }
+}
+
+// One hour of the reverse chain on a lane's slots (ref.soft_ledger_bwd_ref's
+// formulas). a holds the adjoint of the queue the hour leaves (slot m at
+// the lane's slot m, 0 at slots >= d) and returns that of the queue
+// entering it; cf(k) the hour's coefficients of slot m0 + k; gst the
+// served MWh's cotangent g_served + g_cost p_t.
+template <typename T, int K, class A, class CF>
+__device__ __forceinline__ void hour_chain(A& a, A& r, CF cf, int kn, int m0,
+                                           int lane, int S, int d, T gst,
+                                           T g_d, T g_b, T& dcap, T& ddem) {
+  // gk: the adjoint of the keep at slot m, the queue's slot m - 1
+  const T below = __shfl_up_sync(kFull, a[kn - 1], 1, S);
+#pragma unroll
+  for (int k = kn - 1; k >= 0; --k) a[k] = (k > 0 ? a[k - 1] : below) + g_b - g_d;
+  // g_u = g_d + gk dw2 - sum over the later slots of gk dz2
+  T run = T(0);
+#pragma unroll
+  for (int k = kn - 1; k >= 0; --k) {
+    const T x = a[k] * cf(k).dz2;
+    run = k == kn - 1 ? x : run + x;
+    r[k] = run;
+  }
+  T incl = seg_rscan(run, lane, S);
+  T post = T(0);
+  if (K != 1) {
+    post = __shfl_down_sync(kFull, incl, 1, S);
+    if (lane == S - 1) post = T(0);
+  }
+#pragma unroll
+  for (int k = 0; k < kn; ++k) {
+    const Coef<T> q = cf(k);
+    const T x = a[k] * q.dz2;
+    const T later = seg_rincl<T, K>(r, k, incl, post) - x;
+    r[k] = m0 + k == 0 ? g_d : g_d + a[k] * q.dw2 - later;
+  }
+  // g_room = (gst - g_u) dz1; g_w = g_u + (gst - g_u) dw1 - the later
+  // slots' g_room
+#pragma unroll
+  for (int k = kn - 1; k >= 0; --k) {
+    const T x = (gst - r[k]) * cf(k).dz1;
+    run = k == kn - 1 ? x : run + x;
+    a[k] = run;
+  }
+  incl = seg_rscan(run, lane, S);
+  if (K != 1) {
+    post = __shfl_down_sync(kFull, incl, 1, S);
+    if (lane == S - 1) post = T(0);
+  }
+#pragma unroll
+  for (int k = 0; k < kn; ++k) {
+    const int m = m0 + k;
+    const Coef<T> q = cf(k);
+    const T gs = gst - r[k];
+    const T x = gs * q.dz1;
+    const T all = seg_rincl<T, K>(a, k, incl, post);
+    const T gw = r[k] + gs * q.dw1 - (all - x);
+    if (m == 0) dcap = all;   // every slot's g_room
+    if (m == d) ddem = gw;
+    a[k] = m < d ? gw : T(0);
+  }
+}
+
+// The backward's reverse chain over the hours [t0, t0 + tw): a segment a
+// row. lam [B, d] carries the adjoint of the queue leaving the window's
+// last hour in (unless first) and that of the queue entering its first
+// hour out.
+template <typename T, int K>
+__global__ void __launch_bounds__(kSegThreads) soft_ledger_chain_kernel(
+    const T* __restrict__ prices, const T* __restrict__ g, int B, int T_,
+    int d, int S, int Kn, int t0, int tw, const T* __restrict__ coef,
+    T* __restrict__ lam, int first, T* __restrict__ d_cap,
+    T* __restrict__ d_dem, T* __restrict__ scratch) {
+  // hours of coefficients loaded ahead: about 8 float32 or 4 float64
+  // slot-hours a lane
+  constexpr int kV = sizeof(T) == 4 ? 8 : 4;
+  constexpr int W = K > 0 && kV / K > 0 ? kV / K : 1;
+  const int gt = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = gt / S, lane = gt % S;
+  const bool active = row < B;
+  const int rr = active ? row : B - 1;
+  const int kn = K > 0 ? K : Kn;
+  const int m0 = lane * kn;
+  const T g_s = g[rr], g_d = g[B + rr], g_b = g[2 * B + rr],
+          g_c = g[3 * B + rr];
+  Slots<T, K> a, r;
+  if constexpr (K < 0) {
+    const long long n = (long long)gridDim.x * blockDim.x;
+    a.base = scratch + gt;
+    a.stride = n;
+    r.base = scratch + (long long)kn * n + gt;
+    r.stride = n;
+  }
+#pragma unroll
+  for (int k = 0; k < kn; ++k)
+    a[k] = !first && m0 + k < d ? lam[(long long)rr * d + m0 + k] : T(0);
+  const long long row_t = (long long)rr * T_;
+  auto at = [&](int tt, int m) {
+    return coef + (((long long)tt * B + rr) * (d + 1) + m) * 4;
+  };
+  T dcap = T(0), ddem = T(0);
+  if constexpr (K < 0) {
+    for (int tt = tw - 1; tt >= 0; --tt) {
+      const int t = t0 + tt;
+      const T gst = prices != nullptr ? g_s + g_c * prices[row_t + t] : g_s;
+      auto cf = [&](int k) {
+        return m0 + k <= d ? load_coef(at(tt, m0 + k)) : Coef<T>{};
+      };
+      hour_chain<T, K>(a, r, cf, kn, m0, lane, S, d, gst, g_d, g_b, dcap,
+                       ddem);
+      if (active && m0 == 0) d_cap[row_t + t] = dcap;
+      if (active && d_dem != nullptr && m0 <= d && d < m0 + kn)
+        d_dem[row_t + t] = ddem;
+    }
+  } else {
+    Coef<T> nq[W][K];   // the next window's coefficients and prices
+    T npr[W];
+    auto load = [&](int hi) {   // hours hi, hi - 1, ..., hi - W + 1
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        const int tt = hi - j >= 0 ? hi - j : 0;
+        npr[j] = prices != nullptr ? prices[row_t + t0 + tt] : T(0);
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          nq[j][k] = m0 + k <= d ? load_coef(at(tt, m0 + k)) : Coef<T>{};
+      }
+    };
+    load(tw - 1);
+    for (int hi = tw - 1; hi >= 0; hi -= W) {
+      Coef<T> q[W][K];
+      T pr[W];
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        pr[j] = npr[j];
+#pragma unroll
+        for (int k = 0; k < K; ++k) q[j][k] = nq[j][k];
+      }
+      load(hi - W);
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        const int tt = hi - j;
+        if (tt < 0) break;
+        const int t = t0 + tt;
+        const T gst = prices != nullptr ? g_s + g_c * pr[j] : g_s;
+        auto cf = [&](int k) { return q[j][k]; };
+        hour_chain<T, K>(a, r, cf, kn, m0, lane, S, d, gst, g_d, g_b, dcap,
+                         ddem);
+        if (active && m0 == 0) d_cap[row_t + t] = dcap;
+        if (active && d_dem != nullptr && m0 <= d && d < m0 + kn)
+          d_dem[row_t + t] = ddem;
+      }
+    }
+  }
+  if (active) {
+#pragma unroll
+    for (int k = 0; k < kn; ++k)
+      if (m0 + k < d) lam[(long long)row * d + m0 + k] = a[k];
   }
 }
 
@@ -410,25 +762,70 @@ int with_d(int d, F&& f) {
   return with_d(d, f, std::make_integer_sequence<int, kMaxRegD + 1>{});
 }
 
+// f(std::integral_constant<int, K>) for a plan's template K
+template <class F>
+int with_k(int kt, F&& f) {
+  switch (kt) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    default: return f(std::integral_constant<int, -1>{});
+  }
+}
+
+// threads of the grid that gives each of n segments S lanes, in blocks
+// of `block`
+long long seg_threads(long long n, int S, int block) {
+  return (n * S + block - 1) / block * block;
+}
+
+// hours a window of the backward (its coefficients within kCoefBytes)
+int bwd_window(int B, int T, int d, int itemsize) {
+  const long long per_hour = (long long)B * (d + 1) * 4 * itemsize;
+  const long long tw = kCoefBytes / per_hour;
+  return (int)(tw < 1 ? 1 : (tw > T ? T : tw));
+}
+
+long long fwd_scratch(int B, int d) {
+  const SegPlan p = seg_plan(d);
+  return p.Kt > 0 ? 0 : 2LL * p.K * seg_threads(B, p.S, kSegThreads);
+}
+
+// the backward's scratch: the window's coefficients, the carried adjoint
+// [B, d], and the slots of the memory form
+long long bwd_scratch(int B, int T, int d, int itemsize) {
+  const SegPlan p = seg_plan(d);
+  const long long tw = bwd_window(B, T, d, itemsize);
+  long long n = tw * B * (d + 1) * 4 + (long long)B * d;
+  if (p.Kt < 0) {
+    const long long a = seg_threads(B, p.S, kSegThreads);
+    const long long b = seg_threads(tw * B, p.S, kCoefThreads);
+    n += 2LL * p.K * (a > b ? a : b);
+  }
+  return n;
+}
+
 template <typename T>
 int soft_fwd(const T* demand, const T* cap, const T* prices, const T* tau,
              T bound, int B, int T_, int d, int hard, T* sums, T* hist,
              T* q_final, T* hourly, T* scratch, void* stream) {
-  if (B <= 0 || T_ <= 0 || d < 0 || (d > kMaxRegD && scratch == nullptr) ||
-      (!hard && tau == nullptr))
+  if (B <= 0 || T_ <= 0 || d < 0 || (!hard && tau == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int blocks = (B + kSoftThreads - 1) / kSoftThreads;
+  const SegPlan p = seg_plan(d);
+  if (p.Kt < 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const int blocks = (int)(seg_threads(B, p.S, kSegThreads) / kSegThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_d(d, [&](auto dc) {
-    constexpr int D = decltype(dc)::value;
+  return with_k(p.Kt, [&](auto kc) {
+    constexpr int K = decltype(kc)::value;
     if (hard)
-      soft_ledger_fwd_kernel<T, D, true><<<blocks, kSoftThreads, 0, s>>>(
-          demand, cap, prices, tau, bound, B, T_, d, sums, hist, q_final,
-          hourly, scratch);
+      soft_ledger_fwd_kernel<T, K, true><<<blocks, kSegThreads, 0, s>>>(
+          demand, cap, prices, tau, bound, B, T_, d, p.S, p.K, sums, hist,
+          q_final, hourly, scratch);
     else
-      soft_ledger_fwd_kernel<T, D, false><<<blocks, kSoftThreads, 0, s>>>(
-          demand, cap, prices, tau, bound, B, T_, d, sums, hist, q_final,
-          hourly, scratch);
+      soft_ledger_fwd_kernel<T, K, false><<<blocks, kSegThreads, 0, s>>>(
+          demand, cap, prices, tau, bound, B, T_, d, p.S, p.K, sums, hist,
+          q_final, hourly, scratch);
     ++g_launched;
     return (int)cudaGetLastError();
   });
@@ -438,18 +835,38 @@ template <typename T>
 int soft_bwd(const T* demand, const T* cap, const T* prices, const T* tau,
              T bound, int B, int T_, int d, const T* hist, const T* g,
              T* d_cap, T* d_dem, T* scratch, void* stream) {
-  if (B <= 0 || T_ <= 0 || d < 0 || (d > kMaxRegD && scratch == nullptr) ||
+  if (B <= 0 || T_ <= 0 || d < 0 || tau == nullptr || scratch == nullptr ||
       (d > 0 && hist == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int blocks = (B + kSoftThreads - 1) / kSoftThreads;
+  const SegPlan p = seg_plan(d);
+  const int tw = bwd_window(B, T_, d, (int)sizeof(T));
+  T* coef = scratch;
+  T* lam = coef + (long long)tw * B * (d + 1) * 4;
+  T* mem = lam + (long long)B * d;
+  const int chain_blocks =
+      (int)(seg_threads(B, p.S, kSegThreads) / kSegThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_d(d, [&](auto dc) {
-    constexpr int D = decltype(dc)::value;
-    soft_ledger_bwd_kernel<T, D><<<blocks, kSoftThreads, 0, s>>>(
-        demand, cap, prices, tau, bound, B, T_, d, hist, g, d_cap, d_dem,
-        scratch);
-    ++g_launched;
-    return (int)cudaGetLastError();
+  return with_k(p.Kt, [&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+    for (int hi = T_; hi > 0; hi -= tw) {   // windows, the latest first
+      const int t0 = hi > tw ? hi - tw : 0, len = hi - t0;
+      const int coef_blocks =
+          (int)(seg_threads((long long)len * B, p.S, kCoefThreads) /
+                kCoefThreads);
+      soft_ledger_coef_kernel<T, K><<<coef_blocks, kCoefThreads, 0, s>>>(
+          demand, cap, tau, bound, B, T_, d, p.S, p.K, t0, len, hist, coef,
+          mem);
+      ++g_launched;
+      int err = (int)cudaGetLastError();
+      if (err != 0) return err;
+      soft_ledger_chain_kernel<T, K><<<chain_blocks, kSegThreads, 0, s>>>(
+          prices, g, B, T_, d, p.S, p.K, t0, len, coef, lam, hi == T_, d_cap,
+          d_dem, mem);
+      ++g_launched;
+      err = (int)cudaGetLastError();
+      if (err != 0) return err;
+    }
+    return 0;
   });
 }
 
@@ -497,10 +914,19 @@ int workload_ledger_f32(const float* prices, const long long* market_idx,
   });
 }
 
+// The soft pair's scratch, in values of the pair's type: the forward's at
+// deadline d (0 below d = 256: its slots live in registers), the
+// backward's for [B, T] rows (itemsize 4 or 8).
+long long soft_ledger_fwd_scratch(int B, int d) { return fwd_scratch(B, d); }
+long long soft_ledger_bwd_scratch(int B, int T, int d, int itemsize) {
+  return bwd_scratch(B, T, d, itemsize);
+}
+
 // demand, cap, prices (or null): [B, T]; tau: [1] on the device (unread
-// when hard); sums: [4, B]; hist: [T, d, B] (the queue entering each hour,
-// oldest first) or null; q_final: [B, d] youngest first;
-// hourly: [3, B, T] or null; scratch: [d, B] when d > 8, else null.
+// when hard); sums: [4, B]; hist: [T, B, d] (the queue entering each hour,
+// youngest first) or null; q_final: [B, d] youngest first;
+// hourly: [3, B, T] or null; scratch: soft_ledger_fwd_scratch(B, d)
+// values, or null when that is 0. One launch on `stream`.
 int soft_ledger_fwd_f32(const float* demand, const float* cap,
                         const float* prices, const float* tau, float bound,
                         int B, int T, int d, int hard, float* sums,
@@ -519,7 +945,9 @@ int soft_ledger_fwd_f64(const double* demand, const double* cap,
 }
 
 // g: [4, B] cotangents of the forward's sums; d_cap: [B, T]; d_dem: [B, T]
-// or null; scratch: [6, d + 1, B] when d > 8, else null.
+// or null; scratch: soft_ledger_bwd_scratch(B, T, d, itemsize) values.
+// Two launches a window of hours (coefficients, then the chain), one
+// window where the coefficients fit kCoefBytes.
 int soft_ledger_bwd_f32(const float* demand, const float* cap,
                         const float* prices, const float* tau, float bound,
                         int B, int T, int d, const float* hist,

@@ -11,11 +11,15 @@ Here the hour loop runs inside ``csrc/queue_scan.cu``:
     inline on its market's prices (read through ``market_idx``), its
     draws served with the hour's realised capacity; [B, G] sums, and with
     telemetry each row's hourly sums over its draws;
-  * `soft_ledger_fwd` / `soft_ledger_bwd` — a thread a row of [B, T]
-    demand and capacity, the hard clip or its `smoothclip` relaxation in
-    float32 or float64; the forward saves the queue entering every hour,
-    the backward runs reverse time. `SoftLedger` is the pair under
-    autograd (d capacity and d demand), the tuner's SLO term.
+  * `soft_ledger_fwd` / `soft_ledger_bwd` — [B, T] demand and capacity,
+    the hard clip or its `smoothclip` relaxation in float32 or float64, a
+    row's d + 1 buckets on the lanes of a warp segment; the forward saves
+    the queue entering every hour ([T, B, d], youngest first, as the
+    plain version does), the backward computes every hour's smoothclip
+    derivatives in parallel and then runs reverse time through the
+    linear adjoint alone (two kernels a window of hours). `SoftLedger` is
+    the pair under autograd (d capacity and d demand), the tuner's SLO
+    term.
 
 On CPU tensors each wrapper runs its plain version
 (`repro_torch.kernels.ref`: `workload_ledger_ref`, `soft_ledger_fwd_ref`,
@@ -54,8 +58,9 @@ __all__ = ["QUEUE_MWH_SCALE", "QueueHourly", "QueueScanOut", "SoftLedger",
            "queue_hour_step", "queue_scan", "smoothclip", "soft_ledger_bwd", "soft_ledger_fwd", "workload_fleet_scan",
            "workload_ledger_fwd"]
 
-_MAX_REG_D = 8       # csrc/queue_scan.cu's kMaxRegD: above it the kernels
-                     # keep the queue in a scratch the wrapper allocates
+_MAX_REG_D = 8       # csrc/queue_scan.cu's kMaxRegD: above it the hard
+                     # kernel keeps the queue in a scratch the wrapper
+                     # allocates
 _MAX_DRAWS = 1024    # one row's draws fit one block of the hard kernel
 
 
@@ -94,6 +99,10 @@ def _library() -> ctypes.CDLL:
         bwd = getattr(lib, f"soft_ledger_bwd_{suffix}")
         bwd.argtypes = [ptr] * 4 + [real] + [i32] * 3 + [ptr] * 6
         bwd.restype = i32
+    lib.soft_ledger_fwd_scratch.argtypes = [i32] * 2
+    lib.soft_ledger_bwd_scratch.argtypes = [i32] * 4
+    lib.soft_ledger_fwd_scratch.restype = ctypes.c_longlong
+    lib.soft_ledger_bwd_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -231,7 +240,7 @@ def soft_ledger_fwd(demand: torch.Tensor, cap: torch.Tensor,
     """``(sums [4, B], hist, q_final [B, D], hourly [3, B, T] or None)`` of
     the ledger over [B, T] demand and capacity (MWh): the served,
     dropped, backlog (MWh-hours) and served-cost sums, the queue entering
-    every hour (the backward's residual, in the route's own layout; None
+    every hour ([T, B, D] youngest first, the backward's residual; None
     when ``hard`` or not ``keep_hist``), the end-of-run queue (youngest
     first) and the hourly served / dropped / backlog series.
 
@@ -252,12 +261,12 @@ def soft_ledger_fwd(demand: torch.Tensor, cap: torch.Tensor,
     fn = lib.soft_ledger_fwd_f64 if dtype == torch.float64 \
         else lib.soft_ledger_fwd_f32
     sums = torch.empty((4, b), dtype=dtype, device=dev)
-    hist = torch.empty((t, d, b), dtype=dtype, device=dev) \
+    hist = torch.empty((t, b, d), dtype=dtype, device=dev) \
         if keep_hist and not hard else None
     q_final = torch.empty((b, d), dtype=dtype, device=dev)
     hr = torch.empty((3, b, t), dtype=dtype, device=dev) if hourly else None
-    scratch = torch.empty((d, b), dtype=dtype, device=dev) \
-        if d > _MAX_REG_D else None
+    n = lib.soft_ledger_fwd_scratch(b, d)
+    scratch = torch.empty(n, dtype=dtype, device=dev) if n else None
     n0 = build.kernels_launched("queue_scan")
     with torch.cuda.device(dev):
         err = fn(demand.data_ptr(), cap.data_ptr(), _ptr(prices),
@@ -281,9 +290,11 @@ def soft_ledger_bwd(demand: torch.Tensor, cap: torch.Tensor,
                     use_kernel: Optional[bool] = None):
     """``(d_cap [B, T], d_demand [B, T] or None)``: the VJP of
     `soft_ledger_fwd`'s (soft) sums for the cotangents ``g`` [4, B], from
-    the forward's ``hist`` of the same route. ``want_demand=False`` skips
-    d demand (the tuner's demand carries no gradient). Routes like
-    `soft_ledger_fwd` (`soft_ledger_bwd_ref` on the CPU)."""
+    the forward's ``hist``. ``want_demand=False`` skips d demand (the
+    tuner's demand carries no gradient). Two kernels on the card a window
+    of hours, one window while the hours' smoothclip derivatives fit 128
+    MiB. Routes like `soft_ledger_fwd` (`soft_ledger_bwd_ref` on the
+    CPU)."""
     d = _check_deadline(deadline)
     if not _route(demand, use_kernel, "soft_ledger_bwd"):
         d_cap, d_dem = soft_ledger_bwd_ref(demand, cap, tau, hist, g,
@@ -292,7 +303,7 @@ def soft_ledger_bwd(demand: torch.Tensor, cap: torch.Tensor,
         return d_cap, (d_dem if want_demand else None)
     dev = demand.device
     (b, t), dtype = _soft_checks(demand, cap, tau, prices, dev)
-    _check("hist", hist, (t, d, b), dtype, dev)
+    _check("hist", hist, (t, b, d), dtype, dev)
     _check("g", g, (4, b), dtype, dev)
     lib = _library()
     fn = lib.soft_ledger_bwd_f64 if dtype == torch.float64 \
@@ -300,8 +311,8 @@ def soft_ledger_bwd(demand: torch.Tensor, cap: torch.Tensor,
     d_cap = torch.empty((b, t), dtype=dtype, device=dev)
     d_dem = torch.empty((b, t), dtype=dtype, device=dev) \
         if want_demand else None
-    scratch = torch.empty((6, d + 1, b), dtype=dtype, device=dev) \
-        if d > _MAX_REG_D else None
+    scratch = torch.empty(lib.soft_ledger_bwd_scratch(
+        b, t, d, dtype.itemsize), dtype=dtype, device=dev)
     n0 = build.kernels_launched("queue_scan")
     with torch.cuda.device(dev):
         err = fn(demand.data_ptr(), cap.data_ptr(), _ptr(prices),
@@ -326,7 +337,7 @@ class SoftLedger(torch.autograd.Function):
     """The soft ledger's four sums [B] each (served, dropped, backlog,
     served cost) of (demand, cap) at the MWh temperature ``tau``, then the
     final queue [B, D] (not differentiated), with the hand-written
-    backward; saves the inputs and the queue entering every hour ([B, T,
+    backward; saves the inputs and the queue entering every hour ([T, B,
     D] values)."""
 
     @staticmethod

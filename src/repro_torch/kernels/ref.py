@@ -1895,6 +1895,238 @@ def soft_ledger_bwd_ref(demand: torch.Tensor, cap: torch.Tensor,
     return d_cap, d_dem
 
 
+# The soft pair as the kernels compute it (used by the tests and the chip
+# check, never by the wrappers): a row's d + 1 slots on a segment of S
+# lanes, K slots a lane, every tensor [rows, S, K] (slot m = lane K + k).
+
+LEDGER_LANE_SLOTS = 8   # csrc/queue_scan.cu's kLaneSlots
+
+
+def ledger_seg_plan(deadline: int) -> tuple[int, int]:
+    """``(S, K)`` of `csrc/queue_scan.cu`'s seg_plan: S the power of 2 >=
+    d + 1 with K = 1 up to d = 31; above, S = 32 and K the slots a lane
+    needs, rounded up to a power of 2 while that is <= 8."""
+    n = int(deadline) + 1
+    if n <= 32:
+        return 1 << (n - 1).bit_length(), 1
+    k = -(-n // 32)
+    k2 = 1 << (k - 1).bit_length()
+    return 32, (k2 if k2 <= LEDGER_LANE_SLOTS else k)
+
+
+def _lanes_up(v: torch.Tensor, s: int) -> torch.Tensor:
+    """seg_scan: inclusive sums over the lanes at and below, [N, S], in
+    Hillis-Steele steps."""
+    off = 1
+    while off < s:
+        v = torch.cat([v[:, :off], v[:, off:] + v[:, :-off]], 1)
+        off *= 2
+    return v
+
+
+def _lanes_down(v: torch.Tensor, s: int) -> torch.Tensor:
+    """seg_rscan: inclusive sums over the lanes at and above."""
+    off = 1
+    while off < s:
+        v = torch.cat([v[:, :-off] + v[:, off:], v[:, -off:]], 1)
+        off *= 2
+    return v
+
+
+def _lanes_sum(v: torch.Tensor, s: int) -> torch.Tensor:
+    """seg_sum: the butterfly over the lanes, [N, S] -> [N]."""
+    idx = torch.arange(s, device=v.device)
+    for off in (16, 8, 4, 2, 1):
+        if off < s:
+            v = v + v[:, idx ^ off]
+    return v[:, 0]
+
+
+def _lane_run(x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Each lane's running sums over its K slots ([N, S, K]), upward or,
+    with ``reverse``, from its last slot down."""
+    ks = range(x.shape[2] - 1, -1, -1) if reverse else range(x.shape[2])
+    out, run = [None] * x.shape[2], None
+    for k in ks:
+        run = x[..., k] if run is None else run + x[..., k]
+        out[k] = run
+    return torch.stack(out, -1)
+
+
+def _slots_excl(x: torch.Tensor, s: int) -> torch.Tensor:
+    """seg_excl: the sum over the slots before each, as the inclusive sum
+    minus the slot's own value."""
+    loc = _lane_run(x)
+    incl = _lanes_up(loc[..., -1], s)
+    if x.shape[2] == 1:
+        return incl[..., None] - x
+    pre = torch.cat([torch.zeros_like(incl[:, :1]), incl[:, :-1]], 1)
+    return (pre[..., None] + loc) - x
+
+
+def _slots_rincl(x: torch.Tensor, s: int) -> torch.Tensor:
+    """seg_rincl: the sum over each slot and the slots after it."""
+    loc = _lane_run(x, reverse=True)
+    incl = _lanes_down(loc[..., 0], s)
+    if x.shape[2] == 1:
+        return incl[..., None]
+    post = torch.cat([incl[:, 1:], torch.zeros_like(incl[:, :1])], 1)
+    return post[..., None] + loc
+
+
+def _seg_softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def _seg_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def _seg_clip(z, w, tau, hard: bool):
+    if hard:
+        return torch.minimum(torch.clamp(z, min=0.0), w)
+    return tau * (_seg_softplus(z / tau) - _seg_softplus((z - w) / tau))
+
+
+def _seg_slots(deadline: int, dev) -> tuple[int, int, torch.Tensor]:
+    s, k = ledger_seg_plan(deadline)
+    return s, k, torch.arange(s * k, device=dev).reshape(1, s, k)
+
+
+def _seg_put(deadline: int, queue: torch.Tensor, arrivals: torch.Tensor,
+             s: int, k: int) -> torch.Tensor:
+    """[N, S, K] slots from the youngest-first queue [N, d] and the
+    arrivals [N]: oldest first, the arrivals at slot d, 0 above."""
+    n = queue.shape[0]
+    w = torch.zeros((n, s * k), dtype=queue.dtype, device=queue.device)
+    w[:, :deadline] = queue.flip(-1)
+    w[:, deadline] = arrivals
+    return w.reshape(n, s, k)
+
+
+def soft_ledger_fwd_seg_ref(demand: torch.Tensor, cap: torch.Tensor,
+                            tau: torch.Tensor, *, deadline: int, bound,
+                            prices=None, hard: bool = False,
+                            hourly: bool = False):
+    """`soft_ledger_fwd_ref` as ``soft_ledger_fwd_kernel`` computes it:
+    each hour the slots' exclusive sums from the lanes' running sums and a
+    Hillis-Steele scan over the lanes, every clip at once (CUDA's float32
+    exp / log1p, taken here in the inputs' dtype), each lane's sums over
+    its slots and hours, and one butterfly over the lanes at the end (or
+    every hour for the hourly series). Same returns."""
+    b, t_len = demand.shape
+    d, dev, dt = int(deadline), demand.device, demand.dtype
+    s, k, slot = _seg_slots(d, dev)
+    tau_ = None if hard else tau[0]
+    bound = torch.as_tensor(bound, dtype=dt, device=dev)
+    p = torch.zeros_like(demand) if prices is None else prices
+    zeros = torch.zeros((b, s), dtype=dt, device=dev)
+    acc = [zeros] * 4
+    w = torch.zeros((b, s, k), dtype=dt, device=dev)
+    hist, ys = [], []
+    for t in range(t_len):
+        flat = w.reshape(b, s * k)
+        hist.append(flat[:, :d].flip(-1))
+        flat = flat.clone()
+        flat[:, d] = demand[:, t]
+        w = flat.reshape(b, s, k)
+        serve = _seg_clip(cap[:, t, None, None] - _slots_excl(w, s), w,
+                          tau_, hard)
+        u = w - serve
+        srv, drp, bkl = zeros, zeros, zeros
+        for j in range(k):
+            acc[0] = acc[0] + serve[..., j]
+            acc[3] = acc[3] + serve[..., j] * p[:, t, None]
+            srv = srv + serve[..., j]
+            first = slot[..., j] == 0
+            acc[1] = torch.where(first, acc[1] + u[..., j], acc[1])
+            drp = torch.where(first, drp + u[..., j], drp)
+        v = torch.where(slot == 0, 0.0, u)
+        keep = _seg_clip(bound - _slots_excl(v, s), v, tau_, hard)
+        for j in range(k):
+            acc[1] = acc[1] + (v[..., j] - keep[..., j])
+            acc[2] = acc[2] + keep[..., j]
+            drp = drp + (v[..., j] - keep[..., j])
+            bkl = bkl + keep[..., j]
+        kf = keep.reshape(b, s * k)
+        aged = torch.cat([kf[:, 1:], kf[:, :1]], 1).reshape(b, s, k)
+        w = torch.where(slot < d, aged, 0.0)
+        if hourly:
+            ys.append([_lanes_sum(x, s) for x in (srv, drp, bkl)])
+    sums = torch.stack([_lanes_sum(x, s) for x in acc])
+    q_final = w.reshape(b, s * k)[:, :d].flip(-1)
+    return (sums, None if hard else torch.stack(hist), q_final,
+            torch.stack([torch.stack(y, -1) for y in zip(*ys)])
+            if hourly else None)
+
+
+def soft_ledger_coef_seg_ref(demand: torch.Tensor, cap: torch.Tensor,
+                             tau: torch.Tensor, hist: torch.Tensor, *,
+                             deadline: int, bound) -> torch.Tensor:
+    """``soft_ledger_coef_kernel``: every (hour, row)'s smoothclip
+    derivatives at once, [T, B, S, K, 4] (dz1, dw1 of the serve clip,
+    dz2, dw2 of the keep clip; 0 at slots above d and the keep pair at
+    slot 0), recomputed from the queue entering each hour (``hist`` [T,
+    B, d])."""
+    b, t_len = demand.shape
+    d, dev, dt = int(deadline), demand.device, demand.dtype
+    s, k, slot = _seg_slots(d, dev)
+    tau_ = tau[0]
+    n = t_len * b
+    w = _seg_put(d, hist.reshape(n, d), demand.t().reshape(n), s, k)
+    z = cap.t().reshape(n, 1, 1) - _slots_excl(w, s)
+    u = w - _seg_clip(z, w, tau_, False)
+    sw1 = _seg_sigmoid((z - w) / tau_)
+    dz1 = _seg_sigmoid(z / tau_) - sw1
+    v = torch.where(slot == 0, 0.0, u)
+    z2 = torch.as_tensor(bound, dtype=dt, device=dev) - _slots_excl(v, s)
+    sw2 = _seg_sigmoid((z2 - v) / tau_)
+    dz2 = _seg_sigmoid(z2 / tau_) - sw2
+    real, keep = slot <= d, (slot > 0) & (slot <= d)
+    cf = torch.stack([torch.where(real, dz1, 0.0), torch.where(real, sw1, 0.0),
+                      torch.where(keep, dz2, 0.0),
+                      torch.where(keep, sw2, 0.0)], -1)
+    return cf.reshape(t_len, b, s, k, 4)
+
+
+def soft_ledger_bwd_seg_ref(demand: torch.Tensor, cap: torch.Tensor,
+                            tau: torch.Tensor, hist: torch.Tensor,
+                            g: torch.Tensor, *, deadline: int, bound,
+                            prices=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """`soft_ledger_bwd_ref` as the kernels compute it: the coefficient
+    pass (`soft_ledger_coef_seg_ref`), then ``soft_ledger_chain_kernel``'s
+    reverse chain, linear in the queue's adjoint: each hour the keeps'
+    adjoints from the slots below (a shuffle up), the two sums over the
+    later slots as each slot's inclusive suffix sum (the lanes' running
+    sums from their last slot, a Hillis-Steele scan down the lanes) minus
+    its own term, d cap the suffix sum at slot 0. Same returns."""
+    b, t_len = demand.shape
+    d, dev, dt = int(deadline), demand.device, demand.dtype
+    s, k, slot = _seg_slots(d, dev)
+    cf = soft_ledger_coef_seg_ref(demand, cap, tau, hist, deadline=d,
+                                  bound=bound)
+    g_s, g_d, g_b, g_c = (x[:, None, None] for x in g)
+    a = torch.zeros((b, s, k), dtype=dt, device=dev)
+    d_cap = torch.empty_like(demand)
+    d_dem = torch.empty_like(demand)
+    for t in range(t_len - 1, -1, -1):
+        dz1, dw1, dz2, dw2 = cf[t].unbind(-1)
+        gst = g_s if prices is None else g_s + g_c * prices[:, t, None, None]
+        below = torch.cat([a[:, :1, -1], a[:, :-1, -1]], 1)[..., None]
+        gk = torch.cat([below, a[..., :-1]], -1) + g_b - g_d
+        x = gk * dz2
+        later = _slots_rincl(x, s) - x
+        g_u = torch.where(slot == 0, g_d, g_d + gk * dw2 - later)
+        gs = gst - g_u
+        x = gs * dz1
+        full = _slots_rincl(x, s)
+        gw = g_u + gs * dw1 - (full - x)
+        d_cap[:, t] = full.reshape(b, s * k)[:, 0]
+        d_dem[:, t] = gw.reshape(b, s * k)[:, d]
+        a = torch.where(slot < d, gw, 0.0)
+    return d_cap, d_dem
+
+
 class WorkloadLedgerOut(NamedTuple):
     """Per-(row, draw) ledger sums of the fleet-coupled hard ledger
     ([B, G] each)."""

@@ -66,7 +66,8 @@ hard ledger bit for bit on integer-valued work and within rtol 1e-5
 otherwise (bucket sums in another order), telemetry changing no other
 bit; the soft pair in float64 within 1e-10 of max(1, each output's
 largest entry) of the plain loop and of autograd through it, in float32
-within rtol 1e-5; the workload-coupled
+within rtol 1e-5, and equal bit for bit to its mirrors run on the card
+(the kernels' scans, trees and sums in their order); the workload-coupled
 backtest's report equal to `backtest`'s bit for bit, a zero-fault
 `faulted_backtest` too, a storm's start counts equal to the CPU's.
 """
@@ -1388,7 +1389,8 @@ def test_ledger_kernel_matches_plain_version(cuda, case):
 
 
 @pytest.mark.parametrize("b,t,d", [(1, 60, 2), (5, 300, 0), (33, 200, 4),
-                                   (7, 150, 9), (70, 500, 3), (32, 96, 4)])
+                                   (7, 150, 9), (70, 500, 3), (32, 96, 4),
+                                   (6, 200, 48), (16, 2190, 4)])
 def test_soft_ledger_kernels_match_plain_autograd(cuda, b, t, d):
     """A differentiable soft `queue_scan` (`SoftLedger`, the kernel pair)
     against the plain hour loop and autograd through it on the card (with
@@ -1397,7 +1399,8 @@ def test_soft_ledger_kernels_match_plain_autograd(cuda, b, t, d):
     rtol 1e-5, d cap and d demand within 1e-4 of max(1, their largest
     entry). The hard float64 forward (the live replay's ledger; 32 draws
     x 96 h among the shapes) equals the plain loop on integer-valued
-    work."""
+    work. A two-day deadline (d 48: 32 lanes, 2 slots a lane) and
+    `workload_fleet`'s 16 rows x 2190 h among the shapes."""
     from repro_torch.kernels import queue_scan as qs
     from repro_torch.kernels.ref import queue_scan_ref
     rng = np.random.default_rng(b * t + d)
@@ -1433,6 +1436,75 @@ def test_soft_ledger_kernels_match_plain_autograd(cuda, b, t, d):
     hard = qs.queue_scan(a, c - 0.5, deadline=d, bound=3.0)
     want = queue_scan_ref(a, c - 0.5, deadline=d, bound=3.0)
     for x, y in zip(hard, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("b,t,d", [(3, 37, 0), (2, 30, 1), (33, 200, 4),
+                                   (1, 1, 4), (3, 25, 9), (2, 20, 31),
+                                   (7, 150, 48), (1, 6, 300),
+                                   (16, 2190, 4)])
+def test_soft_ledger_kernels_match_their_mirrors(cuda, b, t, d):
+    """The soft pair against its mirrors run on the card
+    (`ref.soft_ledger_fwd_seg_ref` / `soft_ledger_bwd_seg_ref`: the
+    segment plan, the lanes' scans, the butterfly of the sums, the
+    coefficient pass and the linear reverse chain in the kernels' order,
+    every operation rounded once as the kernels, built without FMA
+    contraction, round it, exp and log1p CUDA's own on both sides): every
+    output bit for bit, in float64 and float32, with and without prices,
+    the hourly series included; the hard forward on integer-valued work
+    bit for bit against the mirror and the plain loop. d 0 to 31 put a
+    slot on a lane, d 48 two (32 lanes), d 300 keeps its slots in the
+    device scratch."""
+    from repro_torch.kernels import queue_scan as qs
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(b * t + d)
+    arrays = (rng.uniform(0, 1.5, (b, t)), rng.uniform(0, 2.0, (b, t)),
+              rng.normal(80, 20, (b, t)), rng.normal(size=(4, b)))
+    ints = (rng.integers(0, 6, (b, t)), rng.integers(0, 6, (b, t)),
+            np.round(rng.normal(80, 20, (b, t))))
+    for dtype in (torch.float64, torch.float32):
+        a, c, p, g = (torch.as_tensor(x, device=cuda).to(dtype)
+                      for x in arrays)
+        tau = torch.tensor([0.3], dtype=dtype, device=cuda)
+        for pr in (p, None):
+            kw = dict(deadline=d, bound=3.0, prices=pr)
+            got = qs.soft_ledger_fwd(a, c, tau, hourly=True, **kw)
+            want = ref.soft_ledger_fwd_seg_ref(a, c, tau, hourly=True, **kw)
+            got += qs.soft_ledger_bwd(a, c, tau, got[1], g, **kw)
+            want += ref.soft_ledger_bwd_seg_ref(a, c, tau, want[1], g, **kw)
+            for x, y in zip(got, want):
+                assert torch.equal(x, y)
+        ah, ch, ph = (torch.as_tensor(x, device=cuda).to(dtype)
+                      for x in ints)
+        kw = dict(deadline=d, bound=3.0, prices=ph, hard=True, hourly=True)
+        got = qs.soft_ledger_fwd(ah, ch, None, **kw)
+        for want in (ref.soft_ledger_fwd_seg_ref(ah, ch, None, **kw),
+                     ref.soft_ledger_fwd_ref(ah, ch, None, **kw)):
+            for i in (0, 2, 3):
+                assert torch.equal(got[i], want[i])
+
+
+def test_soft_ledger_backward_windows_carry_the_adjoint(cuda):
+    """At 1024 rows x 8760 h x d 4 in float32 the backward's coefficients
+    outgrow one window (128 MiB): several windows of hours, two kernels
+    each, the queue's adjoint carried between them; d cap and d demand
+    equal the mirror's (one pass over all hours) bit for bit."""
+    from repro_torch.kernels import queue_scan as qs
+    from repro_torch.kernels import ref
+    b, t, d = 1024, 8760, 4
+    rng = np.random.default_rng(5)
+    a, c, p = (torch.as_tensor(x, device=cuda).float() for x in (
+        rng.uniform(0, 1.5, (b, t)), rng.uniform(0, 2.0, (b, t)),
+        rng.normal(80, 20, (b, t))))
+    g = torch.as_tensor(rng.normal(size=(4, b)), device=cuda).float()
+    tau = torch.tensor([0.3], device=cuda)
+    kw = dict(deadline=d, bound=3.0, prices=p)
+    hist = qs.soft_ledger_fwd(a, c, tau, **kw)[1]
+    n0 = qs.soft_ledger_bwd.device_launches
+    got = qs.soft_ledger_bwd(a, c, tau, hist, g, **kw)
+    assert qs.soft_ledger_bwd.device_launches - n0 > 2
+    want = ref.soft_ledger_bwd_seg_ref(a, c, tau, hist, g, **kw)
+    for x, y in zip(got, want):
         assert torch.equal(x, y)
 
 
