@@ -1983,16 +1983,19 @@ SOFT_LEDGER_TAU = 0.3
 LIVE_REPLAY_SHAPE = (32, 96)           # draws x hours (the live replay)
 LEDGER_KERNEL = re.compile(r"(workload_ledger|soft_ledger_fwd|"
                            r"soft_ledger_coef|soft_ledger_chain)_kernelI"
-                           r"(?:([fd]))?Li(n?\d+)E(?:Lb0E|E)")  # no
-# telemetry, not hard
-# the hard kernel's template D (the deadline, -1 in memory) and the soft
-# kernels' K (slots a lane: 1 at d 4 on 8 lanes, 2 at d 48 on 32 lanes,
-# -1 above d 255 with the slots in memory)
-LEDGER_FORMS = {"workload_ledger": (("4", "d 4 in registers"),
-                                    ("n1", "d > 8")),
-                "soft": (("1", "d 4, 8 lanes, a slot a lane"),
-                         ("2", "d 48, 32 lanes, 2 slots a lane"),
-                         ("n1", "d > 255, the slots in memory"))}
+                           r"(?:([fd]))?Li(n?\d+)E(?:Lb0E(?:Li(\d+)E)?E|E)")
+# no telemetry, not hard
+# the hard kernel's template D (the deadline, -1 in memory) and W (hours a
+# window: 16 in blocks of <= 256 threads, 4 above), and the soft kernels'
+# K (slots a lane: 1 at d 4 on 8 lanes, 2 at d 48 on 32 lanes, -1 above d
+# 255 with the slots in memory)
+LEDGER_FORMS = {"workload_ledger": (
+                    (("4", "16"), "d 4 in registers, 16-hour windows"),
+                    (("n1", "16"), "d > 8, 16-hour windows"),
+                    (("4", "4"), "d 4, > 256 draws, 4-hour windows")),
+                "soft": ((("1", None), "d 4, 8 lanes, a slot a lane"),
+                         (("2", None), "d 48, 32 lanes, 2 slots a lane"),
+                         (("n1", None), "d > 255, the slots in memory"))}
 
 
 def _report_ledger_kernels(log: str) -> None:
@@ -2006,7 +2009,7 @@ def _report_ledger_kernels(log: str) -> None:
                         ("soft_ledger_coef", "d"), ("soft_ledger_chain", "f"),
                         ("soft_ledger_chain", "d")):
         for form, label in LEDGER_FORMS.get(kind, LEDGER_FORMS["soft"]):
-            rec = info.get((kind, dtype, form), {})
+            rec = info.get((kind, dtype, *form), {})
             if "registers" not in rec:
                 raise AssertionError(f"build: no ptxas record of {kind} "
                                      f"({dtype}, {label})")
@@ -2033,9 +2036,11 @@ def _ledger_bound(kind: str, b: int, t: int, d: int, g: int = 1,
     counted as one operation each). Returns (ms, what bounds it, bytes).
 
       hard: the [N, T] prices, [G, T] demand, the int64 index and five [B]
-        parameters in, [4, B, G] out; a lane-hour ~14 + 7 (d + 1) + 8 d
-        operations (the state machine, the serve and re-queue passes, the
-        four sums);
+        parameters in, [4, B, G] out; a lane-hour ~11 + 3 d operations
+        (the hour in closed form: the arrivals, the work waiting and the
+        oldest bucket's max with the capacity, three a bucket for the new
+        prefix sums, served, dropped, the four sums), a row-hour ~4 (the
+        shutdown state and the hour's capacity);
       soft forward: [B, T] demand and capacity in, [4, B] sums, the [T, d,
         B] queue history and [B, d] final queue out; a row-hour ~10 + 11
         (2 d + 1) + 4 (2 d + 1) operations (each smoothclip two softplus);
@@ -2045,7 +2050,7 @@ def _ledger_bound(kind: str, b: int, t: int, d: int, g: int = 1,
         forward again, two sigmoids a clip, the adjoint)."""
     if kind == "hard":
         nbytes = 4 * (n * t + g * t) + b * (8 + 20) + 16 * b * g
-        ops = (14 + 7 * (d + 1) + 8 * d) * b * g * t
+        ops = (11 + 3 * d) * b * g * t + 4 * b * t
     else:
         fwd_ops = (10 + 15 * (2 * d + 1)) * b * t
         if kind == "fwd":
@@ -2128,9 +2133,10 @@ def phase_ledger_vs_plain(dev) -> dict:
 
     `workload_ledger_fwd` at the benchmark shape (256 rows x 4096 h x 8
     draws through the index of 8 markets, deadline 4, bound 4 MWh) within
-    rtol 1e-5 (bucket sums in another order), bit for bit on
-    integer-valued work, at d = 0 and d = 9 (the memory form) and B = 1,
-    telemetry on == off bit for bit; the soft pair through a
+    rtol 1e-5 (the hour in closed form, sums in another order) and equal
+    bit for bit to its mirror (`ref.workload_ledger_seg_ref`, run on the
+    card), bit for bit on integer-valued work, at d = 0 and d = 9 (the
+    memory form) and B = 1, telemetry on == off bit for bit; the soft pair through a
     differentiable soft `queue_scan` at the tuner's 256 x 2190 x d 4 and
     at `workload_fleet`'s 16 x 2190 x d 4:
     float64 within 1e-10 of max(1, each output's largest entry) of the
@@ -2140,6 +2146,7 @@ def phase_ledger_vs_plain(dev) -> dict:
     ledger) at 32 draws x 96 h bit for bit on integer-valued work and
     within 1e-10 of max(1, each sum's largest entry) on sampled demand."""
     from repro_torch.kernels import queue_scan as qs
+    from repro_torch.kernels.ref import workload_ledger_seg_ref
     from repro_torch.workload import Workload
 
     flush = torch.empty(128 * 2 ** 20 // 4, dtype=torch.float32,
@@ -2174,11 +2181,21 @@ def phase_ledger_vs_plain(dev) -> dict:
     torch.testing.assert_close(hr, hr_w, rtol=1e-5, atol=1e-4)
     hard_err = _max_err(got, want)
     same = all(torch.equal(x, z) for x, z in zip(got, want))
+    # the kernel's own order (`ref.workload_ledger_seg_ref`, run on the
+    # card): bit for bit, sums and hourly series
+    mirror, hr_m = workload_ledger_seg_ref(*args, hourly=True, **kw)
+    if not (all(torch.equal(x, y) for x, y in zip(got_t, mirror))
+            and torch.equal(hr, hr_m)):
+        raise AssertionError("workload_ledger_fwd differs from its mirror "
+                             "(ref.workload_ledger_seg_ref) at the "
+                             "benchmark shape")
     print(f"[ledger] workload_ledger_fwd {b} x {t} h x {g} draws, d {d} "
           f"(first calls {t_kernel:.2f} s, build included): max |kernel - "
           f"plain| {hard_err:.3g} (rtol 1e-5), "
-          f"{'bit for bit' if same else 'not bit for bit'}; telemetry "
-          f"on == off bit for bit; plain hour loop {plain_s:.2f} s")
+          f"{'bit for bit' if same else 'not bit for bit'}; equal to its "
+          f"mirror (workload_ledger_seg_ref) bit for bit, sums and hourly "
+          f"series; telemetry on == off bit for bit; plain hour loop "
+          f"{plain_s:.2f} s")
     # integer-valued work: bit for bit, at d 0, 4, 9 and B = 1
     rng = np.random.default_rng(7)
     for bb, nn, gg, tt, dd in ((1, 1, 1, 300, 2), (64, 8, 8, 1000, 4),
@@ -2194,11 +2211,14 @@ def phase_ledger_vs_plain(dev) -> dict:
             rng.integers(0, nn, bb), device=dev))
         x = qs.workload_ledger_fwd(*iargs, **ik)[0]
         y = qs.workload_ledger_fwd(*iargs, use_kernel=False, **ik)[0]
-        if not all(torch.equal(u, v) for u, v in zip(x, y)):
+        z = workload_ledger_seg_ref(*iargs, **ik)[0]
+        if not all(torch.equal(u, v) and torch.equal(u, w)
+                   for u, v, w in zip(x, y, z)):
             raise AssertionError(f"workload_ledger_fwd not bit for bit on "
                                  f"integer work at B {bb}, G {gg}, d {dd}")
     print("[ledger] workload_ledger_fwd on integer-valued work (B 1, 64, "
-          "33, 50; G 1-40; d 0, 2, 4, 9): bit for bit")
+          "33, 50; G 1-40; d 0, 2, 4, 9): bit for bit with the plain "
+          "version and the mirror")
 
     # the soft pair at the tuner's shape and at `workload_fleet`'s 16 rows,
     # through a differentiable soft `queue_scan` (`SoftLedger`), against
@@ -2501,6 +2521,8 @@ def _ledger_records(ledger: dict, examples: dict) -> list[dict]:
             "library_ms": None,
             ("serial_floor_ms" if name == "workload_ledger_fwd"
              else "one_row_ms"): tm["floor_ms"],
+            **({"telemetry_ms": tm["telemetry_ms"]}
+               if "telemetry_ms" in tm else {}),
             **({"rows16_ms": tm["rows16_ms"],
                 "kernels_per_call": tm["kernels_per_call"]}
                if "rows16_ms" in tm else {})})

@@ -21,19 +21,30 @@
 //
 //   workload_ledger_kernel (hard, "workload_ledger_fwd"): one thread a
 //     (row, draw) lane, whole rows in a block (G draws a row, 32 / G rows
-//     a block, or one row of G <= 1024 threads). Each thread recomputes
-//     its row's shutdown state machine inline (off if p > p_off, else on
+//     a block, or one row of G <= 1024 threads), the hours in windows of
+//     W (16; 4 in blocks above 256 threads). A window's prices (the row's,
+//     read through market_idx) and demand sit in registers, loaded while
+//     the window before ran (and prefetched into L2 four windows ahead):
+//     at a window's start the next window's loads are issued, then the
+//     window's W shutdown states are computed from
+//     its prices and the carried state alone (off if p > p_off, else on
 //     if p <= p_on, else carried; starting on: the comparisons of
-//     ref.hard_hour_step) on the row's prices read through market_idx,
-//     serves its draw's arrivals dt * demand[g, t] with the hour's
-//     realised capacity cap_mwh * (lvl + (1 - lvl) on), and adds served,
-//     dropped, backlog and served * p into float32 sums hour by hour, the
-//     reference's order. With telemetry it also writes each row's hourly
-//     sums over its draws ([4, B, T], added in draw order through shared
-//     memory, two barriers an hour); nothing else changes. Each hour is
-//     one pass over the d + 1 buckets from running sums (an inclusive sum
-//     c and c - w, as the plain version's cumsum - w); the queue lives in
-//     registers for d <= 8 (a kernel for each d) and device memory above.
+//     ref.hard_hour_step), so neither loads nor states wait on the queue.
+//     Each hour serves the draw's arrivals dt * demand[g, t] with the
+//     hour's realised capacity cap_mwh * (lvl + (1 - lvl) on) in closed
+//     form (hard_hour): the queue is kept as its inclusive prefix sums
+//     and every bucket's new sum is 3 operations from the old ones, all
+//     buckets at once; it adds served, dropped, backlog and served * p
+//     into float32 sums hour by hour, the reference's order. With
+//     telemetry each hour's arrivals, served, dropped and backlog go into
+//     a shared-memory ring of W hours (two rings, alternate windows); at
+//     a window's end one barrier (__syncwarp in a one-warp block), then
+//     the block's lanes share out the window's 4 x rows x W sums over the
+//     draws, each in draw order (in a full warp of a power-of-2 G, a lane
+//     sums a (row, hour)'s four quantities from one float4 load a draw),
+//     each (quantity, row) stored as a run of hours: no barrier inside a
+//     window. The prefix sums live in registers for d <= 8 (a kernel for
+//     each d) and device memory above (loaded kMaxRegD at a time).
 //
 // The soft pair runs [B, T] demand and capacity (MWh), hard or smoothclip
 // at tau (a device scalar), float32 or float64, with a row's d + 1 slots
@@ -74,13 +85,16 @@
 // float32 functions (expf / log1pf, not the fast intrinsics); float64's
 // are exp / log1p. The file is compiled with -fmad=false
 // (build.SOURCE_FLAGS), so every float operation rounds once, as the
-// plain versions' and the soft pair's mirrors (ref.soft_ledger_fwd_seg_ref
-// / soft_ledger_bwd_seg_ref: the scans, trees and sums in the kernels'
-// order) do. The hard ledger agrees with its plain version bit for bit on
-// integer-valued work, the soft pair to rounding.
+// plain versions' and the mirrors (ref.workload_ledger_seg_ref,
+// ref.soft_ledger_fwd_seg_ref / soft_ledger_bwd_seg_ref: the closed form,
+// scans, trees and sums in the kernels' order) do. The hard ledger agrees
+// with its plain version bit for bit on integer-valued work, the soft pair
+// to rounding.
 //
 // Bound on an H100 SXM: the serial chain of T hours (each hour waits on
-// the last one's queue). The soft forward's hour is two smoothclips and
+// the last one's queue). The hard kernel's hour is 3 dependent float32
+// operations deep and ~14 + 3 d issue slots a lane (one warp an SM at the
+// benchmark's 2048 lanes). The soft forward's hour is two smoothclips and
 // two scans of log2 S shuffles deep; the backward's reverse chain is
 // linear (no transcendental), four scans and a shuffle deep. Bytes (the
 // [B, T] inputs read once, the outputs written once) at 3.35 TB/s are
@@ -168,56 +182,170 @@ __device__ __forceinline__ T clip(T z, T w, T tau) {
   return tau * (softplus(z / tau) - softplus((z - w) / tau));
 }
 
-// One hour of the ledger on the oldest-first queue o of d buckets
-// (in place): arrivals a, capacity cap. Returns served, dropped and the
-// backlog left (the sum of the new queue).
-template <bool HARD, int D, typename T, class Q>
-__device__ __forceinline__ void hour_fwd(Q& o, int d, T a, T cap, T bound,
-                                         T tau, T& served, T& dropped,
-                                         T& backlog) {
+// One hour of the hard ledger in closed form, on the queue's inclusive
+// prefix sums P[j] = o[0] + ... + o[j] (oldest first; j < d), in place.
+// The waiting work's inclusive sums are C_j = P[j] (j < d) and C_d = P[d-1]
+// + a. Served oldest first, the unserved work of buckets 0..j sums to
+// max(C_j, cap) - cap, so the survivors' running sum is A_j = max(C_j,
+// cap) - max(C_0, cap) and the kept prefix is min(bound, A_j): the new
+// queue's prefix sums, P'[j-1] for j = 1..d. served = min(cap, C_d),
+// backlog = P'[d-1], dropped = (C_d - served) - backlog. cap and bnd come
+// in floored at 0; A_j >= 0 needs no floor, since C is nondecreasing in j
+// (work is >= 0) and max and rounding are monotone. Every j is independent
+// of the others: the hour is 3 operations deep, not a pass over the
+// buckets.
+template <int D, class Q>
+__device__ __forceinline__ void hard_hour(Q& P, int d, float a, float cap,
+                                          float bnd, float& served,
+                                          float& dropped, float& backlog) {
   if (D >= 0) d = D;
-  T c = T(0), ca = T(0), srv = T(0), dsum = T(0), bl = T(0), u0 = T(0);
+  const float cd = d > 0 ? P[d - 1] + a : a;
+  const float y0 = fmaxf(d > 0 ? P[0] : cd, cap);
+  float bl = 0.f;
+  if constexpr (D >= 0) {
 #pragma unroll
-  for (int i = 0; i <= (D >= 0 ? D : d); ++i) {
-    const T w = i < d ? o[i] : a;
-    c = c + w;
-    const T s = clip<HARD>(cap - (c - w), w, tau);
-    srv = srv + s;
-    const T u = w - s;
-    if (i == 0) {
-      u0 = u;
-    } else {
-      ca = ca + u;
-      const T keep = clip<HARD>(bound - (ca - u), u, tau);
-      dsum = dsum + (u - keep);
-      bl = bl + keep;
-      o[i - 1] = keep;
+    for (int j = 1; j <= D; ++j) {
+      const float c = j < D ? P[j] : cd;
+      bl = fminf(bnd, fmaxf(c, cap) - y0);
+      P[j - 1] = bl;
+    }
+  } else {
+    // the queue in device memory: a chunk of loads at a time, then the
+    // chunk's stores
+    for (int j0 = 1; j0 <= d; j0 += kMaxRegD) {
+      float c[kMaxRegD];
+#pragma unroll
+      for (int i = 0; i < kMaxRegD; ++i) {
+        const int j = j0 + i;
+        c[i] = j < d ? P[j] : cd;
+      }
+#pragma unroll
+      for (int i = 0; i < kMaxRegD; ++i) {
+        const int j = j0 + i;
+        if (j <= d) {
+          bl = fminf(bnd, fmaxf(c[i], cap) - y0);
+          P[j - 1] = bl;
+        }
+      }
     }
   }
-  served = srv;
-  dropped = u0 + dsum;
+  served = fminf(cap, cd);
   backlog = bl;
+  dropped = (cd - served) - bl;
 }
 
 template <int D>
 using HardQueue = typename std::conditional<(D >= 0), Arr<float, D>,
                                             Mem<float>>::type;
 
-template <int D, bool TELEM>
-__global__ void workload_ledger_kernel(
-    const float* __restrict__ prices, const long long* __restrict__ market_idx,
-    const float* __restrict__ p_on, const float* __restrict__ p_off,
-    const float* __restrict__ off_level, const float* __restrict__ cap_mwh,
-    const float* __restrict__ dt, const float* __restrict__ demand,
-    float bound, int B, int N, int G, int T, int d, int rows_per_block,
-    float* __restrict__ out, float* __restrict__ hourly,
-    float* __restrict__ scratch) {
-  extern __shared__ float tel[];  // [4][blockDim.x] with telemetry
+// An L2 prefetch of the line holding p (an address inside the data).
+__device__ __forceinline__ void prefetch_l2(const float* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// Hours a window of the hard kernel: kWin in a block of at most
+// kWinThreads (no register cap below 255), kWinBig in larger blocks (one
+// row of > 256 draws: 64 registers a thread at 1024).
+constexpr int kWin = 16;
+constexpr int kWinBig = 4;
+constexpr int kWinThreads = 256;
+constexpr int kPrefetchWindows = 4;  // L2 prefetch distance, in windows
+
+// Floats a lane takes in a telemetry ring of W hours: W float4 slots
+// (arrivals, served, dropped, backlog), padded to an odd count of slots so
+// that the lanes' float4 stores and the sums' reads miss no bank.
+__host__ __device__ constexpr int ring_floats(int W) { return 4 * (W | 1); }
+
+// One of a window's telemetry sums, k (< 4 W rows a block; hour fastest,
+// then the quantity, then the row), from the ring rb: over the draws in
+// draw order from 0. A sum of a row past B, or of an hour past the n the
+// window holds, is not stored.
+template <int W>
+__device__ __forceinline__ void ring_sum(const float* rb, int k, int G,
+                                         int rows_per_block, int B, int T,
+                                         int t0, int n,
+                                         float* __restrict__ hourly) {
+  constexpr int LS = ring_floats(W);
+  const int h = k % W, qq = (k / W) & 3, rr = k / (4 * W);
+  const int orow = blockIdx.x * rows_per_block + rr;
+  if (h >= n || orow >= B) return;
+  const float* x = rb + rr * G * LS + 4 * h + qq;
+  float acc = 0.f;
+  for (int j = 0; j < G; ++j) acc = acc + x[j * LS];
+  hourly[((long long)qq * B + orow) * T + t0 + h] = acc;
+}
+
+// The same sums in a block of one full warp with G = GC draws a row, GC a
+// power of 2 (32 / GC whole rows, kWin-hour windows): lane l takes the
+// (row, hour) pairs (l / 16 + 2 i, l % 16), i < 16 / GC (at GC 32 the
+// lanes l < 16 one pair), and sums the hour's four quantities at once, one
+// float4 load a draw from an immediate offset off one base; the pairs'
+// chains of GC adds interleave. GUARD: the block's last rows or the
+// window's last hours may be missing (a branch a sum); otherwise every sum
+// is stored.
+template <int GC, bool GUARD>
+__device__ __forceinline__ void ring_sums_warp(const float* rb, int lane,
+                                               int rows_per_block, int B,
+                                               int T, int t0, int n,
+                                               float* __restrict__ hourly) {
+  constexpr int LS = ring_floats(kWin), NP = GC < 16 ? 16 / GC : 1;
+  const int h = lane % kWin, r0 = lane / kWin;
+  if (GC == 32 && r0 > 0) return;
+  const float* x = rb + r0 * GC * LS + 4 * h;
+  const long long row0 = (long long)blockIdx.x * rows_per_block + r0;
+  const long long BT = (long long)B * T;
+  float* y = hourly + row0 * T + t0 + h;
+  float4 acc[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < GC; ++j) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(x + (2 * i * GC + j) * LS);
+      acc[i].x = acc[i].x + v.x;
+      acc[i].y = acc[i].y + v.y;
+      acc[i].z = acc[i].z + v.z;
+      acc[i].w = acc[i].w + v.w;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    if (GUARD && (h >= n || row0 + 2 * i >= B)) continue;
+    float* yi = y + 2 * i * (long long)T;
+    yi[0] = acc[i].x;
+    yi[BT] = acc[i].y;
+    yi[2 * BT] = acc[i].z;
+    yi[3 * BT] = acc[i].w;
+  }
+}
+
+template <int D, bool TELEM, int W>
+__global__ void __launch_bounds__(W == kWin ? kWinThreads : kMaxDraws)
+    workload_ledger_kernel(const float* __restrict__ prices,
+                           const long long* __restrict__ market_idx,
+                           const float* __restrict__ p_on,
+                           const float* __restrict__ p_off,
+                           const float* __restrict__ off_level,
+                           const float* __restrict__ cap_mwh,
+                           const float* __restrict__ dt,
+                           const float* __restrict__ demand, float bound,
+                           int B, int N, int G, int T, int d,
+                           int rows_per_block, float* __restrict__ out,
+                           float* __restrict__ hourly,
+                           float* __restrict__ scratch) {
+  // with telemetry: two rings of W hours, [2][blockDim.x][ring_floats(W)]
+  extern __shared__ float4 ring4[];
+  constexpr int LS = ring_floats(W);
   const int lane = threadIdx.x, nt = blockDim.x;
-  const int r_local = lane / G, g = lane % G;
+  const int r_local = lane / G, g = lane - r_local * G;
   const int row = blockIdx.x * rows_per_block + r_local;
   const bool active = r_local < rows_per_block && row < B;
+  // a lane past the last row reads row 0's inputs, meets every barrier and
+  // writes nothing (in the memory form it skips the hours: the scratch
+  // holds no queue of its own)
   const int rw = active ? row : 0;
+  const bool runs = D >= 0 || active;
   long long src = rw;
   if (market_idx != nullptr) {
     src = market_idx[rw];
@@ -227,47 +355,121 @@ __global__ void workload_ledger_kernel(
   const float* drow = demand + (long long)g * T;
   const float lo = p_on[rw], hi = p_off[rw], lvl = off_level[rw];
   const float cmwh = cap_mwh[rw], dtb = dt[rw];
+  // the hour's realised capacity cap_mwh (lvl + (1 - lvl) on) for on = 1
+  // and 0 (ref.hard_hour_step's operations), floored at 0 as the clip's
+  // room is; the bound too
+  const float cap_on = fmaxf(cmwh * (lvl + (1.f - lvl)), 0.f);
+  const float cap_off = fmaxf(cmwh * lvl, 0.f);
+  const float bnd = fmaxf(bound, 0.f);
   const long long lanes = (long long)B * G, me = (long long)rw * G + g;
-  HardQueue<D> q;
+  HardQueue<D> P;
   if constexpr (D < 0) {
-    q.base = scratch + me;
-    q.stride = lanes;
+    P.base = scratch + me;
+    P.stride = lanes;
   }
-  if (active)
-    for (int i = 0; i < (D >= 0 ? D : d); ++i) q[i] = 0.f;
-  float on = 1.f, s_acc = 0.f, d_acc = 0.f, b_acc = 0.f, c_acc = 0.f;
-  for (int t = 0; t < T; ++t) {
-    float a = 0.f, served = 0.f, dropped = 0.f, bl = 0.f;
-    if (active) {
-      const float p = prow[t];
-      on = p > hi ? 0.f : (p <= lo ? 1.f : on);
-      const float cap = lvl + (1.f - lvl) * on;
-      a = dtb * drow[t];
-      hour_fwd<true, D>(q, d, a, cmwh * cap, bound, 0.f, served, dropped,
-                        bl);
-      s_acc = s_acc + served;
-      d_acc = d_acc + dropped;
-      b_acc = b_acc + bl;
-      c_acc = c_acc + served * p;
+  if (runs)
+    for (int i = 0; i < (D >= 0 ? D : d); ++i) P[i] = 0.f;
+  const unsigned wmask = nt >= 32 ? kFull : (1u << nt) - 1u;
+  float* ring = reinterpret_cast<float*>(ring4);
+  int buf = 0;
+
+  // the shutdown state, carried as the hour's capacity (on: cap_on)
+  float cap = cap_on, s_acc = 0.f, d_acc = 0.f, b_acc = 0.f, c_acc = 0.f;
+  // the next window's prices and demand, loaded a window ahead
+  float pn[W], dn[W];
+#pragma unroll
+  for (int h = 0; h < W; ++h) {
+    pn[h] = h < T ? prow[h] : 0.f;
+    dn[h] = h < T ? drow[h] : 0.f;
+  }
+  // Window [t0, t0 + n): its loads were issued a window ago; the next
+  // window's are issued first, then the window's shutdown states (its
+  // prices and the carried state only), then its hours, each only the
+  // queue's chain. With telemetry each hour's four values go to the ring,
+  // summed over the draws once at the window's end.
+  auto window = [&](auto full, int t0, int n) {
+    constexpr bool FULL = decltype(full)::value;
+    float pc[W], dc[W], cw[W];
+#pragma unroll
+    for (int h = 0; h < W; ++h) {
+      pc[h] = pn[h];
+      dc[h] = dn[h];
+    }
+    const int t1 = t0 + W, tp = t0 + kPrefetchWindows * W;
+#pragma unroll
+    for (int h = 0; h < W; ++h) {
+      const int t = t1 + h;
+      pn[h] = t < T ? prow[t] : 0.f;
+      dn[h] = t < T ? drow[t] : 0.f;
+    }
+    if (tp < T) {
+      prefetch_l2(prow + tp);
+      prefetch_l2(drow + tp);
+    }
+#pragma unroll
+    for (int h = 0; h < W; ++h) {
+      // a decisive hour (p > p_off: off, tested first; p <= p_on: on) sets
+      // the state, any other carries it: one select an hour on the chain
+      const bool off = pc[h] > hi, decisive = off || pc[h] <= lo;
+      cap = decisive ? (off ? cap_off : cap_on) : cap;
+      cw[h] = cap;
+    }
+    float* mine = ring + ((long long)buf * nt + lane) * LS;
+#pragma unroll
+    for (int h = 0; h < W; ++h) {
+      if ((FULL || h < n) && runs) {
+        const float a = dtb * dc[h];
+        float served, dropped, bl;
+        hard_hour<D>(P, d, a, cw[h], bnd, served, dropped, bl);
+        s_acc = s_acc + served;
+        d_acc = d_acc + dropped;
+        b_acc = b_acc + bl;
+        c_acc = c_acc + served * pc[h];
+        if (TELEM)
+          *reinterpret_cast<float4*>(mine + 4 * h) =
+              make_float4(a, served, dropped, bl);
+      }
     }
     if (TELEM) {
-      tel[lane] = a;
-      tel[nt + lane] = served;
-      tel[2 * nt + lane] = dropped;
-      tel[3 * nt + lane] = bl;
-      __syncthreads();
-      for (int k = lane; k < 4 * rows_per_block; k += nt) {
-        const int rr = k >> 2, qq = k & 3;
-        const int orow = blockIdx.x * rows_per_block + rr;
-        if (orow < B) {
-          float s = 0.f;
-          for (int j = 0; j < G; ++j) s = s + tel[qq * nt + rr * G + j];
-          hourly[((long long)qq * B + orow) * T + t] = s;
-        }
+      if (nt <= 32)
+        __syncwarp(wmask);
+      else
+        __syncthreads();
+      // 4 x rows_per_block x W sums, hour fastest, each (quantity, row)
+      // stored as a run of hours
+      const float* rb = ring + (long long)buf * nt * LS;
+      const int total = 4 * W * rows_per_block;
+      // the one-warp form for a power-of-2 G (32 / G rows), else a sum at a
+      // time
+      const bool guard = !FULL || (blockIdx.x + 1) * rows_per_block > B;
+      auto warp_sums = [&](auto gc) {
+        constexpr int GC = decltype(gc)::value;
+        if (guard)
+          ring_sums_warp<GC, true>(rb, lane, rows_per_block, B, T, t0, n,
+                                   hourly);
+        else
+          ring_sums_warp<GC, false>(rb, lane, rows_per_block, B, T, t0, n,
+                                    hourly);
+      };
+      using std::integral_constant;
+      switch (W == kWin && nt == 32 ? G : 0) {
+        case 1: warp_sums(integral_constant<int, 1>{}); break;
+        case 2: warp_sums(integral_constant<int, 2>{}); break;
+        case 4: warp_sums(integral_constant<int, 4>{}); break;
+        case 8: warp_sums(integral_constant<int, 8>{}); break;
+        case 16: warp_sums(integral_constant<int, 16>{}); break;
+        case 32: warp_sums(integral_constant<int, 32>{}); break;
+        default:
+          for (int k = lane; k < 4 * W * rows_per_block; k += nt)
+            ring_sum<W>(rb, k, G, rows_per_block, B, T, t0, n, hourly);
       }
-      __syncthreads();
+      buf ^= 1;
     }
-  }
+  };
+  const int full_end = T - T % W;
+  for (int t0 = 0; t0 < full_end; t0 += W)
+    window(std::true_type{}, t0, W);
+  if (full_end < T) window(std::false_type{}, full_end, T - full_end);
   if (active) {
     out[me] = s_acc;
     out[lanes + me] = d_acc;
@@ -876,7 +1078,8 @@ extern "C" unsigned long long kernels_launched() { return g_launched.load(); }
 
 extern "C" {
 
-// Rows a block and threads a block of the hard ledger kernel for G draws.
+// Rows a block of the hard ledger kernel for G draws: whole rows in one
+// warp, or one row a block.
 int workload_ledger_rows_per_block(int G) { return G <= 32 ? 32 / G : 1; }
 int ledger_max_reg_d() { return kMaxRegD; }
 
@@ -897,20 +1100,32 @@ int workload_ledger_f32(const float* prices, const long long* market_idx,
     return (int)cudaErrorInvalidValue;
   const int rpb = workload_ledger_rows_per_block(G);
   const int threads = rpb * G, blocks = (B + rpb - 1) / rpb;
-  const size_t shm = hourly != nullptr ? 4 * threads * sizeof(float) : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_d(d, [&](auto dc) {
-    constexpr int D = decltype(dc)::value;
-    if (hourly != nullptr)
-      workload_ledger_kernel<D, true><<<blocks, threads, shm, s>>>(
-          prices, market_idx, p_on, p_off, off_level, cap_mwh, dt, demand,
-          bound, B, N, G, T, d, rpb, out, hourly, scratch);
-    else
-      workload_ledger_kernel<D, false><<<blocks, threads, 0, s>>>(
-          prices, market_idx, p_on, p_off, off_level, cap_mwh, dt, demand,
-          bound, B, N, G, T, d, rpb, out, hourly, scratch);
+  auto launch = [&](auto kernel, int W) {
+    const size_t shm = hourly != nullptr
+                           ? 2 * (size_t)threads * ring_floats(W) * sizeof(float)
+                           : 0;
+    if (shm > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+      if (e != cudaSuccess) return (int)e;
+    }
+    kernel<<<blocks, threads, shm, s>>>(prices, market_idx, p_on, p_off,
+                                        off_level, cap_mwh, dt, demand, bound,
+                                        B, N, G, T, d, rpb, out, hourly,
+                                        scratch);
     ++g_launched;
     return (int)cudaGetLastError();
+  };
+  return with_d(d, [&](auto dc) {
+    constexpr int D = decltype(dc)::value;
+    if (threads <= kWinThreads)
+      return hourly != nullptr
+                 ? launch(workload_ledger_kernel<D, true, kWin>, kWin)
+                 : launch(workload_ledger_kernel<D, false, kWin>, kWin);
+    return hourly != nullptr
+               ? launch(workload_ledger_kernel<D, true, kWinBig>, kWinBig)
+               : launch(workload_ledger_kernel<D, false, kWinBig>, kWinBig);
   });
 }
 

@@ -7,10 +7,13 @@ queue_scan.py``: `queue_scan` and the fleet-coupled
 Here the hour loop runs inside ``csrc/queue_scan.cu``:
 
   * `workload_ledger_fwd` — the hard ledger of the workload backtest: a
-    thread a (row, draw), each row's shutdown state machine recomputed
-    inline on its market's prices (read through ``market_idx``), its
-    draws served with the hour's realised capacity; [B, G] sums, and with
-    telemetry each row's hourly sums over its draws;
+    thread a (row, draw), the hours in windows (a window's prices, read
+    through ``market_idx``, and demand loaded a window ahead, its
+    shutdown states computed before its hours), each hour in closed form
+    on the queue's prefix sums, the draws served with the hour's realised
+    capacity; [B, G] sums, and with telemetry each row's hourly sums over
+    its draws, summed once a window (mirror:
+    `ref.workload_ledger_seg_ref`);
   * `soft_ledger_fwd` / `soft_ledger_bwd` — [B, T] demand and capacity,
     the hard clip or its `smoothclip` relaxation in float32 or float64, a
     row's d + 1 buckets on the lanes of a warp segment; the forward saves

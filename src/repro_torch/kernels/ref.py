@@ -2185,6 +2185,87 @@ def workload_ledger_ref(prices: torch.Tensor, p_on, p_off, off_level,
             torch.stack(ys, -1) if hourly else None)
 
 
+LEDGER_WINDOW = 16   # csrc/queue_scan.cu's kWin: hours a window of the
+                     # hard kernel (blocks of <= 256 threads; 4 above)
+
+
+def _draw_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """[B, G, T] -> [B, T]: the sum over the draws, one draw after the
+    other from 0 (the hard kernel's telemetry sums)."""
+    s = torch.zeros_like(x[:, 0])
+    for j in range(x.shape[1]):
+        s = s + x[:, j]
+    return s
+
+
+def workload_ledger_seg_ref(prices: torch.Tensor, p_on, p_off, off_level,
+                            cap_mwh, demand: torch.Tensor, dt, *,
+                            deadline: int, bound, market_idx=None,
+                            hourly: bool = False):
+    """Mirror of the hard ledger kernel (``workload_ledger_fwd``) on [B, G]
+    lanes: its float32 operations in its order, each rounded once, so the
+    kernel equals it bit for bit (same arguments and returns as
+    `workload_ledger_ref`).
+
+    The kernel keeps each lane's queue as its inclusive prefix sums P
+    (oldest first) and runs an hour in closed form: with the waiting
+    work's inclusive sums C_j (P[j] for j < d, C_d = P[d-1] + a), the
+    unserved work of buckets 0..j is max(C_j, cap) - cap, the survivors'
+    running sum A_j = max(C_j, cap) - max(C_0, cap) (>= 0: C is
+    nondecreasing in j), and the new prefix sums are min(bound, A_j) (j =
+    1..d); served = min(cap, C_d),
+    backlog = the new P[d-1], dropped = (C_d - served) - backlog. cap and
+    bound are floored at 0 first; the hour's capacity is cap_mwh (lvl +
+    (1 - lvl)) when on, cap_mwh lvl when off. The sums are float32 in hour
+    order as `workload_ledger_ref`'s; the hourly sums run over the draws
+    in draw order. Equal to `workload_ledger_ref` bit for bit on
+    integer-valued work, to rounding otherwise."""
+    f32 = torch.float32
+    p = prices.to(f32)
+    rows = p if market_idx is None else p[market_idx]
+    b, t_len = rows.shape
+    dev = rows.device
+    p_on, p_off, lvl, cmwh, dtb = (
+        torch.as_tensor(v, device=dev).to(f32).expand(b)
+        for v in (p_on, p_off, off_level, cap_mwh, dt))
+    dem = demand.to(f32)
+    g_n, d = dem.shape[0], int(deadline)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    cap_on = torch.maximum(cmwh * (lvl + (1.0 - lvl)), zero)
+    cap_off = torch.maximum(cmwh * lvl, zero)
+    bnd = torch.maximum(torch.as_tensor(bound, dtype=f32, device=dev), zero)
+    on = torch.ones(b, dtype=f32, device=dev)
+    pre = torch.zeros((b, g_n, d), dtype=f32, device=dev)
+    zeros = torch.zeros((b, g_n), dtype=f32, device=dev)
+    acc = [zeros] * 4
+    ys = []
+    for t in range(t_len):
+        p_t = rows[:, t]
+        on = torch.where(p_t > p_off, 0.0, torch.where(p_t <= p_on, 1.0, on))
+        cap = torch.where(on != 0.0, cap_on, cap_off)[:, None]
+        a = dtb[:, None] * dem[:, t][None, :]
+        cd = pre[..., d - 1] + a if d else a
+        y0 = torch.maximum(pre[..., 0] if d else cd, cap)
+        if d:
+            c = torch.cat([pre[..., 1:], cd[..., None]], -1)
+            pre = torch.minimum(
+                bnd, torch.maximum(c, cap[..., None]) - y0[..., None])
+            bl = pre[..., -1]
+        else:
+            bl = zeros
+        served = torch.minimum(cap, cd)
+        dropped = (cd - served) - bl
+        acc = [acc[0] + served, acc[1] + dropped, acc[2] + bl,
+               acc[3] + served * p_t[:, None]]
+        if hourly:
+            ys.append(torch.stack([a, served, dropped, bl]))
+    if not hourly:
+        return WorkloadLedgerOut(*acc), None
+    per = torch.stack(ys, -1)                     # [4, B, G, T]
+    return WorkloadLedgerOut(*acc), torch.stack(
+        [_draw_order_sum(x) for x in per])
+
+
 def observed_prices(prices: torch.Tensor, price_ok: torch.Tensor):
     """The observed price series under feed gaps (rows x hours): the last
     arrived sample carried forward (the row's first true price before any

@@ -63,8 +63,9 @@ through the kernels within 1e-5 (loss) and 1e-4 (each gradient leaf's
 largest entry) of the plain route. The work ledger's kernels
 (`csrc/queue_scan.cu`) against their plain hour loops on the card: the
 hard ledger bit for bit on integer-valued work and within rtol 1e-5
-otherwise (bucket sums in another order), telemetry changing no other
-bit; the soft pair in float64 within 1e-10 of max(1, each output's
+otherwise (its hour in closed form, sums in another order), telemetry
+changing no other bit, and equal bit for bit to its mirror
+(`ref.workload_ledger_seg_ref`) run on the card; the soft pair in float64 within 1e-10 of max(1, each output's
 largest entry) of the plain loop and of autograd through it, in float32
 within rtol 1e-5, and equal bit for bit to its mirrors run on the card
 (the kernels' scans, trees and sums in their order); the workload-coupled
@@ -1386,6 +1387,41 @@ def test_ledger_kernel_matches_plain_version(cuda, case):
         else:
             torch.testing.assert_close(x, z, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(hr, hr_w, rtol=1e-5, atol=1e-4)
+
+
+# the kernel's window (ref.LEDGER_WINDOW, 16 hours) and one hour either
+# side, one hour, rows of 100, 300 and 600 draws (blocks above 256 threads
+# take 4-hour windows; 100 and 600 draws take more than 48 KB of shared
+# memory with telemetry), and full one-warp blocks at 1, 2, 16 and 32
+# draws (their telemetry sums take the one-warp form; 8 draws among
+# LEDGER_SHAPES)
+LEDGER_MIRROR_SHAPES = LEDGER_SHAPES + [
+    (3, 2, 5, 15, 4, False), (3, 2, 5, 16, 4, False),
+    (3, 2, 5, 17, 9, False), (1, 1, 1, 1, 4, False),
+    (2, 1, 100, 40, 4, False), (2, 1, 300, 33, 4, False),
+    (1, 1, 600, 20, 2, False), (40, 4, 1, 40, 4, False),
+    (20, 4, 2, 33, 4, True), (4, 3, 16, 31, 9, False),
+    (2, 2, 32, 50, 4, False)]
+
+
+@pytest.mark.parametrize("case", LEDGER_MIRROR_SHAPES)
+def test_ledger_kernel_matches_its_mirror(cuda, case):
+    """`workload_ledger_fwd` equal bit for bit to its mirror
+    (`ref.workload_ledger_seg_ref`: the kernel's closed-form hour and
+    order, run on the card), its sums with telemetry off and on and its
+    hourly series."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.queue_scan import workload_ledger_fwd
+    b, n, g, t, d, integer = case
+    args, midx = _ledger_inputs(b, n, g, t, integer, sum(case[:5]), cuda)
+    kw = dict(deadline=d, bound=3.0, market_idx=midx)
+    got, _ = workload_ledger_fwd(*args, **kw)
+    got_t, hr = workload_ledger_fwd(*args, hourly=True, **kw)
+    want, hr_w = ref.workload_ledger_seg_ref(*args, hourly=True, **kw)
+    for x, y, z in zip(got, got_t, want):
+        assert torch.equal(x, z)
+        assert torch.equal(y, z)
+    assert torch.equal(hr, hr_w)
 
 
 @pytest.mark.parametrize("b,t,d", [(1, 60, 2), (5, 300, 0), (33, 200, 4),
