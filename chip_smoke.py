@@ -86,11 +86,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      per group (run with phase 8's kernel checks); the decode kernel's
      ticket counters back at 0;
  12. the serving path at full width: `ServingEngine` on qwen2.5-3b (bf16,
-     random parameters drawn from a seed on the CPU, copied to the card),
+     random parameters drawn from a seed on the card),
      8 slots x 2048, the price gate on and crossing a price spike (it
      must close and reopen), 16 requests of 128-1024 prompt tokens x 32
      new tokens, until all complete; one request teacher-forced through
-     the kernels and through the plain attention;
+     the kernels and through the plain attention; the same run again on an
+     int8 KV cache (the same parameters and requests: every decode step
+     on the reference's plain int8 route, counted; the share of greedy
+     tokens equal to the bf16 run's, one request teacher-forced on both
+     caches within the reference's 2% bound, the decode step's times);
  13. the SSD scan kernel against its plain version on the card (the
      reference's cases, mamba2-1.3b's serving shapes at 1024 and 1000
      positions in bf16 and float32, with h0 and without, several heads a
@@ -110,7 +114,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      the kernels and the plain versions; prefill of 2 and of 300 tokens
      then decode against the longer prefills; the `repro_torch.launch.
      serve` launcher at the reference's defaults and on reduced mamba2 and
-     zamba2;
+     zamba2; the market calibration (after the acceptance grid):
+     `fit_region("germany", max_iter=30)` with its objective's markets
+     generated on the card, the objective at five thetas on the card
+     against the CPU, and three shipped presets' x_BE beside Table II;
  14. times (median of CUDA-event runs after warm-up): each kernel, its
      plain version and its bound (the fleet scan through ``market_idx``
      and on the gathered block, and at the tuner's 256 x 2190), the
@@ -147,6 +154,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      the bf16 peak, the busy share under the profiler, the checkpoint's
      times and the meter's summary); pause and resume bit for bit on a
      2-layer cut; `repro_torch.launch.train --full-config`;
+ 16. the MoE and audio families at full width (parameters drawn on the
+     card): mixtral-8x22b cut to 8 of 56 layers (20.4 B parameters)
+     through `ServingEngine` (8 slots x 8192, a rolling pool of 4096; the
+     gate on; one 4160-token request past the window decoded 64 further,
+     15 of 128-1024 tokens), 8 flash launches a prefill and 8 decode
+     launches a step, each prefill's capacity drops, the decode step's
+     device time beside its weight-read bound, the long request
+     teacher-forced through the window; grok-1-314b cut to 2 layers, a
+     512-token prefill and 8 decode steps teacher-forced; whisper-large-v3
+     whole (batch 8 x 1500 random frames, 4-token prompts, 32 greedy
+     steps; 96 flash launches a prefill and 64 decode launches a step;
+     the first 4 steps against the plain attention; the decode step's
+     device time beside its bound); one `loss_fn` + backward on a 2-layer
+     mixtral cut (finite gradients, the MoE aux, the flash Function);
 each path's kernel launch counts are set to 0 just before it and read
 just after. Then one JSON line describing every ported kernel (a counted
 launch is one wrapper call; ``device_launches`` counts, in the same run,
@@ -155,8 +176,13 @@ add the zamba2 run's launches and zamba2-shape times under ``hybrid_``
 keys; flash adds the full-width training run's launches under
 ``train_``, flash and the SSD scan their Functions' worst gradient error
 as ``train_max_grad_err``; the fleet scan adds the live sweep's launches
-and `dispatch_scan` the live-fleet check's under ``live_``), the
-script's total time, and, last, one JSON line naming the device. Without CUDA it exits non-zero and
+and `dispatch_scan` the live-fleet check's under ``live_``; flash and
+decode add the mixtral and whisper runs' launches and times at their
+shapes under ``mixtral_`` and ``whisper_`` keys (flash also the whisper
+cross prefill's times under ``whisper_cross_``), grok's teacher-forced
+launches under ``grok_launches`` and flash the MoE backward's under
+``moe_train_launches``; decode adds the int8 serving run's plain int8
+decode calls as ``int8_plain_decode_calls``), the script's total time, and, last, one JSON line naming the device. Without CUDA it exits non-zero and
 prints no result.
 """
 
@@ -3155,6 +3181,35 @@ def _soft_dispatch_records(errs: dict, times: dict, launches: dict,
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the reference's
 BF16 = torch.bfloat16
+# whisper-large-v3 (20 heads, each its own group, Dh 64; 1500 encoder
+# frames, batch 8, 4-token prompts): the bidirectional encoder, the
+# cross-attention prefill (Sq 4 != Skv 1500, causal=False; Skv not a
+# multiple of the key tile), the causal self-attention prefill, also the
+# cross prefill at float32; then the decode kernel over the cross cache
+# (1500 slots, every one valid: five whole 256-slot splits and a partial
+# one) and over the self cache
+WHISPER_FLASH_CASES = [
+    (8, 1500, 1500, 20, 20, 64, False, 0, 0, BF16),
+    (8, 4, 1500, 20, 20, 64, False, 0, 0, BF16),
+    (8, 4, 4, 20, 20, 64, True, 0, 0, BF16),
+    (2, 4, 1500, 20, 20, 64, False, 0, 0, torch.float32),
+]
+WHISPER_DECODE_CASES = [
+    (8, 20, 20, 64, 1500, BF16, "all"),
+    (8, 20, 20, 64, 1500, torch.float32, "all"),
+    (8, 20, 20, 64, 36, BF16, "random"),
+]
+# mixtral-8x22b (48 heads / 8 groups, Dh 128, window 4096): the
+# 4160-token prefill past the window, a 1024-token one, and the rolling
+# pool of 8 slots x 4096 past its wrap (every slot valid)
+MIXTRAL_FLASH_CASES = [
+    (1, 4160, 4160, 48, 8, 128, True, 4096, 0, BF16),
+    (1, 1024, 1024, 48, 8, 128, True, 4096, 0, BF16),
+]
+MIXTRAL_DECODE_CASES = [
+    (8, 48, 8, 128, 4096, BF16, "all"),
+    (8, 48, 8, 128, 4096, BF16, "linear"),
+]
 # B, Sq, Skv, H, G, Dh, causal, window, q_offset, dtype: the reference's
 # FLASH_CASES and its bf16 case (tests/test_kernels.py), the serving shapes
 # of qwen2.5-3b (16 heads in 2 KV groups, Dh 128) and a chunked prefill,
@@ -3186,7 +3241,7 @@ FLASH_SMOKE_CASES = [
     (1, 1024, 1024, 32, 32, 64, True, 0, 0, BF16),
     (1, 1000, 1000, 32, 32, 64, True, 0, 0, BF16),
     (1, 1024, 1024, 32, 32, 64, True, 0, 0, torch.float32),
-]
+] + WHISPER_FLASH_CASES + MIXTRAL_FLASH_CASES
 # B, H, G, Dh, W, dtype, mask: the reference's DECODE_CASES, then the
 # serving pool (8 slots of 2048, 16 heads in 2 groups) with a linear
 # cache's mask and a rolling one's, at bf16 and at float32 (eight 256-slot
@@ -3209,7 +3264,7 @@ DECODE_SMOKE_CASES = [
     (8, 32, 32, 64, 2048, BF16, "linear"),
     (8, 32, 32, 64, 2048, BF16, "random"),
     (8, 32, 32, 64, 2048, torch.float32, "linear"),
-]
+] + WHISPER_DECODE_CASES + MIXTRAL_DECODE_CASES
 SERVE_ARCH = "qwen2.5-3b"
 SSM_ARCH = "mamba2-1.3b"
 # the mamba2 run's fixed prompt lengths: one chunk, two, a ragged third,
@@ -3246,10 +3301,13 @@ def _flash_mask(sq, skv, causal, window, q_offset, dev):
 
 def _decode_valid(b, w, kind, dev, seed):
     """[B, W] int8 slot validity: random (slot 0 always valid), a linear
-    cache filled to a per-row length, or a rolling cache past its wrap
-    with a 1500-position window."""
+    cache filled to a per-row length, a rolling cache past its wrap with a
+    1500-position window, or every slot (a cross-attention cache, or a
+    rolling cache past its wrap whose window is its width)."""
     rng = np.random.default_rng(seed)
-    if kind == "random":
+    if kind == "all":
+        valid = np.ones((b, w), bool)
+    elif kind == "random":
         valid = rng.random((b, w)) > 0.3
         valid[:, 0] = True
     elif kind == "linear":
@@ -3426,16 +3484,18 @@ def _count_serving_plain_calls():
 
 
 def _serve_requests(cfg, fixed=()):
-    """16 requests of SERVE_MAX_NEW new tokens: prompts of the ``fixed``
-    lengths, then of 128-1024 tokens drawn from SERVE_SEED."""
+    """16 requests: prompts of the ``fixed`` lengths (an entry may be a
+    (length, new tokens) pair), then of 128-1024 tokens drawn from
+    SERVE_SEED; SERVE_MAX_NEW new tokens each unless a pair says other."""
     from repro_torch.serving import Request
 
     rng = np.random.default_rng(SERVE_SEED)
-    lens = list(fixed) + list(rng.integers(128, 1025,
-                                           SERVE_REQUESTS - len(fixed)))
+    spec = [f if isinstance(f, tuple) else (f, SERVE_MAX_NEW) for f in fixed]
+    spec += [(int(n), SERVE_MAX_NEW) for n in
+             rng.integers(128, 1025, SERVE_REQUESTS - len(fixed))]
     return [Request(rid=i, prompt=rng.integers(2, cfg.vocab - 1,
                                                size=int(n)).astype(np.int32),
-                    max_new=SERVE_MAX_NEW) for i, n in enumerate(lens)]
+                    max_new=m) for i, (n, m) in enumerate(spec)]
 
 
 def _serve_expect(cfg) -> dict:
@@ -3451,6 +3511,10 @@ def _serve_expect(cfg) -> dict:
         return {"flash_attention": (n_apps, 0),
                 "decode_attention": (0, n_apps),
                 "ssd_scan": (cfg.n_layers, 0)}
+    if cfg.kv_cache_dtype == "int8":
+        # an int8 pool decodes on the reference's own plain route
+        # (`decode_attention_int8`, counted apart), not the decode kernel
+        return {"flash_attention": (cfg.n_layers, 0)}
     return {"flash_attention": (cfg.n_layers, 0),
             "decode_attention": (0, cfg.n_layers)}
 
@@ -3462,6 +3526,13 @@ def _describe(cfg) -> str:
            f"{cfg.ssm_chunk}, conv {cfg.ssm_conv}")
     attn = (f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV groups, Dh "
             f"{cfg.resolved_head_dim}")
+    if cfg.n_experts:
+        attn += (f", {cfg.n_experts} experts top-{cfg.top_k} of d_ff "
+                 f"{cfg.d_ff} (capacity factor {cfg.capacity_factor})")
+    if cfg.swa_window:
+        attn += f", window {cfg.swa_window}"
+    if cfg.kv_cache_dtype != "bfloat16":
+        attn += f", {cfg.kv_cache_dtype} KV cache"
     if cfg.family == "ssm":
         return ssm
     if cfg.family == "hybrid":
@@ -3471,19 +3542,24 @@ def _describe(cfg) -> str:
     return f"{cfg.n_layers} layers, d_model {cfg.d_model}, {attn}"
 
 
-def phase_serving(dev, arch: str, fixed=(), profile_len: int = 576
-                  ) -> dict:
-    """The serving path at full width: `ServingEngine` on ``arch`` (bf16,
-    random parameters drawn from SERVE_SEED on the CPU and copied to the
-    card), 8 slots of 2048 positions, the price gate on (germany, Psi 2,
-    oracle), 16 requests (prompts of the ``fixed`` lengths, the rest of
-    128-1024 tokens) of 32 new tokens each, run until every request
-    completes. The market is replayed from half an hour before its first
+def phase_serving(dev, arch: str, fixed=(), profile_len: int = 576, *,
+                  cfg=None, params=None, max_seq: int = 2048,
+                  on_route=None) -> dict:
+    """The serving path at full width: `ServingEngine` on ``arch`` (or
+    ``cfg``: a cut or a cache layout of it; bf16, random parameters drawn
+    from SERVE_SEED by a generator on the card, or ``params`` already on
+    it), 8 slots of ``max_seq`` positions, the price gate on (germany, Psi
+    2, oracle), 16 requests (prompts of the ``fixed`` lengths, the rest of
+    128-1024 tokens) of 32 new tokens each (or a fixed entry's own count),
+    run until every request completes. The market is replayed from half an hour before its first
     hour above the threshold: the gate must close while admitted requests
     decode and others wait, and reopen. Launch counts and plain-call
     counters set to 0 just before and read just after: `_serve_expect`'s
     launches per prefill and decode step, no other kernel, no plain
-    attention or SSD call."""
+    attention or SSD call; an int8 pool's decode steps each call the plain
+    int8 decode (`decode_attention_int8`, the reference's route for that
+    cache) once a layer. ``on_route`` (a function of the counted run's
+    `moe.route_and_dispatch` results) sees each MoE layer's routing."""
     from repro_torch.configs.base import get_config
     from repro_torch.energy.markets import generate_market
     from repro_torch.energy.presets import region_params
@@ -3494,11 +3570,19 @@ def phase_serving(dev, arch: str, fixed=(), profile_len: int = 576
     from repro_torch.serving import ServeConfig, ServingEngine
     from repro_torch.serving import engine as engine_mod
 
-    cfg = get_config(arch)
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
+
+    cfg = cfg or get_config(arch)
     in_use = torch.cuda.memory_allocated(dev)
+    print(f"[serve] {cfg.name}: {in_use / 1e9:.2f} GB allocated on the card "
+          "before the draw")
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    params = init_params(SERVE_SEED, cfg, device=dev)
+    drawn = params is None
+    if drawn:
+        params = init_params(torch.Generator(device=dev).manual_seed(
+            SERVE_SEED), cfg)
     torch.cuda.synchronize()
     leaves = []
 
@@ -3510,8 +3594,9 @@ def phase_serving(dev, arch: str, fixed=(), profile_len: int = 576
     param_bytes = sum(x.numel() * x.element_size() for x in leaves)
     print(f"[serve] {cfg.name}: {_describe(cfg)}, vocab {cfg.vocab}, "
           f"{cfg.dtype}; {n_params / 1e9:.3f} B parameters "
-          f"({param_bytes / 1e9:.2f} GB) drawn on the CPU and copied in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"({param_bytes / 1e9:.2f} GB) "
+          + (f"drawn on the card in {time.perf_counter() - t0:.2f} s"
+             if drawn else "from the previous run"))
 
     md = generate_market(region_params("germany", seed=SERVE_SEED),
                          device=dev)
@@ -3526,7 +3611,7 @@ def phase_serving(dev, arch: str, fixed=(), profile_len: int = 576
     if prices[first_high] <= sched.p_thresh or first_high == 0:
         raise AssertionError("serving: no hour above p_thresh to gate on")
     sched.stream.advance(first_high - 0.5)
-    scfg = ServeConfig(slots=8, max_seq=2048)
+    scfg = ServeConfig(slots=8, max_seq=max_seq)
     eng = ServingEngine(params, cfg, scfg, scheduler=sched, device=dev)
     reqs = _serve_requests(cfg, fixed)
     for r in reqs:
@@ -3550,7 +3635,15 @@ def phase_serving(dev, arch: str, fixed=(), profile_len: int = 576
     engine_mod.prefill, engine_mod.decode_step = (timed("prefill"),
                                                    timed("decode"))
     plain, restore = _count_serving_plain_calls()
+    route = moe_mod.route_and_dispatch
+    if on_route is not None:
+        def routed(*a, **kw):
+            out = route(*a, **kw)
+            on_route(out)
+            return out
+        moe_mod.route_and_dispatch = routed
     try:
+        int8_calls = attn_mod.decode_attention_int8.calls
         counters = _zero_counters()
         t0 = time.perf_counter()
         ticks = closed = drained = held = 0
@@ -3569,8 +3662,10 @@ def phase_serving(dev, arch: str, fixed=(), profile_len: int = 576
         wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
         device = _device_launches(counters)
+        int8_calls = attn_mod.decode_attention_int8.calls - int8_calls
     finally:
         restore()
+        moe_mod.route_and_dispatch = route
         engine_mod.prefill, engine_mod.decode_step = (saved["prefill"],
                                                       saved["decode"])
     n_pre, n_dec = len(times["prefill"]), len(times["decode"])
@@ -3583,13 +3678,18 @@ def phase_serving(dev, arch: str, fixed=(), profile_len: int = 576
           f"admitted requests, {held} with requests waiting), "
           f"{n_pre} prefills, {n_dec} decode "
           f"steps, {wall:.2f} s wall; launches {launches}; plain calls "
-          f"{plain}")
+          f"{plain}; plain int8 decode calls (the int8 route) "
+          f"{int8_calls}")
     expect = _serve_expect(cfg)
     for name, (per_pre, per_dec) in expect.items():
         if launches[name] != per_pre * n_pre + per_dec * n_dec:
             raise AssertionError(
                 f"serving {cfg.name}: {launches[name]} {name} launches; "
                 f"expected {per_pre} per prefill and {per_dec} per step")
+    int8_want = cfg.n_layers * n_dec if cfg.kv_cache_dtype == "int8" else 0
+    if int8_calls != int8_want:
+        raise AssertionError(f"serving {cfg.name}: {int8_calls} int8 decode "
+                             f"calls; expected {int8_want}")
     if not (drained and held):
         raise AssertionError(f"serving: the price gate closed at {closed} "
                              f"ticks ({drained} draining, {held} holding "
@@ -3600,10 +3700,10 @@ def phase_serving(dev, arch: str, fixed=(), profile_len: int = 576
                              f"kernels {others} ran on the main path")
     for r in eng.completed:
         o = np.asarray(r.output)
-        if len(o) != SERVE_MAX_NEW or o.min() < 0 or o.max() >= cfg.vocab:
+        if len(o) != r.max_new or o.min() < 0 or o.max() >= cfg.vocab:
             raise AssertionError(f"request {r.rid}: bad output {o[:8]}")
     if out["completed"] != SERVE_REQUESTS or out["queued"] != 0 \
-            or out["tokens_served"] != SERVE_REQUESTS * SERVE_MAX_NEW \
+            or out["tokens_served"] != sum(r.max_new for r in reqs) \
             or not np.isfinite(out["eur_per_1k_tokens"]):
         raise AssertionError(f"serving summary: {out}")
     pre_ms = [t * 1e3 for t in times["prefill"]]
@@ -3629,16 +3729,21 @@ def phase_serving(dev, arch: str, fixed=(), profile_len: int = 576
     # run; the decode steps write the pool's next slots in place)
     from repro_torch.models.model import decode_step, prefill
     pos = torch.as_tensor(eng.positions, device=dev)
-    _profile(lambda: decode_step(params, eng.tokens, eng.caches, pos, cfg),
-             f"{cfg.name} decode step (8 slots)", runs=5)
+    dec_prof = _profile(
+        lambda: decode_step(params, eng.tokens, eng.caches, pos, cfg),
+        f"{cfg.name} decode step (8 slots)", runs=5)
     long = max(reqs, key=lambda r: len(r.prompt)).prompt
     mid = torch.as_tensor(long[:profile_len].astype(np.int64),
                           device=dev)[None]
-    _profile(lambda: prefill(params, {"tokens": mid}, cfg, max_seq=2048),
+    _profile(lambda: prefill(params, {"tokens": mid}, cfg, max_seq=max_seq),
              f"{cfg.name} prefill ({profile_len} tokens)", runs=3)
     return {"cfg": cfg, "params": params, "reqs": reqs,
+            "completed": {r.rid: r.output for r in eng.completed},
             "launches": launches, "device_launches": device,
-            "param_bytes": param_bytes,
+            "int8_calls": int8_calls, "n_decode": n_dec,
+            "n_positions": eng.positions,
+            "param_bytes": param_bytes, "max_seq": max_seq,
+            "decode_profile": dec_prof, "pool": eng.caches,
             "engine_ms": (np.median(pre_ms), np.median(dec_ms))}
 
 
@@ -3659,13 +3764,22 @@ def _plain_stand_ins(cfg) -> dict:
     return {k: plain[k] for k in _serve_expect(cfg)}
 
 
-def phase_teacher_forced(dev, serve, prompt_len: int | None = None) -> None:
+def phase_teacher_forced(dev, serve, prompt_len: int | None = None,
+                         steps: int = TF_STEPS) -> dict:
     """One request (the first, or the first of ``prompt_len`` tokens)
-    through `prefill` + 16 `decode_step`s on the kernels, then again with
-    the model's kernel entry points switched to their plain versions on the
-    card and fed the kernel path's tokens; the logits must agree within
-    TF_MAX_ABS."""
+    through `prefill` + ``steps`` `decode_step`s on the kernels (into a
+    cache of the serving run's ``max_seq``), then again with the model's
+    kernel entry points switched to their plain versions on the card and
+    fed the kernel path's tokens; the logits must agree within
+    TF_MAX_ABS. A MoE model's plain run is also fed the kernel run's
+    expert choices (`moe._top_k`'s indices, layer by layer; the weights
+    are the plain run's own probabilities at them): a routing decision is
+    discrete, and a near tie that the two attention routes' bf16 rounding
+    breaks differently would send a token through other experts; such
+    decisions are counted and printed. Returns the kernel run's launches
+    and the kernels they put on the card."""
     from repro_torch.kernels import ops
+    from repro_torch.models import moe
     from repro_torch.models.model import decode_step, prefill
 
     cfg, params = serve["cfg"], serve["params"]
@@ -3675,10 +3789,10 @@ def phase_teacher_forced(dev, serve, prompt_len: int | None = None) -> None:
     def run(forced=None):
         toks = torch.as_tensor(prompt.astype(np.int64), device=dev)[None]
         logits, caches = prefill(params, {"tokens": toks}, cfg,
-                                 max_seq=2048)
+                                 max_seq=serve.get("max_seq", 2048))
         rows, picks = [logits[0]], [int(torch.argmax(logits[0]))]
         pos = len(prompt)
-        for i in range(TF_STEPS):
+        for i in range(steps):
             tok = picks[-1] if forced is None else forced[i]
             logits, caches = decode_step(
                 params, torch.tensor([[tok]], device=dev), caches,
@@ -3688,14 +3802,34 @@ def phase_teacher_forced(dev, serve, prompt_len: int | None = None) -> None:
             pos += 1
         return torch.stack(rows), picks
 
+    top_k, chosen, flips = moe._top_k, [], []
+
+    def recording(probs, k):
+        out = top_k(probs, k)
+        chosen.append(out[1])
+        return out
+
+    def forced_routes(probs, k):
+        own = top_k(probs, k)[1]
+        idx = chosen[len(flips)]
+        flips.append((own != idx).any(-1).sum())
+        return probs.gather(-1, idx), idx
+
     expect = _serve_expect(cfg)
     counters = _zero_counters()
-    kern, kern_toks = run()
+    moe._top_k = recording
+    try:
+        kern, kern_toks = run()
+    finally:
+        moe._top_k = top_k
+    torch.cuda.synchronize()
     n_kernel = {k: counters[k].launches for k in expect}
+    device = _device_launches(counters)
     stand_ins = _plain_stand_ins(cfg)
     saved = {k: getattr(ops, k) for k in stand_ins}
     for k, fn in stand_ins.items():
         setattr(ops, k, fn)
+    moe._top_k = forced_routes
     try:
         counters = _zero_counters()
         plain, plain_toks = run(forced=kern_toks)
@@ -3703,22 +3837,27 @@ def phase_teacher_forced(dev, serve, prompt_len: int | None = None) -> None:
     finally:
         for k, fn in saved.items():
             setattr(ops, k, fn)
+        moe._top_k = top_k
     torch.cuda.synchronize()
-    want = {k: a + b * TF_STEPS for k, (a, b) in expect.items()}
+    want = {k: a + b * steps for k, (a, b) in expect.items()}
     if n_kernel != want or any(n_plain.values()):
         raise AssertionError(f"teacher forcing: launches {n_kernel} on the "
                              f"kernels, {n_plain} on the plain path")
     d = (kern - plain).abs()
     agree = np.mean([a == b for a, b in zip(kern_toks, plain_toks)])
     print(f"[serve] {cfg.name}: teacher-forced logits, prompt {len(prompt)} "
-          f"tokens, prefill + {TF_STEPS} steps, kernels vs plain on the "
+          f"tokens, prefill + {steps} steps, kernels vs plain on the "
           f"card: max |diff| {float(d.max()):.4g}, mean "
           f"{float(d.mean()):.4g} (logits: std {float(kern.std()):.4g}, "
           f"max |.| {float(kern.abs().max()):.4g}); argmax agrees on "
-          f"{agree:.0%} of {TF_STEPS + 1} positions")
+          f"{agree:.0%} of {steps + 1} positions"
+          + (f"; the plain run fed the kernel run's expert choices at "
+             f"{len(flips)} routing calls, {int(sum(flips))} tokens of "
+             f"which would have chosen other experts" if flips else ""))
     if not bool(torch.isfinite(kern).all()) or float(d.max()) > TF_MAX_ABS:
         raise AssertionError(f"teacher-forced logits differ by more than "
                              f"{TF_MAX_ABS}")
+    return {"launches": n_kernel, "device_launches": device}
 
 
 def phase_prefill_vs_decode(dev, serve, steps: int = 8) -> None:
@@ -3792,25 +3931,41 @@ def _in_turns(kernel, library, flush) -> tuple[float, float]:
     return statistics.median(k1 + k2), statistics.median(l1 + l2)
 
 
-def _flash_times(dev, flush, sq, h, g, dh, seed) -> dict:
-    """Flash at one prefill shape (causal, Sq = Skv, bf16): the kernel in
-    turns with SDPA, its plain version on the card, its bound."""
+def _visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs a row's masks leave it, summed over rows."""
+    i = np.arange(sq)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(sq, int)
+    hi = np.minimum(i + 1, skv) if causal else np.full(sq, skv)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _flash_times(dev, flush, sq, h, g, dh, seed, *, b: int = 1,
+                 skv: int | None = None, causal: bool = True,
+                 window: int = 0) -> dict:
+    """Flash at one prefill shape (bf16; default causal with Sq = Skv):
+    the kernel in turns with SDPA, its plain version on the card, its
+    bound over the pairs the masks leave."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_plain
 
-    q, k, v = _attn_inputs([(1, sq, h, dh), (1, sq, g, dh),
-                            (1, sq, g, dh)], BF16, dev, seed)
-    ms, lib = _in_turns(lambda: flash_attention(q, k, v, causal=True),
-                        lambda: _sdpa(q, k, v, causal=True), flush)
-    plain = _cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True),
-                     runs=3)
-    pairs = sq * (sq + 1) // 2
-    bytes_moved = 2 * (2 * sq * h * dh + 2 * sq * g * dh)
+    skv = skv or sq
+    q, k, v = _attn_inputs([(b, sq, h, dh), (b, skv, g, dh),
+                            (b, skv, g, dh)], BF16, dev, seed)
+    mask = _flash_mask(sq, skv, causal, window, 0, dev) if window else None
+    ms, lib = _in_turns(
+        lambda: flash_attention(q, k, v, causal=causal, window=window),
+        lambda: _sdpa(q, k, v, mask, causal=causal and not window), flush)
+    plain = _cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal,
+                                                   window=window), runs=3)
+    pairs = b * _visible_pairs(sq, skv, causal, window)
+    bytes_moved = 2 * b * (2 * sq * h * dh + 2 * skv * g * dh)
     ops = 4 * pairs * h * dh
     bound, by = _attn_bound(bytes_moved, ops)
-    print(f"[time] flash_attention Sq=Skv={sq} causal, {h} heads / {g} "
-          f"groups, Dh {dh}, bf16: kernel {ms:.4f} ms, SDPA {lib:.4f} "
-          f"ms ({ms / lib:.2f}x), plain {plain:.2f} ms, bound "
+    masks = ("causal" if causal else "bidirectional") + (
+        f", window {window}" if window else "")
+    print(f"[time] flash_attention B={b} Sq={sq} Skv={skv} {masks}, {h} "
+          f"heads / {g} groups, Dh {dh}, bf16: kernel {ms:.4f} ms, SDPA "
+          f"{lib:.4f} ms ({ms / lib:.2f}x), plain {plain:.2f} ms, bound "
           f"{bound:.5f} ms ({by}; {ops / 1e9:.2f} GFLOP, "
           f"{bytes_moved / 1e6:.2f} MB), {bound / ms:.1%} of bound; "
           f"kernel {ops / ms / 1e9:.1f} TFLOP/s, "
@@ -3820,17 +3975,18 @@ def _flash_times(dev, flush, sq, h, g, dh, seed) -> dict:
             "library_ms": lib}
 
 
-def _decode_times(dev, flush, b, h, g, dh, w, seed) -> dict:
+def _decode_times(dev, flush, b, h, g, dh, w, seed, kind: str = "linear"
+                  ) -> dict:
     """Decode over a pool of ``b`` slots x ``w`` positions (bf16) under a
     linear cache's mask (per-row lengths of 129 to ``w``, drawn from seed
-    951 at every shape): the kernel in turns with SDPA, its plain version
-    on the card, its bound over the valid slots."""
+    951 at every shape) or ``kind``'s: the kernel in turns with SDPA, its
+    plain version on the card, its bound over the valid slots."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.ref import decode_attention_plain
 
     q, k, v = _attn_inputs([(b, 1, h, dh), (b, w, g, dh), (b, w, g, dh)],
                            BF16, dev, seed)
-    valid = _decode_valid(b, w, "linear", dev, 951)
+    valid = _decode_valid(b, w, kind, dev, 951)
     mask = valid.bool()[:, None, None, :]
     ms, lib = _in_turns(lambda: decode_attention(q, k, v, valid),
                         lambda: _sdpa(q, k, v, mask), flush)
@@ -3843,7 +3999,7 @@ def _decode_times(dev, flush, b, h, g, dh, w, seed) -> dict:
     bound, by = _attn_bound(bytes_moved, ops)
     pool = 2 * (2 * b * w * g * dh + 2 * b * h * dh) + b * w
     print(f"[time] decode_attention B={b} W={w}, {h} heads / {g} groups, "
-          f"Dh {dh}, bf16, linear mask ({n_valid} valid slots): kernel "
+          f"Dh {dh}, bf16, {kind} mask ({n_valid} valid slots): kernel "
           f"{ms:.4f} ms, SDPA {lib:.4f} ms ({ms / lib:.2f}x), plain "
           f"{plain:.2f} ms, bound {bound:.5f} ms ({by}; "
           f"{bytes_moved / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP; the whole "
@@ -3860,8 +4016,10 @@ def phase_attention_times(dev, flush) -> dict:
     the serving shapes, in turns with SDPA on the same inputs, beside
     their plain versions on the card and their bounds (the larger of the
     bytes at 3.35 TB/s and the matrix products at the 989 TFLOP/s bf16
-    peak): qwen2.5-3b's (16 heads / 2 groups, Dh 128) and zamba2-1.2b's
-    (32 heads, each its own group, Dh 64)."""
+    peak): qwen2.5-3b's (16 heads / 2 groups, Dh 128), zamba2-1.2b's
+    (32 heads, each its own group, Dh 64), mixtral-8x22b's (48 heads / 8
+    groups, Dh 128, window 4096) and whisper-large-v3's (20 heads, each
+    its own group, Dh 64)."""
     recs = {}
     for sq in (128, 1024, 2048):
         recs[("flash", sq)] = _flash_times(dev, flush, sq, 16, 2, 128,
@@ -3872,6 +4030,21 @@ def phase_attention_times(dev, flush) -> dict:
                                                 64, 960)
     recs[("hybrid decode", 2048)] = _decode_times(dev, flush, 8, 32, 32, 64,
                                                   2048, 961)
+    # mixtral-8x22b: the 4160-token prefill past its window of 4096, and
+    # the rolling pool of 8 slots x 4096 past its wrap (every slot valid)
+    recs[("mixtral flash", 4160)] = _flash_times(dev, flush, 4160, 48, 8,
+                                                 128, 970, window=4096)
+    recs[("mixtral decode", 4096)] = _decode_times(dev, flush, 8, 48, 8, 128,
+                                                   4096, 971, kind="all")
+    # whisper-large-v3 at batch 8: the bidirectional encoder over 1500
+    # frames, the cross-attention prefill of a 4-token prompt, and the
+    # decode over the cross cache (1500 slots, every one valid)
+    recs[("whisper flash", 1500)] = _flash_times(dev, flush, 1500, 20, 20,
+                                                 64, 980, b=8, causal=False)
+    recs[("whisper cross", 4)] = _flash_times(dev, flush, 4, 20, 20, 64, 981,
+                                              b=8, skv=1500, causal=False)
+    recs[("whisper decode", 1500)] = _decode_times(dev, flush, 8, 20, 20, 64,
+                                                   1500, 982, kind="all")
     return recs
 
 
@@ -3883,14 +4056,19 @@ def _hybrid_keys(t: dict, launches: int) -> dict:
 
 
 def _attention_records(errs: dict, times: dict, launches: dict,
-                       hybrid: dict) -> list[dict]:
+                       hybrid: dict, slices: dict) -> list[dict]:
     """Kernels 8 and 9 in the ``kernels`` line: flash at the serving
     shape Sq = Skv = 1024 (causal, 16 heads / 2 groups, Dh 128, bf16),
     decode at the serving pool (8 slots x 2048); launches from the
     full-width qwen2.5-3b serving run; the ``hybrid_`` keys the same at
     zamba2-1.2b's shapes (32 heads / 32 groups, Dh 64) and from its
-    serving run; errors the largest over `phase_attention_vs_plain`'s
-    cases."""
+    serving run; the ``mixtral_`` keys at mixtral-8x22b's (the 4160-token
+    prefill past the window, the 8 x 4096 rolling pool) and from its
+    serving run, the ``whisper_`` keys at whisper-large-v3's (the batch-8
+    encoder over 1500 frames, the cross cache of 1500 slots; flash's
+    ``whisper_cross_`` keys at the cross prefill) and from its run, and
+    ``grok_launches`` from grok-1-314b's teacher-forced kernel run;
+    errors the largest over `phase_attention_vs_plain`'s cases."""
     recs = []
     for name, line, kind, key in (
             ("flash_attention", 42, "flash", 1024),
@@ -3905,6 +4083,16 @@ def _attention_records(errs: dict, times: dict, launches: dict,
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             **_hybrid_keys(times[(f"hybrid {kind}", key)], hybrid[name])})
+        rec = recs[-1]
+        for model, at in (("mixtral", {"flash": 4160, "decode": 4096}),
+                          ("whisper", {"flash": 1500, "decode": 1500})):
+            rec[f"{model}_launches"] = slices[model][name]
+            rec.update({f"{model}_{k}": v for k, v in
+                        times[(f"{model} {kind}", at[kind])].items()})
+        if kind == "flash":
+            rec.update({f"whisper_cross_{k}": v for k, v in
+                        times[("whisper cross", 4)].items()})
+        rec["grok_launches"] = slices["grok"][name]
     return recs
 
 
@@ -4711,6 +4899,473 @@ def phase_train_launcher(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the market calibration, the MoE and audio families, the int8 KV cache
+# ---------------------------------------------------------------------------
+
+CALIB_REGION, CALIB_ITERS = "germany", 30
+CALIB_REL = 1e-4           # the objective on the card against the CPU's
+BREAK_EVEN_REGIONS = ("germany", "south_australia", "france")
+MIXTRAL_LAYERS = 8         # of 56: 20.4 B parameters, ~40.9 GB of bf16
+MIXTRAL_LONG = (4160, 64)  # a prompt past the window, decoded 64 further
+GROK_LAYERS, GROK_PROMPT, GROK_STEPS = 2, 512, 8
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS = 8, 4, 32
+WHISPER_CHECKED = 4        # decode steps held against the plain route
+INT8_REL = 0.02            # the reference's test_int8_kv_cache_close_to_bf16
+
+
+def phase_calibration(dev) -> None:
+    """`repro_torch.core.fit_presets.fit_region` for Germany with
+    CALIB_ITERS Nelder-Mead iterations, every objective's three markets
+    generated on the card in one call; the objective at five thetas on
+    the card and on the CPU (the same draws: the port draws on a CPU
+    generator) within CALIB_REL; then x_BE of three shipped presets on
+    the port's preset seed beside Table II. The shipped presets file is
+    not written."""
+    from repro_torch.core import calibration as cal
+    from repro_torch.core import fit_presets as fit
+    from repro_torch.core.optimizer import break_even_fraction
+    from repro_torch.core.regions import PAPER_TABLE2
+    from repro_torch.energy.markets import MarketParams, generate_market
+    from repro_torch.energy.presets import region_params
+
+    row = PAPER_TABLE2[CALIB_REGION]
+    s0 = sum(ord(c) for c in CALIB_REGION) * 7919 % (2 ** 16)
+    base = MarketParams(p_avg=row.p_avg, seed=s0,
+                        **fit._INIT_STYLE[CALIB_REGION])
+    tgt = fit.targets_for(CALIB_REGION)
+    seeds = (s0, s0 + 1, s0 + 2)
+    on_card = cal.calibration_objective(base, tgt, seeds, device=dev)
+    on_cpu = cal.calibration_objective(base, tgt, seeds, device="cpu")
+    theta0 = cal._params_to_theta(base)
+    worst = 0.0
+    for i in range(5):
+        theta = theta0 + 0.35 * (i - 2) * np.linspace(-1, 1, len(theta0))
+        a, b = on_card(theta), on_cpu(theta)
+        worst = max(worst, abs(a - b) / abs(b))
+    print(f"[calib] objective at 5 thetas ({len(seeds)} markets of "
+          f"{base.n_hours} h a call), card vs CPU: worst relative "
+          f"difference {worst:.3g} (tol {CALIB_REL})")
+    if not worst <= CALIB_REL:
+        raise AssertionError("calibration: the objective on the card "
+                             "differs from the CPU's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, report = fit.fit_region(CALIB_REGION, CALIB_ITERS, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ours = report["ours"]
+    print(f"[calib] fit_region({CALIB_REGION!r}, max_iter={CALIB_ITERS}) "
+          f"on the card: {secs:.2f} s, loss {report['loss']:.6g}; k "
+          f"targets {[round(k, 4) for k in report['k_targets']]}, fitted "
+          f"{[round(k, 4) for k in report['k_fitted']]}; Table II x_BE "
+          f"{row.x_be_pct} %, x_opt {row.x_opt_pct} %, CPC reduction "
+          f"{row.cpc_red_pct} %; fitted market x_BE "
+          f"{ours['x_be_pct']:.4f} %, x_opt {ours['x_opt_pct']:.4f} %, CPC "
+          f"reduction {ours['cpc_red_pct']:.4f} %, p_avg "
+          f"{ours['p_avg']:.4f}")
+    if not (np.isfinite(report["loss"])
+            and all(np.isfinite(report["k_fitted"]))
+            and params["p_avg"] == row.p_avg):
+        raise AssertionError(f"calibration: bad fit {report}")
+    for region in BREAK_EVEN_REGIONS:
+        p = region_params(region)
+        r = PAPER_TABLE2[region]
+        prices = generate_market(p, device=dev).prices
+        x_be = float(break_even_fraction(prices, r.psi, device=dev)) * 100
+        print(f"[calib] {region}: x_BE {x_be:.4f} % on the port's preset "
+              f"seed {p.seed} (Table II {r.x_be_pct} %, the reference's "
+              f"band rel 0.35: {r.x_be_pct * 0.65:.3f}-"
+              f"{r.x_be_pct * 1.35:.3f} %)")
+        if not np.isfinite(x_be):
+            raise AssertionError(f"calibration: x_BE of {region} is not "
+                                 "finite")
+
+
+def _cut_to(arch: str, n_layers: int):
+    """``arch`` at full width cut to ``n_layers`` layers."""
+    from repro_torch.configs.base import get_config
+
+    return get_config(arch).replace(name=f"{arch}-{n_layers}l",
+                                    n_layers=n_layers)
+
+
+def _free() -> None:
+    """Return the memory of tensors no longer referenced to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _int8_deviation(dev, params, cfg16, cfg8, prompt, s: int,
+                    steps: int = 5) -> tuple[float, float]:
+    """The reference's `test_int8_kv_cache_close_to_bf16` protocol on
+    ``prompt``: prefill ``s`` tokens, decode the next ``steps``
+    teacher-forced, on the bf16 and the int8 cache; returns the last
+    logits' max |int8 - bf16| over the bf16 logits' largest, and the same
+    for bf16 through the plain attention against bf16 through the kernels
+    (the deviation two bf16 attention routes show on this model)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import decode_step, prefill
+
+    def last(c):
+        _, caches = prefill(params, {"tokens": prompt[:, :s]}, c,
+                            max_seq=s + steps + 3)
+        for i in range(steps):
+            lg, caches = decode_step(params, prompt[:, s + i:s + i + 1],
+                                     caches, torch.tensor([s + i],
+                                                          device=dev), c)
+        return lg
+    base, int8 = last(cfg16), last(cfg8)
+    stand_ins = _plain_stand_ins(cfg16)
+    saved = {k: getattr(ops, k) for k in stand_ins}
+    for k, fn in stand_ins.items():
+        setattr(ops, k, fn)
+    try:
+        plain = last(cfg16)
+    finally:
+        for k, fn in saved.items():
+            setattr(ops, k, fn)
+    scale = float(base.abs().max())
+    return (float((base - int8).abs().max()) / scale,
+            float((base - plain).abs().max()) / scale)
+
+
+def phase_int8_serving(dev, bf16: dict) -> dict:
+    """The qwen2.5-3b serving run again with ``kv_cache_dtype="int8"``,
+    on the same parameters and requests: every decode step runs the
+    reference's plain int8 route once a layer (counted) and the flash
+    kernel every prefill; the share of greedy tokens equal to the bf16
+    run's. Gates: the route (`decode_attention_int8`) on the run's pool
+    (layer 0, 8 slots x 2048) within ATTN_TOL[float32] of the plain decode
+    over the dequantised cache; and the reference's
+    `test_int8_kv_cache_close_to_bf16` (prefill 16 tokens, decode 5
+    teacher-forced, on the bf16 and the int8 cache) on its own model, the
+    reduced qwen2.5-3b at float32, within INT8_REL of the bf16 cache's
+    largest logit. Printed, not gated: the same protocol at full width,
+    at float32 and at the serving bf16 activations and at the request's
+    full length, each beside the deviation of the plain attention from
+    the kernels (at full width the int8 cache's deviation exceeds the
+    reference's bound: its quantisation noise grows through 36 random
+    layers as bf16's rounding does); the decode step's times beside the
+    bf16 run's."""
+    from repro_torch.configs.inputs import reduced_config
+    from repro_torch.kernels.ref import decode_attention_plain
+    from repro_torch.models.attention import (decode_attention_int8,
+                                              decode_valid)
+    from repro_torch.models.model import init_params
+
+    cfg16, params = bf16["cfg"], bf16["params"]
+    cfg8 = cfg16.replace(name=f"{cfg16.name}-int8", kv_cache_dtype="int8")
+    del bf16["pool"]
+    _free()
+    serve = phase_serving(dev, SERVE_ARCH, cfg=cfg8, params=params)
+    same = [a == b for rid, out in serve["completed"].items()
+            for a, b in zip(out, bf16["completed"][rid])]
+    pool = serve["pool"]["attn"]
+    k8, v8, ks, vs = (x[0] for x in (pool.k, pool.v, pool.k_scale,
+                                     pool.v_scale))
+    pos = torch.as_tensor(serve["n_positions"], device=dev)
+    valid = decode_valid(pool.pos_buf[0], pos, 0)
+    q = _attn_inputs([(k8.shape[0], 1, cfg8.n_heads, k8.shape[-1])],
+                     torch.float32, dev, 990)[0]
+    got = decode_attention_int8(q, k8, v8, valid, ks, vs)
+    want = decode_attention_plain(q, k8.float() * ks[..., None],
+                                  v8.float() * vs[..., None], valid)
+    seen = valid.bool().any(-1)            # rows with a valid slot
+    route_err = _attn_check("int8 route vs the dequantised cache",
+                            got[seen], want[seen], torch.float32)
+    small16 = reduced_config(cfg16)
+    small8 = small16.replace(kv_cache_dtype="int8")
+    small = init_params(torch.Generator(device=dev).manual_seed(4), small16)
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        2, small16.vocab - 1, (1, 21)), device=dev)
+    rel, floor = _int8_deviation(dev, small, small16, small8, toks, 16)
+    prompt = torch.as_tensor(serve["reqs"][0].prompt.astype(np.int64),
+                             device=dev)[None]
+    full = {name: _int8_deviation(dev, params, *c, prompt, s) for name, c, s
+            in (("float32", (cfg16.replace(dtype="float32"),
+                             cfg8.replace(dtype="float32")), 16),
+                ("bf16", (cfg16, cfg8), 16),
+                ("bf16, long", (cfg16, cfg8), prompt.shape[1] - 5))}
+    prof16, prof8 = bf16["decode_profile"], serve["decode_profile"]
+    dev_ms = {k: (p["wall_us"] * p["busy"] / 1e3 if p else float("nan"))
+              for k, p in (("bf16", prof16), ("int8", prof8))}
+    print(f"[int8] {cfg8.name}: the int8 route on the run's pool (layer 0, "
+          f"{int(valid.sum())} valid slots) against the plain decode of the "
+          f"dequantised cache, float32: max |err| {route_err:.3g} (tol "
+          f"{ATTN_TOL[torch.float32]}); the reference's "
+          f"test_int8_kv_cache_close_to_bf16 on its model ({small16.name}, "
+          f"float32; prefill 16, 5 decode steps teacher-forced): max |logit "
+          f"diff| over the bf16 cache's largest logit {rel:.4g} (bound "
+          f"{INT8_REL}; the plain attention against the kernels "
+          f"{floor:.4g})")
+    print(f"[int8] {cfg8.name}: at full width, not gated: "
+          + "; ".join(f"{k} activations {r:.4g} (plain attention against "
+                      f"the kernels {f:.4g})" for k, (r, f) in full.items())
+          + f" ('long': prefill {prompt.shape[1] - 5} + 5); "
+          f"{np.mean(same):.1%} of {len(same)} greedy tokens equal the bf16 "
+          f"run's; decode step (8 slots) median {serve['engine_ms'][1]:.2f} "
+          f"ms wall (bf16 {bf16['engine_ms'][1]:.2f}), device "
+          f"{dev_ms['int8']:.3f} ms (bf16 {dev_ms['bf16']:.3f}) under the "
+          f"profiler; {serve['int8_calls']} plain int8 decode calls (the "
+          f"reference's route for an int8 cache: {cfg8.n_layers} a step)")
+    if not rel < INT8_REL:
+        raise AssertionError(f"int8 KV cache: logits {rel:.4g} of scale "
+                             f"from the bf16 cache's on {small16.name}")
+    out = {"int8_calls": serve["int8_calls"], "share_equal": np.mean(same),
+           "rel": rel, "full": full, "decode_ms": serve["engine_ms"][1]}
+    del serve, pool, k8, v8, ks, vs
+    _free()
+    return out
+
+
+def phase_mixtral(dev) -> dict:
+    """mixtral-8x22b at full width cut to MIXTRAL_LAYERS layers through
+    `ServingEngine`: 8 slots of 8192 positions (a rolling pool of 4096,
+    the window), the price gate on, 16 requests (one of 4160 tokens past
+    the window decoded 64 further, the rest of 128-1024 tokens x 32).
+    MIXTRAL_LAYERS flash launches a prefill and decode launches a step;
+    each prefill's capacity drops; the decode step's device time beside
+    its weight-read bound; then the long request teacher-forced through
+    the window on the kernels and the plain route, at float32
+    activations, the plain run fed the kernel run's expert choices."""
+    cfg = _cut_to("mixtral-8x22b", MIXTRAL_LAYERS)
+    routes = []
+
+    def on_route(out):
+        _, meta, _ = out
+        routes.append((meta.t, (~meta.keep).sum()))
+    serve = phase_serving(dev, "mixtral-8x22b", (MIXTRAL_LONG,),
+                          profile_len=1024, cfg=cfg, max_seq=8192,
+                          on_route=on_route)
+    pre = [(t, int(d)) for t, d in routes if t > 8]
+    per = [sum(d for _, d in pre[i:i + cfg.n_layers])
+           for i in range(0, len(pre), cfg.n_layers)]
+    toks = [pre[i][0] for i in range(0, len(pre), cfg.n_layers)]
+    dec_drops = sum(int(d) for t, d in routes if t <= 8)
+    print(f"[moe] {cfg.name}: capacity drops per prefill (of prompt x "
+          f"top-{cfg.top_k} x {cfg.n_layers} layers assignments): "
+          + ", ".join(f"{n} tokens {d}" for n, d in zip(toks, per))
+          + f"; decode steps drop {dec_drops}")
+    tok_bytes = serve["params"]["embed"]["tok"].numel() * 2
+    weights = serve["param_bytes"] - tok_bytes
+    pool = serve["pool"]["attn"]
+    kv = 2 * pool.k.numel() * pool.k.element_size()
+    bound = (weights + kv) / HBM_BYTES_PER_S * 1e3
+    prof = serve["decode_profile"]
+    dev_ms = prof["wall_us"] * prof["busy"] / 1e3 if prof else float("nan")
+    print(f"[moe] {cfg.name}: decode step (8 slots, every expert's "
+          f"capacity-8 buffer run) device time {dev_ms:.3f} ms under the "
+          f"profiler, median wall {serve['engine_ms'][1]:.2f} ms; bound: "
+          f"{weights / 1e9:.2f} GB of weights (all but the token table) + "
+          f"{kv / 1e9:.2f} GB of pool K/V at 3.35 TB/s = {bound:.3f} ms")
+    # through the window at float32 activations (the bf16 weights cast as
+    # they are used): at bf16, 4160 tokens through 8 MoE layers put some
+    # routing decisions within the two attention routes' rounding of a
+    # tie, and the rest of the bf16 difference is of the gate's size at
+    # these logits (max |.| ~7.4)
+    tf = phase_teacher_forced(dev, {**serve, "cfg": cfg.replace(
+        dtype="float32")}, prompt_len=MIXTRAL_LONG[0])
+    out = {"launches": serve["launches"],
+           "device_launches": serve["device_launches"],
+           "drops": per, "decode_ms": dev_ms, "bound_ms": bound,
+           "tf": tf}
+    del serve, pool
+    _free()
+    return out
+
+
+def phase_grok(dev) -> dict:
+    """grok-1-314b at full width cut to GROK_LAYERS layers (d_ff 32768,
+    vocab 131072, ~23 GB): a GROK_PROMPT-token prefill and GROK_STEPS
+    decode steps, teacher-forced on the kernels and the plain route."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import Request
+
+    cfg = _cut_to("grok-1-314b", GROK_LAYERS)
+    print(f"[moe] {cfg.name}: {torch.cuda.memory_allocated(dev) / 1e9:.2f} "
+          "GB allocated on the card before the draw")
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(SERVE_SEED),
+                         cfg)
+    torch.cuda.synchronize()
+    n = sum(x.numel() for x in _flat(params).values())
+    print(f"[moe] {cfg.name}: {_describe(cfg)}, vocab {cfg.vocab}; "
+          f"{n / 1e9:.3f} B parameters ({2 * n / 1e9:.2f} GB) drawn on the "
+          f"card in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SERVE_SEED)
+    req = Request(rid=0, prompt=rng.integers(2, cfg.vocab - 1, GROK_PROMPT
+                                             ).astype(np.int32), max_new=1)
+    t0 = time.perf_counter()
+    tf = phase_teacher_forced(dev, {"cfg": cfg, "params": params,
+                                    "reqs": [req], "max_seq": 1024},
+                              steps=GROK_STEPS)
+    secs = time.perf_counter() - t0
+    print(f"[moe] {cfg.name}: teacher-forced phase {secs:.2f} s; launches "
+          f"{tf['launches']}")
+    del params
+    _free()
+    return tf
+
+
+def phase_whisper(dev) -> dict:
+    """whisper-large-v3 whole (32 + 32 layers, 20 heads, Dh 64, random
+    bf16 parameters drawn on the card): batch WHISPER_BATCH of random
+    frames [B, 1500, 1280] (the reference's stand-in for the conv
+    frontend) and WHISPER_PROMPT-token prompts, prefill and WHISPER_STEPS
+    greedy decode steps; 96 flash launches a prefill (encoder, self,
+    cross) and 64 decode launches a step (self, cross); the prefill and
+    the first WHISPER_CHECKED steps again with the plain attention on the
+    card, fed the same tokens, within TF_MAX_ABS; the decode step's
+    device time beside its bound (the decoder's weights and the cross
+    cache)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import decode_step, init_params, prefill
+
+    cfg = get_config("whisper-large-v3")
+    print(f"[audio] {cfg.name}: {torch.cuda.memory_allocated(dev) / 1e9:.2f}"
+          " GB allocated on the card before the draw")
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    t0 = time.perf_counter()
+    params = init_params(gen, cfg)
+    frames = torch.randn((WHISPER_BATCH, cfg.enc_seq, cfg.d_model),
+                         generator=gen, device=dev).to(BF16)
+    torch.cuda.synchronize()
+    flat = _flat(params)
+    n = sum(x.numel() for x in flat.values())
+    print(f"[audio] {cfg.name}: {cfg.enc_layers} encoder + {cfg.n_layers} "
+          f"decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} KV groups, Dh {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff} (gelu), vocab {cfg.vocab}; {n / 1e9:.3f} B "
+          f"parameters drawn on the card in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SERVE_SEED)
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab - 1, (
+        WHISPER_BATCH, WHISPER_PROMPT)), device=dev)
+    max_seq = WHISPER_PROMPT + WHISPER_STEPS
+
+    def run(steps, forced=None):
+        times = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": toks, "frames": frames},
+                                 cfg, max_seq=max_seq)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        rows, picks = [logits], [torch.argmax(logits, -1)]
+        for i in range(steps):
+            nxt = picks[-1] if forced is None else forced[i]
+            t = time.perf_counter()
+            logits, caches = decode_step(
+                params, nxt[:, None], caches,
+                torch.full((WHISPER_BATCH,), WHISPER_PROMPT + i,
+                           device=dev), cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            rows.append(logits)
+            picks.append(torch.argmax(logits, -1))
+        return torch.stack(rows), picks, times, caches
+
+    counters = _zero_counters()
+    kern, picks, times, caches = run(WHISPER_STEPS)
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    device = _device_launches(counters)
+    want = {"flash_attention": 3 * cfg.n_layers,
+            "decode_attention": 2 * cfg.n_layers * WHISPER_STEPS}
+    dec_ms = [t * 1e3 for t in times[1:]]
+    print(f"[audio] {cfg.name}: prefill (batch {WHISPER_BATCH}, "
+          f"{cfg.enc_seq} frames, {WHISPER_PROMPT}-token prompts) "
+          f"{times[0] * 1e3:.2f} ms, {WHISPER_STEPS} greedy decode steps "
+          f"median {np.median(dec_ms):.2f} ms wall; launches {launches}")
+    if launches != want:
+        raise AssertionError(f"whisper: launches {launches}, expected "
+                             f"{want} (3 flash a layer a prefill, 2 "
+                             "decode a layer a step)")
+    stand_ins = _plain_stand_ins(get_config(SERVE_ARCH))
+    saved = {k: getattr(ops, k) for k in stand_ins}
+    for k, fn in stand_ins.items():
+        setattr(ops, k, fn)
+    try:
+        counters = _zero_counters()
+        plain, _, _, _ = run(WHISPER_CHECKED, forced=picks[:WHISPER_CHECKED])
+        n_plain = {k: c.launches for k, c in counters.items() if c.launches}
+    finally:
+        for k, fn in saved.items():
+            setattr(ops, k, fn)
+    d = (kern[:WHISPER_CHECKED + 1] - plain).abs()
+    print(f"[audio] {cfg.name}: prefill + {WHISPER_CHECKED} steps, kernels "
+          f"vs plain attention on the card: max |logit diff| "
+          f"{float(d.max()):.4g}, mean {float(d.mean()):.4g} (logits: max "
+          f"|.| {float(kern.abs().max()):.4g}); plain-run launches "
+          f"{n_plain}")
+    if n_plain or not bool(torch.isfinite(kern).all()) \
+            or float(d.max()) > TF_MAX_ABS:
+        raise AssertionError(f"whisper: kernels and plain attention differ "
+                             f"by more than {TF_MAX_ABS}")
+    # the last step again (it rewrites the slot it wrote)
+    pos = torch.full((WHISPER_BATCH,), max_seq - 1, device=dev)
+    last = picks[-2][:, None]
+    prof = _profile(lambda: decode_step(params, last, caches, pos, cfg),
+                    f"{cfg.name} decode step (batch {WHISPER_BATCH})",
+                    runs=5)
+    dec_w = sum(x.numel() * x.element_size() for k, x in flat.items()
+                if not k.startswith(("/enc_", "/embed/tok")))
+    cross = 2 * caches["cross_k"].numel() * caches["cross_k"].element_size()
+    bound = (dec_w + cross) / HBM_BYTES_PER_S * 1e3
+    dev_ms = prof["wall_us"] * prof["busy"] / 1e3 if prof else float("nan")
+    print(f"[audio] {cfg.name}: decode step device time {dev_ms:.3f} ms "
+          f"under the profiler; bound: {dec_w / 1e9:.3f} GB of decoder "
+          f"weights + {cross / 1e9:.3f} GB of cross cache at 3.35 TB/s = "
+          f"{bound:.3f} ms")
+    del params, frames, caches, kern, plain
+    _free()
+    return {"launches": launches, "device_launches": device,
+            "decode_ms": dev_ms, "bound_ms": bound}
+
+
+def phase_moe_backward(dev) -> dict:
+    """One `loss_fn` and backward on mixtral-8x22b at full width cut to 2
+    layers (bf16, remat full, batch 1 x 256): the gradients finite, the
+    MoE aux positive, the flash kernel entered through its autograd
+    `FlashAttention` (counted) and launched."""
+    from repro_torch.models.attention import FlashAttention
+    from repro_torch.models.model import init_params, loss_fn
+
+    cfg = _cut_to("mixtral-8x22b", 2)
+    params = init_params(torch.Generator(device=dev).manual_seed(TRAIN_SEED),
+                         cfg)
+    rng = np.random.default_rng(TRAIN_SEED)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (1, 256)),
+                                device=dev) for k in ("tokens", "labels")}
+    counters = _zero_counters()
+    FlashAttention.calls = FlashAttention.backward_calls = 0
+    p, leaves, paths = _with_grad(params)
+    t0 = time.perf_counter()
+    loss, metrics = loss_fn(p, batch, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    aux = float(metrics["moe_aux"].detach())
+    n_flash = counters["flash_attention"].launches
+    loss = float(loss.detach())
+    print(f"[moe] {cfg.name} loss_fn + backward (1 x 256 tokens, remat "
+          f"{cfg.remat}): loss {loss:.6f}, moe_aux {aux:.6f}; "
+          f"{len(grads)} gradient leaves, all finite: {finite}; "
+          f"FlashAttention forward {FlashAttention.calls}, backward "
+          f"{FlashAttention.backward_calls}; flash launches {n_flash}; "
+          f"{secs:.2f} s")
+    if not (finite and np.isfinite(loss) and aux > 0 and n_flash
+            and FlashAttention.backward_calls == cfg.n_layers):
+        raise AssertionError("MoE backward: non-finite gradients, no aux, "
+                             "or the flash Function not entered")
+    out = {"launches": n_flash,
+           "device_launches": counters["flash_attention"].device_launches}
+    del params, p, leaves, grads
+    _free()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs only on "
@@ -4739,6 +5394,9 @@ def main() -> int:
     phase_acceptance(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    phase_calibration(dev)
+    print(f"[calib] calibration phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_telemetry(dev)
     live = phase_live(dev)
     torch.cuda.synchronize()
@@ -4755,6 +5413,9 @@ def main() -> int:
     serve_launches = serve["launches"]
     serve_device = serve["device_launches"]
     phase_teacher_forced(dev, serve)
+    t0 = time.perf_counter()
+    int8 = phase_int8_serving(dev, serve)
+    print(f"[int8] int8 phase: {time.perf_counter() - t0:.1f} s")
     del serve
     gc.collect()                  # free qwen's weights before mamba2's
     torch.cuda.empty_cache()
@@ -4783,6 +5444,19 @@ def main() -> int:
     phase_train_resume(dev)
     phase_train_launcher(dev)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mixtral = phase_mixtral(dev)
+    print(f"[moe] mixtral phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    grok = phase_grok(dev)
+    print(f"[moe] grok phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    whisper = phase_whisper(dev)
+    print(f"[audio] whisper phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moe_train = phase_moe_backward(dev)
+    print(f"[moe] MoE backward phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
     fleet_rec, flush = phase_times(dev, main_run)
     soft_times = phase_soft_times(dev, flush)
     phase_tune_times(dev, tune["grid"])
@@ -4806,7 +5480,10 @@ def main() -> int:
         + _soft_dispatch_records(sd_errs, sd_times, aware["launches"],
                                  to_hard["launches"]) \
         + _attention_records(attn_errs, attn_times, serve_launches,
-                             hybrid_launches) + [{
+                             hybrid_launches, {
+                                 "mixtral": mixtral["launches"],
+                                 "whisper": whisper["launches"],
+                                 "grok": grok["launches"]}) + [{
             "name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:41",
@@ -4831,6 +5508,11 @@ def main() -> int:
     disp_rec["live_launches"] = live["fleet_launches"]
     flash = next(r for r in kernels if r["name"] == "flash_attention")
     flash["train_launches"] = train["launches"]
+    flash["moe_train_launches"] = moe_train["launches"]
+    dec = next(r for r in kernels if r["name"] == "decode_attention")
+    # the int8 pool's decode steps: the reference's plain route, not the
+    # kernel (a count of plain calls, not of launches)
+    dec["int8_plain_decode_calls"] = int8["int8_calls"]
     flash["train_max_grad_err"] = train_errs["flash_attention"]
     ssd = next(r for r in kernels if r["name"] == "ssd_scan")
     ssd["train_max_grad_err"] = train_errs["ssd_scan"]
@@ -4844,6 +5526,13 @@ def main() -> int:
         if "train_launches" in rec:
             runs.append(("train_", {"flash_attention":
                                     train["device_launches"]}))
+        if "moe_train_launches" in rec:
+            runs.append(("moe_train_", {"flash_attention":
+                                        moe_train["device_launches"]}))
+        for pre, run in (("mixtral_", mixtral), ("whisper_", whisper),
+                         ("grok_", grok)):
+            if f"{pre}launches" in rec:
+                runs.append((pre, run["device_launches"]))
         if "live_launches" in rec:
             runs.append(("live_", {
                 "fleet_scan": live["device_launches"]["fleet_scan"],

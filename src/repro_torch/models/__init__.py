@@ -1,5 +1,5 @@
-"""The LLM model stack: configs in `repro_torch.configs`, the dense
-family's layers, attention and assembly here (serving and the training
+"""The LLM model stack: configs in `repro_torch.configs`; every family's
+layers, attention, MoE FFN and assembly here (serving and the training
 loss)."""
 
 from repro_torch.models.model import (decode_step, init_cache, init_params,

@@ -1,7 +1,8 @@
 """Attention: GQA with RoPE, optional QKV bias, sliding windows, caches.
 
 Mirrors `repro.models.attention` for one device. Full-sequence attention
-(prefill) goes to the flash kernel and decode to the decode kernel
+(prefill, the encoder, cross-attention over the encoder's output) goes to
+the flash kernel and decode (self and cross) to the decode kernel
 (`repro_torch.kernels.ops`); the route follows the device, not
 ``cfg.attn_impl``: CUDA tensors always launch the hand-written kernels,
 CPU tensors run their plain versions. ``cfg.attn_impl`` stays in the
@@ -10,62 +11,88 @@ config for parity with the reference and chooses nothing here.
 GQA layout: query heads are ordered grouped (h = g * rep + j), so head h
 reads KV group h // rep, as in the reference.
 
+The int8 KV cache (``cfg.kv_cache_dtype == "int8"``) holds absmax int8
+K/V with per-(token, head) float32 scales. The reference decodes such a
+cache outside its Pallas kernel (`repro/models/attention.py:347`), with
+the k-scale on the scores and the v-scale folded into the softmax
+weights; the port does the same in PyTorch operations on the cache's
+device (`decode_attention_int8`, which counts its calls), chosen by the
+cache's dtype.
+
 The reference's ``constrain`` and ``_tp_align_heads`` are the identity on
 one device and are not ported, nor is its head-aligned cache
-(``cfg.kv_cache_align``): they come with the mesh slice, and such a config
-raises. The int8 KV cache (``cfg.kv_cache_dtype == "int8"``) raises: it
-comes with a later slice, and the reference's Pallas path does not take
-it either.
+(``cfg.kv_cache_align``): they come with the mesh slice (queue 1 item 9),
+and such a config raises.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import (_dtype, normal_init, rope_cos_sin,
                                        rotate)
 
+
 def check_cache_layout(cfg: ModelConfig) -> None:
-    """Raise for the cache layouts this slice does not port."""
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            "kv_cache_dtype='int8' (the quantised KV cache) is not ported "
-            "yet: it comes with a later serving slice")
+    """Raise for the head-aligned cache, which comes with the mesh."""
     if cfg.cache_heads != cfg.n_kv_heads:
         raise NotImplementedError(
             "kv_cache_align (a cache with replicated KV heads) is not "
-            "ported yet: it comes with the mesh slice")
+            "ported yet: it comes with the mesh slice (queue 1 item 9)")
 
 
 class AttnCache(NamedTuple):
     """Decode-time KV cache. ``k``/``v``: [..., B, W, G, Dh] (W = window or
     max_seq); ``pos_buf``: [..., B, W] absolute position per slot (-1 =
     empty), which makes rolling (SWA) and linear caches uniform. The
-    model's caches carry a leading layer axis."""
+    model's caches carry a leading layer axis.
+
+    With ``cfg.kv_cache_dtype == "int8"``, k/v hold per-(token, head)
+    absmax-scaled int8 and ``k_scale``/``v_scale`` [..., B, W, G] float32
+    carry the scales; they are None otherwise."""
 
     k: torch.Tensor
     v: torch.Tensor
     pos_buf: torch.Tensor
+    k_scale: Any = None
+    v_scale: Any = None
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Absmax int8 over the trailing (head_dim) axis.
+    x: [..., Dh] -> (int8 [..., Dh], float32 scale [...])."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0
+    safe = torch.clamp(scale, min=1e-12)
+    q = torch.clamp(torch.round(xf / safe[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
-                   device=None) -> dict:
+                   device=None, *, cross: bool = False,
+                   n_layers_scale: Optional[int] = None) -> dict:
+    """One attention layer's projections. ``cross``: a cross-attention
+    layer (no QKV bias); ``n_layers_scale``: the depth that scales the
+    output projection (default ``cfg.n_layers``; the encoder's is
+    ``cfg.enc_layers``)."""
     d = cfg.d_model
     h, g, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     pdt = _dtype(cfg.param_dtype)
     dev = device or gen.device
+    depth = n_layers_scale or cfg.n_layers
     p = {
         "wq": normal_init(gen, (d, h, dh), 0.02, pdt, dev),
         "wk": normal_init(gen, (d, g, dh), 0.02, pdt, dev),
         "wv": normal_init(gen, (d, g, dh), 0.02, pdt, dev),
-        "wo": normal_init(gen, (h, dh, d), 0.02 / (2 * cfg.n_layers) ** 0.5,
+        "wo": normal_init(gen, (h, dh, d), 0.02 / (2 * depth) ** 0.5,
                           pdt, dev),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((h, dh), dtype=pdt, device=dev)
         p["bk"] = torch.zeros((g, dh), dtype=pdt, device=dev)
         p["bv"] = torch.zeros((g, dh), dtype=pdt, device=dev)
@@ -80,11 +107,11 @@ def _proj(x: torch.Tensor, w: torch.Tensor, cdt: torch.dtype
         -1, (n, dh))
 
 
-def _project_qkv(x, p, cfg: ModelConfig):
+def _project_qkv(x, x_kv, p, cfg: ModelConfig):
     cdt = _dtype(cfg.dtype)
     q = _proj(x, p["wq"], cdt)
-    k = _proj(x, p["wk"], cdt)
-    v = _proj(x, p["wv"], cdt)
+    k = _proj(x_kv, p["wk"], cdt)
+    v = _proj(x_kv, p["wv"], cdt)
     if "bq" in p:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
@@ -212,24 +239,35 @@ def attention_backward(q, k, v, out, d_out, causal: bool, window: int = 0,
 
 
 def attention_layer(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
+                    causal: bool = True,
+                    use_rope: bool = True,
+                    x_kv: Optional[torch.Tensor] = None,
                     cache: Optional[AttnCache] = None,
                     positions: Optional[torch.Tensor] = None,
+                    cross_kv: Optional[tuple] = None,
+                    window: Optional[int] = None,
                     return_kv: bool = False,
                     rope: Optional[tuple] = None,
                     valid: Optional[torch.Tensor] = None,
                     ) -> tuple[torch.Tensor, Optional[object]]:
-    """One causal self-attention layer with rope (the decoder's; the
-    reference's cross-attention and rope-free encoder modes come with the
-    audio slice), windowed by ``cfg.swa_window``.
+    """One attention layer (``window`` defaults to ``cfg.swa_window``).
 
     Modes:
-      * full-sequence (cache=None): prefill; x: [B,S,D]. With
-        ``return_kv`` the second result is the projected (k, v) after
+      * full-sequence (cache=None): prefill, the encoder; x: [B,S,D]; keys
+        and values from ``x_kv`` (default x); ``causal`` and ``use_rope``
+        as the reference's (the encoder is bidirectional and rope-free).
+        With ``return_kv`` the second result is the projected (k, v) after
         rope, [B,S,G,Dh] each, for the decode cache.
       * decode (cache given): x: [B,1,D], positions: [B] absolute
         position of the new token. The new k/v are written into
-        ``cache`` in place (slot ``pos % W``), and ``cache`` is returned;
-        the reference returns an updated copy instead.
+        ``cache`` in place (slot ``pos % W``; quantised to int8 with their
+        scales for an int8 cache), and ``cache`` is returned; the
+        reference returns an updated copy instead.
+      * cross attention: ``cross_kv=(k, v)`` [B,Skv,G,Dh] precomputed from
+        the encoder (no cache update, no rope, no mask): the flash kernel
+        with ``causal=False`` for a prompt, the decode kernel over every
+        slot for one token (``valid``: the [B, Skv] int8 all-ones mask,
+        made here when not given).
 
     ``rope``: the rotary (cos, sin) of these positions
     (`layers.rope_cos_sin`), which the decoder computes once for all its
@@ -241,15 +279,32 @@ def attention_layer(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     reference does both in each layer.
     """
     cdt = _dtype(cfg.dtype)
-    window = cfg.swa_window
+    window = cfg.swa_window if window is None else window
     b = x.shape[0]
-    q, k, v = _project_qkv(x, p, cfg)
+
+    if cross_kv is not None:
+        k, v = cross_kv
+        q = _proj(x, p["wq"], cdt)
+        if "bq" in p:
+            q = q + p["bq"].to(cdt)
+        if x.shape[1] == 1:   # decode: q len 1, all encoder slots valid
+            if valid is None:
+                valid = torch.ones(k.shape[:2], dtype=torch.int8,
+                                   device=k.device)
+            out = _decode_attention(q, k.to(cdt), v.to(cdt), valid, cfg)
+        else:
+            out = blockwise_attention(q, k, v, cfg, causal=False)
+        return _out_proj(out, p["wo"], cdt), None
+
+    q, k, v = _project_qkv(x, x if x_kv is None else x_kv, p, cfg)
 
     if cache is None:
-        rope = rope or rope_cos_sin(_prefill_positions(x, positions),
-                                    q.shape[-1], cfg.rope_theta)
-        q, k = rotate(q, rope), rotate(k, rope)
-        out = blockwise_attention(q, k, v, cfg, causal=True, window=window)
+        if use_rope:
+            rope = rope or rope_cos_sin(_prefill_positions(x, positions),
+                                        q.shape[-1], cfg.rope_theta)
+            q, k = rotate(q, rope), rotate(k, rope)
+        out = blockwise_attention(q, k, v, cfg, causal=causal,
+                                  window=window)
         o = _out_proj(out, p["wo"], cdt)
         return o, ((k, v) if return_kv else None)
 
@@ -258,14 +313,25 @@ def attention_layer(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         raise ValueError(f"decode takes one token per row, got x "
                          f"{list(x.shape)}")
     pos = positions                                     # [B] int
-    rope = rope or rope_cos_sin(pos[:, None], q.shape[-1], cfg.rope_theta)
-    q, k = rotate(q, rope), rotate(k, rope)
+    if use_rope:
+        rope = rope or rope_cos_sin(pos[:, None], q.shape[-1],
+                                    cfg.rope_theta)
+        q, k = rotate(q, rope), rotate(k, rope)
     w = cache.k.shape[1]
     rows = torch.arange(b, device=x.device)
     slot = pos.long() % w                   # rolling for SWA; linear: pos
-    cache.k[rows, slot] = k[:, 0].to(cache.k.dtype)
-    cache.v[rows, slot] = v[:, 0].to(cache.v.dtype)
-    out = _decode_attention(q, cache.k.to(cdt), cache.v.to(cdt), valid, cfg)
+    if cache.k_scale is not None:
+        kq, ks = quantize_kv(k[:, 0])
+        vq, vs = quantize_kv(v[:, 0])
+        cache.k[rows, slot], cache.k_scale[rows, slot] = kq, ks
+        cache.v[rows, slot], cache.v_scale[rows, slot] = vq, vs
+        out = decode_attention_int8(q, cache.k, cache.v, valid,
+                                    cache.k_scale, cache.v_scale)
+    else:
+        cache.k[rows, slot] = k[:, 0].to(cache.k.dtype)
+        cache.v[rows, slot] = v[:, 0].to(cache.v.dtype)
+        out = _decode_attention(q, cache.k.to(cdt), cache.v.to(cdt), valid,
+                                cfg)
     return _out_proj(out, p["wo"], cdt), cache
 
 
@@ -295,18 +361,50 @@ def _decode_attention(q, k, v, valid, cfg: ModelConfig):
     return kops.decode_attention(q, k, v, valid, bkv=cfg.attn_kv_chunk)
 
 
+def decode_attention_int8(q, k, v, valid, k_scale, v_scale
+                          ) -> torch.Tensor:
+    """One-token attention over an int8 cache, the reference's own route
+    for it (`repro/models/attention.py` `_decode_attention` with scales):
+    PyTorch operations in float32 on the cache's device, the k-scale on
+    the scores and the v-scale folded into the softmax weights, so the
+    dequantised cache is never made. q: [B,1,H,Dh]; k, v: [B,W,G,Dh]
+    int8; valid: [B,W] (int8 or bool); k_scale, v_scale: [B,W,G] float32.
+    Returns [B,1,H,Dh] in q's dtype. ``decode_attention_int8.calls``
+    counts the calls."""
+    decode_attention_int8.calls += 1
+    b, _, h, dh = q.shape
+    g = k.shape[2]
+    qg = q.reshape(b, g, h // g, dh).float()
+    s = torch.einsum("bgrd,bkgd->bgrk", qg, k.float()) * dh ** -0.5
+    s = s * k_scale.permute(0, 2, 1)[:, :, None, :]       # [B,G,1,W]
+    s = torch.where(valid.bool()[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1) * v_scale.permute(0, 2, 1)[:, :, None, :]
+    out = torch.einsum("bgrk,bkgd->bgrd", p, v.float())
+    return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+decode_attention_int8.calls = 0
+
+
 def init_attn_cache(cfg: ModelConfig, batch: int, max_seq: int,
                     device: torch.device, *,
                     window: Optional[int] = None) -> AttnCache:
     """An empty cache of W = min(window, max_seq) slots; ``window``
-    defaults to ``cfg.swa_window`` (or ``max_seq`` without one)."""
+    defaults to ``cfg.swa_window`` (or ``max_seq`` without one). An int8
+    cache carries zero [B, W, G] float32 scales."""
     check_cache_layout(cfg)
     w = window if window is not None else (cfg.swa_window or max_seq)
     w = min(w, max_seq)
     g, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     kv_dt = _dtype(cfg.kv_cache_dtype)
     shp = (batch, w, g, dh)
+    quant = cfg.kv_cache_dtype == "int8"
+
+    def scales():
+        return torch.zeros((batch, w, g), dtype=torch.float32,
+                           device=device) if quant else None
     return AttnCache(
         torch.zeros(shp, dtype=kv_dt, device=device),
         torch.zeros(shp, dtype=kv_dt, device=device),
-        torch.full((batch, w), -1, dtype=torch.int32, device=device))
+        torch.full((batch, w), -1, dtype=torch.int32, device=device),
+        k_scale=scales(), v_scale=scales())

@@ -15,7 +15,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-           "float16": torch.float16, "int8": torch.int8}
+           "float16": torch.float16, "int8": torch.int8,
+           "float64": torch.float64}    # float64: the port's gradient checks
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -84,20 +85,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # dense MLPs
 # ---------------------------------------------------------------------------
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, device=None,
+             gated: bool = True) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     pdt = _dtype(cfg.param_dtype)
     scale_out = 0.02 / (2 * cfg.n_layers) ** 0.5
-    return {"w1": normal_init(gen, (d, f), 0.02, pdt, device),
-            "w2": normal_init(gen, (f, d), scale_out, pdt, device),
-            "w3": normal_init(gen, (d, f), 0.02, pdt, device)}
+    p = {"w1": normal_init(gen, (d, f), 0.02, pdt, device),
+         "w2": normal_init(gen, (f, d), scale_out, pdt, device)}
+    if gated:
+        p["w3"] = normal_init(gen, (d, f), 0.02, pdt, device)
+    return p
 
 
-def mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
-    """SwiGLU (the reference's plain gelu MLP is whisper's, not ported)."""
+def mlp(x: torch.Tensor, p: dict, cfg: ModelConfig,
+        act: str = "silu") -> torch.Tensor:
+    """SwiGLU when ``w3`` is present, else a plain ``act`` MLP (whisper's
+    gelu: `jax.nn.gelu`'s default, the tanh approximation)."""
     cdt = _dtype(cfg.dtype)
-    a = F.silu(torch.matmul(x, p["w1"].to(cdt)))
-    a = a * torch.matmul(x, p["w3"].to(cdt))
+    h = torch.matmul(x, p["w1"].to(cdt))
+    a = F.silu(h) if act == "silu" else F.gelu(h, approximate="tanh")
+    if "w3" in p:
+        a = a * torch.matmul(x, p["w3"].to(cdt))
     return torch.matmul(a, p["w2"].to(cdt))
 
 

@@ -11,9 +11,10 @@
 Parameters and caches carry a leading stacked layer axis, as in the
 reference. Unlike the reference, `decode_step` updates the caches in
 place (the [L, B, W, G, Dh] pool, or the SSM conv and state pool, is
-written, not copied) and returns the same object. The dense, vlm, ssm
-and hybrid families are ported. ``cache_specs`` and ``param_specs`` wait
-for the mesh slice.
+written, not copied) and returns the same object. Every family is
+ported (dense, vlm, moe, ssm, hybrid, audio), with the bf16 and the int8
+KV cache. ``cache_specs`` and ``param_specs`` wait for the mesh slice
+(queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -26,10 +27,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (AttnCache, check_cache_layout,
-                                          init_attn_cache)
+                                          init_attn_cache, quantize_kv)
 from repro_torch.models.layers import _dtype, embed, rms_norm, unembed
 from repro_torch.models.ssm import init_ssm_cache
 from repro_torch.models.transformer import (check_family, decoder_forward,
+                                            encdec_decoder_forward,
+                                            encoder_forward,
                                             init_model_params)
 
 
@@ -59,7 +62,8 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *,
     """The reference's parameter pytree (`repro.models.model.init_params`
     output, leaves converted to numpy) as the port's parameters on
     ``device``: the same nesting and names, [L, ...] stacked blocks (and
-    the hybrid family's ``shared`` block), each leaf in its own dtype."""
+    the hybrid family's ``shared`` block, the audio family's
+    ``enc_blocks`` and ``enc_norm``), each leaf in its own dtype."""
     check_family(cfg)
     dev = resolve_device(device)
 
@@ -68,7 +72,8 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *,
             return {k: conv(v) for k, v in t.items()}
         return _tensor(t, dev)
     return conv({k: tree[k] for k in ("embed", "blocks", "final_norm",
-                                      "shared") if k in tree})
+                                      "shared", "enc_blocks", "enc_norm")
+                 if k in tree})
 
 
 def _token_nll(h: torch.Tensor, labels: torch.Tensor, params: dict,
@@ -105,11 +110,13 @@ def _token_nll(h: torch.Tensor, labels: torch.Tensor, params: dict,
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
             seq_sharded: bool = True) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy (+ ``cfg.moe_aux_coef`` x the MoE
-    load-balance aux, 0 for the ported families), as the reference's.
+    load-balance aux, summed over the layers; 0 for the other families),
+    as the reference's.
 
     batch: tokens [B,S] and labels [B,S] integer tensors, an optional
-    loss_mask [B,S] float32, and for the vision frontend patches
-    [B, vis_tokens, D] (their positions are masked out of the loss).
+    loss_mask [B,S] float32, for the vision frontend patches
+    [B, vis_tokens, D] (their positions are masked out of the loss), and
+    for the audio family frames [B, enc_seq, D] (the encoder's input).
     Returns (loss, {"loss", "ce", "moe_aux", "tokens"}), float32 scalar
     tensors. ``seq_sharded`` is the reference's sequence sharding, which
     has no effect on one device."""
@@ -118,13 +125,17 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
     tokens, labels = batch["tokens"], batch["labels"]
     mask = batch.get("loss_mask")
     h = embed(tokens, params["embed"], cfg)
-    if cfg.frontend == "vision":
-        vt = cfg.vis_tokens
-        h = torch.cat([batch["patches"].to(h.dtype), h[:, vt:]], dim=1)
-        pmask = (torch.arange(h.shape[1], device=h.device) >= vt) \
-            .float()[None]
-        mask = pmask if mask is None else mask * pmask
-    h, aux, _ = decoder_forward(params, h, cfg)
+    if cfg.family == "audio":
+        enc = encoder_forward(params, batch["frames"].to(h.dtype), cfg)
+        h, aux, _ = encdec_decoder_forward(params, h, cfg, enc_out=enc)
+    else:
+        if cfg.frontend == "vision":
+            vt = cfg.vis_tokens
+            h = torch.cat([batch["patches"].to(h.dtype), h[:, vt:]], dim=1)
+            pmask = (torch.arange(h.shape[1], device=h.device) >= vt) \
+                .float()[None]
+            mask = pmask if mask is None else mask * pmask
+        h, aux, _ = decoder_forward(params, h, cfg)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     nll = _token_nll(h, labels, params, cfg)
     if mask is None:
@@ -144,37 +155,52 @@ def _cache_from_kv(k: torch.Tensor, v: torch.Tensor, w: int,
 
     Linear caches (w >= s) are a pad with ``pos_buf = -1`` on the empty
     slots; rolling (sliding-window, w < s) caches scatter the last ``w``
-    positions to slot ``pos % w``."""
+    positions to slot ``pos % w``. An int8 cache (``cfg.kv_cache_dtype``)
+    holds `quantize_kv` of the K/V and their [..., W, G] float32 scales,
+    0 on the empty slots."""
     check_cache_layout(cfg)
     s = k.shape[-3]
     kvdt = _dtype(cfg.kv_cache_dtype)
     dev = k.device
     lead = tuple(k.shape[:-3])
     tail = tuple(k.shape[-2:])
+    scales = None
+    if cfg.kv_cache_dtype == "int8":
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        scales = (ks, vs)
+
+    def empty(shape, dtype):
+        return torch.zeros(lead + (w,) + shape, dtype=dtype, device=dev)
+    kc, vc = empty(tail, kvdt), empty(tail, kvdt)
+    sc = [empty(tail[:1], torch.float32) for _ in range(2)] \
+        if scales else None
     if w >= s:
-        kc = torch.zeros(lead + (w,) + tail, dtype=kvdt, device=dev)
-        vc = torch.zeros(lead + (w,) + tail, dtype=kvdt, device=dev)
-        kc[..., :s, :, :] = k
-        vc[..., :s, :, :] = v
+        src, slots = slice(None), slice(0, s)
         pos = torch.full((w,), -1, dtype=torch.int32, device=dev)
         pos[:s] = torch.arange(s, dtype=torch.int32, device=dev)
-        return AttnCache(kc, vc, pos.expand(lead + (w,)).contiguous())
-    srcpos = torch.arange(s - w, s, device=dev)
-    slots = srcpos % w
-    kc = torch.zeros(lead + (w,) + tail, dtype=kvdt, device=dev)
-    vc = torch.zeros(lead + (w,) + tail, dtype=kvdt, device=dev)
-    kc[..., slots, :, :] = k[..., s - w:, :, :].to(kvdt)
-    vc[..., slots, :, :] = v[..., s - w:, :, :].to(kvdt)
-    pos = torch.zeros((w,), dtype=torch.int32, device=dev)
-    pos[slots] = srcpos.to(torch.int32)
-    return AttnCache(kc, vc, pos.expand(lead + (w,)).contiguous())
+    else:
+        srcpos = torch.arange(s - w, s, device=dev)
+        src, slots = slice(s - w, s), srcpos % w
+        pos = torch.zeros((w,), dtype=torch.int32, device=dev)
+        pos[slots] = srcpos.to(torch.int32)
+    kc[..., slots, :, :] = k[..., src, :, :].to(kvdt)
+    vc[..., slots, :, :] = v[..., src, :, :].to(kvdt)
+    if scales:
+        for buf, x in zip(sc, scales):
+            buf[..., slots, :] = x[..., src, :]
+    return AttnCache(kc, vc, pos.expand(lead + (w,)).contiguous(),
+                     *(sc or ()))
 
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig, *,
             max_seq: Optional[int] = None) -> tuple[torch.Tensor, dict]:
     """Full-sequence forward returning (last-position logits [B,V],
     caches). ``batch["tokens"]``: [B,S] integer tensor (and
-    ``batch["patches"]`` [B, vis_tokens, D] for the vision frontend).
+    ``batch["patches"]`` [B, vis_tokens, D] for the vision frontend,
+    ``batch["frames"]`` [B, enc_seq, D] for the audio family, whose caches
+    are {"self": AttnCache, "cross_k", "cross_v"}: the decoder's
+    self-attention cache, linear over ``max_seq``, and every layer's
+    cross K/V [L, B, enc_seq, G, Dh] in the activation dtype).
     ``max_seq`` sets the decode cache capacity (default: the prompt
     length; pass prompt + generation budget for serving)."""
     check_family(cfg)
@@ -182,20 +208,29 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, *,
     s = tokens.shape[1]
     max_seq = max_seq or s
     h = embed(tokens, params["embed"], cfg)
-    if cfg.frontend == "vision":
-        vt = cfg.vis_tokens
-        h = torch.cat([batch["patches"].to(h.dtype), h[:, vt:]], dim=1)
-    h, _, col = decoder_forward(params, h, cfg, collect=True)
-    caches = {}
-    if "ssm" in col:
-        caches["ssm"] = col["ssm"]
-    if "attn" in col:
-        # the hybrid family's shared-attention caches are linear over
-        # max_seq whatever cfg.swa_window says, as in the reference
-        w = max_seq if cfg.family == "hybrid" \
-            else min(cfg.swa_window or max_seq, max_seq)
-        k, v = col["attn"]
-        caches["attn"] = _cache_from_kv(k, v, w, cfg)
+    if cfg.family == "audio":
+        cdt = _dtype(cfg.dtype)
+        enc = encoder_forward(params, batch["frames"].to(h.dtype), cfg)
+        h, _, col = encdec_decoder_forward(params, h, cfg, enc_out=enc,
+                                           collect=True)
+        caches = {"self": _cache_from_kv(*col["self"], max_seq, cfg),
+                  "cross_k": col["cross_k"].to(cdt),
+                  "cross_v": col["cross_v"].to(cdt)}
+    else:
+        if cfg.frontend == "vision":
+            vt = cfg.vis_tokens
+            h = torch.cat([batch["patches"].to(h.dtype), h[:, vt:]], dim=1)
+        h, _, col = decoder_forward(params, h, cfg, collect=True)
+        caches = {}
+        if "ssm" in col:
+            caches["ssm"] = col["ssm"]
+        if "attn" in col:
+            # the hybrid family's shared-attention caches are linear over
+            # max_seq whatever cfg.swa_window says, as in the reference
+            w = max_seq if cfg.family == "hybrid" \
+                else min(cfg.swa_window or max_seq, max_seq)
+            k, v = col["attn"]
+            caches["attn"] = _cache_from_kv(k, v, w, cfg)
     h_last = rms_norm(h[:, -1:], params["final_norm"]["scale"], cfg.norm_eps)
     logits = unembed(h_last, params["embed"], cfg)[:, 0]
     return logits, caches
@@ -208,8 +243,10 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict,
     of the new token. Returns (logits [B,V], caches), the caches updated
     in place."""
     h = embed(tokens, params["embed"], cfg)
-    h, _, caches = decoder_forward(params, h, cfg, caches=caches,
-                                   positions=positions)
+    forward = encdec_decoder_forward if cfg.family == "audio" \
+        else decoder_forward
+    h, _, caches = forward(params, h, cfg, caches=caches,
+                           positions=positions)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     logits = unembed(h, params["embed"], cfg)[:, 0]
     return logits, caches
@@ -218,18 +255,22 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict,
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device: DeviceLike = None) -> dict:
     """The empty decode cache: {"attn": AttnCache} with [L, B, W, G, Dh]
-    k/v (zeros) and [L, B, W] pos_buf (-1); for the ssm family
-    {"ssm": SSMCache} with [L, B, K-1, conv_dim] conv inputs and
-    [L, B, H, P, N] float32 states (zeros; ``max_seq`` does not size
-    them); for the hybrid family both, the SSM cache over the L layers and
-    the K/V cache over the n_layers // hybrid_attn_every applications of
-    the shared block, linear over ``max_seq``."""
+    k/v (zeros; int8 with [L, B, W, G] float32 scales for an int8 cache)
+    and [L, B, W] pos_buf (-1); for the ssm family {"ssm": SSMCache} with
+    [L, B, K-1, conv_dim] conv inputs and [L, B, H, P, N] float32 states
+    (zeros; ``max_seq`` does not size them); for the hybrid family both,
+    the SSM cache over the L layers and the K/V cache over the
+    n_layers // hybrid_attn_every applications of the shared block,
+    linear over ``max_seq``; for the audio family {"self": AttnCache,
+    "cross_k", "cross_v"}, the cross K/V [L, B, enc_seq, G, Dh] zeros in
+    the activation dtype."""
     check_family(cfg)
     dev = resolve_device(device)
 
     def stack(layer, n):
         return type(layer)(
-            *(x.unsqueeze(0).repeat((n,) + (1,) * x.ndim) for x in layer))
+            *(None if x is None else
+              x.unsqueeze(0).repeat((n,) + (1,) * x.ndim) for x in layer))
     if cfg.family == "ssm":
         return {"ssm": stack(init_ssm_cache(cfg, batch, dev), cfg.n_layers)}
     if cfg.family == "hybrid":
@@ -237,5 +278,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                 "attn": stack(init_attn_cache(cfg, batch, max_seq, dev,
                                               window=max_seq),
                               cfg.n_layers // cfg.hybrid_attn_every)}
-    return {"attn": stack(init_attn_cache(cfg, batch, max_seq, dev),
-                          cfg.n_layers)}
+    attn = stack(init_attn_cache(cfg, batch, max_seq, dev), cfg.n_layers)
+    if cfg.family == "audio":
+        cross = (cfg.n_layers, batch, cfg.enc_seq, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        return {"self": attn,
+                **{name: torch.zeros(cross, dtype=_dtype(cfg.dtype),
+                                     device=dev)
+                   for name in ("cross_k", "cross_v")}}
+    return {"attn": attn}

@@ -25,7 +25,11 @@ is the plain one-token recurrence; a hybrid model's (zamba2's) prefill
 launches the SSD scan once per Mamba2 layer and the flash kernel once per
 application of its shared attention block (n_layers // hybrid_attn_every),
 and every tick the decode kernel once per application. A hybrid pool holds
-both caches, and a prefilled request is copied into each.
+both caches, and a prefilled request is copied into each. A MoE model
+(mixtral, grok-1) serves as a dense one does, its expert FFN in PyTorch
+operations (the reference's einsums). An int8 pool (``kv_cache_dtype=
+"int8"``) carries its scales beside the K/V, and its decode steps run the
+reference's own plain int8 route instead of the decode kernel.
 """
 
 from __future__ import annotations
@@ -186,6 +190,8 @@ def _slot_set(pool: NamedTuple, one: NamedTuple, slot: int) -> None:
     of the pooled cache, leaf by leaf, in place: every leaf is [L, B, ...]
     (L the layers, or the hybrid family's applications for its K/V),
     ``one``'s with B = 1 and otherwise the pool's shape (an SSM prefill's
-    conv tail always holds K-1 rows, left-padded with zeros)."""
+    conv tail always holds K-1 rows, left-padded with zeros). The scales
+    of a bf16 `AttnCache` are None in both, and are skipped."""
     for p, o in zip(pool, one):
-        p[:, slot] = o[:, 0].to(p.dtype)
+        if p is not None:
+            p[:, slot] = o[:, 0].to(p.dtype)

@@ -1577,3 +1577,120 @@ def test_workload_and_faulted_backtests_on_the_card(cuda):
     assert torch.equal(hit.n_starts.cpu(), hit_cpu.n_starts)
     torch.testing.assert_close(hit.cpc.cpu(), hit_cpu.cpc, rtol=1e-5,
                                atol=0.0)
+
+
+# ---------------------------------------------------------------------------
+# the MoE, audio and int8 slice: the attention kernels at its shapes, the
+# engine over mixtral and an int8 pool, whisper's prefill and decode
+# ---------------------------------------------------------------------------
+
+# B, Sq, Skv, H, G, Dh, causal, window, dtype: whisper-large-v3's
+# cross-attention (a 4-token prompt over the 1500 encoder frames: Sq != Skv,
+# Skv not a multiple of the key tile) and its bidirectional encoder (20
+# heads, each its own group, Dh 64), then mixtral's 48 / 8 heads at Dh 128
+# with the window crossed (a 600-token prefill, window 512)
+@pytest.mark.parametrize("case", [
+    (8, 4, 1500, 20, 20, 64, False, 0, torch.bfloat16),
+    (2, 37, 1500, 20, 20, 64, False, 0, torch.float32),
+    (1, 1500, 1500, 20, 20, 64, False, 0, torch.bfloat16),
+    (1, 600, 600, 48, 8, 128, True, 512, torch.bfloat16)])
+def test_flash_kernel_at_the_slices_shapes(cuda, case):
+    b, sq, skv, h, g, dh, causal, win, dt = case
+    q, k, v = _attn_inputs([(b, sq, h, dh), (b, skv, g, dh),
+                            (b, skv, g, dh)], dt, cuda, sq + skv + h)
+    got = flash_attention(q, k, v, causal=causal, window=win,
+                          use_kernel=True)
+    want = flash_attention_plain(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dt])
+
+
+# B, H, G, Dh, W, dtype: whisper's cross cache (1500 slots, every one
+# valid: six 256-slot splits, the last partial) and mixtral's rolling pool
+@pytest.mark.parametrize("case", [(8, 20, 20, 64, 1500, torch.bfloat16),
+                                  (3, 20, 20, 64, 1500, torch.float32),
+                                  (8, 48, 8, 128, 4096, torch.bfloat16)])
+def test_decode_kernel_at_the_slices_shapes(cuda, case):
+    b, h, g, dh, w, dt = case
+    q, k, v = _attn_inputs([(b, 1, h, dh), (b, w, g, dh), (b, w, g, dh)],
+                           dt, cuda, w + h)
+    valid = torch.ones((b, w), dtype=torch.int8, device=cuda)
+    got = decode_attention(q, k, v, valid, use_kernel=True)
+    want = decode_attention_plain(q, k, v, valid)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dt])
+
+
+@pytest.mark.parametrize("arch, int8", [("mixtral-8x22b", False),
+                                        ("mixtral-8x22b", True),
+                                        ("qwen2.5-3b", True)])
+def test_moe_and_int8_engines_on_the_card_match_the_cpu(cuda, arch, int8):
+    """Reduced mixtral (window 8: prompts past it) and an int8 pool at
+    float32: the engine on the card returns the CPU's tokens; one flash
+    launch per layer and prefill; one decode launch per layer and step
+    on a bf16 pool, and the plain int8 decode (the reference's route for
+    an int8 cache) instead of it on an int8 pool."""
+    from repro_torch.models.attention import decode_attention_int8
+    cfg = reduced_config(get_config(arch))
+    if int8:
+        cfg = cfg.replace(kv_cache_dtype="int8")
+    cpu_params = init_params(5, cfg, device="cpu")
+    outputs, launches = {}, {}
+    for dev in ("cpu", cuda):
+        eng = ServingEngine(_tree_to(cpu_params, dev), cfg,
+                            ServeConfig(slots=4, max_seq=48), device=dev)
+        rng = np.random.default_rng(2)
+        for i in range(6):
+            eng.submit(Request(rid=i, prompt=rng.integers(
+                2, cfg.vocab - 1, size=int(rng.integers(5, 20))).astype(
+                    np.int32), max_new=8))
+        before = (flash_attention.launches, decode_attention.launches,
+                  decode_attention_int8.calls)
+        out = eng.run(ticks=30)
+        launches[str(dev)] = tuple(a - b for a, b in zip(
+            (flash_attention.launches, decode_attention.launches,
+             decode_attention_int8.calls), before))
+        outputs[str(dev)] = ({r.rid: r.output for r in eng.completed},
+                             out["tokens_served"], out["completed"])
+    assert outputs[str(cuda)] == outputs["cpu"]
+    assert outputs["cpu"][2] == 6
+    flash, dec, dec8 = launches[str(cuda)]
+    assert flash == 6 * cfg.n_layers and launches["cpu"][:2] == (0, 0)
+    steps = (dec8 if int8 else dec) // cfg.n_layers
+    assert steps > 0 and (dec if int8 else dec8) == 0
+    assert launches["cpu"][2] == (steps * cfg.n_layers if int8 else 0)
+
+
+def test_whisper_on_the_card_matches_the_cpu(cuda):
+    """Reduced whisper at float32: prefill (encoder, self- and
+    cross-attention) and 6 decode steps on the card give the CPU's logits
+    within 1e-4, with 3 flash launches per layer a prefill (encoder,
+    self, cross) and 2 decode launches per layer a step (self, cross)."""
+    from repro_torch.models.model import decode_step, prefill
+    cfg = reduced_config(get_config("whisper-large-v3"))
+    cpu_params = init_params(5, cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    toks = rng.integers(2, cfg.vocab - 1, (2, 7))
+    frames = rng.normal(size=(2, cfg.enc_seq, cfg.d_model)).astype(
+        np.float32)
+    rows, launches = {}, {}
+    for dev in ("cpu", cuda):
+        params = _tree_to(cpu_params, dev)
+        before = (flash_attention.launches, decode_attention.launches)
+        logits, caches = prefill(params, {
+            "tokens": torch.as_tensor(toks, device=dev),
+            "frames": torch.as_tensor(frames, device=dev)}, cfg, max_seq=16)
+        out = [logits.cpu()]
+        for i in range(6):
+            nxt = torch.argmax(out[-1], -1)[:, None]
+            logits, caches = decode_step(
+                params, nxt.to(dev), caches,
+                torch.full((2,), 7 + i, device=dev), cfg)
+            out.append(logits.cpu())
+        rows[str(dev)] = torch.stack(out)
+        launches[str(dev)] = (flash_attention.launches - before[0],
+                              decode_attention.launches - before[1])
+    torch.testing.assert_close(rows[str(cuda)], rows["cpu"], atol=1e-4,
+                               rtol=1e-4)
+    assert launches["cpu"] == (0, 0)
+    assert launches[str(cuda)] == (3 * cfg.n_layers, 6 * 2 * cfg.n_layers)

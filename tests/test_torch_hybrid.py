@@ -126,6 +126,9 @@ def test_init_params_and_cache_match_reference_shapes(carried):
     assert got["ssm"].state.shape[:2] == (cfg.n_layers, 3)
     for name in ("ssm", "attn"):
         for g, w in zip(got[name], want[name]):
+            if w is None:                  # a bf16 cache's scales
+                assert g is None
+                continue
             assert tuple(g.shape) == tuple(w.shape)
             assert str(g.dtype).split(".")[-1] == str(w.dtype)
             np.testing.assert_array_equal(_np(g), _np(w))

@@ -241,24 +241,17 @@ def test_init_cache_matches_reference():
         want = jmodel.init_cache(jcfg, 3, 20)["attn"]
         got = model.init_cache(_port_cfg(jcfg), 3, 20, device=CPU)["attn"]
         for g, w in zip(got, want):
+            if w is None:                  # a bf16 cache's scales
+                assert g is None
+                continue
             assert tuple(g.shape) == tuple(w.shape)
             assert str(g.dtype).split(".")[-1] == str(w.dtype)
             np.testing.assert_array_equal(_np(g), _np(w))
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "whisper-large-v3"])
-def test_unported_families_raise(arch):
-    cfg = inputs.reduced_config(base.get_config(arch))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        model.init_params(0, cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        model.init_cache(cfg, 1, 8, device=CPU)
-
-
-@pytest.mark.parametrize("change", [dict(kv_cache_dtype="int8"),
-                                    dict(kv_cache_align=4)])
+@pytest.mark.parametrize("change", [dict(kv_cache_align=4)])
 def test_unported_cache_layouts_raise(change):
-    """The int8 cache and the head-aligned cache come with later slices."""
+    """The head-aligned cache comes with the mesh slice."""
     cfg = _port_cfg(CONFIGS["gqa-16-2"]).replace(**change)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         init_attn_cache(cfg, 1, 8, CPU)
