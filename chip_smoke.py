@@ -46,7 +46,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      with `Coupling(dispatch=)` (the fused soft-dispatch kernels every
      step), twice at 25 steps for determinism, the reference's acceptance
      grid (dispatch-aware <= re-score-only), and `tune_policies
-     --dispatch-soft`; then telemetry (`repro_torch.obs.capture`): the
+     --dispatch-soft`; then the row mesh: two ranks spawned on the card
+     over gloo (the kernels built first, a join timeout), the collectives
+     gloo takes for CUDA tensors, `sharded_soft_objective` on the
+     acceptance grid within 4 float32 ULP of the single program, the
+     dispatch-aware `optimize` at 256 x 2190 x 200 under
+     `ExecutionPlan(mode="sharded")` against the single run above (each
+     rank's launches, the reductions' bytes and share of a step), 255
+     rows padded with a warm start; then telemetry (`repro_torch.obs.capture`): the
      bench grid's backtest and summary (one `fleet_scan` launch a call),
      a 64 x 8760 `dispatch` and a 200-step `optimize` on the tuner grid,
      each bit for bit against a run with telemetry off, the drained
@@ -182,7 +189,10 @@ shapes under ``mixtral_`` and ``whisper_`` keys (flash also the whisper
 cross prefill's times under ``whisper_cross_``), grok's teacher-forced
 launches under ``grok_launches`` and flash the MoE backward's under
 ``moe_train_launches``; decode adds the int8 serving run's plain int8
-decode calls as ``int8_plain_decode_calls``), the script's total time, and, last, one JSON line naming the device. Without CUDA it exits non-zero and
+decode calls as ``int8_plain_decode_calls``; the fleet scan, the
+soft-scan pair and the fused soft-dispatch pair add each row-mesh rank's
+launches and kernels as lists under ``sharded_launches`` /
+``sharded_device_launches``), the script's total time, and, last, one JSON line naming the device. Without CUDA it exits non-zero and
 prints no result.
 """
 
@@ -1490,10 +1500,12 @@ def phase_soft_to_hard(dev) -> dict:
             "soft": soft, "tau": tau, "min_dwell": problem.min_dwell_h}
 
 
-def _count_plain_calls(names):
-    """Wraps the named plain versions in `repro_torch.kernels.soft_dispatch`
-    with call counters; returns (counts, restore)."""
-    from repro_torch.kernels import soft_dispatch as mod
+def _count_plain_calls(names, mod=None):
+    """Wraps the named plain versions in ``mod`` (default
+    `repro_torch.kernels.soft_dispatch`) with call counters; returns
+    (counts, restore)."""
+    if mod is None:
+        from repro_torch.kernels import soft_dispatch as mod
 
     counts = dict.fromkeys(names, 0)
     saved = {n: getattr(mod, n) for n in names}
@@ -1578,7 +1590,8 @@ def phase_dispatch_aware_tuner(dev, rescore) -> dict:
         raise AssertionError("dispatch-aware optimize is not deterministic")
     print("[aware] 25 steps twice: parameters, CPCs and the hard allocation "
           "equal bit for bit")
-    return {"launches": launches, "device_launches": device, "grid": grid}
+    return {"launches": launches, "device_launches": device, "grid": grid,
+            "res": res}
 
 
 def _acceptance_grid(dev):
@@ -1640,6 +1653,358 @@ def phase_acceptance(dev) -> None:
     if rc != 0:
         raise AssertionError("tune_policies --dispatch-soft: dispatch-aware "
                              "fleet CPC above re-score-only")
+
+
+# ---------------------------------------------------------------------------
+# the row mesh: the sharded coupled tuner as two ranks on the one card
+# ---------------------------------------------------------------------------
+
+ROW_MESH_RANKS = 2
+ROW_MESH_STEPS = 200
+ROW_MESH_TIMEOUT_S = 300.0     # a hung collective fails the run
+ROW_MESH_KERNELS = ("fleet_scan", "soft_scan_fwd", "soft_scan_bwd",
+                    "soft_dispatch_fused_fwd", "soft_dispatch_fused_bwd")
+ACCEPT_DCFG = dict(demand_frac=0.25, migrate_cost=4.0, min_dwell_h=2)
+AWARE_DCFG = dict(demand_frac=0.3, migrate_cost=5.0, min_dwell_h=4)
+
+
+def _gloo_cuda_collectives(dev) -> dict:
+    """Which collectives the gloo group takes for CUDA tensors: each is
+    tried once on 2-element tensors and checked ("ok") or its error kept;
+    the port's reductions and gathers need all of them."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x = torch.tensor([1.0, 2.0], device=dev) * (rank + 1)
+    want_sum = x / (rank + 1) * sum(range(1, world + 1))
+
+    def all_reduce(op, want):
+        y = x.clone()
+        dist.all_reduce(y, op=op)
+        return torch.equal(y, want)
+
+    def all_gather(dtype):
+        src = x.to(dtype)
+        parts = [torch.empty_like(src) for _ in range(world)]
+        dist.all_gather(parts, src)
+        return all(torch.equal(p, src / (rank + 1) * (r + 1))
+                   for r, p in enumerate(parts))
+
+    out = {}
+    for name, fn in (
+            ("all_reduce SUM", lambda: all_reduce(dist.ReduceOp.SUM,
+                                                  want_sum)),
+            ("all_reduce MAX", lambda: all_reduce(
+                dist.ReduceOp.MAX, x / (rank + 1) * world)),
+            ("all_gather float32", lambda: all_gather(torch.float32)),
+            ("all_gather int8", lambda: all_gather(torch.int8))):
+        try:
+            out[name] = "ok" if fn() else "wrong values"
+        except (RuntimeError, ValueError) as e:
+            out[name] = f"refused: {str(e).splitlines()[0][:120]}"
+    return out
+
+
+class _Reductions:
+    """Counts and times the collectives the port issues in this process:
+    `torch.distributed`'s ``all_reduce`` / ``all_gather`` wrapped, each
+    call bracketed by a synchronize (gloo copies a CUDA tensor to the host,
+    which waits for the work queued before it anyway), so its time is the
+    reduction's own."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.dist, self.saved = dist, {}
+        self.calls = {"all_reduce": [0, 0, 0.0], "all_gather": [0, 0, 0.0]}
+        for name in self.calls:
+            self.saved[name] = getattr(dist, name)
+            setattr(dist, name, self._wrap(name))
+
+    def _wrap(self, name):
+        fn, rec = self.saved[name], self.calls[name]
+
+        def timed(tensor_or_list, *a, **k):
+            t = a[0] if name == "all_gather" else tensor_or_list
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(tensor_or_list, *a, **k)
+            torch.cuda.synchronize()
+            rec[0] += 1
+            rec[1] += t.numel() * t.element_size()
+            rec[2] += time.perf_counter() - t0
+            return out
+        return timed
+
+    def restore(self):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+
+def _row_mesh_rank(rank: int, world: int, rendezvous: str, work: str,
+                   device: str) -> None:
+    """One rank of `phase_row_mesh` on ``device``: the gloo group's collectives
+    on CUDA tensors, `sharded_soft_objective` on the acceptance grid (rank
+    0 also runs the single program), the 256 x 2190 x 200 sharded
+    dispatch-aware `optimize` with its launches and reductions counted,
+    and warm / cold starts on 255 rows; what it saw goes to
+    ``work/rank<r>.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+    _import_port()
+    from repro_torch.dispatch import DispatchConfig
+    from repro_torch.kernels import soft_scan_vjp
+    from repro_torch.tune import (Coupling, ExecutionPlan, PolicyParams,
+                                  TuneConfig, dispatch_coupling_from_grid,
+                                  init_from_grid, optimize,
+                                  problem_from_grid, sharded_soft_objective,
+                                  soft_objective)
+    from repro_torch.tune import optimizer as tune_optimizer
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        out = {"collectives": _gloo_cuda_collectives(dev)}
+        torch.cuda.synchronize()
+
+        # the reference's 256-row acceptance probe
+        grid = _acceptance_grid(dev)
+        problem = problem_from_grid(grid)
+        dcfg = DispatchConfig(**ACCEPT_DCFG)
+        coupling = dispatch_coupling_from_grid(grid, dcfg)
+        cap = 0.6 * float(torch.sum(grid.power * problem.site_weight))
+        kw = dict(power_cap_mw=cap, dispatch_blend=0.5,
+                  dispatch_min_dwell=dcfg.min_dwell_h, dispatch_fused=True)
+        leaves = [x.clone().requires_grad_(True)
+                  for x in init_from_grid(grid)]
+        loss = sharded_soft_objective(PolicyParams(*leaves), problem, 5.0,
+                                      n_dev=world, coupling=coupling, **kw)
+        loss.backward()
+        acc = {"sharded": float(loss.detach()),
+               "sharded_grads": [x.grad.cpu() for x in leaves]}
+        if rank == 0:
+            leaves = [x.clone().requires_grad_(True)
+                      for x in init_from_grid(grid)]
+            single, _ = soft_objective(PolicyParams(*leaves), problem, 5.0,
+                                       dispatch=coupling, reduction="sum",
+                                       **kw)
+            acc["single"] = float(single.detach())
+            acc["single_grads"] = [g.cpu() for g in
+                                   torch.autograd.grad(single, leaves)]
+        out["acceptance"] = acc
+
+        # the full-width path, counted
+        grid = _tune_grid(dev)
+        dcfg = DispatchConfig(**AWARE_DCFG)
+        sharded = ExecutionPlan(mode="sharded")
+        cfg = TuneConfig(steps=ROW_MESH_STEPS, plan=sharded,
+                         coupling=Coupling(dispatch=dcfg))
+        plain, restore = _count_plain_calls(("soft_dispatch_ref",
+                                             "soft_dispatch_fwd_ref",
+                                             "soft_dispatch_bwd_ref"))
+        scan_plain, restore_scan = _count_plain_calls(
+            ("soft_scan_fwd_ref", "soft_scan_bwd_ref"), soft_scan_vjp)
+        loop_s = []
+        loop = tune_optimizer.tune_loop
+
+        def timed_loop(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = loop(*a, **k)
+            torch.cuda.synchronize()
+            loop_s.append(time.perf_counter() - t0)
+            return r
+        tune_optimizer.tune_loop = timed_loop
+        red = _Reductions()
+        try:
+            counters = _zero_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = optimize(grid, cfg, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: counters[k].launches for k in ROW_MESH_KERNELS}
+            device = {k: counters[k].device_launches
+                      for k in ROW_MESH_KERNELS}
+        finally:
+            red.restore()
+            restore()
+            restore_scan()
+            tune_optimizer.tune_loop = loop
+        out["optimize"] = {
+            "wall_s": wall, "loop_s": loop_s, "launches": launches,
+            "device_launches": device, "plain": {**plain, **scan_plain},
+            "reductions": red.calls, "steps": cfg.steps,
+            "raw": [x.cpu() for x in res.raw], "cpc_tuned": res.cpc_tuned,
+            "history": res.history, "dispatch": (res.dispatch["cpc_tuned"],
+                                                 res.dispatch["cpc_swept"])}
+
+        # a row count that pads, warm and cold
+        single_raw = torch.load(Path(work) / "single_raw.pt")
+        g255 = grid.take_rows(np.arange(grid.n_rows - 1))
+        cfg2 = TuneConfig(steps=2, plan=sharded,
+                          coupling=Coupling(dispatch=dcfg))
+        warm = optimize(g255, cfg2, device=dev, warm_start=PolicyParams(
+            *(x[:g255.n_rows].to(dev) for x in single_raw)))
+        cold = optimize(g255, cfg2, device=dev)
+        ref = single_raw[0][:g255.n_rows]
+        out["padding"] = {
+            "rows": g255.n_rows,
+            "drift_warm": float((warm.raw.raw_off.cpu() - ref).abs().max()),
+            "drift_cold": float((cold.raw.raw_off.cpu() - ref).abs().max())}
+        torch.save(out, Path(work) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_row_mesh(dev, aware: dict) -> dict:
+    """The row mesh: `ExecutionPlan(mode="sharded")` as two ranks on the
+    one card over gloo (``file://`` rendezvous). The kernels are built
+    here first, so the ranks only load them. Each rank reports the gloo
+    collectives on CUDA tensors; `sharded_soft_objective` on the
+    reference's 256-row acceptance grid within 4 float32 ULP of the single
+    program's ``reduction="sum"`` loss, its gradients within rtol 1e-4 /
+    atol 1e-6; the dispatch-aware `optimize` at 256 x 2190 x 200 sharded,
+    against `phase_dispatch_aware_tuner`'s single-program result (raw
+    parameters within rtol / atol 5e-5, hard CPC per row within rtol
+    1e-5), each rank's launches of rows 1-3 and 6-7 and no plain version,
+    the reductions' bytes a step and share of a step; 255 rows (padded to
+    256) from a warm start that survives the padding."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import build
+
+    for name in ("fleet_scan", "soft_scan", "soft_dispatch",
+                 "dispatch_scan"):
+        build.load(name)
+    single = aware["res"]
+    work = Path(tempfile.mkdtemp(prefix="row_mesh_"))
+    try:
+        torch.save([x.cpu() for x in single.raw], work / "single_raw.pt")
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(
+            _row_mesh_rank, args=(ROW_MESH_RANKS, str(work / "rendezvous"),
+                                  str(work), str(dev)),
+            nprocs=ROW_MESH_RANKS, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > ROW_MESH_TIMEOUT_S:
+                    raise AssertionError(
+                        f"row mesh: ranks still running after "
+                        f"{ROW_MESH_TIMEOUT_S:.0f} s (a hung collective?)")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        outs = [torch.load(work / f"rank{r}.pt", weights_only=False)
+                for r in range(ROW_MESH_RANKS)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    elapsed = time.perf_counter() - t0
+
+    for r, o in enumerate(outs):
+        print(f"[mesh] rank {r}: gloo on CUDA tensors {o['collectives']}")
+        if any(v != "ok" for v in o["collectives"].values()):
+            raise AssertionError("row mesh: a collective of the port was "
+                                 "refused on CUDA tensors by gloo")
+
+    acc = [o["acceptance"] for o in outs]
+    single_loss = acc[0]["single"]
+    ulp = float(np.spacing(np.float32(abs(single_loss))))
+    err_ulp = abs(acc[0]["sharded"] - single_loss) / ulp
+    grad_err = max(float((a - b).abs().max()) for a, b in
+                   zip(acc[0]["sharded_grads"], acc[0]["single_grads"]))
+    print(f"[mesh] acceptance grid 256 rows x 600 h, sharded over "
+          f"{ROW_MESH_RANKS} ranks: loss {acc[0]['sharded']!r} against the "
+          f"single program's {single_loss!r}: {err_ulp:.2f} float32 ULP "
+          f"(gate 4); gradients' max |diff| {grad_err:.3e}")
+    if acc[0]["sharded"] != acc[1]["sharded"] or not all(
+            torch.equal(a, b) for a, b in zip(acc[0]["sharded_grads"],
+                                              acc[1]["sharded_grads"])):
+        raise AssertionError("row mesh: the ranks' sharded losses or "
+                             "gradients differ")
+    if err_ulp > 4:
+        raise AssertionError("row mesh: sharded acceptance loss more than "
+                             "4 ULP from the single program's")
+    for name, a, b in zip(("raw_off", "raw_gap", "raw_lvl"),
+                          acc[0]["sharded_grads"], acc[0]["single_grads"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-6, err_msg=f"acceptance {name}")
+
+    opt = [o["optimize"] for o in outs]
+    for r, o in enumerate(opt):
+        loop = o["loop_s"][0]
+        red = o["reductions"]["all_reduce"]
+        steps = o["steps"]
+        print(f"[mesh] rank {r}: sharded optimize {single.cpc.shape[0]} "
+              f"rows x {steps} "
+              f"steps {o['wall_s']:.2f} s wall (the loop {loop:.2f} s, "
+              f"{loop / steps * 1e3:.1f} ms a step); launches "
+              f"{o['launches']}, kernels {o['device_launches']}; "
+              f"plain versions {o['plain']}; reductions a step "
+              f"{red[0] / steps:.1f} all_reduce, {red[1] / steps / 1e3:.1f} "
+              f"kB, {red[2] / steps * 1e3:.3f} ms ({red[2] / loop:.1%} of "
+              f"the loop); all_gather {o['reductions']['all_gather'][:2]} "
+              f"(calls, bytes)")
+        for k in ("soft_scan_fwd", "soft_scan_bwd"):
+            if o["launches"][k] < steps:
+                raise AssertionError(f"row mesh rank {r}: {k} launched "
+                                     f"{o['launches'][k]} times")
+        for k in ("soft_dispatch_fused_fwd", "soft_dispatch_fused_bwd"):
+            if o["launches"][k] != steps:
+                raise AssertionError(f"row mesh rank {r}: {k} launched "
+                                     f"{o['launches'][k]} times")
+        if o["launches"]["fleet_scan"] < 1:
+            raise AssertionError(f"row mesh rank {r}: no fleet_scan")
+        for k in ROW_MESH_KERNELS:
+            n, counted = o["device_launches"][k], o["launches"][k]
+            if n < counted or (n > 0) != (counted > 0):
+                raise AssertionError(f"row mesh rank {r}: {k}: {counted} "
+                                     f"calls but {n} kernels")
+        if any(o["plain"].values()):
+            raise AssertionError(f"row mesh rank {r}: a plain version ran "
+                                 "on the card")
+    for a, b in zip(opt[0]["raw"], opt[1]["raw"]):
+        if not torch.equal(a, b):
+            raise AssertionError("row mesh: the ranks returned different "
+                                 "parameters")
+    raw_err = max(float((a - b.cpu()).abs().max())
+                  for a, b in zip(opt[0]["raw"], single.raw))
+    same_rows = int(sum(
+        all(torch.equal(a[i], b[i].cpu()) for a, b in zip(opt[0]["raw"],
+                                                          single.raw))
+        for i in range(single.cpc.shape[0])))
+    cpc_rel = float(np.max(np.abs(opt[0]["cpc_tuned"] / single.cpc_tuned
+                                  - 1.0)))
+    print(f"[mesh] sharded against the single program: raw max |diff| "
+          f"{raw_err:.3e} (gate rtol/atol 5e-5), rows equal bit for bit "
+          f"{same_rows} of {single.cpc.shape[0]}, hard CPC max rel diff "
+          f"{cpc_rel:.3e} (gate 1e-5); fleet CPC on feasible dispatch "
+          f"tuned/swept {opt[0]['dispatch']} against "
+          f"{single.dispatch['cpc_tuned']}/{single.dispatch['cpc_swept']}")
+    for name, a, b in zip(("raw_off", "raw_gap", "raw_lvl"), opt[0]["raw"],
+                          single.raw):
+        np.testing.assert_allclose(a.numpy(), b.cpu().numpy(), rtol=5e-5,
+                                   atol=5e-5, err_msg=f"sharded {name}")
+    np.testing.assert_allclose(opt[0]["cpc_tuned"], single.cpc_tuned,
+                               rtol=1e-5, err_msg="hard CPC per row")
+
+    pad = [o["padding"] for o in outs]
+    print(f"[mesh] {pad[0]['rows']} rows (padded), 2 steps: warm "
+          f"start drift {pad[0]['drift_warm']:.4f}, cold "
+          f"{pad[0]['drift_cold']:.4f}")
+    if not (pad[0]["drift_warm"] < pad[0]["drift_cold"]
+            and pad[0]["drift_warm"] < 2.1 * 0.5 * 2):
+        raise AssertionError("row mesh: the warm start did not survive the "
+                             "padding")
+    print(f"[mesh] row mesh phase: {elapsed:.1f} s")
+    return {k: [o["optimize"][k] for o in outs]
+            for k in ("launches", "device_launches")}
 
 
 def _same(label: str, a, b) -> None:
@@ -5393,6 +5758,7 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_acceptance(dev)
     torch.cuda.synchronize()
+    mesh = phase_row_mesh(dev, aware)
     t0 = time.perf_counter()
     phase_calibration(dev)
     print(f"[calib] calibration phase: {time.perf_counter() - t0:.1f} s")
@@ -5514,6 +5880,11 @@ def main() -> int:
     # kernel (a count of plain calls, not of launches)
     dec["int8_plain_decode_calls"] = int8["int8_calls"]
     flash["train_max_grad_err"] = train_errs["flash_attention"]
+    # the row mesh's ranks: each rank's launches of the sharded optimize
+    for rec in kernels:
+        if rec["name"] in ROW_MESH_KERNELS:
+            for key in ("launches", "device_launches"):
+                rec[f"sharded_{key}"] = [m[rec["name"]] for m in mesh[key]]
     ssd = next(r for r in kernels if r["name"] == "ssd_scan")
     ssd["train_max_grad_err"] = train_errs["ssd_scan"]
     ssd.pop("hybrid_profiler_empty_sessions")    # all three shapes':

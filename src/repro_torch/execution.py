@@ -1,12 +1,13 @@
 """Execution plans and fleet-coupling specs — the config surface shared
-by the fleet backtest and, in later slices, the tuner and dispatcher.
+by the fleet backtest, the tuner and the dispatcher.
 
   * **What couples the fleet?** — `Coupling`: which fleet-level terms bind
     an objective (total-power cap, aggregate-compute floor, the
     dispatch-aware water-fill term) plus the hard-dispatch re-scoring
     config. A default `Coupling()` binds nothing.
   * **How does the batch execute?** — `ExecutionPlan`: one program, row
-    chunks of a fixed size, or sharded over devices, and which
+    chunks of a fixed size, or sharded over the ranks of a
+    `torch.distributed` process group, and which
     reproducibility contract the caller expects (bitwise for chunking,
     ULP for sharding).
 
@@ -40,10 +41,12 @@ class ExecutionPlan:
       * ``"single"`` — always one program (the old ``shard=False``);
       * ``"chunked"`` — fixed row slices of ``chunk_rows`` (the old
         ``chunk_rows=``), bit-identical per row to the single program;
-      * ``"sharded"`` — split over a 1-D row mesh of devices, padding the
-        batch to equal shard widths when needed; ULP-equal per row.
+      * ``"sharded"`` — split over a 1-D row mesh of ranks
+        (`repro_torch.parallel.row_mesh`), padding the batch to equal
+        shard widths when needed; ULP-equal per row.
 
-    ``devices`` caps the shard count (0: all available). ``contract``
+    ``devices`` caps the shard count (0: every rank of the default process
+    group; without one, a single program). ``contract``
     documents (and validates) the reproducibility expectation: chunked
     execution is bitwise, sharding is ULP-level — asking for
     ``"bitwise"`` together with ``mode="sharded"`` is a contradiction
@@ -159,6 +162,32 @@ def validate_plan_coupling(plan: ExecutionPlan,
             "ExecutionPlan(mode='sharded') (coupled aggregates are "
             "psum-reduced across shards), tune unchunked, or drop the "
             "coupling")
+
+
+# the reference's pre-redesign spellings and what replaced them
+RENAMED = {
+    "chunk_rows": "plan=ExecutionPlan(mode='chunked', chunk_rows=...)",
+    "shard": "plan=ExecutionPlan(mode='single') (shard=False) or "
+             "ExecutionPlan() (shard=True)",
+    "power_cap_mw": "coupling=Coupling(power_cap_mw=...)",
+    "min_up_hours": "coupling=Coupling(min_up_hours=...)",
+    "penalty_weight": "coupling=Coupling(penalty_weight=...)",
+    "dispatch": "coupling=Coupling(reeval=...)",
+    "dispatch_soft": "coupling=Coupling(dispatch=...)",
+    "dispatch_blend": "coupling=Coupling(dispatch_blend=...)",
+    "dispatch_mw_scale": "coupling=Coupling(dispatch_mw_scale=...)",
+}
+
+
+def refuse_renamed(kw: dict, context: str, names=tuple(RENAMED)) -> None:
+    """Raise `TypeError` naming the replacement of the first keyword in
+    ``kw`` that is one of the reference's pre-redesign spellings
+    ``names`` (the reference still takes them, with a deprecation
+    warning; the port takes only ``plan=`` / ``coupling=``)."""
+    for k in kw:
+        if k in names:
+            raise TypeError(f"{context}({k}=) is the reference's deprecated "
+                            f"spelling; pass {RENAMED[k]}")
 
 
 def take_rows(record, order, *, shared=(), n_rows: Optional[int] = None):

@@ -22,7 +22,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.execution import ExecutionPlan
+from repro_torch.execution import ExecutionPlan, refuse_renamed
 from repro_torch.fleet.grid import ScenarioGrid, concat_rows, row_chunks
 from repro_torch.fleet.report import FleetReport
 from repro_torch.kernels.fleet_scan import fleet_scan
@@ -104,7 +104,7 @@ def _backtest_rows(grid: ScenarioGrid,
 
 def backtest(grid: ScenarioGrid, *, use_kernel: Optional[bool] = None,
              plan: Optional[ExecutionPlan] = None,
-             device: DeviceLike = None) -> FleetReport:
+             device: DeviceLike = None, **renamed) -> FleetReport:
     """Backtest every scenario row of ``grid`` on ``device``.
 
     ``use_kernel=None`` launches the CUDA `fleet_scan` kernel on the card
@@ -118,12 +118,17 @@ def backtest(grid: ScenarioGrid, *, use_kernel: Optional[bool] = None,
     version gathers;
     per-row results are identical. ``mode='sharded'`` raises: the
     backtest is an uncoupled per-row map, so chunking covers its memory
-    story.
+    story. The reference's deprecated ``chunk_rows=`` raises `TypeError`
+    naming ``plan=``.
 
     With a telemetry run active (`repro_torch.obs`) each call drains a
     ``fleet.hourly`` event (per-hour fleet aggregates) and emits one
     ``fleet.backtest`` event; the report is the same bit for bit.
     """
+    refuse_renamed(renamed, "backtest", ("chunk_rows",))
+    if renamed:
+        raise TypeError(f"backtest() got an unexpected keyword argument "
+                        f"{next(iter(renamed))!r}")
     if plan is not None and plan.mode == "sharded":
         raise ValueError(
             "backtest does not shard: the hard backtest is an uncoupled "

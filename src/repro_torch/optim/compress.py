@@ -5,9 +5,11 @@ The reference targets the cross-pod gradient reduction: each pod
 quantises its gradient to int8 with one float32 scale per tensor,
 all-gathers the payload over the ``pod`` axis and de-quantise-sums it;
 error feedback carries the quantisation residual into the next step. On
-one device only the quantise / de-quantise round trip exists, which the
-trainer runs with ``grad_compress``. The reductions over a mesh axis
-(`compressed_pmean`, `compressed_pmean_leaf`) come with the mesh slice.
+one device the trainer runs the quantise / de-quantise round trip with
+``grad_compress``; the mean over an axis of the active mesh
+(`compressed_pmean`, `compressed_pmean_leaf`, on `torch.distributed`
+through `repro_torch.parallel.axes`) gathers the int8 payloads and their
+scales.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Any
 import torch
 
 from repro_torch.optim.adamw import tree_map
+from repro_torch.parallel.axes import all_gather
 
 
 def quantize_int8(x: torch.Tensor, err: torch.Tensor
@@ -41,21 +44,24 @@ def init_error_feedback(grads: Any) -> Any:
                                           device=g.device), grads)
 
 
-def _needs_mesh(name: str):
-    raise NotImplementedError(
-        f"{name} reduces over a mesh axis, which comes with the mesh slice "
-        "(ROADMAP queue 1 item 9); on one device use quantize_int8 and "
-        "dequantize")
-
-
 def compressed_pmean_leaf(g: torch.Tensor, err: torch.Tensor,
-                          axis_name: str):
-    """Mean-reduce one gradient leaf over ``axis_name`` on an int8 wire:
-    not ported (needs a mesh)."""
-    _needs_mesh("compressed_pmean_leaf")
+                          axis_name: str
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean-reduce one gradient leaf over ``axis_name`` of the active mesh
+    on an int8 wire: every rank quantises, all-gathers the int8 payloads
+    and the float32 scales, and de-quantise-sums them locally. Returns
+    (mean in ``g``'s dtype, the new error feedback)."""
+    q, scale, new_err = quantize_int8(g, err)
+    qs = all_gather(q, axis_name)                      # [P, ...] int8 wire
+    ss = all_gather(scale, axis_name)                  # [P] float32
+    total = torch.tensordot(ss, qs.float(), dims=1)
+    return (total / qs.shape[0]).to(g.dtype), new_err
 
 
-def compressed_pmean(grads: Any, err: Any, axis_name: str):
-    """Tree-wide int8 error-feedback mean over ``axis_name``: not ported
-    (needs a mesh)."""
-    _needs_mesh("compressed_pmean")
+def compressed_pmean(grads: Any, err: Any, axis_name: str
+                     ) -> tuple[Any, Any]:
+    """Tree-wide int8 error-feedback mean over ``axis_name``."""
+    out = tree_map(lambda g, e: compressed_pmean_leaf(g, e, axis_name),
+                   grads, err)
+    return (tree_map(lambda _, pair: pair[0], grads, out),
+            tree_map(lambda _, pair: pair[1], grads, out))

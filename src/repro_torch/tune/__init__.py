@@ -12,7 +12,9 @@ is never worse than the best swept policy of the row's (market, system)
 cell when the hardware parameters are uniform within the cell. With
 ``Coupling(dispatch=...)`` the objective also differentiates through the
 relaxed cross-site water-fill (`repro_torch.kernels.soft_dispatch`), so
-sites learn their fleet role.
+sites learn their fleet role; ``ExecutionPlan(mode="sharded")`` tunes
+such a coupled fleet with its rows split over the ranks of a
+`torch.distributed` process group.
 
   quickstart:  PYTHONPATH=src python -m repro_torch.examples.tune_policies
 """
@@ -29,7 +31,8 @@ from repro_torch.tune.objective import (DispatchCoupling, PhysicalPolicy,
                                         transform)
 from repro_torch.tune.optimizer import (TuneConfig, TuneResult,
                                         cell_best_rows, hard_cpc, optimize,
-                                        tune_loop, tune_loop_checkpointed)
+                                        sharded_soft_objective, tune_loop,
+                                        tune_loop_checkpointed)
 
 __all__ = ["Coupling", "DispatchCoupling", "ExecutionPlan",
            "PhysicalPolicy", "PolicyParams", "TuneProblem", "TuneConfig",
@@ -37,5 +40,6 @@ __all__ = ["Coupling", "DispatchCoupling", "ExecutionPlan",
            "dispatch_coupling_from_grid", "dispatch_coupling_from_numpy",
            "hard_cpc", "init_from_grid",
            "inverse_transform", "problem_from_grid", "soft_costs",
-           "soft_dispatch_ratio", "soft_objective", "transform", "optimize",
-           "tune_loop", "tune_loop_checkpointed"]
+           "sharded_soft_objective", "soft_dispatch_ratio",
+           "soft_objective", "transform", "optimize", "tune_loop",
+           "tune_loop_checkpointed"]

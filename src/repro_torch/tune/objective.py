@@ -40,9 +40,10 @@ drops of the mean demand served with the row's relaxed capacity
 (`repro_torch.kernels.queue_scan.SoftLedger`, the ledger kernel pair on
 the card), so tuning learns SLO-aware thresholds.
 
-Later slices: ``axis_name=`` / ``scale_rows=`` (sharded coupled
-objectives) come with the multi-GPU slice and raise `NotImplementedError`
-until then.
+With ``axis_name`` (each rank of a `repro_torch.parallel.row_mesh`
+holding a shard of the rows) the fleet aggregates reduce across ranks
+(`repro_torch.parallel.axes.psum_id`), so every rank's loss carries the
+coupled terms of the whole fleet: see `soft_objective`.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ from repro_torch.fleet.engine import fleet_costs
 from repro_torch.kernels.queue_scan import QUEUE_MWH_SCALE, queue_scan
 from repro_torch.kernels.soft_dispatch import soft_dispatch, soft_shed
 from repro_torch.kernels.soft_scan import soft_scan_parts
+from repro_torch.parallel.axes import pmax, psum, psum_id
 
 
 class PolicyParams(NamedTuple):
@@ -111,6 +113,10 @@ _SHED_FLOOR_FRAC = 1e-3   # relief: the soft water-fill always dispatches
                           # effective demand parks the level off the
                           # sigmoid tails, and the implicit backward
                           # divides by the vanished occupancy slope)
+
+_SUM_DTYPE = torch.float64   # sums over rows of the coupled terms: a
+                             # sharded run's partial sums then add up to
+                             # the single program's (see soft_dispatch_ratio)
 
 _SEL_SCALE = 0.01   # per-cell candidate-selection temperature per unit
                     # tau: candidate rows of a (market, system) cell are
@@ -344,33 +350,58 @@ def soft_dispatch_ratio(cap: torch.Tensor, row_ratio: torch.Tensor,
 
     The per-cell reductions are a [C, B] one-hot matrix applied by matrix
     products (deterministic on the card, unlike ``index_add_``'s float
-    atomics). ``axis_name`` (sharded objectives) comes with the multi-GPU
-    slice and raises `NotImplementedError`.
+    atomics). They, and the fixed-cost sum, accumulate in float64
+    (``_SUM_DTYPE``) and round once, and the softmax shift carries no
+    gradient: a sharded run's partial sums then add up to the single
+    program's values, where float32 sums in another order differ in the
+    last place and 200 annealed Adam steps grow that into other
+    thresholds (`row_mesh_probe.py`).
+
+    With ``axis_name`` each rank holds only its shard of the rows: the
+    per-cell selection and the [C, T] availability / fixed-cost
+    aggregates reduce across the ranks before the water-fill, so every
+    rank dispatches the *whole* fleet and the term is the same on all of
+    them. The softmax shift is the global per-cell max (`pmax`, no
+    gradient: shift invariance makes it zero); its normaliser reduces
+    with the raw `psum`, whose backward sums each rank's own rows'
+    cotangents as a cell split across ranks needs; the aggregates reduce
+    with `psum_id` (their cotangent is already replicated). The cells
+    gain one dummy segment, ``C``, where padded rows (zero power and
+    fixed cost) drop out of the fleet.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "soft_dispatch_ratio(axis_name=): sharded coupled objectives "
-            "come to the port with torch.distributed in the mesh slice "
-            "(ROADMAP queue 1)")
     dtype, dev = cap.dtype, cap.device
+    acc = _SUM_DTYPE
     c = coupling.prices.shape[0]
+    cseg = c if axis_name is None else c + 1
     onehot = (coupling.cell_id[None, :]
-              == torch.arange(c, device=dev)[:, None])            # [C, B]
-    members = onehot.to(dtype)
+              == torch.arange(cseg, device=dev)[:, None])         # [C, B]
+    members = onehot.to(acc)
 
     # per-cell soft selection over candidates (stabilised softmax)
     tau_t = torch.as_tensor(tau, device=dev).to(dtype)
     score = -row_ratio / torch.clamp(tau_t * _SEL_SCALE, min=1e-12)
-    peak = torch.where(onehot, score[None, :],
+    peak = torch.where(onehot, score[None, :].detach(),
                        torch.tensor(float("-inf"), dtype=dtype,
                                     device=dev)).amax(dim=1)      # [C]
-    expw = torch.exp(score - peak[coupling.cell_id])
+    if axis_name is not None:
+        # a cell with no rows on any rank (the dummy without padding)
+        # maxes to -inf: shift by 0 there
+        peak = pmax(peak, axis_name)
+        peak = torch.where(torch.isfinite(peak), peak,
+                           torch.zeros_like(peak))
+    expw = torch.exp(score - peak[coupling.cell_id]).to(acc)
     norm = members @ expw
-    sel = expw / norm[coupling.cell_id]                           # [B]
+    if axis_name is not None:
+        norm = psum(norm, axis_name)
+    sel = (expw / norm[coupling.cell_id]).to(dtype)               # [B]
 
     avail = (sel * coupling.power.to(dtype))[:, None] * cap
-    avail_c = members @ avail                                     # [C, T]
-    fixed_fleet = torch.sum(sel * coupling.fixed.to(dtype))
+    avail_c = members @ avail.to(acc)                             # [C, T]
+    fixed_fleet = torch.sum(sel.to(acc) * coupling.fixed.to(acc))
+    if axis_name is not None:
+        avail_c = psum_id(avail_c, axis_name)[:c]
+        fixed_fleet = psum_id(fixed_fleet, axis_name)
+    avail_c, fixed_fleet = avail_c.to(dtype), fixed_fleet.to(dtype)
     demand = coupling.demand.to(dtype)
     if relief is None:
         d_eff = demand
@@ -461,15 +492,21 @@ def soft_objective(raw: PolicyParams, problem: TuneProblem, tau, *,
     per-row gradient is then independent of which other rows share the
     batch, which is what lets the chunked tuner reproduce the single
     program row for row. ``aux["base"]`` / ``aux["coupled"]`` split the
-    loss into its separable and fleet-coupled parts. ``axis_name`` and
-    ``scale_rows`` come with the mesh slice and raise
-    `NotImplementedError`.
+    loss into its separable and fleet-coupled parts.
+
+    With ``axis_name`` (each rank holding a shard of the rows of a
+    `repro_torch.parallel.row_mesh`) the fleet aggregates — total
+    instantaneous draw, aggregate up-hours, and everything inside
+    `soft_dispatch_ratio` — reduce across the ranks through `psum_id`
+    before the penalties are formed, so each rank's loss carries the
+    coupled terms of the whole fleet (the same on every rank) while the
+    separable ratio sum stays the rank's own. `psum_id`'s backward is the
+    identity, so each rank's gradient of its loss equals the single
+    program's per-row gradient. ``scale_rows`` then fixes the coupled
+    terms' B-scale at the real global row count (shard widths and padding
+    must not change the objective). The global loss is the sum over
+    ranks of ``aux["base"]`` plus one ``aux["coupled"]``.
     """
-    if axis_name is not None or scale_rows is not None:
-        raise NotImplementedError(
-            "soft_objective(axis_name=, scale_rows=): sharded coupled "
-            "objectives come to the port with torch.distributed in the mesh "
-            "slice (ROADMAP queue 1)")
     costs, draw, cap = soft_costs(raw, problem, tau, fused=fused,
                                   block_t=block_t, row_prices=row_prices)
     ratio = costs.cpc / costs.cpc_ao
@@ -495,19 +532,27 @@ def soft_objective(raw: PolicyParams, problem: TuneProblem, tau, *,
         wl_ratio = wl_cost / (costs.cpc_ao * problem.period.to(dtp))
         loss = loss + (torch.sum(wl_ratio) if reduction == "sum"
                        else torch.mean(wl_ratio))
-    scale = ratio.shape[0] if reduction == "sum" else 1.0
+    rows = scale_rows if scale_rows is not None else ratio.shape[0]
+    scale = rows if reduction == "sum" else 1.0
 
     # coupling terms weight each row by 1/|cell| so a K-policy grid
     # charges each physical site once (per-site candidate mean)
     penalty = torch.zeros((), dtype=ratio.dtype, device=ratio.device)
     w = problem.site_weight.to(ratio.dtype)
     if power_cap_mw is not None:
-        fleet_mw = torch.sum((problem.power * w)[:, None] * draw,
-                             dim=0)                                 # [T]
+        # sums over rows in _SUM_DTYPE, rounded once
+        fleet_mw = torch.sum(((problem.power * w)[:, None] * draw).to(
+            _SUM_DTYPE), dim=0)                                     # [T]
+        if axis_name is not None:
+            fleet_mw = psum_id(fleet_mw, axis_name)
+        fleet_mw = fleet_mw.to(ratio.dtype)
         excess = torch.relu(fleet_mw - power_cap_mw) / power_cap_mw
         penalty = penalty + torch.mean(excess ** 2)
     if min_up_hours is not None:
-        total_up = torch.sum(w * costs.up_hours)
+        total_up = torch.sum((w * costs.up_hours).to(_SUM_DTYPE))
+        if axis_name is not None:
+            total_up = psum_id(total_up, axis_name)
+        total_up = total_up.to(ratio.dtype)
         deficit = torch.relu(min_up_hours - total_up) / min_up_hours
         penalty = penalty + deficit ** 2
 
@@ -518,7 +563,8 @@ def soft_objective(raw: PolicyParams, problem: TuneProblem, tau, *,
     if dispatch is not None:
         dratio, shortfall = soft_dispatch_ratio(
             cap, ratio, dispatch, tau, min_dwell=dispatch_min_dwell,
-            mw_scale=dispatch_mw_scale, fused=dispatch_fused, relief=relief)
+            mw_scale=dispatch_mw_scale, fused=dispatch_fused,
+            axis_name=axis_name, relief=relief)
         base = (1.0 - dispatch_blend) * loss
         coupled = dispatch_blend * scale * dratio
         loss = base + coupled

@@ -21,6 +21,16 @@ gradients are batch-independent (sum-reduction, see `soft_objective`), so
 row chunking — ``ExecutionPlan(mode="chunked")`` — tunes fixed row slices
 (padded to one shape) with the same per-row results as one program.
 
+``ExecutionPlan(mode="sharded")`` splits the rows over a 1-D
+`repro_torch.parallel.row_mesh` of the ranks of `torch.distributed`'s
+default process group: each rank tunes its contiguous slice, the fleet
+aggregates of a coupled objective reduce across the ranks every step
+(`soft_objective(axis_name=)`), so coupled objectives shard too, and the
+per-row results are all-gathered, ULP-equal to the single program. It is
+SPMD: every rank calls `optimize` with the whole grid and returns the
+whole result. Without a process group (or with one rank) it is the single
+program.
+
 Temperature annealing: the sigmoid temperature follows a geometric
 schedule from ``tau_start`` (smooth, wide basins) down to ``tau_end``
 (nearly hard). After the last step the result is re-evaluated under the
@@ -50,9 +60,9 @@ ledger kernel pair of `repro_torch.kernels.queue_scan` every step on the
 card) and the final selection is judged by realized workload cost
 (`repro_torch.workload.realized_cost`, the hard ledger kernel).
 
-Later slices: sharded plans (the mesh slice in ROADMAP queue 1) and the
-reference's deprecated `TuneConfig` spellings (``chunk_rows=``,
-``power_cap_mw=``, ...).
+The reference's pre-redesign `TuneConfig` spellings (``chunk_rows=``,
+``power_cap_mw=``, ...) raise `TypeError` naming ``plan=`` / ``coupling=``
+(`repro_torch.execution.refuse_renamed`).
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.checkpoint import CheckpointManager
@@ -69,13 +80,16 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dispatch import (DispatchConfig, DispatchInfeasible,
                                   build_problem)
 from repro_torch.dispatch import dispatch as dispatch_solve
-from repro_torch.execution import (Coupling, ExecutionPlan, take_rows,
-                                   validate_plan_coupling)
+from repro_torch.execution import (Coupling, ExecutionPlan, refuse_renamed,
+                                   take_rows, validate_plan_coupling)
 from repro_torch.fleet.engine import backtest, fleet_costs
 from repro_torch.fleet.grid import concat_rows, row_chunks
 from repro_torch.kernels.fleet_scan import fleet_scan
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState, adamw_update,
                                      tree_map)
+from repro_torch.parallel.axes import (all_gather, axis_size, current_mesh,
+                                       current_rules, psum, row_mesh,
+                                       use_sharding)
 from repro_torch.tune.objective import (DispatchCoupling, PhysicalPolicy,
                                         PolicyParams, TuneProblem,
                                         cell_index,
@@ -90,15 +104,17 @@ class TuneConfig:
     """Hyperparameters of a fleet tuning run (hashable).
 
     Execution layout and fleet coupling are the `repro_torch.execution`
-    pair: ``plan`` (`ExecutionPlan`: single or chunked) and ``coupling``
-    (`Coupling`: power cap, aggregate-compute floor, the dispatch-aware
-    term ``dispatch``, the hard-dispatch re-scoring ``reeval`` and its
-    shed pricing ``relief``). The chunk-under-coupling legality rule is
+    pair: ``plan`` (`ExecutionPlan`: single, chunked or sharded) and
+    ``coupling`` (`Coupling`: power cap, aggregate-compute floor, the
+    dispatch-aware term ``dispatch``, the hard-dispatch re-scoring
+    ``reeval`` and its shed pricing ``relief``). The chunk-under-coupling legality rule is
     checked here, at construction. ``workload`` (a hashable
     `repro_torch.workload.Workload`) adds the SLO-aware work-ledger term
     to the objective and selects candidates by realized workload cost
     (energy + deferral + drop) instead of bare CPC; None falls back to
     the grid's own workload, and neither keeps the runs as they were.
+    The reference's deprecated spellings of ``plan`` and ``coupling``
+    raise `TypeError` naming their replacement.
     """
 
     steps: int = 300
@@ -124,6 +140,10 @@ class TuneConfig:
     workload: Optional[object] = None
     plan: Optional[ExecutionPlan] = None
     coupling: Optional[Coupling] = None
+
+    def __new__(cls, *args, **kw):
+        refuse_renamed(kw, "TuneConfig")
+        return super().__new__(cls)
 
     def __post_init__(self):
         validate_plan_coupling(self.resolved_plan, self.resolved_coupling,
@@ -239,7 +259,9 @@ def _init_carry(raw0: PolicyParams):
 
 def _make_step(problem: TuneProblem, cfg: TuneConfig,
                coupling: Optional[DispatchCoupling], b: int,
-               p_rows: torch.Tensor, telemetry: bool = False):
+               p_rows: torch.Tensor, telemetry: bool = False,
+               axis_name: Optional[str] = None,
+               scale_rows: Optional[int] = None):
     """The per-step function of the Adam loop, shared by `tune_loop` and
     the stage segments of `tune_loop_checkpointed`. ``coupling`` switches
     on the dispatch-aware term; on the card it needs ``cfg.fused`` (the
@@ -258,6 +280,12 @@ def _make_step(problem: TuneProblem, cfg: TuneConfig,
     fraction of rows whose norm exceeds ``cfg.clip_norm`` to its outputs
     (``grad_norm``, ``clip_frac``): observers of the gradients the update
     consumes, never inputs to it, so the parameters stay bit-identical.
+
+    ``axis_name`` / ``scale_rows`` (a rank's shard of a sharded run) flow
+    into `soft_objective`, whose fleet aggregates then reduce across the
+    ranks. Every rank's loss carries the whole coupled term, so the
+    history's loss keeps 1/n of it: the ranks' average then is the single
+    program's loss / B.
     """
     rc = cfg.resolved_coupling
     if coupling is not None and not cfg.fused and p_rows.is_cuda:
@@ -290,13 +318,18 @@ def _make_step(problem: TuneProblem, cfg: TuneConfig,
                 dispatch_fused=cfg.fused, relief=rc.relief_config,
                 workload=wl, workload_demand=wl_demand,
                 fused=cfg.fused, block_t=cfg.block_t, reduction="sum",
+                axis_name=axis_name, scale_rows=scale_rows,
                 row_prices=p_rows)
             grads = PolicyParams(*torch.autograd.grad(loss, leaves))
+        loss = loss.detach()
+        if axis_name is not None:
+            loss = loss - aux["coupled"].detach() * (
+                1.0 - 1.0 / axis_size(axis_name))
         ratio = aux["ratio"].detach()
         ok = (torch.isfinite(ratio) & torch.isfinite(grads.raw_off)
               & torch.isfinite(grads.raw_gap)
               & torch.isfinite(grads.raw_lvl))                    # [B]
-        out = {"loss": loss.detach() / b, "tau": tau,
+        out = {"loss": loss / b, "tau": tau,
                "penalty": aux["penalty"].detach(),
                "dispatch_ratio": aux["dispatch_ratio"].detach(),
                "guard_rejects": torch.sum((~ok).to(torch.float32))}
@@ -334,12 +367,14 @@ def _make_step(problem: TuneProblem, cfg: TuneConfig,
 
 def _run_steps(carry, problem: TuneProblem, coupling, cfg: TuneConfig,
                lo: int, hi: int, p_rows: torch.Tensor,
-               telemetry: bool = False):
+               telemetry: bool = False, axis_name: Optional[str] = None,
+               scale_rows: Optional[int] = None):
     """Steps ``lo``..``hi`` of the anneal, then the boundary's hard
     re-evaluation. Returns ``(carry, outs, cpc_rows)``, all on the
     device."""
     b = carry[0].raw_off.shape[0]
-    step = _make_step(problem, cfg, coupling, b, p_rows, telemetry)
+    step = _make_step(problem, cfg, coupling, b, p_rows, telemetry,
+                      axis_name, scale_rows)
     taus = _tau_schedule(cfg, p_rows.device)
     outs = []
     for i in range(lo, hi):
@@ -357,7 +392,9 @@ def _stack(outs: list) -> dict:
 
 
 def tune_loop(raw0: PolicyParams, problem: TuneProblem, coupling=None, *,
-              cfg: TuneConfig, telemetry: bool = False):
+              cfg: TuneConfig, telemetry: bool = False,
+              axis_name: Optional[str] = None,
+              scale_rows: Optional[int] = None):
     """The tuner hot loop: tau-annealed Adam over all rows in
     ``cfg.eval_stages`` stages, with the hard CPC re-evaluated at each
     stage boundary. The row prices are gathered once; nothing is read
@@ -367,14 +404,17 @@ def tune_loop(raw0: PolicyParams, problem: TuneProblem, coupling=None, *,
     re-evaluation). ``coupling`` (a `DispatchCoupling`, from
     `dispatch_coupling_from_grid`) switches on the dispatch-aware fleet
     term. ``telemetry`` adds ``grad_norm`` / ``clip_frac`` to the history
-    (see `_make_step`), with the parameters unchanged bit for bit."""
+    (see `_make_step`), with the parameters unchanged bit for bit.
+    ``axis_name`` / ``scale_rows`` run one rank's shard of a sharded run
+    under an active row mesh (see `_make_step`)."""
     p_rows = problem.row_prices()
     bounds = _stage_bounds(cfg)
     carry = _init_carry(raw0)
     outs, stage_cpc = [], []
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         carry, o, cpc_rows = _run_steps(carry, problem, coupling, cfg, lo,
-                                        hi, p_rows, telemetry)
+                                        hi, p_rows, telemetry, axis_name,
+                                        scale_rows)
         outs += o
         stage_cpc.append(torch.mean(cpc_rows))
     hist = _stack(outs)
@@ -455,9 +495,13 @@ def tune_loop_checkpointed(raw0: PolicyParams, problem: TuneProblem,
     return carry[0], hist, cpc_rows
 
 
-# history keys that count events over rows merge across chunks by
-# summing; everything else (losses, taus, fractions) averages
+# history keys that count events over rows merge across chunks and shards
+# by summing; everything else (losses, taus, fractions) averages
 _HIST_MERGE = {"guard_rejects": np.sum}
+
+_PROBLEM_ROW_FIELDS = tuple(f for f in TuneProblem._fields if f != "prices")
+_COUPLING_SHARED = ("prices", "keys", "order", "demand", "migrate_cost",
+                    "cpc_ref")
 
 
 def _take_problem(problem: TuneProblem, idx: np.ndarray) -> TuneProblem:
@@ -466,22 +510,112 @@ def _take_problem(problem: TuneProblem, idx: np.ndarray) -> TuneProblem:
     return take_rows(problem, idx, shared=("prices",))
 
 
+def _merge(hists: dict) -> dict:
+    """Stacked [chunks or shards, ...] histories merged as numpy."""
+    return {k: _HIST_MERGE.get(k, np.mean)(np.asarray(v), axis=0)
+            for k, v in hists.items()}
+
+
+def _pad_rows(raw0: PolicyParams, problem: TuneProblem,
+              coupling: Optional[DispatchCoupling], n_rows: int,
+              b_pad: int):
+    """Pad the row axis to ``b_pad`` for equal shard widths by repeating
+    row 0, the warm start in ``raw0`` included. Padded rows drop out of
+    every fleet aggregate: zero site weight (power cap, up-hours), zero
+    coupling power and fixed cost, and the dummy dispatch cell ``C`` that
+    `soft_dispatch_ratio`'s sharded form discards. Their own trajectory is
+    dropped on return, and sum-reduction keeps them out of the real rows'
+    gradients."""
+    pad = b_pad - n_rows
+
+    def rep0(x):
+        return torch.cat([x, x[:1].expand(pad, *x.shape[1:])])
+
+    raw0 = tree_map(rep0, raw0)
+    problem = problem._replace(
+        **{f: rep0(getattr(problem, f)) for f in _PROBLEM_ROW_FIELDS})
+    problem.site_weight[n_rows:] = 0.0
+    if coupling is not None:
+        c = coupling.prices.shape[0]
+        coupling = coupling._replace(
+            cell_id=torch.cat([coupling.cell_id, torch.full_like(
+                coupling.cell_id[:1], c).expand(pad)]),
+            fixed=rep0(coupling.fixed), power=rep0(coupling.power))
+        coupling.fixed[n_rows:] = 0.0
+        coupling.power[n_rows:] = 0.0
+    return raw0, problem, coupling
+
+
+def _share(out, n_dev: int):
+    """Hand a mesh's result to the ranks outside it (the row mesh takes
+    the first ``n_dev`` ranks; its rank 0 sends)."""
+    if dist.get_world_size() == n_dev:
+        return out
+    box = [None]
+    if out is not None:
+        raw_f, hist, cpc = out
+        box = [([x.cpu() for x in raw_f], hist, cpc.cpu())]
+    dist.broadcast_object_list(box, src=0)
+    if out is not None:
+        return out
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if torch.cuda.is_available() else torch.device("cpu")
+    raw_f, hist, cpc = box[0]
+    return PolicyParams(*(x.to(dev) for x in raw_f)), hist, cpc.to(dev)
+
+
+def _run_sharded(raw0: PolicyParams, problem: TuneProblem, cfg: TuneConfig,
+                 n_rows: int, n_dev: int,
+                 coupling: Optional[DispatchCoupling], telemetry: bool):
+    """The loop over a row mesh of ``n_dev`` ranks: rows padded to equal
+    shard widths (`_pad_rows`), each rank's contiguous slice tuned with
+    the fleet aggregates reduced across the ranks, and every per-row
+    output all-gathered and trimmed, so each rank returns the whole
+    result; the ranks' histories merge as chunks' do."""
+    width = -(-n_rows // n_dev)
+    b_pad = width * n_dev
+    if b_pad != n_rows:
+        raw0, problem, coupling = _pad_rows(raw0, problem, coupling, n_rows,
+                                            b_pad)
+    mesh = row_mesh(n_dev)
+    coord = mesh.get_coordinate()
+    out = None
+    if coord is not None:
+        sl = np.arange(coord[0] * width, (coord[0] + 1) * width)
+        idx = torch.as_tensor(sl, device=raw0.raw_off.device)
+        if coupling is not None:
+            coupling = take_rows(coupling, sl, shared=_COUPLING_SHARED)
+        with use_sharding(mesh, current_rules()):
+            raw_f, hist, cpc = tune_loop(
+                tree_map(lambda x: x[idx], raw0), _take_problem(problem, sl),
+                coupling, cfg=cfg, telemetry=telemetry, axis_name="rows",
+                scale_rows=n_rows)
+            out = (PolicyParams(*(all_gather(x, "rows").reshape(-1)[:n_rows]
+                                  for x in raw_f)),
+                   _merge({k: all_gather(v, "rows").cpu()
+                           for k, v in hist.items()}),
+                   all_gather(cpc, "rows").reshape(-1)[:n_rows])
+    return _share(out, n_dev)
+
+
 def _run_loop(raw0: PolicyParams, problem: TuneProblem, cfg: TuneConfig,
               n_rows: int, coupling: Optional[DispatchCoupling] = None,
               telemetry: bool = False):
-    """Run the hot loop under the `ExecutionPlan`: one program, or fixed
-    row chunks padded to one shape by repeating row 0 (per-row math is
+    """Run the hot loop under the `ExecutionPlan`: one program; fixed row
+    chunks padded to one shape by repeating row 0 (per-row math is
     batch-independent, so the real rows are unaffected; the loss
-    *history*, a diagnostic, averages over the padding). Returns
+    *history*, a diagnostic, averages over the padding); or shards over
+    the ranks of the default process group (`_run_sharded`):
+    ``mode='sharded'`` over ``min(devices, ranks, B // 2)`` of them,
+    coupled objectives included, and ``mode='auto'`` an uncoupled,
+    unchunked loop over the largest divisor of B that keeps >= 2 rows a
+    shard. With one rank both are the single program. Returns
     ``(raw_f, history as numpy, cpc_tuned)``."""
     plan = cfg.resolved_plan
-    if plan.mode == "sharded":
-        raise NotImplementedError(
-            "ExecutionPlan(mode='sharded'): the tuner shards over devices "
-            "with torch.distributed in the mesh slice (ROADMAP queue 1); use "
-            "mode='single' or 'chunked' on one card")
-    validate_plan_coupling(plan, cfg.resolved_coupling,
-                           context="TuneConfig")
+    rc = cfg.resolved_coupling
+    coupled = coupling is not None or rc.power_cap_mw is not None \
+        or rc.min_up_hours is not None
+    validate_plan_coupling(plan, rc, context="TuneConfig")
     chunk = plan.chunk_rows
     if chunk and n_rows > chunk:
         raws, cpcs, hists = [], [], []
@@ -493,14 +627,96 @@ def _run_loop(raw0: PolicyParams, problem: TuneProblem, cfg: TuneConfig,
             raws.append(r)
             hists.append({k: v.cpu().numpy() for k, v in h.items()})
             cpcs.append(cp)
-        hist = {k: _HIST_MERGE.get(k, np.mean)([h[k] for h in hists],
-                                               axis=0)
-                for k in hists[0]}
-        return (concat_rows(raws, n_rows), hist,
+        return (concat_rows(raws, n_rows),
+                _merge({k: [h[k] for h in hists] for k in hists[0]}),
                 concat_rows(cpcs, n_rows))
+    n_avail = dist.get_world_size() if dist.is_initialized() else 1
+    n_dev = 1
+    if plan.mode == "sharded":
+        cap = plan.devices if plan.devices else n_avail
+        # >= 2 rows a shard, as the reference keeps
+        n_dev = max(1, min(cap, n_avail, n_rows // 2))
+    elif plan.mode == "auto" and not coupled and not chunk:
+        n_dev = next((d for d in range(min(n_avail, n_rows // 2), 0, -1)
+                      if n_rows % d == 0), 1)
+    if n_dev > 1:
+        return _run_sharded(raw0, problem, cfg, n_rows, n_dev, coupling,
+                            telemetry)
     raw_f, hist, cpc = tune_loop(raw0, problem, coupling, cfg=cfg,
                                  telemetry=telemetry)
     return raw_f, {k: v.cpu().numpy() for k, v in hist.items()}, cpc
+
+
+class _ShardedLoss(torch.autograd.Function):
+    """The global coupled loss of `sharded_soft_objective`, differentiable
+    in the raw parameters: the forward keeps this rank's graph of its
+    *local* loss, the backward differentiates it and all-gathers the
+    rows' gradients (the reference's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, local_fn, sl, n_rows, *raw):
+        leaves = [x.detach()[sl].requires_grad_(True) for x in raw]
+        with torch.enable_grad():
+            loss, aux = local_fn(PolicyParams(*leaves))
+        ctx.local = (loss, leaves, n_rows, current_mesh())
+        # the separable part summed over the ranks, the coupled one once
+        return psum(aux["base"].detach(), "rows") + aux["coupled"].detach()
+
+    @staticmethod
+    def backward(ctx, ct):
+        loss, leaves, n_rows, mesh = ctx.local
+        grads = torch.autograd.grad(loss, leaves)
+        with use_sharding(mesh, current_rules()):
+            return (None, None, None) + tuple(
+                all_gather(g, "rows").reshape(-1)[:n_rows] * ct
+                for g in grads)
+
+
+def sharded_soft_objective(raw: PolicyParams, problem: TuneProblem, tau,
+                           *, n_dev: int,
+                           coupling: Optional[DispatchCoupling] = None,
+                           **kwargs) -> torch.Tensor:
+    """The global coupled loss evaluated over a row mesh of ``n_dev``
+    ranks — the acceptance probe of the sharded tuner.
+
+    Every rank of the mesh calls it with the whole ``raw`` and
+    ``problem`` (SPMD). Each evaluates `soft_objective` on its contiguous
+    slice of the rows with ``axis_name='rows'`` (fleet aggregates reduced
+    across the ranks, the coupled term the same on every rank) and the
+    global value is ``psum(aux['base']) + aux['coupled']``: ULP-equal to
+    the single program's ``reduction='sum'`` loss. Its gradient in
+    ``raw`` is each rank's gradient of its *local* loss ``base +
+    coupled`` in its own rows, all-gathered: the single program's per-row
+    gradient (other ranks' base terms do not touch these rows, and the
+    coupled aggregates reduce through `psum_id`). ``kwargs`` forward into
+    `soft_objective`; ``problem``, ``coupling`` and ``tau`` are constants.
+    B must split evenly over the ``n_dev`` ranks.
+    """
+    b = raw.raw_off.shape[0]
+    if b % n_dev:
+        raise ValueError(
+            f"sharded_soft_objective: {b} rows do not split evenly over "
+            f"{n_dev} shards — pad the batch (see _pad_rows) or pick a "
+            "divisor shard count")
+    mesh = row_mesh(n_dev)
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError(f"sharded_soft_objective: rank {dist.get_rank()} "
+                         f"is outside the {n_dev}-rank row mesh")
+    width = b // n_dev
+    sl = np.arange(coord[0] * width, (coord[0] + 1) * width)
+    problem_s = _take_problem(problem, sl)
+    coupling_s = None if coupling is None else take_rows(
+        coupling, sl, shared=_COUPLING_SHARED)
+
+    def local_fn(raw_s):
+        return soft_objective(raw_s, problem_s, tau, dispatch=coupling_s,
+                              reduction="sum", axis_name="rows",
+                              scale_rows=b, **kwargs)
+
+    with use_sharding(mesh, current_rules()):
+        return _ShardedLoss.apply(local_fn, slice(sl[0], sl[-1] + 1), b,
+                                  *raw)
 
 
 def _hard_cpc_batched(p_on, p_off, off_level, problem: TuneProblem,

@@ -40,7 +40,8 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
     # schedules, compression, trainer, launcher, roofline and example, the
     # telemetry slice's obs package, the live slice's forecasts, SMARD
     # loader, window steps, live package and example, and the faults and
-    # workload slice's two packages, ledger kernels and two examples
+    # workload slice's two packages, ledger kernels and two examples, and
+    # the row mesh's parallel package
     assert n_modules == len(names) >= 107
     for name in ("repro_torch.configs.base", "repro_torch.configs.inputs",
                  "repro_torch.configs.qwen2_5_3b",
@@ -82,7 +83,8 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
                  "repro_torch.workload.backtest",
                  "repro_torch.kernels.queue_scan",
                  "repro_torch.examples.chaos_fleet",
-                 "repro_torch.examples.workload_fleet"):
+                 "repro_torch.examples.workload_fleet",
+                 "repro_torch.parallel", "repro_torch.parallel.axes"):
         assert name in names
 
 
@@ -166,6 +168,13 @@ def test_port_packages_export_what_the_reference_exports():
                       ("workload", "workload_backtest"),
                       ("workload", "realized_cost"),
                       ("workload", "replay_ledger"),
-                      ("workload", "LedgerReplay")):
+                      ("workload", "LedgerReplay"),
+                      # the row mesh slice's names
+                      ("tune", "sharded_soft_objective"),
+                      *(("parallel", n) for n in (
+                          "LogicalRules", "TRAIN_RULES", "SSM_PREFILL_RULES",
+                          "DECODE_RULES", "SINGLE_DEVICE_RULES", "axis_size",
+                          "constrain", "current_mesh", "current_rules",
+                          "logical_to_spec", "row_mesh", "use_sharding"))):
         assert (f"repro.{pkg}", name) in {(p, n) for p, _, n in exports}
         assert hasattr(importlib.import_module(f"repro_torch.{pkg}"), name)

@@ -37,6 +37,8 @@ from repro.kernels.ref import fleet_scan_ref as jax_fleet_scan_ref  # noqa: E402
 from repro.optim.adamw import AdamWConfig as JaxAdamWConfig  # noqa: E402
 from repro.optim.adamw import AdamWState as JaxAdamWState  # noqa: E402
 from repro.optim.adamw import adamw_update as jax_adamw_update  # noqa: E402
+from repro.dispatch import DispatchConfig as JaxDispatchConfig  # noqa: E402
+from repro.fleet import backtest as jax_backtest  # noqa: E402
 from repro.tune import TuneConfig as JaxTuneConfig  # noqa: E402
 from repro.tune import hard_cpc as jax_hard_cpc  # noqa: E402
 from repro.tune import init_from_grid as jax_init_from_grid  # noqa: E402
@@ -51,18 +53,19 @@ from repro.tune.optimizer import _ckpt_template as jax_ckpt_template  # noqa: E4
 from repro.tune.optimizer import _init_carry as jax_init_carry  # noqa: E402
 from repro.tune.optimizer import _tau_schedule as jax_tau_schedule  # noqa: E402
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
+from repro_torch.dispatch import DispatchConfig  # noqa: E402
 from repro_torch.energy import block_bootstrap  # noqa: E402
 from repro_torch.examples import tune_policies  # noqa: E402
 from repro_torch.execution import Coupling, ExecutionPlan  # noqa: E402
-from repro_torch.fleet import grid_from_numpy  # noqa: E402
+from repro_torch.fleet import backtest, grid_from_numpy  # noqa: E402
 from repro_torch.fleet.grid import TENSOR_FIELDS  # noqa: E402
 from repro_torch.kernels.ref import fleet_scan_ref  # noqa: E402
 from repro_torch.optim import (AdamWConfig, AdamWState,  # noqa: E402
                                adamw_update)
 from repro_torch.tune import (PhysicalPolicy, PolicyParams,  # noqa: E402
                               TuneConfig, hard_cpc, init_from_grid, optimize,
-                              problem_from_grid, soft_dispatch_ratio,
-                              soft_objective, transform, tune_loop,
+                              problem_from_grid, soft_objective, transform,
+                              tune_loop,
                               tune_loop_checkpointed)
 from repro_torch.tune.optimizer import (_ckpt_template,  # noqa: E402
                                         _init_carry, _tau_schedule)
@@ -458,20 +461,57 @@ def test_block_bootstrap_is_bit_equal_to_reference(kw):
 
 def test_later_slice_options_raise(grid):
     prob, raw = problem_from_grid(grid), init_from_grid(grid)
-    with pytest.raises(NotImplementedError, match="the mesh slice"):
-        optimize(grid, TuneConfig(steps=2, plan=ExecutionPlan(
-            mode="sharded")), device=CPU)
-    # the soft dispatch coupling (Coupling(dispatch=)) and the hard
-    # re-scoring are ported (tests/test_torch_tune_dispatch.py,
-    # tests/test_torch_dispatch.py); its sharded form is not
-    with pytest.raises(NotImplementedError, match="the mesh slice"):
-        soft_objective(raw, prob, 1.0, axis_name="rows")
-    with pytest.raises(NotImplementedError, match="the mesh slice"):
-        soft_dispatch_ratio(None, None, None, 1.0, axis_name="rows")
+    # the sharded plan is ported (tests/test_torch_mesh.py): without a
+    # process group it is the single program, bit for bit
+    a, b = (optimize(grid, TuneConfig(steps=2, plan=ExecutionPlan(mode=m)),
+                     device=CPU) for m in ("sharded", "single"))
+    assert all(torch.equal(x, y) for x, y in zip(a.raw, b.raw))
+    np.testing.assert_array_equal(a.cpc, b.cpc)
+    # a fleet aggregate reduced over an axis that no active mesh binds
+    # raises, as an unbound axis does in JAX
+    with pytest.raises(NameError, match="unbound axis name: rows"):
+        soft_objective(raw, prob, 1.0, axis_name="rows", power_cap_mw=1.0)
     # the legality rule of the pair stays a ValueError
     with pytest.raises(ValueError, match="chunk_rows"):
         TuneConfig(plan=ExecutionPlan(mode="chunked", chunk_rows=4),
                    coupling=Coupling(power_cap_mw=1.0))
+
+
+RENAMED = [("chunk_rows", 4, "plan="), ("shard", False, "plan="),
+           ("power_cap_mw", 1.0, "coupling="),
+           ("min_up_hours", 1.0, "coupling="),
+           ("penalty_weight", 5.0, "coupling="),
+           ("dispatch", "dispatch", "coupling="),
+           ("dispatch_soft", "dispatch", "coupling="),
+           ("dispatch_blend", 0.3, "coupling="),
+           ("dispatch_mw_scale", 0.1, "coupling=")]
+
+
+@pytest.mark.parametrize("name,value,new", RENAMED,
+                         ids=[r[0] for r in RENAMED])
+def test_renamed_spellings_raise_where_the_reference_warns(name, value, new):
+    """The reference's pre-redesign `TuneConfig` keywords: the reference
+    warns and forwards; the port refuses them, naming the same new
+    spelling (ROADMAP.md's departures)."""
+    dcfg = dict(demand_frac=0.3, migrate_cost=4.0, min_dwell_h=3)
+    jv, pv = ((JaxDispatchConfig(**dcfg), DispatchConfig(**dcfg))
+              if value == "dispatch" else (value, value))
+    with pytest.warns(DeprecationWarning, match=f"pass {new}"):
+        JaxTuneConfig(**{name: jv})
+    with pytest.raises(TypeError, match=f"TuneConfig\\({name}=\\).*pass {new}"):
+        TuneConfig(**{name: pv})
+
+
+def test_backtest_chunk_rows_raises_where_the_reference_warns(grid,
+                                                              jax_grid):
+    with pytest.warns(DeprecationWarning, match="pass plan="):
+        jax_backtest(jax_grid, chunk_rows=4)
+    with pytest.raises(TypeError, match=r"backtest\(chunk_rows=\).*pass "
+                       r"plan=ExecutionPlan\(mode='chunked'"):
+        backtest(grid, chunk_rows=4, device=CPU)
+    with pytest.raises(TypeError, match="unexpected keyword argument "
+                       "'chunk'"):
+        backtest(grid, chunk=4, device=CPU)
 
 
 def test_optimize_defaults_to_cuda(grid):
