@@ -102,6 +102,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      on the reference's plain int8 route, counted; the share of greedy
      tokens equal to the bf16 run's, one request teacher-forced on both
      caches within the reference's 2% bound, the decode step's times);
+     then the model mesh (`phase_model_mesh`, "[model_mesh]"): 4 gloo
+     ranks on the card, which refuse DTensor's own redistribution
+     (`dtensor_probe.py` shows it killing a rank): the port's
+     transport on CUDA tensors, qwen2.5-3b at full depth on (data 1,
+     model 4) with the aligned cache through `build_step`'s prefill and
+     serve steps against the single device (logits within
+     MODEL_MESH_TOL, tokens equal at firm positions), the weights
+     resharded onto `resize_mesh(level=0.5, model_parallel=2)` bit for
+     bit against a 2-rank build, mixtral-8x22b's 2-layer cut on (1, 2)
+     through both expert-parallel branches, each rank's flash and decode
+     launches (no plain call), each step's collective bytes and share,
+     and flash / decode at one rank's shapes beside their plain versions
+     and SDPA (held against both at those shapes in the attention
+     phase);
  13. the SSD scan kernel against its plain version on the card (the
      reference's cases, mamba2-1.3b's serving shapes at 1024 and 1000
      positions in bf16 and float32, with h0 and without, several heads a
@@ -3575,6 +3589,18 @@ MIXTRAL_DECODE_CASES = [
     (8, 48, 8, 128, 4096, BF16, "all"),
     (8, 48, 8, 128, 4096, BF16, "linear"),
 ]
+# one rank's shapes on the model mesh (`phase_model_mesh`): qwen2.5-3b at
+# model 4 (4 prompts of 256 tokens, 4 query heads on 1 KV head; decode
+# against 264 slots) and mixtral-8x22b at model 2 (128 tokens, 24 on 4,
+# its 4096-token window; 136 slots)
+MODEL_MESH_FLASH_CASES = [
+    (4, 256, 256, 4, 1, 128, True, 0, 0, BF16),
+    (4, 128, 128, 24, 4, 128, True, 4096, 0, BF16),
+]
+MODEL_MESH_DECODE_CASES = [
+    (4, 4, 1, 128, 264, BF16, "linear"),
+    (4, 24, 4, 128, 136, BF16, "linear"),
+]
 # B, Sq, Skv, H, G, Dh, causal, window, q_offset, dtype: the reference's
 # FLASH_CASES and its bf16 case (tests/test_kernels.py), the serving shapes
 # of qwen2.5-3b (16 heads in 2 KV groups, Dh 128) and a chunked prefill,
@@ -3606,7 +3632,7 @@ FLASH_SMOKE_CASES = [
     (1, 1024, 1024, 32, 32, 64, True, 0, 0, BF16),
     (1, 1000, 1000, 32, 32, 64, True, 0, 0, BF16),
     (1, 1024, 1024, 32, 32, 64, True, 0, 0, torch.float32),
-] + WHISPER_FLASH_CASES + MIXTRAL_FLASH_CASES
+] + WHISPER_FLASH_CASES + MIXTRAL_FLASH_CASES + MODEL_MESH_FLASH_CASES
 # B, H, G, Dh, W, dtype, mask: the reference's DECODE_CASES, then the
 # serving pool (8 slots of 2048, 16 heads in 2 groups) with a linear
 # cache's mask and a rolling one's, at bf16 and at float32 (eight 256-slot
@@ -3629,7 +3655,8 @@ DECODE_SMOKE_CASES = [
     (8, 32, 32, 64, 2048, BF16, "linear"),
     (8, 32, 32, 64, 2048, BF16, "random"),
     (8, 32, 32, 64, 2048, torch.float32, "linear"),
-] + WHISPER_DECODE_CASES + MIXTRAL_DECODE_CASES
+] + WHISPER_DECODE_CASES + MIXTRAL_DECODE_CASES \
+    + MODEL_MESH_DECODE_CASES
 SERVE_ARCH = "qwen2.5-3b"
 SSM_ARCH = "mamba2-1.3b"
 # the mamba2 run's fixed prompt lengths: one chunk, two, a ragged third,
@@ -5731,6 +5758,521 @@ def phase_moe_backward(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the model mesh: tensor / expert parallelism as gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+MODEL_MESH_RANKS = 4
+MODEL_MESH_BATCH, MODEL_MESH_PROMPT, MODEL_MESH_STEPS = 4, 256, 8
+MIXTRAL_MESH_LAYERS, MIXTRAL_MESH_PROMPT, MIXTRAL_MESH_STEPS = 2, 128, 8
+# bf16 logits: a row-parallel product's partial sums are reduced across
+# ranks in another order than one matmul adds them, a few bf16 ULP a
+# layer; the single-device check of kernel against plain uses the same
+MODEL_MESH_TOL = TF_MAX_ABS
+MODEL_MESH_TIMEOUT_S = 480.0
+MODEL_MESH_SEED = 30
+
+
+def _mesh_tokens(cfg, b: int, s: int) -> np.ndarray:
+    rng = np.random.default_rng(MODEL_MESH_SEED)
+    return rng.integers(2, cfg.vocab, (b, s), dtype=np.int64)
+
+
+def _mesh_single(cfg, params, toks: np.ndarray, steps: int, dev):
+    """The single-device port's teacher-forced run: prefill of the first
+    S - steps tokens, then ``steps`` decode steps fed the following
+    tokens; every position's logits [B, V] float32 on the host."""
+    from repro_torch.models.model import decode_step, prefill
+
+    t = torch.as_tensor(toks, device=dev)
+    s0 = t.shape[1] - steps
+    with torch.no_grad():
+        logits, caches = prefill(params, {"tokens": t[:, :s0]}, cfg,
+                                 max_seq=t.shape[1])
+        out = [logits.float().cpu()]
+        for i in range(steps):
+            pos = torch.full((t.shape[0],), s0 + i, dtype=torch.int32,
+                             device=dev)
+            logits, caches = decode_step(params, t[:, s0 + i:s0 + i + 1],
+                                         caches, pos, cfg)
+            out.append(logits.float().cpu())
+    return torch.stack(out)
+
+
+def _probe_transport(dev) -> dict:
+    """The collectives the port's transport calls, on CUDA tensors over
+    this gloo group (each checked against its expected values), and the
+    transport's placement changes the model mesh uses, on a 1-D mesh of
+    every rank."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.parallel import axes
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {}
+
+    def check(name, fn):
+        try:
+            out[name] = "ok" if fn() else "wrong values"
+        except (RuntimeError, ValueError) as e:
+            out[name] = f"refused: {str(e).splitlines()[0][:120]}"
+
+    def a2a():
+        x = torch.arange(world * 3, dtype=torch.float32, device=dev) \
+            + 100 * rank
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x)
+        want = torch.cat([torch.arange(rank * 3, rank * 3 + 3,
+                                       dtype=torch.float32) + 100 * s
+                          for s in range(world)])
+        return torch.equal(y.cpu(), want)
+
+    def rs():
+        x = torch.arange(world * 2, dtype=torch.float32, device=dev) \
+            * (rank + 1)
+        y = torch.empty(2, device=dev)
+        dist.reduce_scatter_tensor(y, x)
+        tot = sum(range(1, world + 1))
+        return torch.equal(y.cpu(), torch.arange(rank * 2, rank * 2 + 2,
+                                                 dtype=torch.float32) * tot)
+
+    def ar_bf16():
+        x = torch.full((3,), 1.5 * (rank + 1), dtype=torch.bfloat16,
+                       device=dev)
+        dist.all_reduce(x)
+        return float(x[0]) == 1.5 * sum(range(1, world + 1))
+
+    def ag():
+        x = torch.full((2,), float(rank), dtype=torch.bfloat16, device=dev)
+        y = torch.empty(2 * world, dtype=torch.bfloat16, device=dev)
+        dist.all_gather_into_tensor(y, x)
+        return torch.equal(y.cpu().float(), torch.arange(
+            world, dtype=torch.float32).repeat_interleave(2))
+    for name, fn in (("all_to_all_single", a2a),
+                     ("reduce_scatter_tensor", rs),
+                     ("all_reduce bf16", ar_bf16),
+                     ("all_gather_into_tensor bf16", ag)):
+        check(name, fn)
+
+    mesh = DeviceMesh("cuda", torch.arange(world), mesh_dim_names=("model",))
+    full = torch.randn(2, 8, world, 16, generator=torch.Generator()
+                       .manual_seed(0)).to(dev)
+
+    def move(src, dst):
+        def fn():
+            if isinstance(src, Partial):
+                d = axes.from_local(full / world, mesh, [src])
+            else:
+                d = axes.distribute(full, mesh, [src])
+            got = axes.full_tensor(axes.redistribute(d, [dst]))
+            return bool(torch.allclose(got, full, atol=1e-6))
+        return fn
+    for name, src, dst in (("Shard->Replicate", Shard(1), Replicate()),
+                           ("Partial->Replicate", Partial(), Replicate()),
+                           ("Partial->Shard", Partial(), Shard(2)),
+                           ("Shard(seq)->Shard(heads)", Shard(1), Shard(2))):
+        check(f"transport {name}", move(src, dst))
+    return out
+
+
+def _forbid_dtensor_redistribution() -> None:
+    """DTensor's own redistribution (its functional collectives) crashed
+    the process under gloo on CUDA with the card's torch: the model mesh
+    must never reach it, every move goes through the port's transport
+    (`dtensor_probe.py` shows the crash)."""
+    from torch.distributed.tensor import _redistribute
+
+    def refused(*args, **kwargs):
+        raise AssertionError("DTensor's own redistribution was called on "
+                             "the model mesh")
+    _redistribute.redistribute_local_tensor = refused
+
+
+def _mesh_serve(cfg, placed, toks: np.ndarray, steps: int, mesh, dev,
+                forced: bool = True):
+    """`build_step`'s prefill and serve steps, teacher-forced: logits of
+    every position (whole, float32, host), each step's wall seconds and
+    the transport's counts, bytes and seconds a step."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.steps import build_step
+    from repro_torch.parallel import axes
+
+    t = torch.as_tensor(toks, device=dev)
+    b, s0 = t.shape[0], t.shape[1] - steps
+    pre, _, prules = build_step(cfg, SHAPES["prefill_32k"].replace(
+        seq_len=s0, global_batch=b), mesh)
+    dec, _, drules = build_step(cfg, SHAPES["decode_32k"].replace(
+        seq_len=t.shape[1], global_batch=b), mesh)
+    rows, times, comms = [], [], []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        axes.comm_stats(reset=True)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        comms.append(axes.comm_stats(reset=True))
+        return out
+    logits, caches = timed(lambda: pre(placed, {"tokens": t[:, :s0]},
+                                       max_seq=t.shape[1]))
+    rows.append(axes.full_tensor(logits).float().cpu())
+    for i in range(steps):
+        pos = torch.full((b,), s0 + i, dtype=torch.int32, device=dev)
+        logits, caches = timed(lambda: dec(placed, t[:, s0 + i:s0 + i + 1],
+                                           caches, pos))
+        rows.append(axes.full_tensor(logits).float().cpu())
+    from repro_torch.launch import steps as steps_mod
+    names = [n for n in ("DECODE_RULES", "DECODE_HEADS_RULES",
+                         "LONGCTX_RULES", "LONGCTX_HEADS_RULES")
+             if getattr(steps_mod, n) is drules]
+    return {"logits": torch.stack(rows), "seconds": times, "comm": comms,
+            "decode_rules": names[0] if names else "?",
+            "decode_rules_on_model": [k for k, v in drules.items()
+                                      if v == "model"]}
+
+
+def _model_mesh_rank(rank: int, world: int, rendezvous: str, work: str
+                     ) -> None:
+    """One rank of `phase_model_mesh` on cuda:0 over gloo: the transport
+    probe, qwen2.5-3b at full width and depth on (1, 4), the elastic
+    restore onto `resize_mesh(level=0.5, model_parallel=2)`, and the
+    mixtral-8x22b cut on (1, 2) (ranks 0-1); what it saw goes to
+    ``work/rank<r>.pt``. Each rank draws the weights on the card from the
+    generator the single-device run used, a layer at a time, and keeps
+    only its own shards (`init_params_sharded`)."""
+    import datetime
+
+    import torch.distributed as dist
+    _import_port()
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import rules_for
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.models.model import init_params_sharded, param_specs
+    from repro_torch.runtime.elastic import reshard_tree, resize_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    t_rank = time.perf_counter()
+
+    def stage(what):                      # rank 0's progress, as it goes
+        if rank == 0:
+            print(f"[model_mesh] rank 0: {what} at "
+                  f"{time.perf_counter() - t_rank:.1f} s", flush=True)
+    try:
+        out = {"probe": _probe_transport(dev)}
+        _forbid_dtensor_redistribution()
+        plain, restore = _count_serving_plain_calls()
+        stage("probe done")
+
+        def draw_placed(cfg, mesh):
+            placed = init_params_sharded(
+                torch.Generator(device=dev).manual_seed(SERVE_SEED), cfg,
+                mesh, rules_for(cfg, SHAPES["prefill_32k"]))
+            torch.cuda.empty_cache()
+            return placed
+
+        def launches():
+            c = _counters()
+            return ({k: c[k].launches for k in ("flash_attention",
+                                                "decode_attention")},
+                    {k: c[k].device_launches for k in ("flash_attention",
+                                                       "decode_attention")})
+
+        # qwen2.5-3b, full width and depth, 4 ranks
+        cfg = get_config(SERVE_ARCH).replace(kv_cache_align=4)
+        mesh = make_host_mesh(data=1, model=4)
+        torch.cuda.reset_peak_memory_stats(dev)
+        placed = draw_placed(cfg, mesh)
+        out["shard_gb"] = torch.cuda.memory_allocated(dev) / 1e9
+        out["draw_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        toks = _mesh_tokens(cfg, MODEL_MESH_BATCH,
+                            MODEL_MESH_PROMPT + MODEL_MESH_STEPS)
+        _zero_counters()
+        out["qwen"] = _mesh_serve(cfg, placed, toks, MODEL_MESH_STEPS, mesh,
+                                  dev)
+        out["qwen"]["launches"], out["qwen"]["device_launches"] = launches()
+        stage("qwen2.5-3b served")
+
+        # elastic restore: the 4-rank shards onto (1, 2), one decode step
+        mesh2 = resize_mesh(world, 0.5, model_parallel=2)
+        rules = rules_for(cfg, SHAPES["prefill_32k"])
+        t0 = time.perf_counter()
+        moved = reshard_tree(placed, mesh2, param_specs(placed), rules)
+        out["reshard_s"] = time.perf_counter() - t0
+        del placed
+        torch.cuda.empty_cache()
+        short = toks[:, :MODEL_MESH_PROMPT + 1]
+        if mesh2.get_coordinate() is not None:
+            fresh = draw_placed(cfg, mesh2)
+            out["elastic"] = [_mesh_serve(cfg, p, short, 1, mesh2, dev)
+                              ["logits"] for p in (moved, fresh)]
+            del fresh
+        del moved
+        torch.cuda.empty_cache()
+        dist.barrier()
+        stage("elastic restore done")
+
+        # mixtral-8x22b, 2 layers at full width, 2 ranks
+        mcfg = get_config("mixtral-8x22b")
+        mcfg = mcfg.replace(n_layers=MIXTRAL_MESH_LAYERS,
+                            capacity_factor=mcfg.n_experts / mcfg.top_k)
+        mmesh = make_host_mesh(data=1, model=2)
+        if mmesh.get_coordinate() is not None:
+            _zero_counters()
+            mp = draw_placed(mcfg, mmesh)
+            mt = _mesh_tokens(mcfg, MODEL_MESH_BATCH,
+                              MIXTRAL_MESH_PROMPT + MIXTRAL_MESH_STEPS)
+            out["mixtral"] = _mesh_serve(mcfg, mp, mt, MIXTRAL_MESH_STEPS,
+                                         mmesh, dev)
+            out["mixtral"]["launches"], out["mixtral"]["device_launches"] \
+                = launches()
+            del mp
+        out["plain_calls"] = dict(plain)
+        restore()
+        dist.barrier()
+        torch.save(out, Path(work) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_kernel_times(dev) -> dict:
+    """Rows 8-9 at one rank's shapes of the model mesh (bf16, Dh 128):
+    qwen2.5-3b at model 4 (4 prompts of 256 tokens, 4 query heads and 1
+    KV head; decode against 264 slots) and mixtral at model 2 (128
+    tokens, 24 / 4 heads; 136 slots). Device-only CUDA events, L2
+    flushed, medians, beside the plain versions' and SDPA's; the bound
+    the larger of the bytes at 3.35 TB/s and the products at 989 TFLOP/s
+    (causal: half the pairs)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (decode_attention_plain,
+                                         flash_attention_plain)
+
+    flush = torch.empty(128 * 2 ** 20 // 4, dtype=torch.float32,
+                        device=dev)
+    g = torch.Generator(device=dev).manual_seed(MODEL_MESH_SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+    out = {}
+    for name, b, s, h, kv, w in (("qwen2.5-3b", 4, MODEL_MESH_PROMPT, 4, 1,
+                                  MODEL_MESH_PROMPT + MODEL_MESH_STEPS),
+                                 ("mixtral-8x22b", 4, MIXTRAL_MESH_PROMPT,
+                                  24, 4,
+                                  MIXTRAL_MESH_PROMPT + MIXTRAL_MESH_STEPS)):
+        dh = 128
+        q, k, v = randn(b, s, h, dh), randn(b, s, kv, dh), randn(b, s, kv,
+                                                                 dh)
+        qd, kc, vc = randn(b, 1, h, dh), randn(b, w, kv, dh), randn(b, w, kv,
+                                                                   dh)
+        valid = torch.ones((b, w), dtype=torch.int8, device=dev)
+        flash = _cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True),
+                         flush=flush, device_only=True)
+        dec = _cuda_ms(lambda: ops.decode_attention(qd, kc, vc, valid),
+                       flush=flush, device_only=True)
+        mask = valid.bool()[:, None, None, :]
+        plain = {
+            "flash_plain_ms": _cuda_ms(lambda: flash_attention_plain(
+                q, k, v, causal=True), flush=flush, device_only=True),
+            "flash_library_ms": _cuda_ms(lambda: _sdpa(q, k, v, causal=True),
+                                         flush=flush, device_only=True),
+            "decode_plain_ms": _cuda_ms(lambda: decode_attention_plain(
+                qd, kc, vc, valid), flush=flush, device_only=True),
+            "decode_library_ms": _cuda_ms(lambda: _sdpa(qd, kc, vc, mask),
+                                          flush=flush, device_only=True)}
+        f_bytes = b * s * (2 * h + 2 * kv) * dh * 2
+        f_ops = 4.0 * b * h * s * s * dh / 2
+        d_bytes = 2 * b * h * dh * 2 + 2 * b * w * kv * dh * 2 + b * w
+        d_ops = 4.0 * b * h * w * dh
+        out[name] = {
+            "flash_ms": flash, "decode_ms": dec,
+            "flash_bound_ms": max(f_bytes / 3.35e9, f_ops / 989e9),
+            "flash_bound_by": "bytes" if f_bytes / 3.35e9 > f_ops / 989e9
+            else "operations",
+            "decode_bound_ms": max(d_bytes / 3.35e9, d_ops / 989e9),
+            **plain}
+        print(f"[time] model mesh, one rank's shapes of {name}: flash "
+              f"{b} x {s} tokens, {h} / {kv} heads {flash:.4f} ms (bound "
+              f"{out[name]['flash_bound_ms']:.5f}, "
+              f"{out[name]['flash_bound_by']}; plain "
+              f"{plain['flash_plain_ms']:.4f}, SDPA "
+              f"{plain['flash_library_ms']:.4f}); decode {b} x {w} slots "
+              f"{dec:.4f} ms (bound {out[name]['decode_bound_ms']:.5f}, "
+              f"bytes; plain {plain['decode_plain_ms']:.4f}, SDPA "
+              f"{plain['decode_library_ms']:.4f})")
+    return out
+
+
+def phase_model_mesh(dev, serve: dict) -> dict:
+    """The model mesh: `build_step`'s prefill and serve steps under
+    `repro_torch.launch.mesh.make_host_mesh`, as MODEL_MESH_RANKS gloo
+    ranks on the one card (NCCL refuses two ranks on one card; the
+    kernels are built here first, so the ranks only load them). Each rank
+    first probes the collectives of the port's transport on CUDA tensors.
+    qwen2.5-3b at full width and depth with ``kv_cache_align=4`` on (data
+    1, model 4): 4 prompts of 256 tokens prefilled and 16 decode steps
+    teacher-forced; its logits within MODEL_MESH_TOL of the single-device
+    port's (``serve``'s weights) at every position, the greedy tokens
+    equal wherever the single run's top-2 margin exceeds that tolerance.
+    The weights resharded onto `resize_mesh(level=0.5,
+    model_parallel=2)` take one decode step equal to a 2-rank build's bit
+    for bit. mixtral-8x22b cut to 2 layers at full width on (1, 2): the
+    prefill through the all-to-all branch, decode through the
+    weights-stationary branch, against the single-device cut (capacity
+    factor E / k, so that neither routing drops a token). Every rank
+    launches flash and decode on the card and no plain version; each
+    step's collective bytes and their share of its wall time printed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.model import init_params
+
+    build.load("attention")
+    t_start = time.perf_counter()
+    t0 = time.perf_counter()
+    cfg = serve["cfg"]
+    toks = _mesh_tokens(cfg, MODEL_MESH_BATCH,
+                        MODEL_MESH_PROMPT + MODEL_MESH_STEPS)
+    single = _mesh_single(cfg, serve["params"], toks, MODEL_MESH_STEPS, dev)
+    t_qwen = time.perf_counter() - t0
+    mcfg = get_config("mixtral-8x22b")
+    mcfg = mcfg.replace(n_layers=MIXTRAL_MESH_LAYERS,
+                        capacity_factor=mcfg.n_experts / mcfg.top_k)
+    mparams = init_params(torch.Generator(device=dev).manual_seed(
+        SERVE_SEED), mcfg)
+    torch.cuda.synchronize()
+    t_draw = time.perf_counter() - t0 - t_qwen
+    mtoks = _mesh_tokens(mcfg, MODEL_MESH_BATCH,
+                         MIXTRAL_MESH_PROMPT + MIXTRAL_MESH_STEPS)
+    msingle = _mesh_single(mcfg, mparams, mtoks, MIXTRAL_MESH_STEPS, dev)
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_single = time.perf_counter() - t_start
+    print(f"[model_mesh] single-device references: {cfg.name} "
+          f"{t_qwen:.1f} s, {mcfg.name} cut drawn in {t_draw:.1f} s and "
+          f"run in {time.perf_counter() - t0 - t_qwen - t_draw:.1f} s")
+
+    work = Path(tempfile.mkdtemp(prefix="model_mesh_"))
+    try:
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(
+            _model_mesh_rank, args=(MODEL_MESH_RANKS,
+                                    str(work / "rendezvous"), str(work)),
+            nprocs=MODEL_MESH_RANKS, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > MODEL_MESH_TIMEOUT_S:
+                    raise AssertionError(
+                        f"model mesh: ranks still running after "
+                        f"{MODEL_MESH_TIMEOUT_S:.0f} s (a hung collective?)")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        outs = [torch.load(work / f"rank{r}.pt", weights_only=False)
+                for r in range(MODEL_MESH_RANKS)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    t_ranks = time.perf_counter() - t0
+
+    for r, o in enumerate(outs):
+        print(f"[model_mesh] rank {r}: gloo and the port's transport on "
+              f"CUDA tensors {o['probe']}")
+        if any(v != "ok" for v in o["probe"].values()):
+            raise AssertionError("model mesh: a collective of the port's "
+                                 "transport failed on CUDA tensors")
+
+    def held(name, run, ref, layers, ranks):
+        got = run["logits"]
+        d = (got - ref).abs()
+        top2 = torch.topk(ref, 2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        firm = margin > MODEL_MESH_TOL
+        same = got.argmax(-1) == ref.argmax(-1)
+        pre_s, dec_s = run["seconds"][0], run["seconds"][1:]
+        pre_c, dec_c = run["comm"][0], run["comm"][1:]
+        dec_b = sum(sum(c["bytes"].values()) for c in dec_c) / len(dec_c)
+        dec_cs = sum(c["seconds"] for c in dec_c) / len(dec_c)
+        print(f"[model_mesh] {name} ({layers} layers) on {ranks} ranks: "
+              f"{got.shape[1]} prompts, prefill {MODEL_MESH_PROMPT if ranks == 4 else MIXTRAL_MESH_PROMPT} "
+              f"tokens + {got.shape[0] - 1} teacher-forced decode steps; "
+              f"logits against the single-device port: max |diff| "
+              f"{float(d.max()):.4g}, mean {float(d.mean()):.4g} "
+              f"(tolerance {MODEL_MESH_TOL}; logits std "
+              f"{float(ref.std()):.4g}); greedy tokens equal at "
+              f"{int(same.sum())} of {same.numel()} positions, at "
+              f"{int((same | ~firm).sum())} of {same.numel()} counting "
+              f"only margins above the tolerance")
+        print(f"[model_mesh] {name}: prefill {pre_s * 1e3:.1f} ms wall, "
+              f"collectives {pre_c['counts']} "
+              f"{sum(pre_c['bytes'].values()) / 1e6:.3f} MB, "
+              f"{pre_c['seconds'] * 1e3:.1f} ms "
+              f"({pre_c['seconds'] / pre_s:.1%} of the step); decode step "
+              f"{np.median(dec_s) * 1e3:.1f} ms wall (median), collectives "
+              f"{dec_c[0]['counts']} {dec_b / 1e6:.4f} MB, "
+              f"{dec_cs * 1e3:.1f} ms ({dec_cs / np.mean(dec_s):.1%} of the "
+              f"step), rank 0")
+        if not bool(torch.isfinite(got).all()) \
+                or float(d.max()) > MODEL_MESH_TOL or not bool(
+                    (same | ~firm).all()):
+            raise AssertionError(f"model mesh: {name} differs from the "
+                                 f"single-device port")
+        return float(d.max())
+
+    errs = {"qwen": held(cfg.name, outs[0]["qwen"], single, cfg.n_layers,
+                         MODEL_MESH_RANKS),
+            "mixtral": held(mcfg.name, outs[0]["mixtral"], msingle,
+                            MIXTRAL_MESH_LAYERS, 2)}
+    print(f"[model_mesh] {cfg.name}: decode rules "
+          f"{outs[0]['qwen']['decode_rules']} (batch {MODEL_MESH_BATCH} < "
+          f"32: the batch is not split) shard "
+          f"{outs[0]['qwen']['decode_rules_on_model']} over model; each "
+          f"rank held {outs[0]['shard_gb']:.2f} GB after placing its shards "
+          f"(peak {outs[0]['draw_peak_gb']:.2f} GB while drawing them)")
+    moved, fresh = outs[0]["elastic"]
+    same = torch.equal(moved, fresh) and torch.equal(outs[1]["elastic"][0],
+                                                     outs[1]["elastic"][1])
+    print(f"[model_mesh] elastic restore: the 4-rank shards resharded onto "
+          f"resize_mesh(level=0.5, model_parallel=2) in "
+          f"{outs[0]['reshard_s']:.2f} s; its prefill and decode step equal "
+          f"the 2-rank build's bit for bit: {same}")
+    if not same:
+        raise AssertionError("model mesh: the elastic restore's step "
+                             "differs from the 2-rank build's")
+    launches, device = [], []
+    for r, o in enumerate(outs):
+        n = {k: o["qwen"]["launches"][k] + o.get("mixtral", {}).get(
+            "launches", {}).get(k, 0) for k in o["qwen"]["launches"]}
+        dl = {k: o["qwen"]["device_launches"][k] + o.get("mixtral", {}).get(
+            "device_launches", {}).get(k, 0) for k in n}
+        plain_calls = {k: v for k, v in o["plain_calls"].items() if v}
+        print(f"[model_mesh] rank {r}: launches {n}, kernels on the card "
+              f"{dl}, plain attention calls {plain_calls or 0}")
+        if any(v == 0 for v in n.values()) or any(
+                dl[k] < n[k] for k in n) or plain_calls:
+            raise AssertionError(f"model mesh: rank {r} ran a plain "
+                                 f"version or launched no kernel")
+        launches.append(n)
+        device.append(dl)
+    times = _mesh_kernel_times(dev)
+    print(f"[model_mesh] phase: {time.perf_counter() - t_start:.1f} s "
+          f"(single-device references {t_single:.1f} s, ranks "
+          f"{t_ranks:.1f} s)")
+    return {"launches": launches, "device_launches": device, "errs": errs,
+            "times": times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs only on "
@@ -5782,6 +6324,7 @@ def main() -> int:
     t0 = time.perf_counter()
     int8 = phase_int8_serving(dev, serve)
     print(f"[int8] int8 phase: {time.perf_counter() - t0:.1f} s")
+    model_mesh = phase_model_mesh(dev, serve)
     del serve
     gc.collect()                  # free qwen's weights before mamba2's
     torch.cuda.empty_cache()
@@ -5885,6 +6428,16 @@ def main() -> int:
         if rec["name"] in ROW_MESH_KERNELS:
             for key in ("launches", "device_launches"):
                 rec[f"sharded_{key}"] = [m[rec["name"]] for m in mesh[key]]
+    # the model mesh's ranks: each rank's flash and decode launches, and
+    # the kernels' times at one rank's shapes
+    for rec, part in ((flash, "flash"), (dec, "decode")):
+        for key in ("launches", "device_launches"):
+            rec[f"model_mesh_{key}"] = [m[rec["name"]]
+                                        for m in model_mesh[key]]
+        for key in ("ms", "bound_ms", "plain_ms", "library_ms"):
+            rec[f"model_mesh_{key}"] = {
+                arch: t[f"{part}_{key}"]
+                for arch, t in model_mesh["times"].items()}
     ssd = next(r for r in kernels if r["name"] == "ssd_scan")
     ssd["train_max_grad_err"] = train_errs["ssd_scan"]
     ssd.pop("hybrid_profiler_empty_sessions")    # all three shapes':

@@ -14,9 +14,11 @@ tuples and lists over tensors, numpy arrays and numbers.
 
 Async: ``save(..., blocking=False)`` copies the leaves to host memory and
 writes them in a background thread, so the caller resumes after the copy,
-not after the write. Placement on a JAX mesh (the reference's
-``shardings=``) comes with the LLM stack; leaves restore onto the device
-of the template's tensors.
+not after the write. Leaves restore onto the device of the template's
+tensors or, with ``shardings=`` (a matching tree of
+`repro_torch.parallel.axes.NamedSharding`s, the elastic-restore path),
+straight onto a mesh: each rank keeps its own shard of each leaf as a
+DTensor (a rank outside that mesh gets None), whatever mesh wrote it.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.axes import distribute
 
 
 def _items(tree: Any, prefix: tuple = ()):
@@ -137,9 +141,12 @@ class SaveHandle:
 
 
 def load_checkpoint(directory: str | Path, template: Any, *,
-                    step: Optional[int] = None) -> tuple[Any, dict]:
+                    step: Optional[int] = None,
+                    shardings: Any = None) -> tuple[Any, dict]:
     """Restore the latest (or a specific) step into ``template``'s
-    structure; returns ``(tree, metadata | {"step": step})``."""
+    structure; returns ``(tree, metadata | {"step": step})``.
+    ``shardings``: a matching tree of `NamedSharding`s that places every
+    leaf on its mesh (on the template leaf's device)."""
     directory = Path(directory)
     if step is None:
         steps = sorted(directory.glob("step_*"))
@@ -153,15 +160,24 @@ def load_checkpoint(directory: str | Path, template: Any, *,
     for shard in sorted(stepdir.glob("shard_*.npz")):
         with np.load(shard) as z:
             arrays.update({k: z[k] for k in z.files})
+    shards = [s for _, s in _items(shardings)] if shardings is not None \
+        else None
     leaves = []
-    for key, leaf in _items(template):
+    for i, (key, leaf) in enumerate(_items(template)):
         if key not in arrays:
             raise KeyError(f"checkpoint missing leaf {key!r}")
         arr = arrays[key]
         want = tuple(np.shape(leaf))
         if tuple(arr.shape) != want:
             raise ValueError(f"{key}: checkpoint {arr.shape} != {want}")
-        leaves.append(_from_host(arr, manifest["dtypes"][key], leaf))
+        if shards is None:
+            leaves.append(_from_host(arr, manifest["dtypes"][key], leaf))
+            continue
+        full = _from_host(arr, manifest["dtypes"][key], leaf.new_empty(
+            (), device="cpu"))
+        sh = shards[i]
+        leaves.append(distribute(full, sh.mesh, sh.placements, leaf.device)
+                      if sh.mesh.get_coordinate() is not None else None)
     return _rebuild(template, iter(leaves)), \
         manifest["metadata"] | {"step": manifest["step"]}
 
@@ -188,11 +204,12 @@ class CheckpointManager:
         self._gc()
         return handle
 
-    def restore(self, template: Any, *,
-                step: Optional[int] = None) -> tuple[Any, dict]:
+    def restore(self, template: Any, *, step: Optional[int] = None,
+                shardings: Any = None) -> tuple[Any, dict]:
         self.wait()
         t0 = time.perf_counter()
-        out = load_checkpoint(self.directory, template, step=step)
+        out = load_checkpoint(self.directory, template, step=step,
+                              shardings=shardings)
         self.last_restore_s = time.perf_counter() - t0
         return out
 

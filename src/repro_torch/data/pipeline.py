@@ -113,12 +113,10 @@ def host_shard(batch: dict, host_index: int, n_hosts: int) -> dict:
 
 
 def global_batch_sharding(mesh, rules):
-    """The reference's NamedSharding of batch pytrees over a mesh: not
-    ported, it comes with the mesh slice (queue 1 item 9)."""
-    raise NotImplementedError(
-        "global_batch_sharding needs a device mesh, which comes with the "
-        "mesh slice (ROADMAP queue 1 item 9); on one device the batch is "
-        "not sharded")
+    """The `NamedSharding` of batch trees ([B, S] leaves) under ``rules``
+    on ``mesh``: rows over the batch axes."""
+    from repro_torch.parallel.axes import named_sharding
+    return named_sharding("batch", None, mesh=mesh, rules=rules)
 
 
 def to_numpy(batch: dict) -> dict:

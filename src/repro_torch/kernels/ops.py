@@ -8,7 +8,11 @@ TPU; the port's kernels read the model's
 [B, S, heads, Dh] layout through strides, pick their own 64-row tiles and
 mask the ragged edge themselves. ``bq``/``bkv`` are accepted so that call
 sites keep their shape, and ignored. The route follows the tensors'
-device: kernels on CUDA tensors, their plain versions on CPU tensors.
+device: kernels on CUDA tensors, their plain versions on CPU tensors,
+and on meta tensors (the dry run, `repro_torch.launch.dryrun`) a
+shape-only path that returns an empty output of the right shape and adds
+the attention's matrix-product FLOPs to the active count
+(`repro_torch.launch.hlo_analysis.add_flops`); no other device takes it.
 
 `ssd_scan` keeps the reference's contract: it zero-pads the sequence to a
 chunk multiple and cuts the padding off y. The kernel carries the state
@@ -36,6 +40,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     returns [B,Sq,H,Dh]. Causal/window masks are positional with
     ``q_offset`` added to query positions (chunked prefill)."""
     del bq, bkv
+    if q.device.type == "meta":
+        return _shape_only(q, k.shape[1])
     return _flash.flash_attention(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset)
 
@@ -46,9 +52,22 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """One-token attention against a cache. q: [B,1,H,Dh];
     k,v: [B,W,G,Dh]; valid: [B,W] int8 or bool. Returns [B,1,H,Dh]."""
     del bkv
+    if q.device.type == "meta":
+        return _shape_only(q, k.shape[1])
     if valid.dtype != torch.int8:
         valid = valid.to(torch.int8)
     return _decode.decode_attention(q, k, v, valid)
+
+
+def _shape_only(q: torch.Tensor, kv_len: int) -> torch.Tensor:
+    """Meta tensors only: the attention output [B, Sq, H, Dh] (empty) and
+    its two products' FLOPs, 2 x 2 B H Sq Skv Dh (every key, masked or
+    not, as the reference's blockwise attention computes them)."""
+    from repro_torch.launch.hlo_analysis import add_flops
+
+    b, sq, h, dh = q.shape
+    add_flops(4.0 * b * h * sq * kv_len * dh)
+    return torch.empty_like(q)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

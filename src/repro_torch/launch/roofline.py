@@ -3,12 +3,11 @@
 
 `param_counts` and `model_flops` are pure Python over the config and
 port verbatim: the standard 6ND / 2ND conventions plus the attention and
-SSD terms. `roofline_from_record` reads the reference's HLO dry-run
-records, which come with the dry-run tools of the mesh slice (ROADMAP
-queue 1 item 9), and raises. The reference's hardware constants are a
-TPU v5e's and are not carried over; where the port needs a peak it uses
-an NVIDIA H100 SXM's nominal figures, named below (NVIDIA's data sheet,
-dense rates at the 700 W power limit; a card set lower runs slower).
+SSD terms. `roofline_from_record` reads a dry-run record of the port
+(`repro_torch.launch.dryrun`). The reference's hardware constants are a
+TPU v5e's and are not carried over; the port uses an NVIDIA H100 SXM's
+nominal figures, named below (NVIDIA's data sheet, dense rates at the
+700 W power limit; a card set lower runs slower).
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ from repro_torch.configs.base import ModelConfig, ShapeSpec
 
 H100_SXM_BF16_FLOPS = 989e12      # dense bf16 tensor-core FLOP/s
 H100_SXM_HBM_BYTES_PER_S = 3.35e12
+H100_SXM_NVLINK_BYTES_PER_S = 450e9   # one direction (900 GB/s both)
 
 
 # ---------------------------------------------------------------------------
@@ -157,8 +157,22 @@ class RooflineRow:
 
 def roofline_from_record(rec: dict, cfg: ModelConfig,
                          shape: ShapeSpec) -> RooflineRow:
-    """The roofline row of a reference HLO dry-run record: not ported."""
-    raise NotImplementedError(
-        "roofline_from_record reads the reference's HLO dry-run records, "
-        "which come with the mesh slice's dry-run tools (ROADMAP queue 1 "
-        "item 9)")
+    """The roofline row of a dry-run record: its per-rank FLOPs, bytes and
+    collective wire bytes over an H100's peak rates."""
+    n_dev = 1
+    for v in rec["mesh_shape"].values():
+        n_dev *= v
+    hlo = rec["hlo"]
+    compute = hlo["flops"] / H100_SXM_BF16_FLOPS
+    memory = hlo["bytes_accessed"] / H100_SXM_HBM_BYTES_PER_S
+    coll = hlo["total_collective_wire"] / H100_SXM_NVLINK_BYTES_PER_S
+    bound = max((compute, "compute"), (memory, "memory"),
+                (coll, "collective"))[1]
+    mf = model_flops(cfg, shape)
+    hlo_global = hlo["flops"] * n_dev
+    return RooflineRow(
+        arch=rec["arch"], shape=rec["shape"], mesh=rec["mesh"],
+        compute_s=compute, memory_s=memory, collective_s=coll,
+        bound=bound, model_flops=mf, hlo_flops_global=hlo_global,
+        useful_frac=mf / max(hlo_global, 1e-30), fits=rec["fits"],
+        peak_gib=rec["memory"]["peak_bytes"] / 2 ** 30)

@@ -2,8 +2,9 @@
 layers, attention, MoE FFN and assembly here (serving and the training
 loss)."""
 
-from repro_torch.models.model import (decode_step, init_cache, init_params,
-                                      loss_fn, params_from_numpy, prefill)
+from repro_torch.models.model import (cache_specs, decode_step, init_cache,
+                                      init_params, loss_fn, param_specs,
+                                      params_from_numpy, prefill)
 
 __all__ = [
     "init_params",
@@ -12,4 +13,6 @@ __all__ = [
     "prefill",
     "decode_step",
     "init_cache",
+    "cache_specs",
+    "param_specs",
 ]

@@ -19,10 +19,17 @@ weights; the port does the same in PyTorch operations on the cache's
 device (`decode_attention_int8`, which counts its calls), chosen by the
 cache's dtype.
 
-The reference's ``constrain`` and ``_tp_align_heads`` are the identity on
-one device and are not ported, nor is its head-aligned cache
-(``cfg.kv_cache_align``): they come with the mesh slice (queue 1 item 9),
-and such a config raises.
+Tensor parallelism (under a live mesh, `repro_torch.parallel.axes`): the
+reference's ``constrain`` points place Q/K/V on ``heads`` / ``kv_heads``
+over ``model`` after `_tp_align_heads` made the head counts divisible by
+the model axis. The kernels then run on each rank's own heads: their
+wrappers receive the DTensors' local shards, made contiguous (the ctypes
+kernels read raw pointers), and the output goes back as a DTensor with
+the query's placements. Decode writes its new K/V into the rank's own
+shard of the cache. The head-aligned cache (``cfg.kv_cache_align``,
+`ModelConfig.cache_heads`) stores the KV heads replicated to that count,
+so that the cache shards evenly over ``model`` and decode needs no
+collective for it.
 """
 
 from __future__ import annotations
@@ -35,15 +42,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import (_dtype, normal_init, rope_cos_sin,
-                                       rotate)
-
-
-def check_cache_layout(cfg: ModelConfig) -> None:
-    """Raise for the head-aligned cache, which comes with the mesh."""
-    if cfg.cache_heads != cfg.n_kv_heads:
-        raise NotImplementedError(
-            "kv_cache_align (a cache with replicated KV heads) is not "
-            "ported yet: it comes with the mesh slice (queue 1 item 9)")
+                                       rotate, row_parallel)
+from repro_torch.parallel.axes import (axis_size, constrain, current_mesh,
+                                       is_dtensor, like, local, redistribute,
+                                       replicated, shard_offsets)
 
 
 class AttnCache(NamedTuple):
@@ -109,21 +111,73 @@ def _proj(x: torch.Tensor, w: torch.Tensor, cdt: torch.dtype
 
 def _project_qkv(x, x_kv, p, cfg: ModelConfig):
     cdt = _dtype(cfg.dtype)
-    q = _proj(x, p["wq"], cdt)
-    k = _proj(x_kv, p["wk"], cdt)
-    v = _proj(x_kv, p["wv"], cdt)
+    x = constrain(x, "batch", None, None)
+    x_kv = x if x_kv is None else constrain(x_kv, "batch", None, None)
+    q = _proj(x, constrain(p["wq"], None, "heads", None), cdt)
+    k = _proj(x_kv, constrain(p["wk"], None, "kv_heads", None), cdt)
+    v = _proj(x_kv, constrain(p["wv"], None, "kv_heads", None), cdt)
     if "bq" in p:
-        q = q + p["bq"].to(cdt)
-        k = k + p["bk"].to(cdt)
-        v = v + p["bv"].to(cdt)
+        q = q + constrain(p["bq"], "heads", None).to(cdt)
+        k = k + constrain(p["bk"], "kv_heads", None).to(cdt)
+        v = v + constrain(p["bv"], "kv_heads", None).to(cdt)
     return q, k, v
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor, cdt: torch.dtype
               ) -> torch.Tensor:
-    """out [B,S,H,Dh] @ wo [H,Dh,D] -> [B,S,D]."""
+    """out [B,S,H,Dh] @ wo [H,Dh,D] -> [B,S,D] (under a mesh: float32,
+    a partial sum over ``model`` when the heads are split over it; see
+    `layers.row_parallel`)."""
+    wo = constrain(wo, "heads", None, None)
+    out = constrain(out, "batch", None, "heads", None)
     h, dh, d = wo.shape
-    return torch.matmul(out.flatten(-2), wo.to(cdt).reshape(h * dh, d))
+    return row_parallel(out.flatten(-2), wo.reshape(h * dh, d), cdt)
+
+
+def _tp_align_heads(q, k, v):
+    """Align head counts to the tensor-parallel width (the reference's
+    Megatron GQA layout), exactly:
+
+      * H, G both divisible by TP: untouched;
+      * H divisible, TP divisible by G: KV heads replicated to TP
+        (adjacent copies keep the grouped q -> kv mapping);
+      * otherwise: KV replicated to H (MHA) and Q, K, V zero-padded to
+        the next multiple of TP; the caller slices the padded heads off.
+
+    Returns (q, k, v, h_orig). A head dimension that is changed here is
+    not sharded (its count does not divide TP), so each rank changes its
+    own copy and the global shape follows."""
+    tp = axis_size("model")
+    h, g = q.shape[-2], k.shape[-2]
+    if tp <= 1 or (h % tp == 0 and g % tp == 0):
+        return q, k, v, h
+    if h % tp == 0 and tp % g == 0 and g < tp:
+        k, v = (_repeat_heads(t, tp // g) for t in (k, v))
+        return q, k, v, h
+    if h // g > 1:
+        k, v = (_repeat_heads(t, h // g) for t in (k, v))
+    h_pad = -(-h // tp) * tp
+    if h_pad != h:
+        q, k, v = (_pad_heads(t, h_pad) for t in (q, k, v))
+    return q, k, v, h
+
+
+def _repeat_heads(x, rep: int):
+    """Each head of x [..., G, Dh] repeated ``rep`` times in place (G*rep
+    heads). Rank-local for a DTensor: a rank's shard of the repeated
+    heads is the repeat of its shard of the heads."""
+    out = local(x).repeat_interleave(rep, dim=-2)
+    shape = tuple(x.shape[:-2]) + (x.shape[-2] * rep, x.shape[-1])
+    return like(out, x, shape)
+
+
+def _pad_heads(x, n: int):
+    """x [..., H, Dh] zero-padded to n heads (H not sharded)."""
+    loc = local(x)
+    pad = loc.new_zeros(tuple(loc.shape[:-2]) + (n - x.shape[-2],
+                                                 loc.shape[-1]))
+    shape = tuple(x.shape[:-2]) + (n, x.shape[-1])
+    return like(torch.cat([loc, pad], dim=-2), x, shape)
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -138,6 +192,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     passed for parity and do not change the result. With grad mode on and
     an input that requires grad, the call goes through `FlashAttention`,
     which launches the same kernel and gives it a backward."""
+    if current_mesh() is not None:
+        return _mesh_flash(q, k, v, cfg, causal, window, q_offset)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, int(window),
@@ -145,6 +201,35 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return kops.flash_attention(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset, bq=cfg.attn_q_chunk,
                                 bkv=cfg.attn_kv_chunk)
+
+
+def _on_local_heads(fn, q, k, v):
+    """Attention under a live mesh: heads aligned (`_tp_align_heads`) and
+    sharded over ``model`` (the reference's constrain points), ``fn`` (a
+    kernel call) on each rank's contiguous local q, k, v, the output a
+    DTensor placed as the query, the padded heads cut off."""
+    h_orig = q.shape[2]
+    q, k, v, _ = _tp_align_heads(q, k, v)
+    q, k, v = (constrain(t, "batch", None, "heads", None) for t in (q, k, v))
+    out = fn(*(local(t).contiguous() for t in (q, k, v)))
+    out = like(out.contiguous(), q, q.shape)
+    if q.shape[2] != h_orig:               # padded heads never reach wo
+        out = constrain(out, "batch", None, None, None)[:, :, :h_orig]
+    return out
+
+
+def _mesh_flash(q, k, v, cfg: ModelConfig, causal: bool, window: int,
+                q_offset: int):
+    """Full-sequence attention under a live mesh: the flash kernel on each
+    rank's heads."""
+    def flash(ql, kl, vl):
+        if torch.is_grad_enabled() and (ql.requires_grad or kl.requires_grad
+                                        or vl.requires_grad):
+            return FlashAttention.apply(ql, kl, vl, causal, int(window),
+                                        int(q_offset))
+        return kops.flash_attention(ql, kl, vl, causal=causal, window=window,
+                                    q_offset=q_offset)
+    return _on_local_heads(flash, q, k, v)
 
 
 BWD_TILE = 128   # query rows a step of the backward: [B, H, 128, Skv] f32
@@ -284,19 +369,28 @@ def attention_layer(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
 
     if cross_kv is not None:
         k, v = cross_kv
-        q = _proj(x, p["wq"], cdt)
+        q = _proj(constrain(x, "batch", None, None),
+                  constrain(p["wq"], None, "heads", None), cdt)
         if "bq" in p:
-            q = q + p["bq"].to(cdt)
+            q = q + constrain(p["bq"], "heads", None).to(cdt)
         if x.shape[1] == 1:   # decode: q len 1, all encoder slots valid
             if valid is None:
                 valid = torch.ones(k.shape[:2], dtype=torch.int8,
-                                   device=k.device)
-            out = _decode_attention(q, k.to(cdt), v.to(cdt), valid, cfg)
+                                   device=local(k).device)
+            if current_mesh() is not None:
+                rows = local(constrain(valid, "batch", None))
+                out = _on_local_heads(lambda ql, kl, vl: _decode_attention(
+                    ql, kl.to(cdt), vl.to(cdt), rows, cfg), q, k, v)
+            else:
+                out = _decode_attention(q, k.to(cdt), v.to(cdt), valid, cfg)
         else:
             out = blockwise_attention(q, k, v, cfg, causal=False)
         return _out_proj(out, p["wo"], cdt), None
 
     q, k, v = _project_qkv(x, x if x_kv is None else x_kv, p, cfg)
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
 
     if cache is None:
         if use_rope:
@@ -306,7 +400,13 @@ def attention_layer(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         out = blockwise_attention(q, k, v, cfg, causal=causal,
                                   window=window)
         o = _out_proj(out, p["wo"], cdt)
-        return o, ((k, v) if return_kv else None)
+        if return_kv:
+            # collected K/V feed the decode cache: placed like the cache
+            # (positions over `model` under the training rules)
+            k = constrain(k, "batch", "cache_seq", None, None)
+            v = constrain(v, "batch", "cache_seq", None, None)
+            return o, (k, v)
+        return o, None
 
     # ---- decode path -----------------------------------------------------
     if x.shape[1] != 1:
@@ -317,6 +417,12 @@ def attention_layer(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         rope = rope or rope_cos_sin(pos[:, None], q.shape[-1],
                                     cfg.rope_theta)
         q, k = rotate(q, rope), rotate(k, rope)
+    if cache.k.shape[2] != k.shape[2]:   # aligned cache: replicate kv heads
+        k, v = (_repeat_heads(t, cache.k.shape[2] // k.shape[2])
+                for t in (k, v))
+    if is_dtensor(cache.k):
+        out = _mesh_decode(q, k, v, cache, pos, valid, cfg)
+        return _out_proj(out, p["wo"], cdt), cache
     w = cache.k.shape[1]
     rows = torch.arange(b, device=x.device)
     slot = pos.long() % w                   # rolling for SWA; linear: pos
@@ -333,6 +439,72 @@ def attention_layer(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         out = _decode_attention(q, cache.k.to(cdt), cache.v.to(cdt), valid,
                                 cfg)
     return _out_proj(out, p["wo"], cdt), cache
+
+
+def _decode_placements(cache_k) -> tuple:
+    """Placements of a decode step's q / new k, v [B, 1, H, Dh] that
+    match a cache [B, W, G, Dh]: the cache's batch and head shards, every
+    other mesh axis replicated (a cache split over positions is gathered
+    for the kernel, and each position's owner writes it)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(p if isinstance(p, Shard) and p.dim in (0, 2)
+                 else Replicate() for p in cache_k.placements)
+
+
+def _write_local(buf: torch.Tensor, new: torch.Tensor, slot: torch.Tensor,
+                 w0: int) -> None:
+    """Write ``new`` [Bl, ...] into the rank's cache shard buf [Bl, Wl,
+    ...] at global slots ``slot`` [Bl], the rows whose slot lies in the
+    shard's positions [w0, w0 + Wl) only (no host synchronisation)."""
+    wl = buf.shape[1]
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    hit = (slot >= w0) & (slot < w0 + wl)
+    at = (slot - w0).clamp(0, wl - 1)
+    keep = hit.view((-1,) + (1,) * (new.ndim - 1))
+    buf[rows, at] = torch.where(keep, new.to(buf.dtype), buf[rows, at])
+
+
+def _mesh_decode(q, k, v, cache: AttnCache, pos, valid, cfg: ModelConfig):
+    """One decode step's attention under a live mesh. The cache and
+    ``valid`` are DTensors; q, k, v are placed on the cache's batch and
+    head shards; each rank writes its rows' new K/V into its own shard of
+    the cache in place, and the decode kernel (or the int8 route) runs on
+    the rank's heads. Returns the output [B, 1, H, Dh] as a DTensor."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = _decode_placements(cache.k)
+    q, k, v = (redistribute(replicated(t), pl) for t in (q, k, v))
+    b0, w0 = shard_offsets(cache.k)[:2]
+    bl = local(cache.k).shape[0]
+    slot = pos.long()[b0:b0 + bl] % cache.k.shape[1]
+    quant = cache.k_scale is not None
+    if quant:
+        (kq, ks), (vq, vs) = quantize_kv(local(k)[:, 0]), \
+            quantize_kv(local(v)[:, 0])
+        for buf, new in ((cache.k, kq), (cache.v, vq), (cache.k_scale, ks),
+                         (cache.v_scale, vs)):
+            _write_local(local(buf), new, slot, w0)
+    else:
+        _write_local(local(cache.k), local(k)[:, 0], slot, w0)
+        _write_local(local(cache.v), local(v)[:, 0], slot, w0)
+
+    def whole(t):                     # every position of the rank's rows
+        if t is None:
+            return None
+        full = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1
+                     else p for p in t.placements)
+        return local(redistribute(t, full))
+    kk, vv = whole(cache.k), whole(cache.v)
+    ql, vld = local(q).contiguous(), local(valid)
+    if quant:
+        out = decode_attention_int8(ql, kk, vv, vld, whole(cache.k_scale),
+                                    whole(cache.v_scale))
+    else:
+        cdt = _dtype(cfg.dtype)
+        out = _decode_attention(ql, kk.to(cdt).contiguous(),
+                                vv.to(cdt).contiguous(), vld, cfg)
+    return like(out.contiguous(), q, q.shape)
 
 
 def decode_valid(pos_buf: torch.Tensor, pos: torch.Tensor,
@@ -391,11 +563,11 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_seq: int,
                     window: Optional[int] = None) -> AttnCache:
     """An empty cache of W = min(window, max_seq) slots; ``window``
     defaults to ``cfg.swa_window`` (or ``max_seq`` without one). An int8
-    cache carries zero [B, W, G] float32 scales."""
-    check_cache_layout(cfg)
+    cache carries zero [B, W, G] float32 scales (G: `cfg.cache_heads`,
+    the KV heads as the cache stores them)."""
     w = window if window is not None else (cfg.swa_window or max_seq)
     w = min(w, max_seq)
-    g, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    g, dh = cfg.cache_heads, cfg.resolved_head_dim
     kv_dt = _dtype(cfg.kv_cache_dtype)
     shp = (batch, w, g, dh)
     quant = cfg.kv_cache_dtype == "int8"

@@ -90,7 +90,10 @@ def route_and_dispatch(x2d: torch.Tensor, router: torch.Tensor,
 
     # Switch-style load-balance auxiliary: E * sum_e f_e * P_e
     eid = top_i.reshape(-1)                              # [T*k]
-    counts = torch.bincount(eid, minlength=e)            # [E]
+    # counts per expert [E] (`index_add_`, not `bincount`: it also runs
+    # on the dry run's meta tensors)
+    counts = torch.zeros(e, dtype=eid.dtype, device=eid.device) \
+        .index_add_(0, eid, torch.ones_like(eid))
     dispatch_frac = counts.to(rdt) / (t * k)
     aux = e * torch.sum(dispatch_frac * probs.mean(dim=0))
 

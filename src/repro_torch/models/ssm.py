@@ -21,8 +21,14 @@ Two departures:
   agree (a prompt prefilled and one decoded token by token give the same
   conv outputs); at float32 nothing changes.
 
-The reference's ``constrain`` calls are the identity on one device and are
-not ported.
+Under a live mesh (`repro_torch.parallel.axes.use_sharding`) a block runs
+data-parallel: its input is placed on the batch axes only (the
+reference's replicated ``zxbcdt`` pin), its weights are gathered whole,
+and each rank runs the one-device block on its own rows (the SSD kernel
+on every head of them); the output and the new cache go back to their
+placements. The reference's finer pins (x and dt over heads for the
+scan, the conv's x part over ``model``) are not followed: tensor
+parallelism inside a Mamba2 block is not ported (ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -36,6 +42,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import _dtype, normal_init, rms_norm
+from repro_torch.parallel.axes import (SINGLE_DEVICE_RULES, constrain,
+                                       current_mesh, like, local,
+                                       use_sharding)
 
 N_GROUPS = 1  # B/C projection groups (Mamba2-1.3b uses 1)
 
@@ -277,6 +286,8 @@ def ssm_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
 
     Full-sequence when cache is None (returns (out, None)); single-token
     decode otherwise (returns (out, the new cache))."""
+    if current_mesh() is not None:
+        return _data_parallel(ssm_block, x, p, cfg, cache)
     cdt = _dtype(cfg.dtype)
     d_in, nh, hp, n, _ = _dims(cfg)
     z, xin, b, c, dt, a_coef = _in_proj(x, p, cfg)
@@ -318,6 +329,8 @@ def ssm_prefill_with_cache(x: torch.Tensor, p: dict, cfg: ModelConfig
     """Full-sequence forward that also returns the decode cache (serving
     prefill). The conv state is the last K-1 inputs of x|B|C, left-padded
     with zeros when the prompt is shorter (see the module's docstring)."""
+    if current_mesh() is not None:
+        return _data_parallel(ssm_prefill_with_cache, x, p, cfg)
     cdt = _dtype(cfg.dtype)
     z, xin, b, c, dt, a_coef = _in_proj(x, p, cfg)
     tail = cfg.ssm_conv - 1
@@ -326,6 +339,32 @@ def ssm_prefill_with_cache(x: torch.Tensor, p: dict, cfg: ModelConfig
         xbc = F.pad(xbc, (0, 0, tail - xbc.shape[1], 0))
     out, h_last = _full_sequence(x, p, cfg, z, xin, b, c, dt, a_coef)
     return out, SSMCache(xbc.to(cdt), h_last)
+
+
+_CACHE_AXES = SSMCache(conv=("batch", None, "ffn"),
+                       state=("batch", "heads", None, None))
+
+
+def _data_parallel(fn, x, p, cfg: ModelConfig, cache=None):
+    """``fn`` (a block on one device) on this rank's rows under a mesh:
+    x on the batch axes, the weights whole, the cache on the batch axes;
+    the output placed as x and the new cache (if any) on the reference's
+    cache axes ([B, ...] leaves, split over the batch as x is)."""
+    x = constrain(x, "batch", None, None)
+    w = {k: local(constrain(v, *((None,) * v.ndim))) for k, v in p.items()}
+    kw = {}
+    if fn is ssm_block:
+        kw["cache"] = None if cache is None else SSMCache(
+            *(local(constrain(t, "batch", *((None,) * (t.ndim - 1))))
+              for t in cache))
+    with use_sharding(None, SINGLE_DEVICE_RULES):
+        out, new = fn(local(x), w, cfg, **kw)
+    out = like(out.contiguous(), x, tuple(x.shape[:2]) + (out.shape[-1],))
+    if new is None:
+        return out, None
+    return out, SSMCache(*(
+        constrain(like(t.contiguous(), x, (x.shape[0],) + tuple(t.shape[1:])),
+                  *axes) for t, axes in zip(new, _CACHE_AXES)))
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int,

@@ -57,11 +57,16 @@ def xla_trace(label: str):
         trace_event("profile.trace", {"label": label, "dir": trace_dir})
 
 
-def record_compiled(label: str, compiled) -> dict:
-    """The reference captures XLA's cost and memory analyses of a
-    compiled program here, through `launch.hlo_analysis`; that module
-    comes to the port with the mesh slice (ROADMAP queue 1)."""
-    raise NotImplementedError(
-        "record_compiled reads XLA's cost analysis through "
-        "launch.hlo_analysis, which comes to the port with the mesh slice "
-        "(ROADMAP queue 1)")
+def record_compiled(label: str, report) -> dict:
+    """Capture a step's counted work into a ``profile.xla`` event (the
+    reference's name; there it reads XLA's cost and memory analyses of a
+    compiled program). ``report``: the `HLOReport` of
+    `repro_torch.launch.hlo_analysis.analyze`, or its ``as_dict()``.
+    Returns the payload, so benchmark code can fold it into its records.
+    Works whether or not a run is active."""
+    rep = report if isinstance(report, dict) else report.as_dict()
+    payload = {"label": label, "flops": float(rep["flops"]),
+               "bytes_accessed": float(rep["bytes_accessed"]),
+               "collective_bytes": float(rep["total_collective_payload"])}
+    trace_event("profile.xla", payload)
+    return payload

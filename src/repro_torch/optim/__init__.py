@@ -1,6 +1,5 @@
 """Optimizer substrate: AdamW, schedules, clipping, gradient compression
-(the quantise / de-quantise round trip; the reduction over a mesh axis
-comes with the mesh slice)."""
+(the quantise / de-quantise round trip and its mean over a mesh axis)."""
 
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState, adamw_init,
                                      adamw_update, clip_by_global_norm,

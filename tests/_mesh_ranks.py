@@ -70,15 +70,12 @@ def job_collectives(rank, spec):
         out["gather"] = _np(axes.all_gather(
             torch.arange(3, dtype=torch.int8) + 10 * rank, "rows"))
         out["axis_size"] = (axes.axis_size("rows"), axes.axis_size("data"))
-        try:
-            axes.constrain(torch.ones(2), "batch")
-        except NotImplementedError as e:
-            out["constrain"] = str(e)
-        out["constrain_none"] = axes.constrain(torch.ones(2), None).tolist()
-        try:
-            axes.named_sharding("batch")
-        except NotImplementedError as e:
-            out["named_sharding"] = str(e)
+        placed = axes.constrain(torch.ones(2), "batch")
+        out["constrain"] = (type(placed).__name__,
+                            [type(p).__name__ for p in placed.placements])
+        out["constrain_none"] = axes.local(
+            axes.constrain(torch.ones(2), None)).tolist()
+        out["named_sharding"] = tuple(axes.named_sharding("batch").spec)
         r = np.random.default_rng(rank)
         grads = {"a": torch.as_tensor(r.normal(size=(3, 4)),
                                       dtype=torch.float32),

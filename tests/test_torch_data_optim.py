@@ -4,6 +4,8 @@ CPU. All of these match exactly: the pipeline with the reference's
 uniforms injected (the tokens, labels and mask), the schedules bit for
 bit, quantise / de-quantise bit for bit, the counts as Python numbers."""
 
+import types
+
 import numpy as np
 import pytest
 
@@ -110,8 +112,16 @@ def test_host_shard_partitions_the_batch():
         for i, s in enumerate(shards):
             np.testing.assert_array_equal(
                 s[k].numpy(), np.asarray(jpipe.host_shard(jbatch, i, 4)[k]))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        global_batch_sharding(None, None)
+    # the batch sharding on a (pod, data, model) mesh: rows over pod and
+    # data, as the reference's on a one-device mesh of the same axes
+    mesh = types.SimpleNamespace(mesh_dim_names=("pod", "data", "model"),
+                                 shape=(2, 2, 2))
+    jmesh = jax.make_mesh((1, 1, 1), ("pod", "data", "model"))
+    from repro.parallel.axes import TRAIN_RULES as JRULES
+    from repro_torch.parallel.axes import TRAIN_RULES
+    assert tuple(global_batch_sharding(mesh, TRAIN_RULES).spec) \
+        == tuple(jpipe.global_batch_sharding(jmesh, JRULES).spec) \
+        == (("pod", "data"), None)
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +219,17 @@ def test_param_counts_and_model_flops_equal_the_reference():
                                             shp.global_batch, shp.kind)
                 assert roofline.model_flops(cfg, port_shape) \
                     == jroof.model_flops(jcfg, shp), (arch, shp.name)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        roofline.roofline_from_record({}, base.get_config("qwen1.5-0.5b"),
-                                      base.SHAPES["train_4k"])
+    # a dry-run record's row: its per-rank counts over the H100's rates
+    rec = {"arch": "qwen1.5-0.5b", "shape": "train_4k", "mesh": "pod16x16",
+           "mesh_shape": {"data": 16, "model": 16}, "fits": True,
+           "memory": {"peak_bytes": 2 ** 31},
+           "hlo": {"flops": 2e13, "bytes_accessed": 1e10,
+                   "total_collective_wire": 9e9}}
+    cfg, shape = base.get_config("qwen1.5-0.5b"), base.SHAPES["train_4k"]
+    row = roofline.roofline_from_record(rec, cfg, shape)
+    assert row.compute_s == 2e13 / roofline.H100_SXM_BF16_FLOPS
+    assert row.memory_s == 1e10 / roofline.H100_SXM_HBM_BYTES_PER_S
+    assert row.collective_s == 9e9 / roofline.H100_SXM_NVLINK_BYTES_PER_S
+    assert row.bound == "compute" and row.peak_gib == 2.0
+    assert row.hlo_flops_global == 2e13 * 256
+    assert row.model_flops == roofline.model_flops(cfg, shape)

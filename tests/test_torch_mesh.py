@@ -348,8 +348,9 @@ def test_collectives_values_and_backward(ranks):
                                       [[0, 1, 2], [10, 11, 12]])
         assert out["gather"].dtype == np.int8
         assert out["axis_size"] == (2, 1)
-        assert "model-mesh slice" in out["constrain"]
-        assert "model-mesh slice" in out["named_sharding"]
+        # the row mesh binds no axis of the batch rules: replicated
+        assert out["constrain"] == ("DTensor", ["Replicate"])
+        assert out["named_sharding"] == (None,)
         assert out["constrain_none"] == [1.0, 1.0]
         assert out["too_many"].startswith("row_mesh(3) but only 2")
 

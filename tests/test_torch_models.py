@@ -251,12 +251,22 @@ def test_init_cache_matches_reference():
 
 @pytest.mark.parametrize("change", [dict(kv_cache_align=4)])
 def test_unported_cache_layouts_raise(change):
-    """The head-aligned cache comes with the mesh slice."""
+    """The head-aligned cache, once refused, is ported with the model
+    mesh: its empty cache equals the reference's (KV heads stored at
+    ``cfg.cache_heads``)."""
+    jcfg = CONFIGS["gqa-16-2"].replace(**change)
     cfg = _port_cfg(CONFIGS["gqa-16-2"]).replace(**change)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        init_attn_cache(cfg, 1, 8, CPU)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        model.init_cache(cfg, 1, 8, device=CPU)
+    assert cfg.cache_heads == jcfg.cache_heads == 4
+    want = jmodel.init_cache(jcfg, 1, 8)["attn"]
+    for got in (model.init_cache(cfg, 1, 8, device=CPU)["attn"],
+                init_attn_cache(cfg, 1, 8, CPU)):
+        for g, w in zip(got, want):
+            if w is None:
+                assert g is None
+                continue
+            assert tuple(g.shape)[-g.ndim:] == tuple(w.shape)[-g.ndim:]
+            np.testing.assert_array_equal(_np(g), _np(w)[(0,) * (
+                w.ndim - g.ndim)])
 
 
 def test_vlm_prefill_matches_reference():

@@ -532,8 +532,12 @@ def test_profiling_span_trace_and_compiled(tmp_path):
     assert span["label"] == "unit.block" and span["rows"] == 3
     tr = next(e for e in events if e["kind"] == "profile.trace")
     assert tr["dir"] == str(d)
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        record_compiled("unit", None)
+    from repro_torch.launch.hlo_analysis import HLOReport
+    got = record_compiled("unit", HLOReport(
+        flops=6.0, bytes_accessed=8.0,
+        collective_payload={"all-gather": 4.0}))
+    assert got == {"label": "unit", "flops": 6.0, "bytes_accessed": 8.0,
+                   "collective_bytes": 4.0}
 
 
 def test_run_metadata_stamps_the_ports_facts():
