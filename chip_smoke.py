@@ -4501,7 +4501,9 @@ SSD_TOL = 1e-4        # of the output's scale (max |y|, max |h|)
 # set (H 12 / G 2, H 6 / G 1), one head a group (G = H), and B and C rows
 # that take no 16-byte copies (N 20, P 24); last zamba2-1.2b's serving
 # shape (one group of N 64: one of the two 64-column slabs) at 1024 and
-# 1000 positions, bf16 and float32
+# 1000 positions, bf16 and float32; and one rank's shapes on the model mesh
+# (`phase_model_mesh`: 4 prompts of 256 tokens, 16 of the 64 heads),
+# mamba2-1.3b's N 128 and zamba2-1.2b's N 64
 SSD_SMOKE_CASES = [
     (2, 64, 4, 16, 1, 32, 16, torch.float32, False),
     (1, 128, 8, 32, 2, 16, 32, torch.float32, True),
@@ -4519,7 +4521,7 @@ SSD_SMOKE_CASES = [
     (1, 1024, 64, 64, 1, 64, 256, BF16, False),
     (1, 1000, 64, 64, 1, 64, 256, BF16, True),
     (1, 1024, 64, 64, 1, 64, 256, torch.float32, True),
-]
+] + [(4, 256, 16, 64, 1, n, 256, BF16, False) for n in (128, 64)]
 
 
 def _ssd_inputs(b, s, h, p, g, n, dtype, dev, seed):
@@ -5771,6 +5773,17 @@ MIXTRAL_MESH_LAYERS, MIXTRAL_MESH_PROMPT, MIXTRAL_MESH_STEPS = 2, 128, 8
 MODEL_MESH_TOL = TF_MAX_ABS
 MODEL_MESH_TIMEOUT_S = 480.0
 MODEL_MESH_SEED = 30
+# the Mamba2 block tensor-parallel on the same 4 ranks: mamba2-1.3b at full
+# depth, zamba2-1.2b cut to 12 layers (2 applications of its shared block)
+ZAMBA_MESH_LAYERS = 12
+MESH_SSM_ARCHS = ((SSM_ARCH, None), (HYBRID_ARCH, ZAMBA_MESH_LAYERS))
+
+
+def _mesh_ssm_cfg(arch: str, layers):
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(arch)
+    return cfg if layers is None else cfg.replace(n_layers=layers)
 
 
 def _mesh_tokens(cfg, b: int, s: int) -> np.ndarray:
@@ -5844,6 +5857,16 @@ def _probe_transport(dev) -> dict:
         dist.all_reduce(x)
         return float(x[0]) == 1.5 * sum(range(1, world + 1))
 
+    def a2a_uneven():                 # rank r sends j + 1 values to rank j
+        x = torch.cat([torch.full((j + 1,), 100.0 * rank + j, device=dev)
+                       for j in range(world)])
+        y = torch.empty(world * (rank + 1), device=dev)
+        dist.all_to_all_single(y, x, [rank + 1] * world,
+                               [j + 1 for j in range(world)])
+        want = torch.cat([torch.full((rank + 1,), 100.0 * s + rank)
+                          for s in range(world)])
+        return torch.equal(y.cpu(), want)
+
     def ag():
         x = torch.full((2,), float(rank), dtype=torch.bfloat16, device=dev)
         y = torch.empty(2 * world, dtype=torch.bfloat16, device=dev)
@@ -5851,6 +5874,7 @@ def _probe_transport(dev) -> dict:
         return torch.equal(y.cpu().float(), torch.arange(
             world, dtype=torch.float32).repeat_interleave(2))
     for name, fn in (("all_to_all_single", a2a),
+                     ("all_to_all_single uneven", a2a_uneven),
                      ("reduce_scatter_tensor", rs),
                      ("all_reduce bf16", ar_bf16),
                      ("all_gather_into_tensor bf16", ag)):
@@ -5874,6 +5898,20 @@ def _probe_transport(dev) -> dict:
                            ("Partial->Shard", Partial(), Shard(2)),
                            ("Shard(seq)->Shard(heads)", Shard(1), Shard(2))):
         check(f"transport {name}", move(src, dst))
+
+    def columns():                    # the Mamba2 block's regrouping
+        cols = full.flatten(2)                      # [2, 8, world * 16]
+        k = cols.shape[-1] // world
+        want = [[(j * 3, j * 3 + 3), (k - 2, k + 2),
+                 (cols.shape[-1] - 1 - j, cols.shape[-1] - j)]
+                for j in range(world)]
+        with axes.use_sharding(mesh, axes.TRAIN_RULES):
+            got = axes.all_to_all_columns(
+                cols[..., rank * k:(rank + 1) * k].contiguous(), "model",
+                want)
+        return torch.equal(got, torch.cat([cols[..., a:b]
+                                           for a, b in want[rank]], -1))
+    check("transport all_to_all_columns", columns)
     return out
 
 
@@ -5938,8 +5976,10 @@ def _model_mesh_rank(rank: int, world: int, rendezvous: str, work: str
                      ) -> None:
     """One rank of `phase_model_mesh` on cuda:0 over gloo: the transport
     probe, qwen2.5-3b at full width and depth on (1, 4), the elastic
-    restore onto `resize_mesh(level=0.5, model_parallel=2)`, and the
-    mixtral-8x22b cut on (1, 2) (ranks 0-1); what it saw goes to
+    restore onto `resize_mesh(level=0.5, model_parallel=2)`, mamba2-1.3b
+    and the zamba2-1.2b cut on (1, 4) (the SSD kernel's heads at each
+    call recorded), and the mixtral-8x22b cut on (1, 2) (ranks 0-1); what
+    it saw goes to
     ``work/rank<r>.pt``. Each rank draws the weights on the card from the
     generator the single-device run used, a layer at a time, and keeps
     only its own shards (`init_params_sharded`)."""
@@ -5979,12 +6019,10 @@ def _model_mesh_rank(rank: int, world: int, rendezvous: str, work: str
             torch.cuda.empty_cache()
             return placed
 
-        def launches():
+        def launches(names=("flash_attention", "decode_attention")):
             c = _counters()
-            return ({k: c[k].launches for k in ("flash_attention",
-                                                "decode_attention")},
-                    {k: c[k].device_launches for k in ("flash_attention",
-                                                       "decode_attention")})
+            return ({k: c[k].launches for k in names},
+                    {k: c[k].device_launches for k in names})
 
         # qwen2.5-3b, full width and depth, 4 ranks
         cfg = get_config(SERVE_ARCH).replace(kv_cache_align=4)
@@ -6020,6 +6058,34 @@ def _model_mesh_rank(rank: int, world: int, rendezvous: str, work: str
         dist.barrier()
         stage("elastic restore done")
 
+        # mamba2-1.3b and the zamba2 cut on (1, 4): the Mamba2 blocks
+        # tensor-parallel, the SSD kernel on each rank's heads
+        from repro_torch.kernels import ops
+        heads, scan = [], ops.ssd_scan
+
+        def spied(x, *args, **kwargs):
+            heads.append(int(x.shape[2]))
+            return scan(x, *args, **kwargs)
+        ops.ssd_scan = spied
+        for arch, layers in MESH_SSM_ARCHS:
+            scfg = _mesh_ssm_cfg(arch, layers)
+            torch.cuda.reset_peak_memory_stats(dev)
+            sp = draw_placed(scfg, mesh)
+            st = _mesh_tokens(scfg, MODEL_MESH_BATCH,
+                              MODEL_MESH_PROMPT + MODEL_MESH_STEPS)
+            heads.clear()
+            _zero_counters()
+            run = _mesh_serve(scfg, sp, st, MODEL_MESH_STEPS, mesh, dev)
+            run["launches"], run["device_launches"] = launches(
+                ("flash_attention", "decode_attention", "ssd_scan"))
+            run["scan_heads"] = list(heads)
+            run["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            out[arch] = run
+            del sp
+            torch.cuda.empty_cache()
+            stage(f"{arch} served")
+        ops.ssd_scan = scan
+
         # mixtral-8x22b, 2 layers at full width, 2 ranks
         mcfg = get_config("mixtral-8x22b")
         mcfg = mcfg.replace(n_layers=MIXTRAL_MESH_LAYERS,
@@ -6044,16 +6110,20 @@ def _model_mesh_rank(rank: int, world: int, rendezvous: str, work: str
 
 
 def _mesh_kernel_times(dev) -> dict:
-    """Rows 8-9 at one rank's shapes of the model mesh (bf16, Dh 128):
-    qwen2.5-3b at model 4 (4 prompts of 256 tokens, 4 query heads and 1
-    KV head; decode against 264 slots) and mixtral at model 2 (128
-    tokens, 24 / 4 heads; 136 slots). Device-only CUDA events, L2
-    flushed, medians, beside the plain versions' and SDPA's; the bound
-    the larger of the bytes at 3.35 TB/s and the products at 989 TFLOP/s
-    (causal: half the pairs)."""
+    """Rows 8-10 at one rank's shapes of the model mesh (bf16): flash and
+    decode (Dh 128) of qwen2.5-3b at model 4 (4 prompts of 256 tokens, 4
+    query heads and 1 KV head; decode against 264 slots) and mixtral at
+    model 2 (128 tokens, 24 / 4 heads; 136 slots); the SSD scan of
+    mamba2-1.3b and zamba2-1.2b at model 4 (4 x 256 tokens, 16 heads of P
+    64, N 128 / 64, chunk 256). Device-only CUDA events, L2 flushed,
+    medians, beside the plain versions' and SDPA's (no single PyTorch
+    call computes the scan); the bound the larger of the bytes at 3.35
+    TB/s and the products at 989 TFLOP/s (causal: half the pairs; the
+    scan's as `_ssd_bound` counts them)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import (decode_attention_plain,
-                                         flash_attention_plain)
+                                         flash_attention_plain,
+                                         ssd_scan_plain)
 
     flush = torch.empty(128 * 2 ** 20 // 4, dtype=torch.float32,
                         device=dev)
@@ -6108,6 +6178,20 @@ def _mesh_kernel_times(dev) -> dict:
               f"{dec:.4f} ms (bound {out[name]['decode_bound_ms']:.5f}, "
               f"bytes; plain {plain['decode_plain_ms']:.4f}, SDPA "
               f"{plain['decode_library_ms']:.4f})")
+    for arch, n, seed in ((SSM_ARCH, 128, 3124), (HYBRID_ARCH, 64, 3164)):
+        b, s, h, p = MODEL_MESH_BATCH, MODEL_MESH_PROMPT, 16, 64
+        x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, 1, n, BF16, dev, seed)
+        ms = _cuda_ms(lambda: ops.ssd_scan(x, dt, a, bb, cc, 256),
+                      flush=flush, device_only=True)
+        plain = _cuda_ms(lambda: ssd_scan_plain(x, dt, a, bb, cc, 256),
+                         flush=flush, device_only=True)
+        bound, _, by = _ssd_bound(b, s, h, p, 1, n, 256, 2)
+        out[arch] = {"ssd_ms": ms, "ssd_plain_ms": plain,
+                     "ssd_bound_ms": bound, "ssd_bound_by": by,
+                     "ssd_library_ms": None}
+        print(f"[time] model mesh, one rank's shapes of {arch}: ssd_scan "
+              f"{b} x {s} tokens, {h} heads of P {p}, N {n} {ms:.4f} ms "
+              f"(bound {bound:.5f}, {by}; plain {plain:.4f})")
     return out
 
 
@@ -6118,18 +6202,23 @@ def phase_model_mesh(dev, serve: dict) -> dict:
     kernels are built here first, so the ranks only load them). Each rank
     first probes the collectives of the port's transport on CUDA tensors.
     qwen2.5-3b at full width and depth with ``kv_cache_align=4`` on (data
-    1, model 4): 4 prompts of 256 tokens prefilled and 16 decode steps
+    1, model 4): 4 prompts of 256 tokens prefilled and 8 decode steps
     teacher-forced; its logits within MODEL_MESH_TOL of the single-device
     port's (``serve``'s weights) at every position, the greedy tokens
     equal wherever the single run's top-2 margin exceeds that tolerance.
+    mamba2-1.3b at full width and depth and zamba2-1.2b cut to
+    ZAMBA_MESH_LAYERS on the same mesh under the same checks, the Mamba2
+    blocks tensor-parallel: every rank's SSD kernel on its 16 of the 64
+    heads in every layer, each rank's peak memory printed.
     The weights resharded onto `resize_mesh(level=0.5,
     model_parallel=2)` take one decode step equal to a 2-rank build's bit
     for bit. mixtral-8x22b cut to 2 layers at full width on (1, 2): the
     prefill through the all-to-all branch, decode through the
     weights-stationary branch, against the single-device cut (capacity
     factor E / k, so that neither routing drops a token). Every rank
-    launches flash and decode on the card and no plain version; each
-    step's collective bytes and their share of its wall time printed."""
+    launches flash, decode and the SSD scan on the card and no plain
+    version; each step's collective bytes and their share of its wall time
+    printed."""
     import shutil
     import tempfile
 
@@ -6138,6 +6227,7 @@ def phase_model_mesh(dev, serve: dict) -> dict:
     from repro_torch.models.model import init_params
 
     build.load("attention")
+    build.load("ssd_scan")
     t_start = time.perf_counter()
     t0 = time.perf_counter()
     cfg = serve["cfg"]
@@ -6158,10 +6248,25 @@ def phase_model_mesh(dev, serve: dict) -> dict:
     del mparams
     gc.collect()
     torch.cuda.empty_cache()
+    t_mixtral = time.perf_counter() - t0 - t_qwen - t_draw
+    t0 = time.perf_counter()
+    ssingle = {}
+    for arch, layers in MESH_SSM_ARCHS:
+        scfg = _mesh_ssm_cfg(arch, layers)
+        sp = init_params(torch.Generator(device=dev).manual_seed(SERVE_SEED),
+                         scfg)
+        ssingle[arch] = _mesh_single(
+            scfg, sp, _mesh_tokens(scfg, MODEL_MESH_BATCH,
+                                   MODEL_MESH_PROMPT + MODEL_MESH_STEPS),
+            MODEL_MESH_STEPS, dev)
+        del sp
+        gc.collect()
+        torch.cuda.empty_cache()
     t_single = time.perf_counter() - t_start
     print(f"[model_mesh] single-device references: {cfg.name} "
           f"{t_qwen:.1f} s, {mcfg.name} cut drawn in {t_draw:.1f} s and "
-          f"run in {time.perf_counter() - t0 - t_qwen - t_draw:.1f} s")
+          f"run in {t_mixtral:.1f} s, {SSM_ARCH} and the {HYBRID_ARCH} cut "
+          f"drawn and run in {time.perf_counter() - t0:.1f} s")
 
     work = Path(tempfile.mkdtemp(prefix="model_mesh_"))
     try:
@@ -6234,6 +6339,21 @@ def phase_model_mesh(dev, serve: dict) -> dict:
                          MODEL_MESH_RANKS),
             "mixtral": held(mcfg.name, outs[0]["mixtral"], msingle,
                             MIXTRAL_MESH_LAYERS, 2)}
+    for arch, layers in MESH_SSM_ARCHS:
+        scfg = _mesh_ssm_cfg(arch, layers)
+        errs[arch] = held(arch, outs[0][arch], ssingle[arch], scfg.n_layers,
+                          MODEL_MESH_RANKS)
+        per_rank = scfg.ssm_heads // MODEL_MESH_RANKS
+        for r, o in enumerate(outs):
+            got = o[arch]["scan_heads"]
+            print(f"[model_mesh] {arch} rank {r}: peak "
+                  f"{o[arch]['peak_gb']:.2f} GB on the card (its shards and "
+                  f"the run); {len(got)} SSD scans, on {sorted(set(got))} "
+                  f"heads of {scfg.ssm_heads}")
+            if got != [per_rank] * scfg.n_layers:
+                raise AssertionError(f"model mesh: {arch} rank {r} scanned "
+                                     f"heads {got}, not {per_rank} in each "
+                                     f"of {scfg.n_layers} layers")
     print(f"[model_mesh] {cfg.name}: decode rules "
           f"{outs[0]['qwen']['decode_rules']} (batch {MODEL_MESH_BATCH} < "
           f"32: the batch is not split) shard "
@@ -6252,13 +6372,15 @@ def phase_model_mesh(dev, serve: dict) -> dict:
                              "differs from the 2-rank build's")
     launches, device = [], []
     for r, o in enumerate(outs):
-        n = {k: o["qwen"]["launches"][k] + o.get("mixtral", {}).get(
-            "launches", {}).get(k, 0) for k in o["qwen"]["launches"]}
-        dl = {k: o["qwen"]["device_launches"][k] + o.get("mixtral", {}).get(
-            "device_launches", {}).get(k, 0) for k in n}
+        runs = [o[k] for k in ("qwen", "mixtral", SSM_ARCH, HYBRID_ARCH)
+                if k in o]
+        n = {k: sum(run["launches"].get(k, 0) for run in runs)
+             for k in ("flash_attention", "decode_attention", "ssd_scan")}
+        dl = {k: sum(run["device_launches"].get(k, 0) for run in runs)
+              for k in n}
         plain_calls = {k: v for k, v in o["plain_calls"].items() if v}
         print(f"[model_mesh] rank {r}: launches {n}, kernels on the card "
-              f"{dl}, plain attention calls {plain_calls or 0}")
+              f"{dl}, plain attention and SSD calls {plain_calls or 0}")
         if any(v == 0 for v in n.values()) or any(
                 dl[k] < n[k] for k in n) or plain_calls:
             raise AssertionError(f"model mesh: rank {r} ran a plain "
@@ -6428,17 +6550,18 @@ def main() -> int:
         if rec["name"] in ROW_MESH_KERNELS:
             for key in ("launches", "device_launches"):
                 rec[f"sharded_{key}"] = [m[rec["name"]] for m in mesh[key]]
-    # the model mesh's ranks: each rank's flash and decode launches, and
-    # the kernels' times at one rank's shapes
-    for rec, part in ((flash, "flash"), (dec, "decode")):
+    ssd = next(r for r in kernels if r["name"] == "ssd_scan")
+    # the model mesh's ranks: each rank's flash, decode and SSD launches,
+    # and the kernels' times at one rank's shapes
+    for rec, part in ((flash, "flash"), (dec, "decode"), (ssd, "ssd")):
         for key in ("launches", "device_launches"):
             rec[f"model_mesh_{key}"] = [m[rec["name"]]
                                         for m in model_mesh[key]]
         for key in ("ms", "bound_ms", "plain_ms", "library_ms"):
             rec[f"model_mesh_{key}"] = {
                 arch: t[f"{part}_{key}"]
-                for arch, t in model_mesh["times"].items()}
-    ssd = next(r for r in kernels if r["name"] == "ssd_scan")
+                for arch, t in model_mesh["times"].items()
+                if f"{part}_{key}" in t}
     ssd["train_max_grad_err"] = train_errs["ssd_scan"]
     ssd.pop("hybrid_profiler_empty_sessions")    # all three shapes':
     ssd["profiler_empty_sessions"] = sum(

@@ -21,14 +21,39 @@ Two departures:
   agree (a prompt prefilled and one decoded token by token give the same
   conv outputs); at float32 nothing changes.
 
-Under a live mesh (`repro_torch.parallel.axes.use_sharding`) a block runs
-data-parallel: its input is placed on the batch axes only (the
-reference's replicated ``zxbcdt`` pin), its weights are gathered whole,
-and each rank runs the one-device block on its own rows (the SSD kernel
-on every head of them); the output and the new cache go back to their
-placements. The reference's finer pins (x and dt over heads for the
-scan, the conv's x part over ``model``) are not followed: tensor
-parallelism inside a Mamba2 block is not ported (ROADMAP queue 3).
+Under a live mesh (`repro_torch.parallel.axes.use_sharding`) a block is
+tensor-parallel over its heads on ``model`` (where the rules put the
+heads there and the axis divides them), with the reference's pins: x
+and dt over the heads for the SSD scan, B and C whole on every rank, the
+conv's x part over ``model``. The sequence is gathered at the block's entry
+(training splits it over ``model`` between blocks) and each rank holds
+its rows. Two layouts do not align with the heads:
+- in_proj is column-parallel over its fused z|x|B|C|dt output (`ffn`),
+  so a rank's shard is a contiguous slice of that output, not its heads'
+  z, x and dt. One all-to-all over ``model`` regroups the columns (the
+  port's transport, `all_to_all_columns`): each rank receives its heads'
+  z, x and dt and all of B and C, where the reference gathers the whole
+  output.
+- the conv weight and the conv cache are split over x|B|C (`ffn`, 4352
+  wide), not over the heads. A prefill takes the conv weight whole (K x
+  4352) and convolves its heads' x channels and all of B|C (the
+  depthwise conv splits exactly), and writes the conv cache's K-1 rows
+  on the reference's placement (one all-to-all of those rows). A decode
+  step convolves the cache columns a rank holds with its weight shard
+  (they align) and regroups the conv outputs as in_proj's.
+The SSD kernel runs on the rank's contiguous heads (H / model; one
+launch a layer under autograd too, through `SSDScan`), and the state
+stays split over the heads [B, H / model, P, N], never moved. The gated
+RMSNorm sums its float32 squares over ``model`` (an all-reduce of [B, S,
+1]) and scales by the rank's `gated_norm` shard, which aligns with the
+heads (d_inner = H P). out_proj is row-parallel: bf16 operands, float32
+partial products (`layers.matmul_f32`), summed over ``model`` into the
+block input's placement and rounded once. Where ``model`` does not
+divide the heads every rank runs all of them on its rows (in_proj's
+output gathered whole, the other weights taken whole, the state
+replicated over ``model``). Gradients flow through the
+transport: a replicated input a rank uses for its own heads or rows
+takes the sum of the ranks' parts.
 """
 
 from __future__ import annotations
@@ -41,10 +66,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import _dtype, normal_init, rms_norm
-from repro_torch.parallel.axes import (SINGLE_DEVICE_RULES, constrain,
-                                       current_mesh, like, local,
-                                       use_sharding)
+from repro_torch.models.layers import (_dtype, matmul_f32, normal_init,
+                                       rms_norm)
+from repro_torch.parallel.axes import (all_to_all_columns, axis_size,
+                                       constrain, current_mesh, from_local,
+                                       is_dtensor, local, redistribute,
+                                       sanitized_spec, spec_placements)
 
 N_GROUPS = 1  # B/C projection groups (Mamba2-1.3b uses 1)
 
@@ -287,7 +314,7 @@ def ssm_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     Full-sequence when cache is None (returns (out, None)); single-token
     decode otherwise (returns (out, the new cache))."""
     if current_mesh() is not None:
-        return _data_parallel(ssm_block, x, p, cfg, cache)
+        return _mesh_block(x, p, cfg, cache=cache)
     cdt = _dtype(cfg.dtype)
     d_in, nh, hp, n, _ = _dims(cfg)
     z, xin, b, c, dt, a_coef = _in_proj(x, p, cfg)
@@ -330,7 +357,7 @@ def ssm_prefill_with_cache(x: torch.Tensor, p: dict, cfg: ModelConfig
     prefill). The conv state is the last K-1 inputs of x|B|C, left-padded
     with zeros when the prompt is shorter (see the module's docstring)."""
     if current_mesh() is not None:
-        return _data_parallel(ssm_prefill_with_cache, x, p, cfg)
+        return _mesh_block(x, p, cfg, with_cache=True)
     cdt = _dtype(cfg.dtype)
     z, xin, b, c, dt, a_coef = _in_proj(x, p, cfg)
     tail = cfg.ssm_conv - 1
@@ -341,30 +368,300 @@ def ssm_prefill_with_cache(x: torch.Tensor, p: dict, cfg: ModelConfig
     return out, SSMCache(xbc.to(cdt), h_last)
 
 
-_CACHE_AXES = SSMCache(conv=("batch", None, "ffn"),
-                       state=("batch", "heads", None, None))
+# ---------------------------------------------------------------------------
+# tensor parallelism under a live mesh
+# ---------------------------------------------------------------------------
+
+class _Plan(NamedTuple):
+    """A rank's part of the tensor-parallel block."""
+
+    m: int               # ranks of the model axis (1 without one)
+    r: int               # this rank's index on it
+    tp: int              # ranks the heads are split over (1 or m)
+    partial: frozenset   # mesh axes over which a replicated input's
+    #                      gradient is a sum of the ranks' parts
+
+    def heads(self, j: int, nh: int) -> tuple[int, int]:
+        """Rank j's heads [h0, h1)."""
+        k = nh // self.tp
+        return (j * k, (j + 1) * k) if self.tp > 1 else (0, nh)
 
 
-def _data_parallel(fn, x, p, cfg: ModelConfig, cache=None):
-    """``fn`` (a block on one device) on this rank's rows under a mesh:
-    x on the batch axes, the weights whole, the cache on the batch axes;
-    the output placed as x and the new cache (if any) on the reference's
-    cache axes ([B, ...] leaves, split over the batch as x is)."""
-    x = constrain(x, "batch", None, None)
-    w = {k: local(constrain(v, *((None,) * v.ndim))) for k, v in p.items()}
-    kw = {}
-    if fn is ssm_block:
-        kw["cache"] = None if cache is None else SSMCache(
-            *(local(constrain(t, "batch", *((None,) * (t.ndim - 1))))
-              for t in cache))
-    with use_sharding(None, SINGLE_DEVICE_RULES):
-        out, new = fn(local(x), w, cfg, **kw)
-    out = like(out.contiguous(), x, tuple(x.shape[:2]) + (out.shape[-1],))
-    if new is None:
-        return out, None
-    return out, SSMCache(*(
-        constrain(like(t.contiguous(), x, (x.shape[0],) + tuple(t.shape[1:])),
-                  *axes) for t, axes in zip(new, _CACHE_AXES)))
+def _plan(xr, cfg: ModelConfig) -> _Plan:
+    """The heads go over ``model`` where the rules put them there and the
+    axis divides them (else every rank takes all heads). A replicated
+    input's gradient is a partial sum over the axes that split the rows,
+    and over ``model`` when the heads are split: there each rank's part
+    is its own rows' and heads' contribution."""
+    mesh = xr.device_mesh
+    m = axis_size("model")
+    tp = m if sanitized_spec((cfg.ssm_heads,), ("heads",))[0] == "model" \
+        else 1
+    rows = {a for a, pl in zip(mesh.mesh_dim_names, xr.placements)
+            if pl.is_shard(0)}
+    return _Plan(m, mesh.get_local_rank("model") if m > 1 else 0, tp,
+                 frozenset(rows | ({"model"} if tp > 1 else set())))
+
+
+def _mine(d, partial, moved: bool = True) -> torch.Tensor:
+    """The rank's shard of DTensor ``d``, whose gradient is a partial sum
+    over the mesh axes in ``partial`` where ``d`` is replicated (a rank's
+    computation from it is its own part). ``moved``: ``d`` came from the
+    port's transport, whose backward sums those parts as it moves them
+    back; otherwise they are summed here (an all-reduce)."""
+    from torch.distributed.tensor import Partial
+
+    mesh = d.device_mesh
+    grad = tuple(Partial() if pl.is_replicate() and a in partial
+                 and mesh.size(i) > 1 else pl
+                 for i, (a, pl) in enumerate(zip(mesh.mesh_dim_names,
+                                                 d.placements)))
+    if not moved and grad != tuple(d.placements) and d.requires_grad \
+            and torch.is_grad_enabled():
+        d = _SumParts.apply(d)
+    return d.to_local(grad_placements=grad)
+
+
+class _SumParts(torch.autograd.Function):
+    """The identity, whose backward sums the ranks' partial gradients by
+    the port's transport, back to the input's placements."""
+
+    @staticmethod
+    def forward(ctx, d):
+        ctx.placements = tuple(d.placements)
+        return d.view_as(d)
+
+    @staticmethod
+    def backward(ctx, g):
+        return redistribute(g, ctx.placements)
+
+
+def _moved(t, d) -> bool:
+    """Whether `constrain` moved ``t`` to ``d`` (a plain tensor counts as
+    replicated)."""
+    from torch.distributed.tensor import Replicate
+
+    src = tuple(t.placements) if is_dtensor(t) else \
+        (Replicate(),) * d.device_mesh.ndim
+    return src != tuple(d.placements)
+
+
+def _merge(ranges) -> list:
+    """Column ranges [a, b), sorted and merged where they meet."""
+    out: list = []
+    for a, b in sorted(ranges):
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out
+
+
+def _cols(t, have, a: int, b: int) -> torch.Tensor:
+    """Global columns [a, b) of ``t``, which holds the column ranges
+    ``have`` side by side."""
+    at = 0
+    for lo, hi in have:
+        if lo <= a and b <= hi:
+            return t[..., at + a - lo:at + b - lo]
+        at += hi - lo
+    raise ValueError(f"columns [{a}, {b}) are not among {have}")
+
+
+def _mesh_block(x, p: dict, cfg: ModelConfig, *,
+                cache: Optional[SSMCache] = None, with_cache: bool = False):
+    """`ssm_block` (``cache``: one decode step) or `ssm_prefill_with_cache`
+    (``with_cache``) under a live mesh, tensor-parallel over the heads
+    (see the module's docstring). Returns (out placed as ``x``, the new
+    cache on the reference's cache axes, or None)."""
+    from torch.distributed.tensor import Shard
+
+    cdt = _dtype(cfg.dtype)
+    d_in, nh, hp, n, conv_dim = _dims(cfg)
+    gn = N_GROUPS * n
+    xr = constrain(x, "batch", None, None)      # the sequence gathered
+    mesh = xr.device_mesh
+    pl = _plan(xr, cfg)
+    xl = _mine(xr, pl.partial & {"model"}, _moved(x, xr))
+    bsz, s = xl.shape[:2]
+
+    def w(name, *axes):
+        d = constrain(p[name], *axes)
+        return _mine(d, pl.partial, _moved(p[name], d))
+
+    # the conv cache's x|B|C columns over `model`: rank j's [j kc, j kc
+    # + kc) (all of them where the axis does not divide them)
+    kc = local(cache.conv).shape[2] if cache is not None else \
+        conv_dim // (pl.m if sanitized_spec((conv_dim,), ("ffn",))[0]
+                     == "model" else 1)
+
+    def conv_cols(j):
+        return (j * kc, (j + 1) * kc) if kc < conv_dim else (0, conv_dim)
+
+    def need(j):
+        """The z|x|B|C|dt columns rank j takes: its heads' z, x and dt,
+        all of B and C, and in decode its conv cache's columns."""
+        h0, h1 = pl.heads(j, nh)
+        ranges = [(h0 * hp, h1 * hp), (d_in + h0 * hp, d_in + h1 * hp),
+                  (2 * d_in, 2 * d_in + 2 * gn),
+                  (2 * d_in + 2 * gn + h0, 2 * d_in + 2 * gn + h1)]
+        if cache is not None:
+            ranges.append(tuple(d_in + c for c in conv_cols(j)))
+        return _merge(ranges)
+
+    # in_proj column-parallel where its output splits evenly; its fused
+    # z|x|B|C|dt shard is not the rank's heads, so the columns are
+    # regrouped by one all-to-all (B and C to every rank)
+    zx_r = torch.matmul(xl, w("in_proj", None, "ffn").to(cdt))
+    d_proj = p["in_proj"].shape[-1]
+    split = zx_r.shape[-1] != d_proj
+    if split:
+        want = [need(j) for j in range(pl.m)]
+        zx, have = all_to_all_columns(zx_r, "model", want), want[pl.r]
+    else:
+        zx, have = zx_r, [(0, d_proj)]
+    h0, h1 = pl.heads(pl.r, nh)
+    c0, c1 = h0 * hp, h1 * hp
+    z = _cols(zx, have, c0, c1)
+    dt_raw = _cols(zx, have, 2 * d_in + 2 * gn + h0, 2 * d_in + 2 * gn + h1)
+    a_coef = -torch.exp(w("A_log", None)[h0:h1])
+    dt = _softplus(dt_raw.float() + w("dt_bias", None)[h0:h1][None, None, :])
+    d_skip = w("D", None)[h0:h1]
+
+    new = None
+    if cache is None:
+        # the conv weight's `ffn` shard is a quarter of x|B|C, not the
+        # rank's heads: taken whole (K x conv_dim); the depthwise conv
+        # splits exactly into the rank's x channels and all of B|C
+        conv_w = w("conv_w", None, None).to(cdt)
+        conv_b = w("conv_b", None).to(cdt)
+        xs = F.silu(_causal_conv(_cols(zx, have, d_in + c0, d_in + c1),
+                                 conv_w[:, c0:c1], conv_b[c0:c1]))
+        bc = F.silu(_causal_conv(_cols(zx, have, 2 * d_in, 2 * d_in + 2 * gn),
+                                 conv_w[:, d_in:], conv_b[d_in:]))
+        xh = xs.reshape(bsz, s, -1, hp).contiguous()
+        y, h_last = ssd_scan(
+            xh, dt.contiguous(), a_coef.contiguous(),
+            bc[..., :gn].reshape(bsz, s, N_GROUPS, n).contiguous(),
+            bc[..., gn:].reshape(bsz, s, N_GROUPS, n).contiguous(),
+            cfg.ssm_chunk)
+        y = y + xh.float() * d_skip[None, None, :, None]
+        if with_cache:
+            # the last K-1 inputs of x|B|C, each rank its conv cache's
+            # columns (one all-to-all of K-1 rows)
+            tail = cfg.ssm_conv - 1
+            rows = zx_r[:, -tail:].contiguous()
+            if split:
+                rows = all_to_all_columns(rows, "model", [
+                    [tuple(d_in + c for c in conv_cols(j))]
+                    for j in range(pl.m)])
+            else:
+                a, b = conv_cols(pl.r)
+                rows = rows[..., d_in + a:d_in + b]
+            if rows.shape[1] < tail:
+                rows = F.pad(rows, (0, 0, tail - rows.shape[1], 0))
+            shape = (xr.shape[0], tail, conv_dim)
+            new = (from_local(rows.to(cdt).contiguous(), mesh,
+                              spec_placements(sanitized_spec(
+                                  shape, ("batch", None, "ffn")), mesh),
+                              shape), h_last)
+    else:
+        y, new = _mesh_decode(zx, have, cache, p, cfg, pl, (c0, c1),
+                              conv_cols, dt, a_coef, d_skip)
+    if new is not None:
+        conv, h = new
+        state_pl = tuple(Shard(1) if a == "model" and pl.tp > 1 else q
+                         for a, q in zip(mesh.mesh_dim_names, xr.placements))
+        new = SSMCache(conv, from_local(h.contiguous(), mesh, state_pl,
+                                        (xr.shape[0], nh, hp, n)))
+    y = y.reshape(bsz, s, -1).to(cdt)
+    return _mesh_out(y * F.silu(z), x, xr, cfg, pl, w), new
+
+
+def _mesh_decode(zx, have, cache: SSMCache, p: dict, cfg: ModelConfig,
+                 pl: _Plan, cols: tuple, conv_cols, dt, a_coef, d_skip):
+    """One decode step of the rank's heads (x channels ``cols``). The conv
+    cache stays on the reference's axes (x|B|C over ``ffn``, which do not
+    align with the heads): each rank convolves the columns it holds (its
+    `conv_w` shard holds the same ones), and one all-to-all hands every
+    rank its heads' x channels and all of B|C. The state is the rank's
+    heads [B, H/model, P, N] and never moves. Returns (y [B, 1, H/model,
+    P] float32, (the new conv cache DTensor, the rank's new state))."""
+    cdt = _dtype(cfg.dtype)
+    d_in, nh, hp, n, conv_dim = _dims(cfg)
+    gn = N_GROUPS * n
+    conv = cache.conv
+    cl = local(conv)
+    a, b = conv_cols(pl.r)
+    xbc = _cols(zx, have, d_in + a, d_in + b)                # [B,1,kc]
+    w_c = local(constrain(p["conv_w"], None, "ffn"))
+    b_c = local(constrain(p["conv_b"], "ffn"))
+    if w_c.shape[1] != b - a:                # not split as the cache is
+        w_c = local(constrain(p["conv_w"], None, None))[:, a:b]
+        b_c = local(constrain(p["conv_b"], None))[a:b]
+    full = torch.cat([cl.to(cdt), xbc], dim=1)              # [B,K,kc]
+    co = torch.einsum("bkc,kc->bc", full.float(),
+                      w_c.to(cdt).float()).to(cdt) + b_c.to(cdt)
+    co = F.silu(co)[:, None, :].contiguous()
+    new_conv = torch.cat([cl, xbc.to(cl.dtype)], dim=1)[:, 1:]
+    if b - a < conv_dim:
+        want = [_merge([tuple(c * hp for c in pl.heads(j, nh)),
+                        (d_in, d_in + 2 * gn)]) for j in range(pl.m)]
+        co, have_c = all_to_all_columns(co, "model", want), want[pl.r]
+    else:
+        have_c = [(0, conv_dim)]
+    bsz = co.shape[0]
+    xh = _cols(co, have_c, *cols).reshape(bsz, -1, hp).float()
+    rep = xh.shape[1] // N_GROUPS
+    bg = _cols(co, have_c, d_in, d_in + gn).reshape(bsz, N_GROUPS, n) \
+        .repeat_interleave(rep, dim=1)
+    cg = _cols(co, have_c, d_in + gn, d_in + 2 * gn) \
+        .reshape(bsz, N_GROUPS, n).repeat_interleave(rep, dim=1)
+    dt1 = dt[:, 0]                                          # [B,H/model]
+    decay = torch.exp(dt1 * a_coef[None, :])
+    upd = torch.einsum("bh,bhp,bhn->bhpn", dt1, xh, bg.float())
+    h_new = local(cache.state) * decay[..., None, None] + upd
+    y = torch.einsum("bhpn,bhn->bhp", h_new, cg.float())
+    y = y + xh * d_skip[None, :, None]
+    new_conv = from_local(new_conv.contiguous(), conv.device_mesh,
+                          conv.placements, tuple(conv.shape))
+    return y[:, None], (new_conv, h_new)
+
+
+def _mesh_out(g, x, xr, cfg: ModelConfig, pl: _Plan, w):
+    """The gated RMSNorm over all of d_inner and the row-parallel
+    out_proj, from the rank's gated columns g [B, S, d_inner / tp]: the
+    float32 sum of squares summed over ``model`` (an all-reduce of [B, S,
+    1]), the rank's `gated_norm` shard (it aligns with the heads: d_inner
+    = H P); bf16 operands with float32 partial products, summed over
+    ``model`` and rounded once, placed as the block's input ``x``."""
+    from torch.distributed.tensor import Partial
+
+    cdt = _dtype(cfg.dtype)
+    split = pl.tp > 1
+    mesh = xr.device_mesh
+    summed = tuple(Partial() if a == "model" and split else q
+                   for a, q in zip(mesh.mesh_dim_names, xr.placements))
+    gf = g.float()
+    ss = (gf * gf).sum(dim=-1, keepdim=True)
+    if split:
+        ss = _mine(redistribute(from_local(
+            ss, mesh, summed, tuple(xr.shape[:2]) + (1,)), xr.placements),
+            pl.partial & {"model"})
+    scale = w("gated_norm", "ffn" if split else None)
+    y = (gf * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)
+         * scale.float()).to(cdt)
+    wo = w("out_proj", "ffn" if split else None, None).to(cdt)
+    if not split:
+        out = torch.matmul(y, wo)
+    elif torch.is_grad_enabled() and (y.requires_grad or wo.requires_grad):
+        out = torch.matmul(y.float(), wo.float())
+    else:
+        out = matmul_f32(y, wo)
+    out = from_local(out, mesh, summed,
+                     tuple(xr.shape[:2]) + (out.shape[-1],))
+    return redistribute(out, x.placements if is_dtensor(x)
+                        else xr.placements).to(cdt)
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int,

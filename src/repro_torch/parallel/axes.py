@@ -691,6 +691,71 @@ def all_gather_tiled(x: torch.Tensor, axis_name: str,
                    dist.get_world_size(group))
 
 
+def _pieces(ranges, lo: int, hi: int) -> list:
+    """The parts of column ``ranges`` inside [lo, hi), in order."""
+    return [(max(a, lo), min(b, hi)) for a, b in ranges if a < hi and b > lo]
+
+
+def _width(pieces) -> int:
+    return sum(b - a for a, b in pieces)
+
+
+class _AllToAllColumns(torch.autograd.Function):
+    """`all_to_all_columns`; its backward sends each received column's
+    cotangent back to its owner, which sums those of a column sent to
+    several ranks."""
+
+    @staticmethod
+    def forward(ctx, t, group, n: int, r: int, want):
+        k = t.shape[-1]
+        sends = [_pieces(want[j], r * k, (r + 1) * k) for j in range(n)]
+        recv = [_width(_pieces(want[r], i * k, (i + 1) * k))
+                for i in range(n)]
+        lead = t.movedim(-1, 0)
+        src = torch.cat([lead[:0]] + [lead[a - r * k:b - r * k]
+                                      for ps in sends for a, b in ps])
+        out = src.new_empty((sum(recv),) + tuple(src.shape[1:]))
+        _count("all_to_all", src, n)
+        with _timed():
+            dist.all_to_all_single(out, src, recv,
+                                   [_width(ps) for ps in sends],
+                                   group=group)
+        ctx.plan = (group, n, r * k, sends, recv, tuple(t.shape))
+        return out.movedim(0, -1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, lo, sends, recv, shape = ctx.plan
+        src = g.movedim(-1, 0).contiguous()
+        back = src.new_empty((sum(_width(ps) for ps in sends),)
+                             + tuple(src.shape[1:]))
+        _count("all_to_all", src, n)
+        with _timed():
+            dist.all_to_all_single(back, src, [_width(ps) for ps in sends],
+                                   recv, group=group)
+        grad = g.new_zeros(shape)
+        at = 0
+        for ps in sends:
+            for a, b in ps:
+                grad[..., a - lo:b - lo] += back[at:at + b - a].movedim(0, -1)
+                at += b - a
+        return grad, None, None, None, None
+
+
+def all_to_all_columns(t: torch.Tensor, axis_name: str,
+                       want: Sequence[Sequence[tuple]]) -> torch.Tensor:
+    """Columns of a tensor whose last dimension is split evenly over the
+    ranks of ``axis_name``, regrouped by one all-to-all: ``t`` is this
+    rank's contiguous shard; ``want[j]`` are the column ranges [a, b)
+    (sorted, disjoint, global) that rank j takes. Returns this rank's
+    ranges' columns side by side in their global order. A column may go
+    to several ranks (a range every rank wants is an all-gather of it);
+    differentiable."""
+    group = _axis_group(axis_name)
+    return _AllToAllColumns.apply(t, group, dist.get_world_size(group),
+                                  dist.get_rank(group), want)
+
+
 def psum_local(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     """Sum of a local tensor over the ranks of ``axis_name`` (forward
     only, as `all_gather_tiled`)."""

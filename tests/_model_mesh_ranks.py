@@ -150,8 +150,8 @@ def job_decode(rank, spec):
 
 def job_families(rank, spec):
     """Reduced mamba2-1.3b, zamba2-1.2b, whisper-large-v3 and
-    internvl2-76b served on (2, 2): the Mamba2 blocks data-parallel, the
-    attention (zamba2's shared block, whisper's self- and cross-attention,
+    internvl2-76b served on (2, 2): the Mamba2 blocks and the attention
+    (zamba2's shared block, whisper's self- and cross-attention,
     internvl2's backbone behind its patches) tensor-parallel."""
     mesh = make_host_mesh(data=2, model=2, device_type="cpu")
     toks = torch.as_tensor(spec["serve_tokens"])

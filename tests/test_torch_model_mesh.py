@@ -247,7 +247,8 @@ def _extra_inputs(cfg) -> tuple:
 
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_other_families_serve_like_the_reference(run, arch):
-    """Mamba2 blocks data-parallel; zamba2's shared attention block,
+    """Mamba2 blocks tensor-parallel over their heads (their own checks
+    are `tests/test_torch_ssm_mesh.py`); zamba2's shared attention block,
     whisper's self- and cross-attention and internvl2's dense backbone
     behind its patch embeddings tensor-parallel; on (2, 2)."""
     jcfg = jinputs.reduced_config(jbase.get_config(arch))
