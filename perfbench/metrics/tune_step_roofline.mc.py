@@ -1,0 +1,6 @@
+"""`tune_step_roofline` in the Monte-Carlo tuner cell, where it moves that
+cell's own rate: the same reader."""
+
+from harness.cells import metric_reader
+
+read = metric_reader("tune_step_roofline")
